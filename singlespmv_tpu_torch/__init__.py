@@ -7,9 +7,11 @@ jax.  It reuses the reference's framework-free host modules by name
 (``config``, ``core.{types, mmio, oracle, rng, hostmem, chipconst}``,
 ``data``); importing those leaves jax unloaded.
 
-Ported so far: the slab format (``formats/slab.py``), its two CUDA kernels
-(``csrc/slab.cu`` behind ``ops/slab.py``) and the benchmark driver
-(``harness/driver.py``).  ROADMAP.md lists what is still to come.
+Ported so far: the slab format (``formats/slab.py``) and its two CUDA
+kernels (``csrc/slab.cu`` behind ``ops/slab.py``), the xch v4 exchange
+engine (``formats/xch.py``) and its two CUDA kernels (``csrc/xch.cu`` behind
+``ops/xch.py``), and the benchmark driver (``harness/driver.py``).
+ROADMAP.md lists what is still to come.
 """
 from singlespmv_tpu.config import Config
 

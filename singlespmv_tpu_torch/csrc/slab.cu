@@ -19,17 +19,14 @@
 // Design.  The TPU walks the grid in order and keeps one out block in VMEM
 // across a unit's steps.  Here the steps run in parallel: a block of 8 warps
 // takes `rpb` consecutive stream rows (rpb divides T, so all of them lie in
-// one step) and each warp takes whole rows.  Lane k of a warp holds slots
-// 4k..4k+3, so every stream load is one 4-byte (int8 x4) or 16-byte (float x4)
-// access, and the prefix is a serial sum of 4 plus a 5-step shuffle scan.
-// W goes through a per-warp shared buffer for the hm1 and idx lookups.  The
-// TPU's window copy and m-way one-hot select become one indexed load of x,
-// which stays in L2 (50 MB; the x tables of the main path are far smaller),
-// and the one-hot MXU route becomes an indexed add.  Routed totals collect in
-// a (planes, 128) shared accumulator with shared atomics, since rows of one
-// block may end runs of the same y row, then go to the out block with one
-// global atomicAdd per nonzero entry, since one out block takes the rows of
-// many blocks.  The wrapper zeroes `out`.  The atomics make the order of the
+// one step) and each warp takes whole rows, with the gather, prefix and
+// route of stream_row.cuh.  W goes through a per-warp shared buffer for the
+// hm1 and idx lookups.  x stays in L2 (50 MB; the x tables of the main path
+// are far smaller), and the one-hot MXU route becomes an indexed add.
+// Routed totals collect in a (planes, 128) shared accumulator with shared
+// atomics, since rows of one block may end runs of the same y row, then go
+// to the out block with one global atomicAdd per nonzero entry, since one out
+// block takes the rows of many blocks.  The wrapper zeroes `out`.  The atomics make the order of the
 // float32 sums, and so their rounding, vary from run to run.
 //
 // Bound.  Per slot the kernel streams 4 B of val, 2 B of int8 (lane, hm1) or
@@ -38,17 +35,12 @@
 // That makes it a streaming kernel bound by device memory bandwidth.  This
 // first version aims to be right: no TMA, no wgmma, no software pipelining.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "stream_row.cuh"
 
 namespace {
 
-constexpr int kLanes = 128;
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
 constexpr int kMaxUnitPlanes = 16;
 constexpr int kMaxBlkPlanes = 32;
-constexpr unsigned kFull = 0xffffffffu;
 
 // Gather, multiply and run totals of stream row r for the calling warp.
 // On return w[0..127] holds W of the row, visible to the whole warp.
@@ -57,63 +49,11 @@ __device__ __forceinline__ void row_totals(
     const int8_t* __restrict__ lane, const int8_t* __restrict__ sub,
     const float* __restrict__ val, const int8_t* __restrict__ hm1,
     const float* __restrict__ x, float* w) {
-  const int k = threadIdx.x & 31;
-  const size_t off = (size_t)r * kLanes + 4 * k;
-  const char4 ln = *reinterpret_cast<const char4*>(lane + off);
-  const char4 hd = *reinterpret_cast<const char4*>(hm1 + off);
-  const float4 v = *reinterpret_cast<const float4*>(val + off);
-  const float* xw = x + (size_t)win[r] * kLanes;
-  int c0 = ln.x, c1 = ln.y, c2 = ln.z, c3 = ln.w;
-  if (m > 1) {
-    const char4 sb = *reinterpret_cast<const char4*>(sub + off);
-    c0 += sb.x * kLanes;
-    c1 += sb.y * kLanes;
-    c2 += sb.z * kLanes;
-    c3 += sb.w * kLanes;
-  }
-  const float a0 = v.x * __ldg(xw + c0);
-  const float a1 = a0 + v.y * __ldg(xw + c1);
-  const float a2 = a1 + v.z * __ldg(xw + c2);
-  const float a3 = a2 + v.w * __ldg(xw + c3);
-  float incl = a3;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const float up = __shfl_up_sync(kFull, incl, d);
-    if (k >= d) incl += up;
-  }
-  float excl = __shfl_up_sync(kFull, incl, 1);
-  if (k == 0) excl = 0.f;
-  const float4 p = make_float4(excl + a0, excl + a1, excl + a2, excl + a3);
-  __syncwarp();  // the previous row's route has finished reading w
-  reinterpret_cast<float4*>(w)[k] = p;
-  __syncwarp();
-  const float4 tot = make_float4(p.x - (hd.x >= 0 ? w[hd.x] : 0.f),
-                                 p.y - (hd.y >= 0 ? w[hd.y] : 0.f),
-                                 p.z - (hd.z >= 0 ? w[hd.z] : 0.f),
-                                 p.w - (hd.w >= 0 ? w[hd.w] : 0.f));
-  __syncwarp();
-  reinterpret_cast<float4*>(w)[k] = tot;
-  __syncwarp();
-}
-
-// acc[p*128 + 4k + i] += w[e_i] for the four end-lanes e of lane k.
-__device__ __forceinline__ void route4(const int8_t* __restrict__ e4,
-                                       const float* w, float* acc_row) {
-  const char4 e = *reinterpret_cast<const char4*>(e4);
-  if (e.x >= 0) atomicAdd(acc_row + 0, w[e.x]);
-  if (e.y >= 0) atomicAdd(acc_row + 1, w[e.y]);
-  if (e.z >= 0) atomicAdd(acc_row + 2, w[e.z]);
-  if (e.w >= 0) atomicAdd(acc_row + 3, w[e.w]);
-}
-
-// Adds the nonzero entries of acc[lo*128, (hi+1)*128) into out_block.
-__device__ __forceinline__ void flush(const float* acc, int lo, int hi,
-                                      float* __restrict__ out_block) {
-  for (int i = lo * kLanes + threadIdx.x; i < (hi + 1) * kLanes;
-       i += kThreads) {
-    const float v = acc[i];
-    if (v != 0.f) atomicAdd(out_block + i, v);
-  }
+  const float4 v = *reinterpret_cast<const float4*>(
+      val + (size_t)r * kLanes + 4 * (threadIdx.x & 31));
+  const float4 g = gather4(r, m, win, lane, sub, x);
+  run_totals(r, make_float4(v.x * g.x, v.y * g.y, v.z * g.z, v.w * g.w),
+             hm1, w);
 }
 
 __global__ void __launch_bounds__(kThreads) slab_unit_kernel(
@@ -168,13 +108,6 @@ __global__ void __launch_bounds__(kThreads) slab_blk_kernel(
   }
   __syncthreads();
   flush(acc, 0, planes - 1, out + (size_t)uids[t] * planes * kLanes);
-}
-
-// Rows per block: the largest power of two up to 32 that divides T.
-int rows_per_block(int T) {
-  int r = 32;
-  while (T % r) r >>= 1;
-  return r;
 }
 
 }  // namespace

@@ -1,4 +1,4 @@
-"""Format registry of the port; only ``slab`` is ported so far."""
+"""Format registry of the port: ``slab`` and ``xch`` so far."""
 from __future__ import annotations
 
 from .base import (available_formats, convert, get_format, report_fields,
@@ -12,10 +12,11 @@ def _ensure_loaded():
     if _LOADED:
         return
     _LOADED = True
-    from . import slab
+    from . import slab, xch
     from .base import register_format
 
     register_format("slab", slab)
+    register_format("xch", xch)
 
 
 __all__ = [

@@ -48,11 +48,12 @@ def available_formats():
 
 class TensorState:
     """Base of the frozen dataclass states: ``to(device)`` returns a copy
-    whose tensor fields, and tuples of tensors, live on ``device``."""
+    whose tensor fields, tuples of tensors and nested states live on
+    ``device``."""
 
     def to(self, device) -> "TensorState":
         def move(v):
-            if isinstance(v, torch.Tensor):
+            if isinstance(v, (torch.Tensor, TensorState)):
                 return v.to(device)
             if isinstance(v, tuple) and v and all(
                     isinstance(a, torch.Tensor) for a in v):

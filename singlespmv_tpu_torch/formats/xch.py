@@ -1,0 +1,1129 @@
+"""XCH — the two-pass exchange engine of ``singlespmv_tpu/formats/xch.py``
+(v4, block-routed), for hyper-sparse and scattered giants.
+
+Layout (unchanged from the reference): pass 1 streams nonzeros sorted by
+(chunk, col) — a chunk is ``k_slots`` consecutive nonzeros of the row-major
+stream — and writes one product per slot into an (n_chunks, p1, 128) grid.
+Pass 2 re-gathers the products in (chunk, band, src) order, a band being
+``kblk`` 128-row blocks; within each 128-slot stream row the slots are
+row-contiguous, so runs reduce to their totals and route, through ``kblk``
+planes of end-lanes and the per-row block offset ``sig``, to out groups of
+``gb`` 128-row blocks.  High-fill diagonals are peeled into static-slice
+bands (``dia_vals``), and rows of degree ≥ ``LONG_DEG`` may split into a
+nested ``Xch4State`` (``long``) scatter-added at ``long_rows``.
+
+Host half (``estimate``, ``convert``): the reference's live v4 planner and
+layout builder in numpy, carried over unchanged in behaviour, so that one COO
+yields the same arrays in both packages.  It prices plans with the same
+``singlespmv_tpu.core.chipconst`` constants and the reference's v5e fits.
+``X_TABLE_CAP``, ``M2_CAP``, ``CHUNK_ROWS`` and ``PASS1_CALL_ROWS`` size TPU
+memories; they stay until the port sheds them (ROADMAP A.7).  The v3
+σ-plane engine (``route_v`` 3) is not ported (ROADMAP B.15).
+
+Device half (``spmv``): pads x into the x table, runs one ``xch_mul`` per
+pass-1 call and one ``xch_route4`` per pass-2 call (``ops/xch.py``), places
+the visited out groups into y, adds the nested long-row state's y at
+``long_rows`` and the peeled bands as shifted slices of x.
+
+Only float32 is ported; float64 (df64) and bfloat16 raise
+``NotImplementedError`` (ROADMAP A.10).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from singlespmv_tpu.config import Config
+from singlespmv_tpu.core import chipconst as _cc
+from singlespmv_tpu.core import hostmem as hm
+from singlespmv_tpu.core.types import COOMatrix, cdiv
+
+from ..ops.xch import xch_mul, xch_route4
+from .base import TensorState
+from .slab import _t, _walk
+
+LANES = 128
+X_TABLE_CAP = 96 << 20      # VMEM-resident x table bound (v5e, as slab)
+P1_CAP_ROWS = 12288         # chunk product block ≤ 6 MB VMEM (12288·128·4B)
+M_MAX = 120                 # int8 sub index headroom
+M2_CAP = 40                 # route-window cap: the select's VMEM working set
+CHUNK_ROWS = 160_000        # pass-2 stream rows per kernel call (TPU SMEM)
+PASS1_CALL_ROWS = 160_000   # pass-1 stream rows per kernel call, cut at a
+#                             multiple of t1 (the reference's literal)
+
+# the reference's measured-rate cost model (fitted on a TPU v5e)
+MUL_FIXED_S = 0.15e-6
+BASE_SLOT_S = 0.013e-9
+SEL_ENTRY_S = 0.0157e-9                 # one-hot select entry cost (m > 1)
+SEL_SLOT_S = 0.002e-9                   # per window member per slot
+HBM_BPS = _cc.get("hbm_bps")
+
+FLOAT32_ONLY = ("xch: only float32 is ported to the GPU so far; float64 "
+                "(df64) and bfloat16 are ROADMAP A.10 (f64 as a native-fp64 "
+                "build of the same kernels)")
+
+
+@dataclasses.dataclass(frozen=True)
+class Xch4State(TensorState):
+    """The reference's ``Xch4State`` with torch tensors; its df64 planes
+    (``val1_lo``, ``dia_lo``) are left out with float64."""
+    n_row: int
+    n_col: int
+    nnz: int
+    m1: int                  # pass-1 x window col-blocks
+    m2: int                  # pass-2 product window blocks (of 128 slots)
+    t1: int                  # pass-1 stream rows per grid step
+    t2: int                  # pass-2 stream rows per grid step
+    kblk: int                # 128-row blocks per band: idx planes
+    p_oh: int                # out blocks a step can reach
+    gb: int                  # 128-row blocks per out group
+    n_chunks: int
+    p1: int                  # product stream rows per chunk
+    cb_pad: int              # x-table col-blocks
+    n_slots1: int
+    n_slots2: int
+    chunk_ngrp: tuple        # out groups per pass-2 call
+    long_n: int              # number of long rows split out (0 = none)
+    # pass 1 (per-call tuples)
+    win1: tuple              # (H1_c,) int32 — x window base col-block
+    lane1: tuple             # (H1_c, 128) int8
+    sub1: tuple              # (H1_c, 128) int8
+    val1: tuple              # (H1_c, 128) float32
+    # pass 2 (per-call tuples)
+    gids2: tuple             # (S_c,) int32 — call-local out group per step
+    off2: tuple              # (S_c,) int32 — step base block − gid·gb
+    cs2: tuple               # (S_c,) int32 — source chunk per step
+    win2: tuple              # (H_c,) int32 — chunk-local product row base
+    lane2: tuple             # (H_c, 128) int8
+    sub2: tuple              # (H_c, 128) int8
+    hm2: tuple               # (H_c, 128) int8 — run head lane − 1
+    sig2: tuple              # (H_c, 128) int8 — band base block − step base
+    #                          block, lane-replicated
+    idx2: tuple              # (kblk, H_c, 128) int8 — end lanes, −1 masked
+    vis_gids: torch.Tensor   # (n_vis,) int32 — visited out groups, ascending
+    long: Optional["Xch4State"] = None   # nested state on the long rows
+    long_rows: Optional[torch.Tensor] = None  # (long_n,) int32 row ids
+    dia_vals: Optional[torch.Tensor] = None   # (len(dia_offs), n_row)
+    dia_offs: tuple = ()     # peeled high-fill diagonal offsets
+
+
+def _check_dtype(dtype) -> None:
+    if dtype not in ("float32", torch.float32):
+        raise NotImplementedError(FLOAT32_ONLY)
+
+
+# ---------------------------------------------------------------- planning ---
+
+def _span_quantiles(sorted_keys, group_starts,
+                    qs=(0.3, 0.5, 0.7, 0.85, 0.95)):
+    """Candidate window sizes (in 128-blocks) from span quantiles of 128
+    consecutive same-group keys — the walk's cut rate at m = q-span is ~1-q.
+    Mixed structures (dense rows + scatter) have strongly bimodal spans, so
+    the grid must be dense enough to land near the cost optimum."""
+    if len(sorted_keys) <= 128:
+        return [1]
+    lag = 127
+    # subsample positions on giants: the span distribution converges fast
+    step = max(len(sorted_keys) >> 22, 1)
+    pos = np.arange(0, len(sorted_keys) - lag, step)
+    a = sorted_keys[pos + lag] - sorted_keys[pos]
+    # ignore spans that cross a group boundary (the walk cuts there anyway)
+    gi = np.searchsorted(group_starts, pos, side="right")
+    same = gi == np.searchsorted(group_starts, pos + lag, side="right")
+    a = a[same]
+    if a.size == 0:
+        return [1]
+    out = []
+    for q in qs:
+        s = int(np.quantile(a, q))
+        out.append(int(np.clip((s >> 7) + 2, 1, M_MAX)))
+    return sorted(set(out))
+
+
+def _sample_groups(keys, starts, stride):
+    """Every ``stride``-th group's key range, with rebuilt boundaries —
+    a structure-preserving subproblem for candidate evaluation."""
+    if stride <= 1 or len(starts) <= stride + 1:
+        return keys, starts
+    segs = [(starts[g], starts[g + 1])
+            for g in range(0, len(starts) - 1, stride)]
+    keys_s = np.concatenate([keys[a:b] for a, b in segs])
+    lens = np.asarray([b - a for a, b in segs], np.int64)
+    starts_s = np.concatenate([[0], np.cumsum(lens)])
+    return keys_s, starts_s
+
+
+def _sample_group_runs(keys, starts, stride, run=16):
+    """RUNS of ``run`` consecutive groups, one run per ``stride·run``
+    groups.  Unlike the strided sampler, adjacent sampled groups keep
+    their true chunk/band deltas — a strided sample makes the band drift
+    look ``stride``× faster and the step-assembly pad model then flees to
+    tiny t2 (r5: circuit5M planned t2=32 where 128 measures faster).
+    Returns (keys_s, starts_s, run_index_lists) where the third maps
+    sampled groups to their original index."""
+    n_grp = len(starts) - 1
+    if stride <= 1 or n_grp <= stride * run + 1:
+        return keys, starts, np.arange(n_grp)
+    gsel = []
+    for g0 in range(0, n_grp, stride * run):
+        gsel.extend(range(g0, min(g0 + run, n_grp)))
+    gsel = np.asarray(gsel, np.int64)
+    segs = [(starts[g], starts[g + 1]) for g in gsel]
+    keys_s = np.concatenate([keys[a:b] for a, b in segs])
+    lens = np.asarray([b - a for a, b in segs], np.int64)
+    starts_s = np.concatenate([[0], np.cumsum(lens)])
+    return keys_s, starts_s, gsel
+
+
+SAMPLE_WALK_NNZ = 8_000_000   # candidate walks run on a 1/8 group sample
+#                               past this; only the winner walks in full
+
+
+def _align8(m, cap=M_MAX):
+    """Window sizes must be f32-sublane-aligned: pl.ds(win, m) with m not a
+    multiple of 8 takes Mosaic's unaligned-slice path, measured ~3x slower
+    per slot (r4 probe: mul m=5 0.142 vs m=8 0.041 ns/slot; route m=17
+    0.62 vs m=16 0.26).  m=1 slices hit a fast special case."""
+    if m <= 1:
+        return 1
+    return min(((m + 7) // 8) * 8, (cap // 8) * 8 if cap >= 8 else 1)
+
+
+def _best_walk(keys, starts, t_cands, fixed_s, per_slot_s, pad_h,
+               m_override=None, m_cap=M_MAX, extra_cands=()):
+    """Walk at candidate window sizes, pick the (m, t) minimizing the
+    measured step-cost model: steps·fixed + padded_slots·per_slot_s(m).
+    On giants the candidates are evaluated on a group sample; the winner
+    gets the one full walk."""
+    if m_override:
+        cands = [min(m_override, m_cap)]
+    else:
+        cands = [min(m, m_cap)
+                 for m in _span_quantiles(keys, starts[1:-1])]
+        cands += [min(max(int(m), 1), m_cap) for m in extra_cands]
+    cands = sorted(set(_align8(m, m_cap) for m in cands))
+    stride = 8 if (len(keys) > SAMPLE_WALK_NNZ and len(cands) > 1) else 1
+    keys_e, starts_e = _sample_groups(keys, starts, stride)
+    best = None
+    for m in cands:
+        sizes, bases, grows = _walk(keys_e, starts_e, m)
+        for t in t_cands:
+            h = pad_h(grows, t) * stride
+            sec = (h / t) * fixed_s + h * LANES * per_slot_s(m)
+            if best is None or sec < best[0]:
+                best = (sec, m, t, sizes, bases, grows)
+    m, t = best[1], best[2]
+    if stride > 1:
+        sizes, bases, grows = _walk(keys, starts, m)
+        return m, t, sizes, bases, grows
+    return m, t, best[3], best[4], best[5]
+
+
+# ------------------------------------------------------------- v4 convert ---
+
+# the reference's v4 route-kernel rates, fitted on a TPU v5e
+# (scripts/probe_xch_v4.py + the clean grid at T=128/kblk=4/p_oh=16:
+#  m 1→0.0656, 8→0.0965, 16→0.1274 ns/slot → 0.0044/member;
+#  kblk 1→0.0766, 4→0.0971, 16→0.1667 → 0.006/plane;
+#  T 32→0.1978, 128→0.0964, 256→0.0822 → 0.27 µs/step fixed;
+#  p_oh 8→0.0924, 48→0.1003 → 0.0002/row):
+R4_BASE_S = 0.022e-9        # run totals + write + window entry + streams
+R4_SEL_S = 0.0044e-9        # per window member (select + pick share)
+R4_KBLK_S = 0.006e-9        # per idx plane (pick + one-hot matmul + stream)
+R4_POH_S = 0.0002e-9        # per one-hot output row
+R4_FIXED_S = 0.27e-6        # per grid step
+X4_GB = 1024                # out-group blocks (512 KB f32 out block)
+LONG_DEG = 96               # long-row split threshold (deg ≥ this)
+LONG_MIN_SHARE = 0.06       # split only when long rows hold ≥ this nnz share
+PEEL_FILL = 0.08            # peel a diagonal offset at ≥ this fill
+PEEL_MIN_SHARE = 0.04       # peel only when the band holds ≥ this nnz share
+PEEL_MAX_OFFS = 32          # diagonal planes cap (k·n_row values in HBM)
+
+
+def _r4_route_slot_s(m, kblk, p_oh):
+    return (R4_BASE_S + m * R4_SEL_S + kblk * R4_KBLK_S + p_oh * R4_POH_S
+            + 7.0 / HBM_BPS)
+
+
+def _r4_mul_slot_s(m):
+    return (BASE_SLOT_S + (SEL_ENTRY_S if m > 1 else 0.0) + m * SEL_SLOT_S
+            + 10.0 / HBM_BPS)
+
+
+def _peel_bands(rows0, cols0, n_row, n_col, nnz):
+    """High-fill diagonal offsets (the circuit-class structure lever):
+    a band at fill f costs 2·n_row streamed values to apply with static
+    slices but saves f·n_row exchange slots at ~0.2 ns each — profitable
+    from f ≈ 0.05.  Returns (offsets ascending, per-nnz mask) or (None,
+    None)."""
+    d = cols0 - rows0
+    dmin, dmax = int(d.min()), int(d.max())
+    if dmax - dmin > 4 * (n_row + n_col):
+        return None, None
+    cnt = np.bincount(d - dmin)
+    # fill relative to the offset's maximum possible length
+    lens = np.minimum(n_row + np.minimum(np.arange(dmin, dmax + 1), 0),
+                      n_col - np.maximum(np.arange(dmin, dmax + 1), 0))
+    lens = np.maximum(lens, 1)
+    fill = cnt / lens
+    cand = np.flatnonzero(fill >= PEEL_FILL)
+    if len(cand) == 0:
+        return None, None
+    if len(cand) > PEEL_MAX_OFFS:
+        cand = cand[np.argsort(cnt[cand])[::-1][:PEEL_MAX_OFFS]]
+        cand.sort()
+    if cnt[cand].sum() < PEEL_MIN_SHARE * nnz:
+        return None, None
+    keep = np.zeros(dmax - dmin + 1, np.bool_)
+    keep[cand] = True
+    return (cand + dmin).astype(np.int64), keep[d - dmin]
+
+
+def _split_long_rows(rows0, cols0, vals0, n_row, deg_thresh):
+    """Partition nnz by row degree; returns (mask_long, long_row_ids)."""
+    deg = np.bincount(rows0, minlength=n_row)
+    long_ids = np.flatnonzero(deg >= deg_thresh)
+    if len(long_ids) == 0:
+        return None, None
+    is_long = np.zeros(n_row, np.bool_)
+    is_long[long_ids] = True
+    return is_long[rows0], long_ids.astype(np.int64)
+
+
+def _pass1_layout(cols0_s, vals0_s, nnz, n_col, k_slots, p, dtype):
+    """(chunk, col)-sorted pass-1 layout.  Returns the per-nnz product
+    position ``src`` (in the (n_chunks, p1, 128) grid), the layout arrays,
+    and o1 (the sort order applied to the caller's arrays)."""
+    n_chunks = cdiv(nnz, k_slots)
+    g1 = hm.arange(nnz) // k_slots
+    o1 = hm.argsort_keys(g1 * np.int64(n_col) + cols0_s)
+    cols_s = cols0_s[o1]
+    chunk_starts = np.concatenate(
+        [np.searchsorted(g1[o1], np.arange(n_chunks)), [nnz]])
+
+    def _pad1(grows, t):
+        return len(grows) * int(cdiv(int(grows.max(initial=1)), t) * t)
+
+    m1, t1, sizes1, bases1, crows1 = _best_walk(
+        cols_s, chunk_starts, (64, 128) if not p.get("t1_fix") else
+        (p["t1_fix"],), MUL_FIXED_S, _r4_mul_slot_s, _pad1,
+        m_override=p.get("m1_fix"),
+        extra_cands=(round(n_col / k_slots) + 1,))
+
+    # p1-outlier refinement (r5): all chunks pad to the max chunk's stream
+    # rows, so one high-spread chunk inflates every chunk's product block
+    # (ASIC r4: pass-1 pad 1.59×).  Split chunks whose walk exceeds the
+    # 80th-percentile row count (proportionally by slots) and redo the one
+    # global sort + walk — host cost ~1 extra radix pass.
+    if len(crows1) >= 4 and not p.get("no_refine"):
+        tgt = int(np.quantile(crows1, 0.8) * 1.25) + 1
+        if int(crows1.max()) > tgt:
+            parts = np.maximum(cdiv_np(crows1, tgt), 1)
+            bounds = [0]
+            for c in range(n_chunks):
+                a, b = int(chunk_starts[c]), int(chunk_starts[c + 1])
+                for s in range(1, int(parts[c])):
+                    bounds.append(a + (b - a) * s // int(parts[c]))
+                bounds.append(b)
+            bounds = np.asarray(sorted(set(bounds)), np.int64)
+            n_chunks = len(bounds) - 1
+            g1 = np.repeat(hm.arange(n_chunks), np.diff(bounds))
+            o1 = hm.argsort_keys(g1 * np.int64(n_col) + cols0_s)
+            cols_s = cols0_s[o1]
+            chunk_starts = np.concatenate(
+                [np.searchsorted(g1[o1], np.arange(n_chunks)), [nnz]])
+            m1, t1, sizes1, bases1, crows1 = _best_walk(
+                cols_s, chunk_starts, (t1,), MUL_FIXED_S, _r4_mul_slot_s,
+                _pad1, m_override=m1)
+
+    p1 = int(cdiv(int(crows1.max(initial=1)), t1) * t1)
+    h1 = n_chunks * p1
+    wstart1 = np.concatenate([[0], np.cumsum(crows1)[:-1]])
+    cidx = np.repeat(hm.arange(n_chunks), crows1)
+    final1 = cidx * p1 + (hm.arange(len(sizes1)) - wstart1[cidx])
+
+    win1 = hm.zeros(h1, np.int32)
+    win1[final1] = bases1.astype(np.int32)
+    lane1 = hm.zeros((h1, LANES), np.int8)
+    sub1 = hm.zeros((h1, LANES), np.int8)
+    val1 = hm.zeros((h1, LANES), dtype)
+    sr1 = final1[np.repeat(hm.arange(len(sizes1)), sizes1)]
+    li1 = hm.arange(nnz) - np.repeat(wslot_starts(sizes1), sizes1)
+    hm.scatter2d(lane1, sr1, li1, (cols_s & (LANES - 1)).astype(np.int8))
+    hm.scatter2d(sub1, sr1, li1, ((cols_s >> 7) - win1[sr1]).astype(np.int8))
+    hm.scatter2d(val1, sr1, li1, vals0_s[o1].astype(val1.dtype))
+    src = sr1 * np.int64(LANES) + li1
+    chunk1 = g1[o1]
+    return dict(o1=o1, src=src, chunk1=chunk1, n_chunks=n_chunks, p1=p1,
+                h1=h1, m1=m1, t1=t1, win1=win1, lane1=lane1, sub1=sub1,
+                val1=val1)
+
+
+def _assemble_steps(grp_chunk, grp_band_blk, grows, t2, kblk, p_oh, gb):
+    """Assign walk groups' stream rows to t2-row grid steps.
+
+    Cuts (pad to the next step boundary) happen only at group transitions
+    where (a) the source chunk changes, (b) the group's band falls in a new
+    out group, or (c) the band's block no longer fits the step's p_oh
+    window.  Returns (pads_per_group, step base blocks, step gids, step
+    chunks) — the step arrays are emitted per assembled step."""
+    n_grp = len(grows)
+    pads = np.zeros(n_grp, np.int64)
+    base_l, gid_l, cs_l = [], [], []
+    cur = 0                    # rows in current (partial) step
+    s_base = s_gid = s_cs = -1
+
+    def _emit_steps(k):
+        for _ in range(k):
+            base_l.append(s_base)
+            gid_l.append(s_gid)
+            cs_l.append(s_cs)
+
+    for g in range(n_grp):
+        bb = int(grp_band_blk[g])
+        gid = bb // gb
+        cut = False
+        if cur % t2 != 0:
+            if grp_chunk[g] != s_cs or gid != s_gid or \
+                    bb + kblk - s_base > p_oh:
+                cut = True
+        if cut:
+            pads[g - 1] += t2 - (cur % t2)
+            cur += t2 - (cur % t2)
+            _emit_steps(1)
+            cur = 0
+        if cur == 0:
+            s_cs = int(grp_chunk[g])
+            s_gid = gid
+            s_base = min(bb, gid * gb + gb - p_oh)
+        r = int(grows[g])
+        # full steps closed inside this group keep its attributes; a step
+        # OPENED mid-group starts at this group's band
+        while cur + r >= t2:
+            take = t2 - cur
+            r -= take
+            cur = 0
+            _emit_steps(1)
+            if r > 0:
+                s_cs = int(grp_chunk[g])
+                s_gid = gid
+                s_base = min(bb, gid * gb + gb - p_oh)
+        cur += r
+    if cur % t2:
+        pads[-1] += t2 - (cur % t2)
+        _emit_steps(1)
+    elif cur:
+        _emit_steps(1)
+    return (pads, np.asarray(base_l, np.int64), np.asarray(gid_l, np.int64),
+            np.asarray(cs_l, np.int64))
+
+
+def _convert_v4(coo: COOMatrix, cfg: Config, p: dict) -> Xch4State:
+    dtype = cfg.np_dtype
+    if coo.nnz == 0 or coo.n_row == 0:
+        return _empty_state4(coo, cfg)
+    nnz_all = coo.nnz
+    rows0 = hm.astype(coo.row, np.int64)
+    cols0 = hm.astype(coo.col, np.int64)
+    vals0 = hm.astype(coo.val, dtype)
+
+    # ---- band peel (high-fill diagonals → static-slice streams) ----
+    dia_offs: tuple = ()
+    dia_vals_dev = None
+    if not p.get("no_peel"):
+        offs, mask_d = _peel_bands(rows0, cols0, coo.n_row, coo.n_col,
+                                   nnz_all)
+        if offs is not None:
+            nr = max(coo.n_row, 1)
+            oidx = np.searchsorted(offs, (cols0 - rows0)[mask_d])
+            # weighted bincount: duplicate triplets must SUM (the COO
+            # contract), not overwrite
+            planes = np.bincount(
+                oidx * np.int64(nr) + rows0[mask_d],
+                weights=vals0[mask_d].astype(np.float64),
+                minlength=len(offs) * nr).reshape(len(offs), nr)
+            planes = planes.astype(dtype)
+            dia_offs = tuple(int(o) for o in offs)
+            dia_vals_dev = _t(planes)
+            keep = ~mask_d
+            rows0, cols0, vals0 = rows0[keep], cols0[keep], vals0[keep]
+            if len(rows0) == 0:
+                st = _empty_state4(coo, cfg)
+                return dataclasses.replace(st, nnz=nnz_all,
+                                           dia_offs=dia_offs,
+                                           dia_vals=dia_vals_dev)
+
+    # ---- long-row split (structure fast-track) ----
+    long_state = long_rows_dev = None
+    long_n = 0
+    if not p.get("no_long"):
+        deg_t = p.get("long_deg", LONG_DEG)
+        mask, long_ids = _split_long_rows(rows0, cols0, vals0, coo.n_row,
+                                          deg_t)
+        if mask is not None and \
+                mask.sum() >= LONG_MIN_SHARE * nnz_all and len(long_ids):
+            long_n = len(long_ids)
+            remap = np.full(coo.n_row, -1, np.int64)
+            remap[long_ids] = np.arange(long_n)
+            sub = COOMatrix(n_row=long_n, n_col=coo.n_col,
+                            row=remap[rows0[mask]], col=cols0[mask],
+                            val=vals0[mask])
+            sp = dict(p)
+            sp["no_long"] = True
+            for k in ("k_slots", "m1_fix", "m2_fix", "bs_fix", "t1_fix",
+                      "t2_fix"):
+                sp.pop(k, None)
+            sp.update(estimate_v4(sub, cfg, no_long=True))
+            long_state = _convert_v4(sub, cfg, sp)
+            long_rows_dev = _t(long_ids.astype(np.int32))
+            keep = ~mask
+            rows0, cols0, vals0 = rows0[keep], cols0[keep], vals0[keep]
+            if len(rows0) == 0:
+                st = _empty_state4(coo, cfg)
+                return dataclasses.replace(
+                    st, nnz=nnz_all, long_n=long_n, long=long_state,
+                    long_rows=long_rows_dev, dia_offs=dia_offs,
+                    dia_vals=dia_vals_dev)
+    nnz = len(rows0)
+
+    # ---- pass 1 ----
+    k_slots = int(min(p.get("k_slots", nnz), max(nnz, 1)))
+    l1 = _pass1_layout(cols0, vals0, nnz, coo.n_col, k_slots, p, dtype)
+    n_chunks, p1, h1, m1, t1 = (l1["n_chunks"], l1["p1"], l1["h1"],
+                                l1["m1"], l1["t1"])
+    src, chunk1 = l1["src"], l1["chunk1"]
+    rows1 = rows0[l1["o1"]]
+
+    # ---- pass 2: (chunk, band, src) sort + joint plan search ----
+    # t2 trades the 0.27 µs/step fixed cost against p_oh-exhaustion pads
+    # (a step covers ≈ t2/deg row blocks; low-deg matrices cut early unless
+    # p_oh grows).  kblk sets the band sort granularity: coarser bands
+    # halve the per-stream-row src span (m2 ∝ 1/kblk analytically), so
+    # after planning at the seed kblk the model extrapolates the others and
+    # re-sorts only when a ≥10% win is predicted.
+    deg_r = max(nnz / max(coo.n_row, 1), 0.25)
+    gb0 = int(p.get("gb", X4_GB))
+    t2_cands = (32, 64, 128, 256) if not p.get("t2_fix") else (p["t2_fix"],)
+
+    # plan-time slot sample: sorting the full stream per kblk candidate is
+    # the convert's sort bill at giant scale; an src-RUN sample (contiguous
+    # 8192-slot windows, 1/8 kept) preserves intra-group spacing so walks
+    # measure true spans, and only the winning plan sorts in full
+    plan_mask = None
+    if nnz > SAMPLE_WALK_NNZ and not (p.get("kblk_fix") and p.get("m2_fix")
+                                      and p.get("t2_fix")):
+        plan_mask = (src >> 13) % 8 == 0
+
+    def _plan_at(kblk, sampled=False):
+        bs = 7 + int(np.log2(kblk))
+        gb = max(gb0 - gb0 % kblk, kblk)
+        if sampled and plan_mask is not None:
+            src_p = src[plan_mask]
+            rows_p = rows1[plan_mask]
+            chunk_p = chunk1[plan_mask]
+        else:
+            sampled = False
+            src_p, rows_p, chunk_p = src, rows1, chunk1
+        band = rows_p >> bs
+        n_band = int(band.max(initial=0)) + 2
+        grp_key = chunk_p * np.int64(n_band) + band
+        o2 = hm.argsort_keys(grp_key * np.int64(h1 * LANES + 1) + src_p)
+        src_s = src_p[o2]
+        gk_s = grp_key[o2]
+        gbnd = np.flatnonzero(np.concatenate([[True],
+                                              gk_s[1:] != gk_s[:-1]]))
+        grp_starts = np.append(gbnd, nnz)
+        grp_chunk = (gk_s[gbnd] // n_band).astype(np.int64)
+        grp_band_blk = ((gk_s[gbnd] % n_band) << (bs - 7)).astype(np.int64)
+
+        if p.get("p_oh_fix"):
+            poh_of = lambda t_c: (int(p["p_oh_fix"]),)
+        else:
+            def poh_of(t_c):
+                fit = _align8(int(np.clip(t_c / deg_r + kblk, 8, 64)))
+                return tuple(sorted({fit, min(fit + 16, 64), 16}))
+
+        if p.get("m2_fix"):
+            m_cands = [_align8(p["m2_fix"], M2_CAP)]
+        else:
+            m_cands = _span_quantiles(src_s, grp_starts[1:-1])
+            m_cands = sorted(set(_align8(min(max(m, 1), M2_CAP, p1))
+                                 for m in m_cands))
+        stride = 8 if (nnz > SAMPLE_WALK_NNZ and
+                       (len(m_cands) > 1 or len(t2_cands) > 1)) else 1
+        src_e, grp_starts_e, gsel = _sample_group_runs(src_s, grp_starts,
+                                                       stride)
+        chunk_e = grp_chunk[gsel]
+        band_e = grp_band_blk[gsel]
+        n_grp_all = len(grp_starts) - 1
+        if len(gsel) == n_grp_all:
+            stride = 1
+        scale = n_grp_all / max(len(gsel), 1)
+        best = None
+        for m_c in m_cands:
+            wk = _walk(src_e, grp_starts_e, m_c)
+            for t_c in t2_cands:
+                for poh_c in poh_of(t_c):
+                    if poh_c < kblk or poh_c > gb:
+                        continue
+                    pads_e, _, _, _ = _assemble_steps(
+                        chunk_e, band_e, wk[2], t_c, kblk, poh_c, gb)
+                    h_c = int((wk[2].sum() + pads_e.sum()) * scale)
+                    sec = ((h_c / t_c) * R4_FIXED_S
+                           + h_c * LANES * _r4_route_slot_s(m_c, kblk,
+                                                            poh_c))
+                    if best is None or sec < best[0]:
+                        best = (sec, m_c, t_c, poh_c, wk, stride)
+        sec, m2, t2, p_oh, wk, stride = best
+        return dict(sec=sec, m2=m2, t2=t2, p_oh=p_oh, wk=wk, stride=stride,
+                    scale=scale,
+                    kblk=kblk, gb=gb, o2=o2, src_s=src_s,
+                    grp_starts=grp_starts, grp_chunk=grp_chunk,
+                    grp_band_blk=grp_band_blk, h_est=None)
+
+    kblk0 = int(p.get("kblk", 8))
+    pl = _plan_at(kblk0)
+    if not p.get("kblk_fix"):
+        h0 = int(pl["wk"][2].sum() * pl["scale"])
+        pred = []
+        for k2 in sorted({max(kblk0 // 2, 1), kblk0 * 2,
+                          min(kblk0 * 4, 32)} - {kblk0}):
+            m2p = _align8(max(round(pl["m2"] * kblk0 / k2), 1), M2_CAP)
+            secp = ((h0 / pl["t2"]) * R4_FIXED_S
+                    + h0 * LANES * _r4_route_slot_s(m2p, k2, pl["p_oh"]))
+            pred.append((secp, k2))
+        pred.sort()
+        if pred and pred[0][0] < 0.9 * pl["sec"]:
+            pl2 = _plan_at(pred[0][1])
+            if pl2["sec"] < pl["sec"]:
+                pl = pl2
+
+    kblk, gb, m2, t2, p_oh = (pl["kblk"], pl["gb"], pl["m2"], pl["t2"],
+                              pl["p_oh"])
+    o2, src_s = pl["o2"], pl["src_s"]
+    grp_starts, grp_chunk, grp_band_blk = (pl["grp_starts"], pl["grp_chunk"],
+                                           pl["grp_band_blk"])
+    rows_s = rows1[o2]
+    wk = pl["wk"]
+    if pl["stride"] > 1:
+        wk = _walk(src_s, grp_starts, m2)
+    sizes2, bases2, grows2 = wk
+
+    # an out group must fit one pallas call (SMEM prefetch cap): shrink gb
+    # until the densest group's PADDED step count fits the call budget.
+    # gb_fix (distributed stacking: every shard must agree on gb) skips the
+    # shrink — an oversized group then raises in _chunk_steps.
+    cap_steps = max(CHUNK_ROWS // t2, 1)
+    gb_min = max(2 * kblk, 8)
+    while True:
+        p_oh_eff = max(min(p_oh, gb // 8 * 8), 8)
+        pads, st_base, st_gid, st_cs = _assemble_steps(
+            grp_chunk, grp_band_blk, grows2, t2, kblk, p_oh_eff, gb)
+        per_grp = np.bincount(st_gid) if len(st_gid) else np.zeros(1, int)
+        if per_grp.max(initial=0) <= cap_steps or gb <= gb_min \
+                or p.get("gb_fix"):
+            break
+        gb = max((gb // 2) // kblk * kblk, gb_min)
+    p_oh = p_oh_eff
+    grows_pad = grows2 + pads
+    h2 = int(grows_pad.sum())
+    n_steps = h2 // t2
+    assert n_steps == len(st_base), (n_steps, len(st_base))
+
+    gstart = np.concatenate([[0], np.cumsum(grows_pad)[:-1]])
+    wstart2 = np.concatenate([[0], np.cumsum(grows2)[:-1]])
+    gidx = np.repeat(hm.arange(len(grows2)), grows2)
+    final2 = gstart[gidx] + (hm.arange(len(sizes2)) - wstart2[gidx])
+
+    # windows: chunk-local product-row base, clamped into the block
+    base_loc = bases2 - grp_chunk[gidx] * p1
+    base_loc = np.minimum(np.maximum(base_loc, 0), max(p1 - m2, 0))
+    win2 = hm.zeros(h2, np.int32)
+    win2[final2] = base_loc.astype(np.int32)
+
+    # sig: per stream row, band base block − step base block
+    sig_row = hm.zeros(h2, np.int8)
+    sig_val = grp_band_blk[gidx] - st_base[final2 // t2]
+    assert sig_val.min(initial=0) >= 0 and \
+        sig_val.max(initial=0) <= p_oh - kblk, \
+        "xch4: stream row band outside its step's p_oh window"
+    sig_row[final2] = sig_val.astype(np.int8)
+
+    # within-stream-row sort by (row, src): run contiguity
+    sr2_0 = final2[np.repeat(hm.arange(len(sizes2)), sizes2)]
+    o3 = hm.argsort_keys(sr2_0 * np.int64(coo.n_row + 1) + rows_s)
+    src_f, rows_f, sr2 = src_s[o3], rows_s[o3], sr2_0[o3]
+    new_row = np.concatenate([[True], sr2[1:] != sr2[:-1]])
+    rstart = np.flatnonzero(new_row)
+    li2 = hm.arange(nnz) - rstart[np.cumsum(new_row) - 1]
+
+    lane2 = hm.zeros((h2, LANES), np.int8)
+    sub2 = hm.zeros((h2, LANES), np.int8)
+    hm2 = hm.zeros((h2, LANES), np.int8)
+    src_row = src_f >> 7
+    chunk_f = st_cs[sr2 // t2]
+    hm.scatter2d(lane2, sr2, li2, (src_f & (LANES - 1)).astype(np.int8))
+    hm.scatter2d(sub2, sr2, li2,
+                 (src_row - chunk_f * p1 - win2[sr2]).astype(np.int8))
+
+    new_run = hm.zeros(nnz, np.bool_)
+    new_run[0] = True
+    new_run[1:] = (rows_f[1:] != rows_f[:-1]) | (sr2[1:] != sr2[:-1])
+    qpos = sr2 * LANES + li2
+    head_q = np.maximum.accumulate(np.where(new_run, qpos, -1))
+    hm.scatter2d(hm2, sr2, li2, (head_q - sr2 * LANES - 1).astype(np.int8))
+
+    end = hm.zeros(nnz, np.bool_)
+    end[:-1] = new_run[1:]
+    end[-1] = True
+    r_run, sr_run, e_lane = rows_f[end], sr2[end], li2[end]
+
+    # idx planes: j = run's block − its stream row's band base block
+    j_run = (r_run >> 7) - (st_base[sr_run // t2]
+                            + sig_row[sr_run].astype(np.int64))
+    assert j_run.min(initial=0) >= 0 and j_run.max(initial=0) < kblk, \
+        "xch4: run outside its stream row's kblk band"
+    l_run = r_run & np.int64(LANES - 1)
+    idx2 = hm.full((kblk, h2, LANES), -1, np.int8)
+    hm.scatter2d(idx2.reshape(kblk * h2, LANES),
+                 j_run * np.int64(h2) + sr_run, l_run,
+                 e_lane.astype(np.int8))
+
+    # ---- SMEM-sized kernel calls (cut at out-group changes) ----
+    u_gids, gid_inv = np.unique(st_gid, return_inverse=True)
+    gid_compact = gid_inv.astype(np.int64)      # compact visited groups
+    cz = _chunk_steps(gid_compact, n_steps, len(u_gids),
+                      max_steps=max(CHUNK_ROWS // t2, 1))
+    g_t, o_t, c_t, w_t, la_t, su_t, hm_t, sg_t, ix_t = \
+        [], [], [], [], [], [], [], [], []
+    for s0, s1, g0, _ng in cz:
+        r0, r1 = s0 * t2, s1 * t2
+        g_t.append(_t((gid_compact[s0:s1] - g0).astype(np.int32)))
+        o_t.append(_t(
+            (st_base[s0:s1] - st_gid[s0:s1] * gb).astype(np.int32)))
+        c_t.append(_t(st_cs[s0:s1].astype(np.int32)))
+        w_t.append(_t(win2[r0:r1]))
+        la_t.append(_t(lane2[r0:r1]))
+        su_t.append(_t(sub2[r0:r1]))
+        hm_t.append(_t(hm2[r0:r1]))
+        sg_t.append(_t(
+            np.broadcast_to(sig_row[r0:r1, None], (r1 - r0, LANES)).copy()))
+        ix_t.append(_t(idx2[:, r0:r1]))
+
+    # ---- pass-1 call chunks ----
+    cz1 = []
+    max_rows1 = (PASS1_CALL_ROWS // t1) * t1
+    for r0 in range(0, h1, max_rows1):
+        cz1.append((r0, min(r0 + max_rows1, h1)))
+    w1_t, la1_t, su1_t, va1_t = [], [], [], []
+    for r0, r1 in cz1:
+        w1_t.append(_t(l1["win1"][r0:r1]))
+        la1_t.append(_t(l1["lane1"][r0:r1]))
+        su1_t.append(_t(l1["sub1"][r0:r1]))
+        va1_t.append(_t(l1["val1"][r0:r1]))
+
+    cb_tot = cdiv(max(coo.n_col, 1), LANES)
+    return Xch4State(
+        n_row=coo.n_row, n_col=coo.n_col, nnz=nnz_all, m1=m1, m2=m2, t1=t1,
+        t2=t2, kblk=kblk, p_oh=p_oh, gb=gb, n_chunks=n_chunks, p1=p1,
+        cb_pad=cb_tot + m1, n_slots1=h1 * LANES, n_slots2=h2 * LANES,
+        chunk_ngrp=tuple(c[3] for c in cz), long_n=long_n,
+        dia_offs=dia_offs,
+        win1=tuple(w1_t), lane1=tuple(la1_t), sub1=tuple(su1_t),
+        val1=tuple(va1_t),
+        gids2=tuple(g_t), off2=tuple(o_t), cs2=tuple(c_t),
+        win2=tuple(w_t), lane2=tuple(la_t), sub2=tuple(su_t),
+        hm2=tuple(hm_t), sig2=tuple(sg_t), idx2=tuple(ix_t),
+        vis_gids=_t(u_gids.astype(np.int32)),
+        long=long_state, long_rows=long_rows_dev, dia_vals=dia_vals_dev)
+
+
+def _empty_state4(coo, cfg):
+    dtype = cfg.np_dtype
+    z8 = lambda *s: _t(hm.zeros(s, np.int8))
+    return Xch4State(
+        n_row=coo.n_row, n_col=coo.n_col, nnz=0, m1=1, m2=1, t1=8, t2=8,
+        kblk=1, p_oh=8, gb=8, n_chunks=1, p1=8, cb_pad=1,
+        n_slots1=0, n_slots2=0, chunk_ngrp=(0,), long_n=0,
+        win1=(_t(hm.zeros(0, np.int32)),),
+        lane1=(z8(0, LANES),), sub1=(z8(0, LANES),),
+        val1=(_t(hm.zeros((0, LANES), dtype)),),
+        gids2=(_t(hm.zeros(0, np.int32)),),
+        off2=(_t(hm.zeros(0, np.int32)),),
+        cs2=(_t(hm.zeros(0, np.int32)),),
+        win2=(_t(hm.zeros(0, np.int32)),),
+        lane2=(z8(0, LANES),), sub2=(z8(0, LANES),), hm2=(z8(0, LANES),),
+        sig2=(z8(0, LANES),),
+        idx2=(_t(hm.full((1, 0, LANES), -1, np.int8)),),
+        vis_gids=_t(hm.zeros(0, np.int32)))
+
+
+def estimate_v4(coo: COOMatrix, cfg: Config, no_long: bool = False) -> dict:
+    """Closed-form v4 plan: k_slots/kblk/p_oh/gb from the uniform-mix bound,
+    long-row split decided from the degree profile."""
+    n_r, n_c, nnz = max(coo.n_row, 1), max(coo.n_col, 1), max(coo.nnz, 1)
+    if coo.nnz == 0:
+        return {"feasible": False, "est_s": 0.0, "route_v": 4}
+    if cdiv(n_c, LANES) * LANES * np.dtype(cfg.dtype).itemsize > X_TABLE_CAP:
+        return {"feasible": False, "est_s": float("inf"), "route_v": 4}
+    # band peel: count the high-fill diagonal mass (cheap bincount) and
+    # cost the exchange on the residual only
+    peel_nnz, n_offs = 0, 0
+    dia_sec = 0.0
+    if not no_long and coo.nnz:
+        offs_e, mask_e = _peel_bands(hm.astype(coo.row, np.int64),
+                                     hm.astype(coo.col, np.int64),
+                                     n_r, n_c, nnz)
+        if offs_e is not None:
+            peel_nnz = int(mask_e.sum())
+            n_offs = len(offs_e)
+            dia_sec = n_offs * n_r * 8.0 / HBM_BPS
+    nnz = max(nnz - peel_nnz, 1)
+    deg = nnz / n_r
+    # 3-factor balance on K = n_c·n_r/(128·nnz) with the fitted weights.
+    # The chunk floor (≥ 384 product rows) keeps the p1-alignment and
+    # chunk-cut pads sane — tiny chunks measured pad 1.64× (r5); the
+    # residual K/m1_eff is then re-split between m2 and kblk.
+    K = max(n_c * n_r / (LANES * nnz), 1.0)
+    w1, w2, w3 = SEL_SLOT_S, R4_SEL_S, R4_KBLK_S
+    c = (K * w1 * w2 * w3) ** (1.0 / 3.0)
+    m1_t = float(np.clip(c / w1, 1.0, M_MAX))
+    # pass-1 window m1 = n_c/k_slots blocks (col spread of 128 consecutive
+    # (chunk, col)-sorted slots)
+    k_slots = int(np.clip(n_c / m1_t, min(nnz, 384 * LANES),
+                          P1_CAP_ROWS * LANES))
+    k_slots = max(min(k_slots, nnz), 16 * LANES)
+    m1_eff = max(n_c / k_slots, 1.0)
+    m1 = _align8(int(round(m1_eff)))
+    K2 = max(K / m1_eff, 1.0)
+    m2_t = float(np.clip(np.sqrt(K2 * w3 / w2), 1.0, M2_CAP))
+    kblk = int(2 ** np.clip(round(np.log2(max(K2 / m2_t, 1.0))), 0, 5))
+    m2 = _align8(int(round(m2_t)), M2_CAP)
+    t2 = 64
+    p_oh = int(np.clip(_align8(int(t2 / max(deg, 1.0)) + kblk), 8, 64))
+    # call-chunk SMEM cap: stream rows per out group ≈ gb·deg must stay
+    # under CHUNK_ROWS (a group cannot split across pallas calls)
+    gb = min(X4_GB, max(int(0.7 * CHUNK_ROWS / max(deg, 1.0)) // max(kblk, 1)
+                        * max(kblk, 1), 8 * kblk))
+    slots1 = 1.12 * nnz
+    n_grp_est = nnz / k_slots + n_r / (kblk * LANES)
+    slots2 = 1.05 * nnz + n_grp_est * (t2 / 4) * LANES \
+        + (n_r / (kblk * LANES)) * 64
+    sec = (dia_sec
+           + slots1 * _r4_mul_slot_s(m1) + slots1 / LANES / 128 * MUL_FIXED_S
+           + slots2 * _r4_route_slot_s(m2, kblk, p_oh)
+           + slots2 / LANES / t2 * R4_FIXED_S)
+    out = {"feasible": True, "est_s": float(sec), "route_v": 4,
+           "k_slots": k_slots, "kblk": kblk,
+           "p_oh": p_oh, "gb": gb, "slots": int(slots1 + slots2),
+           "m1_hint": m1, "m2_hint": m2}
+    # long-row fast-track: K for the compacted long submatrix is tiny
+    if not no_long and n_r >= 4096:
+        degs = np.bincount(hm.astype(coo.row, np.int64), minlength=n_r)
+        # nnz here is already peel-reduced; cap the long mass accordingly
+        # (r5 bug: the raw full-matrix long mass made rest_nnz NEGATIVE on
+        # dense-row matrices — RM07R's xch estimate read −2.7 ms and auto
+        # flipped away from the measured-faster hyb)
+        long_nnz = min(int(degs[degs >= LONG_DEG].sum()), nnz - 1)
+        if long_nnz >= LONG_MIN_SHARE * nnz:
+            n_long = int((degs >= LONG_DEG).sum())
+            sub_sec = long_nnz * (_r4_mul_slot_s(1)
+                                  + _r4_route_slot_s(8, 2, 8))
+            # residual cost: same closed form on the remaining degree mass
+            rest_nnz = max(nnz - long_nnz, 1)
+            Kr = max(n_c * n_r / (LANES * max(rest_nnz, 1)), 1.0)
+            cr = (Kr * w1 * w2 * w3) ** (1.0 / 3.0)
+            rest_sec = rest_nnz * 1.15 * (
+                _r4_mul_slot_s(_align8(int(cr / w1)))
+                + _r4_route_slot_s(_align8(int(np.clip(cr / w2, 1, M2_CAP)),
+                                           M2_CAP),
+                                   int(np.clip(cr / w3, 1, 32)), p_oh))
+            scatter_sec = n_long * 7e-9
+            if sub_sec + rest_sec + scatter_sec < sec:
+                out["long_deg"] = LONG_DEG
+                out["est_s"] = float(sub_sec + rest_sec + scatter_sec)
+    out["est_s"] *= 1.15          # closed-form → measured headroom
+    return out
+
+def wslot_starts(sizes):
+    return np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+
+
+def cdiv_np(a, b):
+    return -(-a // b)
+
+
+def _chunk_steps(uids, n_steps, n_buckets, max_steps=None):
+    """Split pass-2 steps into chunks of ≤``max_steps`` (SMEM row cap / t2),
+    cutting at new-bucket steps.  Returns [(s0, s1, first_bucket,
+    n_buckets_in_chunk)]; the last chunk covers through ``n_buckets`` (with
+    span, a trailing bucket may never be a step's first — its block stays
+    unwritten; the caller zero-pads the missing trailing buckets)."""
+    if n_steps == 0:
+        return []
+    cap = max_steps if max_steps else n_steps
+    if n_steps <= cap:
+        return [(0, n_steps, 0, n_buckets)]
+    new_b = np.flatnonzero(np.concatenate([[True], uids[1:] != uids[:-1]]))
+    cuts = [0]
+    while cuts[-1] + cap < n_steps:
+        k = np.searchsorted(new_b, cuts[-1] + cap, side="right") - 1
+        s = int(new_b[k])
+        if s <= cuts[-1]:
+            raise ValueError("xch: a single bucket exceeds the step cap")
+        cuts.append(s)
+    cuts.append(n_steps)
+    out = []
+    for i in range(len(cuts) - 1):
+        s0, s1 = cuts[i], cuts[i + 1]
+        u0 = int(uids[s0])
+        u_next = int(uids[s1]) if s1 < n_steps else n_buckets
+        out.append((s0, s1, u0, u_next - u0))
+    return out
+
+
+def estimate(coo: COOMatrix, cfg: Config) -> dict:
+    """The reference's v4 plan."""
+    return estimate_v4(coo, cfg)
+
+
+def convert(coo: COOMatrix, cfg: Config, plan: dict = None) -> Xch4State:
+    """Build the v4 layout on the host; tensors come back on the CPU."""
+    _check_dtype(cfg.dtype)
+    if coo.nnz == 0 or coo.n_row == 0:
+        return _empty_state4(coo, cfg)
+    p = plan or estimate(coo, cfg)
+    if not p.get("feasible", True):
+        raise ValueError("xch: infeasible (x table exceeds VMEM cap)")
+    if p.get("route_v", 4) == 3:
+        raise NotImplementedError("xch: the v3 σ-plane engine is not ported "
+                                  "(ROADMAP B.15)")
+    return _convert_v4(coo, cfg, p)
+
+
+_ARRAY_FIELDS = ("win1", "lane1", "sub1", "val1", "gids2", "off2", "cs2",
+                 "win2", "lane2", "sub2", "hm2", "sig2", "idx2", "vis_gids",
+                 "long_rows", "dia_vals")
+
+
+def state_from_reference(arrays: dict) -> Xch4State:
+    """The port's state from the fields of a reference ``Xch4State``.
+
+    ``arrays`` maps field names to numpy arrays (per-call tuples stay
+    tuples) and scalars, as ``dataclasses.asdict`` of a reference state
+    moved to the host gives them; ``long`` is such a dict in turn.  float64
+    (df64) states are refused."""
+    if arrays.get("val1_lo") is not None or arrays.get("dia_lo") is not None:
+        raise NotImplementedError(FLOAT32_ONLY)
+    kw = {}
+    for f in dataclasses.fields(Xch4State):
+        v = arrays.get(f.name)
+        if f.name == "long" and v is not None:
+            v = state_from_reference(v)
+        elif f.name in _ARRAY_FIELDS and v is not None:
+            v = tuple(torch.from_numpy(np.array(a)) for a in v) \
+                if isinstance(v, (tuple, list)) \
+                else torch.from_numpy(np.array(v))
+        kw[f.name] = v
+    state = Xch4State(**kw)
+    for v in state.val1:
+        _check_dtype(v.dtype)
+    return state
+
+
+# -------------------------------------------------------------------- spmv ---
+
+def x_table(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
+    """Pass 1's (cb_pad, 128) x table: x zero-padded to whole windows."""
+    xp = torch.zeros(state.cb_pad * LANES, dtype=x.dtype, device=x.device)
+    xp[: state.n_col] = x
+    return xp.view(state.cb_pad, LANES)
+
+
+def products(state: Xch4State, xp: torch.Tensor) -> torch.Tensor:
+    """Pass 1: one ``xch_mul`` per call, viewed as (n_chunks, p1, 128)."""
+    prods = [xch_mul(w, la, su, va, xp, state.m1, state.t1)
+             for w, la, su, va in zip(state.win1, state.lane1, state.sub1,
+                                      state.val1)]
+    prod = prods[0] if len(prods) == 1 else torch.cat(prods, 0)
+    return prod.view(state.n_chunks, state.p1, LANES)
+
+
+def spmv(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
+    _check_dtype(x.dtype)
+    n = state.n_row
+    if state.n_slots1:
+        prod3 = products(state, x_table(state, x))
+        outs = [xch_route4(g, o, c, w, la, su, h2, sg, ix, prod3, ng,
+                           state.gb, state.m2, state.t2, state.p_oh)
+                for g, o, c, w, la, su, h2, sg, ix, ng in zip(
+                    state.gids2, state.off2, state.cs2, state.win2,
+                    state.lane2, state.sub2, state.hm2, state.sig2,
+                    state.idx2, state.chunk_ngrp)]
+        out = outs[0] if len(outs) == 1 else torch.cat(outs, 0)
+        n_grp_tot = cdiv(cdiv(max(n, 1), LANES), state.gb)
+        yg = torch.zeros(n_grp_tot, state.gb * LANES, dtype=x.dtype,
+                         device=x.device)
+        yg[state.vis_gids.long()] = out.view(-1, state.gb * LANES)
+        y = yg.view(-1)[:n]
+    else:
+        y = torch.zeros(n, dtype=x.dtype, device=x.device)
+    if state.long is not None:
+        # long_rows are distinct, so the add is a plain scatter-add
+        y.index_add_(0, state.long_rows.long(), spmv(state.long, x))
+    if state.dia_vals is not None:
+        y = y + _dia_part(state, x)
+    return y
+
+
+def _dia_part(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
+    """Peeled bands: one static shifted slice of x per offset."""
+    n = state.n_row
+    offs = state.dia_offs
+    mmax = max(max(abs(o) for o in offs), 1)
+    xp = torch.zeros(max(n, state.n_col) + 2 * mmax, dtype=x.dtype,
+                     device=x.device)
+    xp[mmax: mmax + state.n_col] = x
+    acc = torch.zeros(n, dtype=x.dtype, device=x.device)
+    for k, d in enumerate(offs):
+        acc.addcmul_(state.dia_vals[k], xp[mmax + d: mmax + d + n])
+    return acc
+
+
+# ----------------------------------------------------------------- reports ---
+
+def report_fields(state: Xch4State, cfg: Config) -> dict:
+    out = {"Window1Blocks": state.m1, "Window2Blocks": state.m2,
+           "KBlk": state.kblk, "POh": state.p_oh, "T2": state.t2,
+           "Chunks": state.n_chunks, "RouteV": 4,
+           "PadFactor": round((state.n_slots1 + state.n_slots2)
+                              / max(2 * (state.nnz - _long_nnz(state)
+                                         - _peel_nnz(state)), 1), 3)}
+    if state.dia_offs:
+        out["PeelOffs"] = len(state.dia_offs)
+        out["PeelNnz"] = _peel_nnz(state)
+    if state.long is not None:
+        out["LongRows"] = state.long_n
+        out["LongPad"] = round(
+            (state.long.n_slots1 + state.long.n_slots2)
+            / max(2 * state.long.nnz, 1), 3)
+    return out
+
+
+def _long_nnz(state: Xch4State) -> int:
+    return state.long.nnz if state.long is not None else 0
+
+
+def _peel_nnz(state: Xch4State) -> int:
+    dv = state.dia_vals
+    return int(torch.count_nonzero(dv)) if dv is not None else 0
+
+
+def traffic_bytes(state: Xch4State, cfg: Config) -> int:
+    vsz = np.dtype(cfg.dtype).itemsize
+    pass1 = state.n_slots1 * (vsz + 2) + state.n_slots1 * 4
+    pass2 = state.n_slots2 * (4 + state.kblk) + state.n_slots1 * 4
+    tot = (pass1 + pass2 + state.n_row * vsz
+           + state.cb_pad * LANES * vsz
+           + len(state.dia_offs) * state.n_row * 2 * vsz)
+    if state.long is not None:
+        tot += traffic_bytes(state.long, cfg)
+    return tot
+
+
+def _to_coo_v4(state: Xch4State) -> COOMatrix:
+    """Host-side inverse of the v4 layout."""
+    cat = lambda t, ax=0: np.concatenate(  # noqa: E731
+        [a.cpu().numpy() for a in t], axis=ax)
+    parts = []
+    if state.dia_vals is not None:
+        dv = state.dia_vals.cpu().numpy().astype(np.float64)
+        for k, d in enumerate(state.dia_offs):
+            rr = np.flatnonzero(dv[k] != 0)
+            parts.append((rr.astype(np.int64), rr + d, dv[k][rr]))
+    if state.long is not None:
+        sub = _to_coo_v4(state.long)
+        lr = state.long_rows.cpu().numpy().astype(np.int64)
+        parts.append((lr[sub.row.astype(np.int64)], sub.col, sub.val))
+    if state.n_slots1:
+        lane1 = cat(state.lane1).astype(np.int64)
+        sub1 = cat(state.sub1).astype(np.int64)
+        val1 = cat(state.val1).astype(np.float64)
+        win1 = cat(state.win1).astype(np.int64)
+        cols_grid = (win1[:, None] + sub1) * LANES + lane1
+
+        lane2 = cat(state.lane2).astype(np.int64)
+        sub2 = cat(state.sub2).astype(np.int64)
+        win2 = cat(state.win2).astype(np.int64)
+        hm2 = cat(state.hm2).astype(np.int64)
+        sig2 = cat(state.sig2).astype(np.int64)[:, 0]
+        idx2 = cat(state.idx2, ax=1).astype(np.int64)
+        g_base = np.cumsum([0] + list(state.chunk_ngrp[:-1]))
+        gids = np.concatenate([g.cpu().numpy().astype(np.int64) + b
+                               for g, b in zip(state.gids2, g_base)])
+        offs = cat(state.off2).astype(np.int64)
+        cs = cat(state.cs2).astype(np.int64)
+        vis = state.vis_gids.cpu().numpy().astype(np.int64)
+        h2 = lane2.shape[0]
+        t2 = state.t2
+        step_of = np.repeat(np.arange(h2 // t2), t2)
+        base_blk = vis[gids[step_of]] * state.gb + offs[step_of]  # per sr
+
+        rows = np.full((h2, LANES), -1, np.int64)
+        for j in range(state.kblk):
+            e = idx2[j]
+            valid = e >= 0
+            sr_i, l_i = np.nonzero(valid)
+            end_lane = e[sr_i, l_i]
+            rr = (base_blk[sr_i] + sig2[sr_i] + j) * LANES + l_i
+            rows[sr_i, end_lane] = rr
+        for jl in range(LANES - 2, -1, -1):
+            unset = rows[:, jl] < 0
+            same_run = hm2[:, jl + 1] != jl
+            rows[same_run & unset, jl] = rows[same_run & unset, jl + 1]
+
+        src_row = cs[step_of][:, None] * state.p1 + win2[:, None] + sub2
+        src = src_row * LANES + lane2
+        mask = rows >= 0
+        src_m = src[mask]
+        cols = cols_grid.reshape(-1)[src_m]
+        vals = val1.reshape(-1)[src_m]
+        keep = vals != 0
+        parts.append((rows[mask][keep], cols[keep], vals[keep]))
+    if not parts:
+        return COOMatrix.from_triplets(state.n_row, state.n_col, [], [], [],
+                                       sort=True)
+    rows = np.concatenate([p[0] for p in parts])
+    cols = np.concatenate([p[1] for p in parts])
+    vals = np.concatenate([p[2] for p in parts])
+    return COOMatrix.from_triplets(state.n_row, state.n_col, rows, cols,
+                                   vals, sort=True)
+
+
+def to_coo(state: Xch4State) -> COOMatrix:
+    """Host-side inverse: recover (row, col, val) from the layout."""
+    return _to_coo_v4(state)
+
+
+def attainable_seconds(state: Xch4State, cfg: Config) -> float:
+    """The reference's fitted v4 rate model at the state's own (m1, m2,
+    kblk, p_oh, t) and padded slot counts.  Its rates and ``hbm_bps`` are
+    TPU v5e constants (``chipconst``), which hold no H100 measurement yet
+    (ROADMAP A.7), so this prices the plan, not the card."""
+    sec = 0.0
+    if state.n_slots1:
+        sec += (state.n_slots1 * _r4_mul_slot_s(state.m1)
+                + state.n_slots1 / LANES / max(state.t1, 1) * MUL_FIXED_S)
+        sec += (state.n_slots2 * _r4_route_slot_s(state.m2, state.kblk,
+                                                  state.p_oh)
+                + state.n_slots2 / LANES / max(state.t2, 1) * R4_FIXED_S)
+    if state.dia_vals is not None:
+        sec += len(state.dia_offs) * state.n_row * 8.0 / HBM_BPS
+    if state.long is not None:
+        sec += attainable_seconds(state.long, cfg)
+        sec += state.long_n * 7e-9          # final scatter-add
+    sec += 3 * state.n_row * 4.0 / HBM_BPS  # x pad + y grid assembly
+    return float(sec)

@@ -1,12 +1,15 @@
 """Build the CUDA sources of ``csrc/`` at first use and load them with ctypes.
 
 Every ``csrc/*.cu`` compiles, with ``nvcc -gencode arch=compute_90a,code=sm_90a
--O3 -shared -Xcompiler -fPIC``, into one shared library with a plain C
-interface under ``_build/`` (listed in .gitignore).  The file name carries a
-hash of the sources and flags, so an unchanged tree reuses its build.  The
-sources include only the CUDA runtime's headers: no PyTorch headers, and
-nothing is downloaded.  Building needs the CUDA toolkit (``nvcc`` on PATH, or
-under ``$CUDA_HOME`` or ``/usr/local/cuda``).
+-O3 -Xcompiler -fPIC -c``, into an object of its own (one nvcc per source, all
+started together), and ``nvcc -shared`` links the objects into one shared
+library with a plain C interface under ``_build/`` (listed in .gitignore).
+The file name carries ``sources_digest()``, a hash of the flags and of every
+file under ``csrc/`` (sources and the headers they share), so an unchanged
+tree reuses its build and an edited header rebuilds it.  The sources include
+only the CUDA runtime's headers: no PyTorch headers, and nothing is
+downloaded.  Building needs the CUDA toolkit (``nvcc`` on PATH, or under
+``$CUDA_HOME`` or ``/usr/local/cuda``).
 """
 from __future__ import annotations
 
@@ -22,8 +25,9 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
+SOURCE_SUFFIXES = (".cu", ".cuh", ".h")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
@@ -31,13 +35,18 @@ SIGNATURES = {
     "slab_spmv_f32": [_P] * 11 + [_I] * 4 + [_P],
     # uids win lane sub val hm1 idx sig x out | H T m planes kblk | stream
     "slab_spmv_blk_f32": [_P] * 10 + [_I] * 5 + [_P],
+    # win lane sub val x out | H T m | stream
+    "xch_mul_f32": [_P] * 6 + [_I] * 3 + [_P],
+    # gids off cs win lane sub hm1 sig idx prod out
+    # | H T m kblk p_oh n_grp gb p1 | stream
+    "xch_route4_f32": [_P] * 11 + [_I] * 8 + [_P],
 }
 
 
 @dataclasses.dataclass(frozen=True)
 class Build:
     path: str             # the shared library
-    command: tuple        # the nvcc command that builds it
+    commands: tuple       # the nvcc commands that build it, link last
     seconds: float        # compile time; 0.0 when a cached build was reused
     log: str              # nvcc's output: ptxas registers and shared memory
 
@@ -54,31 +63,56 @@ def nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
+def sources_digest(csrc_dir: str = CSRC_DIR) -> str:
+    """Hash of the flags and of every source and header under ``csrc_dir``:
+    the build's identity."""
+    digest = hashlib.sha256(" ".join(FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(csrc_dir, "**", "*"),
+                                 recursive=True)):
+        if path.endswith(SOURCE_SUFFIXES):
+            with open(path, "rb") as f:
+                digest.update(os.path.relpath(path, csrc_dir).encode()
+                              + b"\0" + f.read())
+    return digest.hexdigest()[:16]
+
+
+def _run_all(cmds):
+    """Runs the commands in parallel; raises on the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for c, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {p.returncode}):\n"
+                               f"{' '.join(c)}\n{log}")
+    return "".join(logs)
+
+
 def build() -> Build:
     """Compile ``csrc/*.cu`` unless a build of the same sources exists."""
     srcs = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
-    digest = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in srcs:
-        with open(src, "rb") as f:
-            digest.update(os.path.basename(src).encode() + f.read())
-    lib = os.path.join(BUILD_DIR, f"kernels_{digest.hexdigest()[:16]}.so")
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = (nvcc(), *FLAGS, "-o", tmp, *srcs)
+    lib = os.path.join(BUILD_DIR, f"kernels_{sources_digest()}.so")
+    work = f"{lib}.{os.getpid()}.tmp"
+    objs = [os.path.join(work, os.path.basename(s) + ".o") for s in srcs]
+    compiles = tuple((nvcc(), *FLAGS, "-c", "-o", o, s)
+                     for s, o in zip(srcs, objs))
+    linked = os.path.join(work, "kernels.so")
+    link = (nvcc(), *FLAGS[:2], "-shared", "-o", linked, *objs)
     if os.path.exists(lib):
         with open(lib + ".log") as f:
-            return Build(lib, cmd, 0.0, f.read())
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    log = res.stdout + res.stderr
-    with open(lib + ".log", "w") as f:
-        f.write(log)
-    os.replace(tmp, lib)
-    return Build(lib, cmd, seconds, log)
+            return Build(lib, (*compiles, link), 0.0, f.read())
+    os.makedirs(work, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        log = _run_all(compiles) + _run_all([link])
+        seconds = time.perf_counter() - t0
+        with open(lib + ".log", "w") as f:
+            f.write(log)
+        os.replace(linked, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return Build(lib, (*compiles, link), seconds, log)
 
 
 _lib = None

@@ -74,12 +74,17 @@ def _raise_on(rc, name):
 
 # ----------------------------------------------------- plain PyTorch versions
 
-def _run_totals(win, lane, sub, val, hm1, x_table, m):
-    """W[r, l] = P[r, l] − P[r, hm1[r, l]] over the gathered products."""
+def _gather(win, lane, sub, table, m):
+    """g[r, l] = table[win[r] + sub[r, l], lane[r, l]] (sub unread if
+    m == 1), for any int tensor of window rows ``win``."""
     col = win.long()[:, None] * LANES + lane.long()
     if m > 1:
         col = col + sub.long() * LANES
-    p = val * x_table.reshape(-1)[col]
+    return table.reshape(-1)[col]
+
+
+def _totals(p, hm1):
+    """W[r, l] = P[r, l] − P[r, hm1[r, l]], P the row prefix of p."""
     prefix = torch.cumsum(p, dim=1)
     h = hm1.long()
     head = torch.gather(prefix, 1, h.clamp(min=0))
@@ -97,7 +102,7 @@ def slab_spmv_ref(uids, sg0, sg1, win, lane, sub, val, hm1, idx, x_table,
     """Plain version of ``slab_spmv``.  It routes every plane; sg0/sg1 only
     prune planes that hold no end-lane, so ignoring them changes nothing."""
     planes, h = idx.shape[0], lane.shape[0]
-    w = _run_totals(win, lane, sub, val, hm1, x_table, m)
+    w = _totals(val * _gather(win, lane, sub, x_table, m), hm1)
     step = torch.arange(h, device=w.device) // T
     base = uids.long()[step] * planes                      # (H,)
     out = torch.zeros(nu * planes, LANES, dtype=val.dtype, device=w.device)
@@ -110,7 +115,7 @@ def slab_spmv_blk_ref(uids, win, lane, sub, val, hm1, idx, sig, x_table,
                       nb: int, m: int, planes: int, T: int = 128):
     """Plain version of ``slab_spmv_blk``."""
     h = lane.shape[0]
-    w = _run_totals(win, lane, sub, val, hm1, x_table, m)
+    w = _totals(val * _gather(win, lane, sub, x_table, m), hm1)
     step = torch.arange(h, device=w.device) // T
     base = uids.long()[step] * planes                      # (H,)
     s = sig[:, 0].long()

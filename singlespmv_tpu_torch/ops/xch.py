@@ -1,0 +1,151 @@
+"""XCH kernels: the wrappers of ``csrc/xch.cu`` and their plain PyTorch
+versions.
+
+``xch_mul`` (pass 1) and ``xch_route4`` (pass 2) take the arguments of their
+Pallas counterparts in ``singlespmv_tpu/ops/pallas/xch.py`` (:48 and :151)
+and return the same arrays.  On a CUDA tensor a wrapper launches its kernel,
+or raises; on a CPU tensor it runs the plain version (``xch_mul_ref``,
+``xch_route4_ref``), which the tests hold against the Pallas kernels and
+``chip_smoke.py`` holds against the kernels on the card.
+
+Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+
+Pass 2 reads the products that pass 1 wrote on the same stream, so the
+caller needs no synchronisation between the two.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .slab import LANES, _check, _gather, _picked, _ptr, _raise_on, _totals
+
+M_MAX = 120        # window blocks: int8 sub headroom (formats/xch.M_MAX)
+P_OH_MAX = 64      # one-hot rows per step: the kernel's shared accumulator
+
+
+def _device(t):
+    dev = t.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"xch kernels run on cuda (or cpu: plain version), "
+                         f"not {dev.type}")
+    return dev
+
+
+def _check_rows(h, T, m, dev, win, lane, sub):
+    if T < 1 or h % T:
+        raise ValueError(f"stream rows {h} are not a multiple of T={T}")
+    if not 1 <= m <= M_MAX:
+        raise ValueError(f"window of {m} blocks is outside [1, {M_MAX}]")
+    _check("win", win, torch.int32, (h,), dev)
+    for name, t in (("lane", lane), ("sub", sub)):
+        _check(name, t, torch.int8, (h, LANES), dev)
+
+
+def _stream(dev):
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+# ----------------------------------------------------- plain PyTorch versions
+
+def xch_mul_ref(win, lane, sub, val, x_table, m: int, T: int = 64):
+    """Plain version of ``xch_mul``."""
+    return val * _gather(win, lane, sub, x_table, m)
+
+
+def xch_route4_ref(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
+                   n_grp: int, gb: int, m: int, T: int = 64, p_oh: int = 16):
+    """Plain version of ``xch_route4``."""
+    h = lane.shape[0]
+    step = torch.arange(h, device=lane.device) // T
+    rows = cs.long()[step] * prod3.shape[1] + win.long()   # product rows
+    w = _totals(_gather(rows, lane, sub, prod3, m), hm1)
+    s = sig[:, 0].long()
+    base = gids.long()[step] * gb + off.long()[step] + s   # (H,)
+    n_out = n_grp * gb
+    out = torch.zeros(n_out, LANES, dtype=prod3.dtype, device=lane.device)
+    for j in range(idx.shape[0]):
+        keep = ((s + j >= 0) & (s + j < p_oh))[:, None]    # one-hot range
+        out.index_add_(0, (base + j).clamp(0, max(n_out - 1, 0)),
+                       torch.where(keep, _picked(w, idx[j]), 0.0))
+    return out
+
+
+# --------------------------------------------------------------- wrappers ---
+
+def xch_mul(win, lane, sub, val, x_table, m: int, T: int = 64):
+    """Pass 1 over one call chunk: products (H, 128) = val · x[window
+    gather], written linearly.
+
+    win:      (H,) int32 — x window base col-block per stream row.
+    lane/sub: (H, 128) int8; val: (H, 128) float32.
+    x_table:  (CB, 128) float32.
+    Returns (H, 128) float32."""
+    dev = _device(x_table)
+    h = lane.shape[0]
+    _check_rows(h, T, m, dev, win, lane, sub)
+    _check("val", val, torch.float32, (h, LANES), dev)
+    if x_table.dim() != 2 or x_table.shape[1] != LANES:
+        raise ValueError(f"x_table has shape {tuple(x_table.shape)}, "
+                         f"expected (CB, {LANES})")
+    _check("x_table", x_table, torch.float32, x_table.shape, dev)
+    if dev.type == "cpu":
+        return xch_mul_ref(win, lane, sub, val, x_table, m, T)
+    out = torch.empty(h, LANES, dtype=torch.float32, device=dev)  # all written
+    if h:
+        rc = _build.load().xch_mul_f32(
+            *map(_ptr, (win, lane, sub, val, x_table, out)), h, T, m,
+            _stream(dev))
+        _raise_on(rc, "xch_mul")
+        xch_mul.launches += 1
+    return out
+
+
+def xch_route4(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
+               n_grp: int, gb: int, m: int, T: int = 64, p_oh: int = 16):
+    """Pass 2 over one call chunk: returns (n_grp·gb, 128) float32 — out row
+    g·gb + i holds the i-th 128-row block of the call's compact group g.
+
+    gids: (n_steps,) int32 — call-local out group per step, non-decreasing.
+    off:  (n_steps,) int32 — step base block − gids·gb, off + p_oh ≤ gb.
+    cs:   (n_steps,) int32 — source chunk per step.
+    win:  (H,) int32 — chunk-local product-row window base.
+    lane/sub/hm1/sig: (H, 128) int8; sig is lane-replicated.
+    idx:  (kblk, H, 128) int8 — end lanes, −1 masked.
+    prod3: (n_chunks, P1, 128) float32 pass-1 products.
+    The Pallas kernel's ``msel`` (select width) is ``m`` here: its callers
+    pass the two equal."""
+    dev = _device(prod3)
+    h = lane.shape[0]
+    _check_rows(h, T, m, dev, win, lane, sub)
+    kblk = idx.shape[0] if idx.dim() == 3 else 0
+    if kblk < 1 or not 1 <= p_oh <= P_OH_MAX or gb < 1 or n_grp < 0:
+        raise ValueError(f"route takes kblk ≥ 1, p_oh in [1, {P_OH_MAX}], "
+                         f"gb ≥ 1; not {kblk}, {p_oh}, {gb}")
+    for name, t in (("hm1", hm1), ("sig", sig)):
+        _check(name, t, torch.int8, (h, LANES), dev)
+    _check("idx", idx, torch.int8, (kblk, h, LANES), dev)
+    for name, t in (("gids", gids), ("off", off), ("cs", cs)):
+        _check(name, t, torch.int32, (h // T,), dev)
+    if prod3.dim() != 3 or prod3.shape[2] != LANES or prod3.shape[1] < 1:
+        raise ValueError(f"prod3 has shape {tuple(prod3.shape)}, "
+                         f"expected (n_chunks, P1, {LANES})")
+    _check("prod3", prod3, torch.float32, prod3.shape, dev)
+    if dev.type == "cpu":
+        return xch_route4_ref(gids, off, cs, win, lane, sub, hm1, sig, idx,
+                              prod3, n_grp, gb, m, T, p_oh)
+    out = torch.zeros(n_grp * gb, LANES, dtype=torch.float32, device=dev)
+    if h:
+        rc = _build.load().xch_route4_f32(
+            *map(_ptr, (gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
+                        out)),
+            h, T, m, kblk, p_oh, n_grp, gb, prod3.shape[1], _stream(dev))
+        _raise_on(rc, "xch_route4")
+        xch_route4.launches += 1
+    return out
+
+
+xch_mul.launches = 0
+xch_route4.launches = 0

@@ -1,0 +1,164 @@
+"""Port xch CUDA kernels on the card: ``xch_mul`` and ``xch_route4`` against
+their plain versions, and the xch spmv against the float64 oracle, over
+kblk 1/8/16/32, m2 1/8/24, t2 32 to 256, several kernel calls per pass, and
+a nested long-row state.
+
+Needs an NVIDIA GPU and skips without one.  This file imports no jax, so it
+runs where only the port is installed:
+
+    python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda_xch.py
+
+Kernel and plain version agree to 1e-5·max|out|: the route kernel sums row
+prefixes by warp shuffles and accumulates with atomics in run-dependent
+order.
+"""
+import numpy as np
+import pytest
+import torch
+
+from singlespmv_tpu_torch import Config
+from singlespmv_tpu_torch.core import COOMatrix, verify_result
+from singlespmv_tpu_torch.formats import xch
+from singlespmv_tpu_torch.ops import _build
+from singlespmv_tpu_torch.ops import xch as ops
+
+pytestmark = pytest.mark.cuda
+
+F32 = Config(format="xch", dtype="float32")
+TOL = 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _scatter(n, nnz, seed, long_rows=0):
+    """Diagonal, local and scattered entries, plus ``long_rows`` rows of
+    degree ~2000 that the planner splits into a nested state."""
+    rng = np.random.default_rng(seed)
+    r = rng.integers(0, n, nnz)
+    c = np.where(rng.random(nnz) < 0.4,
+                 np.clip(r + rng.integers(-50, 50, nnz), 0, n - 1),
+                 rng.integers(0, n, nnz))
+    rows = np.concatenate([np.arange(n), r,
+                           np.repeat(rng.choice(n, long_rows, replace=False),
+                                     2000)])
+    cols = np.concatenate([np.arange(n), c,
+                           rng.integers(0, n, 2000 * long_rows)])
+    return COOMatrix.from_triplets(n, n, rows, cols,
+                                   rng.uniform(0.1, 1.0, len(rows)),
+                                   sort=True, sum_duplicates=True)
+
+
+def _state(coo, **fix):
+    return xch.convert(coo, F32, plan=xch.estimate(coo, F32) | fix)
+
+
+def _close(got, want):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.is_cuda
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= TOL * scale
+
+
+def _kernels_vs_plain(st, x):
+    """Every pass-1 and pass-2 call of the state (and of its nested state)
+    through the kernel and its plain version."""
+    xt = xch.x_table(st, x)
+    for w, la, su, va in zip(st.win1, st.lane1, st.sub1, st.val1):
+        before = ops.xch_mul.launches
+        got = ops.xch_mul(w, la, su, va, xt, st.m1, st.t1)
+        assert ops.xch_mul.launches == before + 1
+        _close(got, ops.xch_mul_ref(w, la, su, va, xt, st.m1, st.t1))
+    prod3 = xch.products(st, xt)
+    for *a, ng in zip(st.gids2, st.off2, st.cs2, st.win2, st.lane2, st.sub2,
+                      st.hm2, st.sig2, st.idx2, st.chunk_ngrp):
+        g = (prod3, ng, st.gb, st.m2, st.t2, st.p_oh)
+        before = ops.xch_route4.launches
+        got = ops.xch_route4(*a, *g)
+        assert ops.xch_route4.launches == before + 1
+        _close(got, ops.xch_route4_ref(*a, *g))
+    if st.long is not None:
+        _kernels_vs_plain(st.long, x)
+
+
+def _verify(coo, st, device, seed=3):
+    x = np.random.default_rng(seed).uniform(-1, 1, coo.n_col).astype(
+        np.float32)
+    xd = torch.from_numpy(x).to(device)
+    _kernels_vs_plain(st, xd)
+    y = xch.spmv(st, xd).cpu().numpy()
+    ok, det = verify_result(coo, x, y, dtype=np.float32)
+    assert ok, det
+
+
+ROUTES = [
+    # kblk, m2, t2, p_oh
+    (1, 1, 32, 8),
+    (8, 8, 64, 16),
+    (16, 24, 128, 32),
+    (32, 8, 256, 64),
+    (8, 24, 256, 40),
+]
+
+
+@pytest.mark.parametrize("kblk,m2,t2,p_oh", ROUTES)
+def test_kernels_match_plain_and_oracle(cuda, kblk, m2, t2, p_oh):
+    coo = _scatter(40000, 200000, seed=kblk)
+    st = _state(coo, kblk=kblk, kblk_fix=True, m2_fix=m2, t2_fix=t2,
+                p_oh_fix=p_oh)
+    assert (st.kblk, st.m2, st.t2, st.p_oh) == (kblk, m2, t2, p_oh)
+    _verify(coo, st.to(cuda), cuda)
+
+
+@pytest.mark.parametrize("m1,t1", [(1, 64), (16, 128)])
+def test_pass1_windows(cuda, m1, t1):
+    coo = _scatter(30000, 150000, seed=m1)
+    st = _state(coo, m1_fix=m1, t1_fix=t1, k_slots=128 * 64)
+    assert (st.m1, st.t1) == (m1, t1) and st.n_chunks > 2
+    _verify(coo, st.to(cuda), cuda)
+
+
+def test_several_calls_per_pass(cuda, monkeypatch):
+    coo = _scatter(60000, 300000, seed=6)
+    monkeypatch.setattr(xch, "CHUNK_ROWS", 8 * 64)
+    monkeypatch.setattr(xch, "PASS1_CALL_ROWS", 512)
+    st = xch.convert(coo, F32)
+    assert len(st.win1) > 2 and len(st.gids2) > 1
+    _verify(coo, st.to(cuda), cuda)
+
+
+def test_nested_long_state(cuda):
+    coo = _scatter(20000, 60000, seed=11, long_rows=8)
+    st = xch.convert(coo, F32)
+    assert st.long is not None and st.long.kblk == 1
+    moved = st.to(cuda)
+    assert moved.long.val1[0].is_cuda and moved.long_rows.is_cuda
+    _verify(coo, moved, cuda)
+
+
+def test_default_plan_and_empty(cuda):
+    coo = _scatter(100000, 400000, seed=9)
+    _verify(coo, xch.convert(coo, F32).to(cuda), cuda)
+    empty = xch.convert(COOMatrix.from_triplets(64, 64, [], [], [],
+                                                sort=True), F32).to(cuda)
+    y = xch.spmv(empty, torch.ones(64, device=cuda))
+    assert y.is_cuda and not y.any()
+
+
+def test_launchers_refuse_bad_ranges(cuda):
+    lib = _build.load()
+    null = [None] * 11
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    # H T m kblk p_oh n_grp gb p1
+    assert lib.xch_route4_f32(*null, 64, 64, 8, 4, 65, 1, 1024, 64,
+                              stream) != 0            # p_oh past 64
+    assert lib.xch_route4_f32(*null, 64, 64, 8, 0, 8, 1, 1024, 64,
+                              stream) != 0            # kblk 0
+    assert lib.xch_route4_f32(*null, 64, 32, 121, 4, 8, 1, 1024, 64,
+                              stream) != 0            # window past int8
+    assert lib.xch_mul_f32(*null[:6], 96, 64, 8, stream) != 0   # H % T
+    assert lib.xch_mul_f32(*null[:6], 0, 64, 8, stream) == 0    # nothing

@@ -256,10 +256,13 @@ def test_other_dtypes_name_the_roadmap(dtype):
 
 
 def test_registry():
-    assert formats.available_formats() == ["slab"]
+    from singlespmv_tpu_torch.formats import xch
+
+    assert formats.available_formats() == ["slab", "xch"]
     assert formats.spmv_fn(F32) is slab.spmv
+    assert formats.spmv_fn(F32.replace(format="xch")) is xch.spmv
     with pytest.raises(KeyError):
-        formats.get_format("xch")
+        formats.get_format("hyb")
 
 
 def test_port_never_imports_jax():
