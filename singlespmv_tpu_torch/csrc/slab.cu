@@ -1,10 +1,15 @@
 // Slab SpMV kernels for Hopper (sm_90a), bound through a plain C interface
 // (ops/_build.py loads this file with ctypes, ops/slab.py calls it).
 //
-//   slab_unit_kernel replaces _slab_kernel, the kernel of slab_spmv
+//   slab_unit_kernel<float> replaces _slab_kernel, the kernel of slab_spmv
 //     (singlespmv_tpu/ops/pallas/slab.py:102 and :263);
+//   slab_unit_kernel<double> replaces _slab_df_kernel, the kernel of
+//     slab_spmv_df (singlespmv_tpu/ops/pallas/slab.py:381 and :463): the same
+//     function at native fp64, where the TPU carried (hi, lo) float planes
+//     through Dekker products and compensated sums;
 //   slab_blk_kernel replaces _slab_blk_kernel, the kernel of slab_spmv_blk
-//     (singlespmv_tpu/ops/pallas/slab.py:140 and :310).
+//     (singlespmv_tpu/ops/pallas/slab.py:140 and :310); float only, as the
+//     reference's float64 plans are unit mode only.
 //
 // Per stream row r of 128 slots l, in grid step t = r / T, both compute
 //   gather   g[l] = x[(win[r] + sub[r,l]) * 128 + lane[r,l]]  (sub unread if m == 1)
@@ -27,13 +32,16 @@
 // atomics, since rows of one block may end runs of the same y row, then go
 // to the out block with one global atomicAdd per nonzero entry, since one out
 // block takes the rows of many blocks.  The wrapper zeroes `out`.  The atomics make the order of the
-// float32 sums, and so their rounding, vary from run to run.
+// sums, and so their rounding, vary from run to run.  At double the shared
+// buffers are 16 KB (accumulator) + 8 KB (row buffers), under the 48 KB
+// static limit.
 //
-// Bound.  Per slot the kernel streams 4 B of val, 2 B of int8 (lane, hm1) or
-// 3 B when m > 1 (sub), and idx: up to `planes` B in unit mode (only the
-// planes in [sg0, sg1] are read), kblk B in blk mode; x is gathered from L2.
-// That makes it a streaming kernel bound by device memory bandwidth.  This
-// first version aims to be right: no TMA, no wgmma, no software pipelining.
+// Bound.  Per slot the kernel streams 4 B of val (8 B at double), 2 B of
+// int8 (lane, hm1) or 3 B when m > 1 (sub), and idx: up to `planes` B in
+// unit mode (only the planes in [sg0, sg1] are read), kblk B in blk mode; x
+// is gathered from L2.  That makes it a streaming kernel bound by device
+// memory bandwidth.  This first version aims to be right: no TMA, no wgmma,
+// no software pipelining.
 
 #include "stream_row.cuh"
 
@@ -44,33 +52,32 @@ constexpr int kMaxBlkPlanes = 32;
 
 // Gather, multiply and run totals of stream row r for the calling warp.
 // On return w[0..127] holds W of the row, visible to the whole warp.
+template <typename V>
 __device__ __forceinline__ void row_totals(
     int r, int m, const int32_t* __restrict__ win,
     const int8_t* __restrict__ lane, const int8_t* __restrict__ sub,
-    const float* __restrict__ val, const int8_t* __restrict__ hm1,
-    const float* __restrict__ x, float* w) {
-  const float4 v = *reinterpret_cast<const float4*>(
-      val + (size_t)r * kLanes + 4 * (threadIdx.x & 31));
-  const float4 g = gather4(r, m, win, lane, sub, x);
-  run_totals(r, make_float4(v.x * g.x, v.y * g.y, v.z * g.z, v.w * g.w),
-             hm1, w);
+    const V* __restrict__ val, const int8_t* __restrict__ hm1,
+    const V* __restrict__ x, V* w) {
+  const V4<V> v = load4(val + (size_t)r * kLanes + 4 * (threadIdx.x & 31));
+  run_totals(r, mul4(v, gather4(r, m, win, lane, sub, x)), hm1, w);
 }
 
+template <typename V>
 __global__ void __launch_bounds__(kThreads) slab_unit_kernel(
     const int32_t* __restrict__ uids, const int32_t* __restrict__ sg0,
     const int32_t* __restrict__ sg1, const int32_t* __restrict__ win,
     const int8_t* __restrict__ lane, const int8_t* __restrict__ sub,
-    const float* __restrict__ val, const int8_t* __restrict__ hm1,
-    const int8_t* __restrict__ idx, const float* __restrict__ x,
-    float* __restrict__ out, int H, int T, int rpb, int m, int planes) {
-  __shared__ float acc[kMaxUnitPlanes * kLanes];
-  __shared__ __align__(16) float wbuf[kWarps][kLanes];
+    const V* __restrict__ val, const int8_t* __restrict__ hm1,
+    const int8_t* __restrict__ idx, const V* __restrict__ x,
+    V* __restrict__ out, int H, int T, int rpb, int m, int planes) {
+  __shared__ V acc[kMaxUnitPlanes * kLanes];
+  __shared__ __align__(16) V wbuf[kWarps][kLanes];
   const int warp = threadIdx.x >> 5, k = threadIdx.x & 31;
   const int r0 = blockIdx.x * rpb;
   const int t = r0 / T;
   const int lo = max(sg0[t], 0), hi = min(sg1[t], planes - 1);
   if (lo > hi) return;  // the step routes nothing; uniform over the block
-  for (int i = threadIdx.x; i < planes * kLanes; i += kThreads) acc[i] = 0.f;
+  for (int i = threadIdx.x; i < planes * kLanes; i += kThreads) acc[i] = V(0);
   __syncthreads();
   for (int r = r0 + warp; r < r0 + rpb; r += kWarps) {
     row_totals(r, m, win, lane, sub, val, hm1, x, wbuf[warp]);
@@ -110,11 +117,30 @@ __global__ void __launch_bounds__(kThreads) slab_blk_kernel(
   flush(acc, 0, planes - 1, out + (size_t)uids[t] * planes * kLanes);
 }
 
+template <typename V>
+int launch_unit(const void* uids, const void* sg0, const void* sg1,
+                const void* win, const void* lane, const void* sub,
+                const void* val, const void* hm1, const void* idx,
+                const void* x, void* out, int H, int T, int m, int planes,
+                void* stream) {
+  if (planes < 1 || planes > kMaxUnitPlanes || T < 1 || H % T)
+    return (int)cudaErrorInvalidValue;
+  if (H == 0) return 0;
+  const int rpb = rows_per_block(T);
+  slab_unit_kernel<V><<<H / rpb, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)uids, (const int32_t*)sg0, (const int32_t*)sg1,
+      (const int32_t*)win, (const int8_t*)lane, (const int8_t*)sub,
+      (const V*)val, (const int8_t*)hm1, (const int8_t*)idx, (const V*)x,
+      (V*)out, H, T, rpb, m, planes);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Each entry launches one kernel on `stream` and returns cudaGetLastError().
 // Pointers are device pointers to contiguous arrays in the layout of
-// ops/slab.py; `out` must be zeroed, of (nu * planes, 128) float32.
+// ops/slab.py; `out` must be zeroed, of (nu * planes, 128) values of the
+// entry's type (float32 for *_f32, float64 for *_f64), as val and x are.
 
 extern "C" int slab_spmv_f32(const void* uids, const void* sg0,
                              const void* sg1, const void* win,
@@ -122,16 +148,18 @@ extern "C" int slab_spmv_f32(const void* uids, const void* sg0,
                              const void* val, const void* hm1,
                              const void* idx, const void* x, void* out,
                              int H, int T, int m, int planes, void* stream) {
-  if (planes < 1 || planes > kMaxUnitPlanes || T < 1 || H % T)
-    return (int)cudaErrorInvalidValue;
-  if (H == 0) return 0;
-  const int rpb = rows_per_block(T);
-  slab_unit_kernel<<<H / rpb, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)uids, (const int32_t*)sg0, (const int32_t*)sg1,
-      (const int32_t*)win, (const int8_t*)lane, (const int8_t*)sub,
-      (const float*)val, (const int8_t*)hm1, (const int8_t*)idx,
-      (const float*)x, (float*)out, H, T, rpb, m, planes);
-  return (int)cudaGetLastError();
+  return launch_unit<float>(uids, sg0, sg1, win, lane, sub, val, hm1, idx, x,
+                            out, H, T, m, planes, stream);
+}
+
+extern "C" int slab_spmv_f64(const void* uids, const void* sg0,
+                             const void* sg1, const void* win,
+                             const void* lane, const void* sub,
+                             const void* val, const void* hm1,
+                             const void* idx, const void* x, void* out,
+                             int H, int T, int m, int planes, void* stream) {
+  return launch_unit<double>(uids, sg0, sg1, win, lane, sub, val, hm1, idx,
+                             x, out, H, T, m, planes, stream);
 }
 
 extern "C" int slab_spmv_blk_f32(const void* uids, const void* win,

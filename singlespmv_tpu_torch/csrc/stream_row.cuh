@@ -1,9 +1,10 @@
 // Stream-row machinery shared by the slab kernels (slab.cu) and the xch
-// kernels (xch.cu).
+// kernels (xch.cu), for value type V = float or double.
 //
 // A stream row holds 128 slots.  A warp owns a whole row: lane k of the warp
-// holds slots 4k..4k+3, so every stream load is one 4-byte (int8 x4) or
-// 16-byte (float x4) access.  Per row:
+// holds slots 4k..4k+3, so every stream load is one 4-byte (int8 x4) access
+// and, for values, one 16-byte (float x4) or two 16-byte (double x2) ones.
+// Per row:
 //   gather   g[l] = x[(win[r] + sub[r,l]) * 128 + lane[r,l]]  (sub unread if
 //            m == 1): the TPU's window copy plus m-way one-hot select become
 //            one indexed load, served from L2 for the tables of the main path;
@@ -13,6 +14,9 @@
 //            shuffle scan, in place of the TPU's triangle matmul;
 //   route    an end-lane e of plane j adds W[e] into a shared accumulator row
 //            (route4), which a block then adds into global memory (flush).
+// At double the same code runs on native fp64: fp64 shuffles and atomicAdd
+// on double in shared and global memory, where the TPU needed (hi, lo) float
+// planes and compensated sums.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,16 +29,66 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr unsigned kFull = 0xffffffffu;
 
+// Four consecutive values of a stream row, held by one lane: float4 in
+// float, a plain struct of four in double.
+struct Double4 {
+  double x, y, z, w;
+};
+
+template <typename V>
+struct Vec4Of;
+
+template <>
+struct Vec4Of<float> {
+  using type = float4;
+};
+
+template <>
+struct Vec4Of<double> {
+  using type = Double4;
+};
+
+template <typename V>
+using V4 = typename Vec4Of<V>::type;
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ Double4 load4(const double* p) {
+  const double2 a = reinterpret_cast<const double2*>(p)[0];
+  const double2 b = reinterpret_cast<const double2*>(p)[1];
+  return {a.x, a.y, b.x, b.y};
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ void store4(double* p, Double4 v) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(v.x, v.y);
+  reinterpret_cast<double2*>(p)[1] = make_double2(v.z, v.w);
+}
+
+__device__ __forceinline__ float4 mul4(float4 a, float4 b) {
+  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+}
+
+__device__ __forceinline__ Double4 mul4(Double4 a, Double4 b) {
+  return {a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w};
+}
+
 // The four gathered values of stream row r held by the calling lane.
-__device__ __forceinline__ float4 gather4(int r, int m,
-                                          const int32_t* __restrict__ win,
-                                          const int8_t* __restrict__ lane,
-                                          const int8_t* __restrict__ sub,
-                                          const float* __restrict__ x) {
+template <typename V>
+__device__ __forceinline__ V4<V> gather4(int r, int m,
+                                         const int32_t* __restrict__ win,
+                                         const int8_t* __restrict__ lane,
+                                         const int8_t* __restrict__ sub,
+                                         const V* __restrict__ x) {
   const int k = threadIdx.x & 31;
   const size_t off = (size_t)r * kLanes + 4 * k;
   const char4 ln = *reinterpret_cast<const char4*>(lane + off);
-  const float* xw = x + (size_t)win[r] * kLanes;
+  const V* xw = x + (size_t)win[r] * kLanes;
   int c0 = ln.x, c1 = ln.y, c2 = ln.z, c3 = ln.w;
   if (m > 1) {
     const char4 sb = *reinterpret_cast<const char4*>(sub + off);
@@ -43,45 +97,46 @@ __device__ __forceinline__ float4 gather4(int r, int m,
     c2 += sb.z * kLanes;
     c3 += sb.w * kLanes;
   }
-  return make_float4(__ldg(xw + c0), __ldg(xw + c1), __ldg(xw + c2),
-                     __ldg(xw + c3));
+  return {__ldg(xw + c0), __ldg(xw + c1), __ldg(xw + c2), __ldg(xw + c3)};
 }
 
 // Run totals of stream row r from the calling lane's four values a.  On
 // return w[0..127] holds W of the row, visible to the whole warp.
-__device__ __forceinline__ void run_totals(int r, float4 a,
+template <typename V>
+__device__ __forceinline__ void run_totals(int r, V4<V> a,
                                            const int8_t* __restrict__ hm1,
-                                           float* w) {
+                                           V* w) {
   const int k = threadIdx.x & 31;
   const char4 hd =
       *reinterpret_cast<const char4*>(hm1 + (size_t)r * kLanes + 4 * k);
-  const float a1 = a.x + a.y;
-  const float a2 = a1 + a.z;
-  const float a3 = a2 + a.w;
-  float incl = a3;
+  const V a1 = a.x + a.y;
+  const V a2 = a1 + a.z;
+  const V a3 = a2 + a.w;
+  V incl = a3;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const float up = __shfl_up_sync(kFull, incl, d);
+    const V up = __shfl_up_sync(kFull, incl, d);
     if (k >= d) incl += up;
   }
-  float excl = __shfl_up_sync(kFull, incl, 1);
-  if (k == 0) excl = 0.f;
-  const float4 p = make_float4(excl + a.x, excl + a1, excl + a2, excl + a3);
+  V excl = __shfl_up_sync(kFull, incl, 1);
+  if (k == 0) excl = V(0);
+  const V4<V> p = {excl + a.x, excl + a1, excl + a2, excl + a3};
   __syncwarp();  // the previous row's route has finished reading w
-  reinterpret_cast<float4*>(w)[k] = p;
+  store4(w + 4 * k, p);
   __syncwarp();
-  const float4 tot = make_float4(p.x - (hd.x >= 0 ? w[hd.x] : 0.f),
-                                 p.y - (hd.y >= 0 ? w[hd.y] : 0.f),
-                                 p.z - (hd.z >= 0 ? w[hd.z] : 0.f),
-                                 p.w - (hd.w >= 0 ? w[hd.w] : 0.f));
+  const V4<V> tot = {p.x - (hd.x >= 0 ? w[hd.x] : V(0)),
+                     p.y - (hd.y >= 0 ? w[hd.y] : V(0)),
+                     p.z - (hd.z >= 0 ? w[hd.z] : V(0)),
+                     p.w - (hd.w >= 0 ? w[hd.w] : V(0))};
   __syncwarp();
-  reinterpret_cast<float4*>(w)[k] = tot;
+  store4(w + 4 * k, tot);
   __syncwarp();
 }
 
 // acc[4k + i] += w[e_i] for the four end-lanes e of lane k (e < 0: none).
+template <typename V>
 __device__ __forceinline__ void route4(const int8_t* __restrict__ e4,
-                                       const float* w, float* acc_row) {
+                                       const V* w, V* acc_row) {
   const char4 e = *reinterpret_cast<const char4*>(e4);
   if (e.x >= 0) atomicAdd(acc_row + 0, w[e.x]);
   if (e.y >= 0) atomicAdd(acc_row + 1, w[e.y]);
@@ -90,12 +145,13 @@ __device__ __forceinline__ void route4(const int8_t* __restrict__ e4,
 }
 
 // Adds the nonzero entries of acc[lo*128, (hi+1)*128) into out_block.
-__device__ __forceinline__ void flush(const float* acc, int lo, int hi,
-                                      float* __restrict__ out_block) {
+template <typename V>
+__device__ __forceinline__ void flush(const V* acc, int lo, int hi,
+                                      V* __restrict__ out_block) {
   for (int i = lo * kLanes + threadIdx.x; i < (hi + 1) * kLanes;
        i += kThreads) {
-    const float v = acc[i];
-    if (v != 0.f) atomicAdd(out_block + i, v);
+    const V v = acc[i];
+    if (v != V(0)) atomicAdd(out_block + i, v);
   }
 }
 

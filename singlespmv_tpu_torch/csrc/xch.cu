@@ -2,10 +2,16 @@
 // interface (ops/_build.py builds this file with ctypes, ops/xch.py calls
 // it).
 //
-//   xch_mul_kernel replaces _xch_mul_kernel, the kernel of xch_mul
+//   xch_mul_kernel<float> replaces _xch_mul_kernel, the kernel of xch_mul
 //     (singlespmv_tpu/ops/pallas/xch.py:41 and :48);
-//   xch_route4_kernel replaces _xch_route4_kernel, the kernel of xch_route4
-//     (singlespmv_tpu/ops/pallas/xch.py:78 and :151).
+//   xch_route4_kernel<float> replaces _xch_route4_kernel, the kernel of
+//     xch_route4 (singlespmv_tpu/ops/pallas/xch.py:78 and :151);
+//   xch_mul_kernel<double> and xch_route4_kernel<double> replace
+//     _xch_mul_df_kernel and _xch_route4_df_kernel, the kernels of xch_mul_df
+//     and xch_route4_df (singlespmv_tpu/ops/pallas/xch.py:463, :495 and :524,
+//     :594): the same functions at native fp64, where the TPU carried (hi, lo)
+//     float planes through Dekker products and a compensated per-(plane, row)
+//     route.
 //
 // Pass 1, per stream row r of 128 slots l:
 //   out[r,l] = val[r,l] * x[(win[r] + sub[r,l]) * 128 + lane[r,l]]
@@ -25,18 +31,25 @@
 // accumulating with atomics computes the same function.  A block of 8 warps
 // takes `rpb` rows of one step (rpb divides T), so it shares gids[t], off[t]
 // and cs[t]; it collects routed totals in a (p_oh, 128) shared accumulator
-// (32 KB at p_oh 64, plus the 4 KB row buffer: under the 48 KB static
-// limit) and adds the nonzero entries of the rows its stream rows can reach
-// to the out block with global atomics.  The order of the float32 sums, and
-// so their rounding, varies from run to run.
+// and adds the nonzero entries of the rows its stream rows can reach to the
+// out block with global atomics.  The order of the sums, and so their
+// rounding, varies from run to run.  The per-warp row buffers are static
+// shared memory (4 KB in float, 8 KB in double).  The accumulator takes
+// p_oh * 128 values: in float a static array of the largest p_oh, 32 KB; in
+// double 64 KB at p_oh 64, past the 48 KB static limit, so there it is
+// dynamic shared memory sized by p_oh at launch, and the launcher raises the
+// kernel's dynamic shared-memory cap once.  The two stay separate arrays
+// declared in the kernel: carved out of one dynamic array they cost the
+// float route 4-10% (the compiler, no longer sure that the atomics into the
+// accumulator leave the row buffer alone, unrolled the route loop less).
 //
-// Bound.  Pass 1 streams 4 B of val and 1 B of lane per slot (2 B when
-// m > 1) and writes 4 B of product; x is gathered from L2.  Pass 2 streams
-// 3 B of lane, hm1, sig (4 B when m > 1) and kblk B of idx per slot, and
-// gathers the products, which pass 1 has just written and which stay in L2
-// (50 MB) unless the product stream is larger.  Both are streaming kernels
-// bound by device memory bandwidth.  This first version aims to be right:
-// no TMA, no wgmma, no software pipelining.
+// Bound.  Pass 1 streams 4 B of val (8 B at double) and 1 B of lane per slot
+// (2 B when m > 1) and writes 4 B (8 B) of product; x is gathered from L2.
+// Pass 2 streams 3 B of lane, hm1, sig (4 B when m > 1) and kblk B of idx
+// per slot, and gathers the products, which pass 1 has just written and
+// which stay in L2 (50 MB) unless the product stream is larger.  Both are
+// streaming kernels bound by device memory bandwidth.  This first version
+// aims to be right: no TMA, no wgmma, no software pipelining.
 
 #include "stream_row.cuh"
 
@@ -45,29 +58,42 @@ namespace {
 constexpr int kMaxWindow = 120;  // the planner's M_MAX: int8 sub headroom
 constexpr int kMaxPoh = 64;      // the planner's largest one-hot width
 
+template <typename V>
 __global__ void __launch_bounds__(kThreads) xch_mul_kernel(
     const int32_t* __restrict__ win, const int8_t* __restrict__ lane,
-    const int8_t* __restrict__ sub, const float* __restrict__ val,
-    const float* __restrict__ x, float* __restrict__ out, int H, int m) {
+    const int8_t* __restrict__ sub, const V* __restrict__ val,
+    const V* __restrict__ x, V* __restrict__ out, int H, int m) {
   const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (r >= H) return;
   const size_t off = (size_t)r * kLanes + 4 * (threadIdx.x & 31);
-  const float4 g = gather4(r, m, win, lane, sub, x);
-  const float4 v = *reinterpret_cast<const float4*>(val + off);
-  *reinterpret_cast<float4*>(out + off) =
-      make_float4(v.x * g.x, v.y * g.y, v.z * g.z, v.w * g.w);
+  store4(out + off, mul4(load4(val + off), gather4(r, m, win, lane, sub, x)));
 }
 
+// Dynamic shared memory of the route kernel: none in float, the (p_oh, 128)
+// accumulator in double.
+template <typename V>
+size_t route_smem_bytes(int p_oh) {
+  return sizeof(V) == sizeof(float) ? 0 : (size_t)p_oh * kLanes * sizeof(V);
+}
+
+template <typename V>
 __global__ void __launch_bounds__(kThreads) xch_route4_kernel(
     const int32_t* __restrict__ gids, const int32_t* __restrict__ off,
     const int32_t* __restrict__ cs, const int32_t* __restrict__ win,
     const int8_t* __restrict__ lane, const int8_t* __restrict__ sub,
     const int8_t* __restrict__ hm1, const int8_t* __restrict__ sig,
-    const int8_t* __restrict__ idx, const float* __restrict__ prod,
-    float* __restrict__ out, int H, int T, int rpb, int m, int kblk,
+    const int8_t* __restrict__ idx, const V* __restrict__ prod,
+    V* __restrict__ out, int H, int T, int rpb, int m, int kblk,
     int p_oh, int gb, int p1, long long n_out) {
-  __shared__ float acc[kMaxPoh * kLanes];
-  __shared__ __align__(16) float wbuf[kWarps][kLanes];
+  __shared__ __align__(16) V wbuf[kWarps][kLanes];
+  V* acc;
+  if constexpr (sizeof(V) == sizeof(float)) {
+    __shared__ float acc_f[kMaxPoh * kLanes];
+    acc = acc_f;
+  } else {
+    extern __shared__ double acc_d[];
+    acc = acc_d;
+  }
   __shared__ int row_lo, row_hi;
   const int warp = threadIdx.x >> 5, k = threadIdx.x & 31;
   const int r0 = blockIdx.x * rpb;
@@ -88,9 +114,9 @@ __global__ void __launch_bounds__(kThreads) xch_route4_kernel(
   if (lo > hi) return;  // the block routes nothing; uniform over the block
   for (int i = lo * kLanes + threadIdx.x; i < (hi + 1) * kLanes;
        i += kThreads)
-    acc[i] = 0.f;
+    acc[i] = V(0);
   __syncthreads();
-  const float* x = prod + (size_t)cs[t] * p1 * kLanes;
+  const V* x = prod + (size_t)cs[t] * p1 * kLanes;
   for (int r = r0 + warp; r < r0 + rpb; r += kWarps) {
     run_totals(r, gather4(r, m, win, lane, sub, x), hm1, wbuf[warp]);
     const int s = sig[(size_t)r * kLanes];
@@ -106,28 +132,79 @@ __global__ void __launch_bounds__(kThreads) xch_route4_kernel(
   if (base >= 0 && last >= lo) flush(acc, lo, last, out + base * kLanes);
 }
 
+// Lets the route kernel take the dynamic shared memory of the largest p_oh
+// (once; double only); returns cudaGetLastError().
+template <typename V>
+int raise_route_smem() {
+  static bool raised = false;
+  if (!raised && route_smem_bytes<V>(kMaxPoh) > 0) {
+    cudaFuncSetAttribute(xch_route4_kernel<V>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)route_smem_bytes<V>(kMaxPoh));
+    raised = true;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename V>
+int launch_mul(const void* win, const void* lane, const void* sub,
+               const void* val, const void* x, void* out, int H, int T,
+               int m, void* stream) {
+  if (m < 1 || m > kMaxWindow || T < 1 || H < 0 || H % T)
+    return (int)cudaErrorInvalidValue;
+  if (H == 0) return 0;
+  xch_mul_kernel<V><<<(H + kWarps - 1) / kWarps, kThreads, 0,
+                      (cudaStream_t)stream>>>(
+      (const int32_t*)win, (const int8_t*)lane, (const int8_t*)sub,
+      (const V*)val, (const V*)x, (V*)out, H, m);
+  return (int)cudaGetLastError();
+}
+
+template <typename V>
+int launch_route4(const void* gids, const void* off, const void* cs,
+                  const void* win, const void* lane, const void* sub,
+                  const void* hm1, const void* sig, const void* idx,
+                  const void* prod, void* out, int H, int T, int m, int kblk,
+                  int p_oh, int n_grp, int gb, int p1, void* stream) {
+  if (m < 1 || m > kMaxWindow || kblk < 1 || p_oh < 1 || p_oh > kMaxPoh ||
+      T < 1 || H < 0 || H % T || n_grp < 0 || gb < 1 || p1 < 1)
+    return (int)cudaErrorInvalidValue;
+  if (H == 0) return 0;
+  const int rc = raise_route_smem<V>();
+  if (rc) return rc;
+  const int rpb = rows_per_block(T);
+  xch_route4_kernel<V><<<H / rpb, kThreads, route_smem_bytes<V>(p_oh),
+                         (cudaStream_t)stream>>>(
+      (const int32_t*)gids, (const int32_t*)off, (const int32_t*)cs,
+      (const int32_t*)win, (const int8_t*)lane, (const int8_t*)sub,
+      (const int8_t*)hm1, (const int8_t*)sig, (const int8_t*)idx,
+      (const V*)prod, (V*)out, H, T, rpb, m, kblk, p_oh, gb, p1,
+      (long long)n_grp * gb);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Each entry launches one kernel on `stream` and returns cudaGetLastError().
 // Pointers are device pointers to contiguous arrays in the layout of
-// ops/xch.py.
+// ops/xch.py, of the entry's value type (float32 for *_f32, float64 for
+// *_f64).
 
-// `out` (H, 128) float32 is written in full.
+// `out` (H, 128) is written in full.
 extern "C" int xch_mul_f32(const void* win, const void* lane, const void* sub,
                            const void* val, const void* x, void* out, int H,
                            int T, int m, void* stream) {
-  if (m < 1 || m > kMaxWindow || T < 1 || H < 0 || H % T)
-    return (int)cudaErrorInvalidValue;
-  if (H == 0) return 0;
-  xch_mul_kernel<<<(H + kWarps - 1) / kWarps, kThreads, 0,
-                   (cudaStream_t)stream>>>(
-      (const int32_t*)win, (const int8_t*)lane, (const int8_t*)sub,
-      (const float*)val, (const float*)x, (float*)out, H, m);
-  return (int)cudaGetLastError();
+  return launch_mul<float>(win, lane, sub, val, x, out, H, T, m, stream);
 }
 
-// `out` must be zeroed, of (n_grp * gb, 128) float32; `prod` is the
-// (n_chunks, p1, 128) float32 product grid of pass 1.
+extern "C" int xch_mul_f64(const void* win, const void* lane, const void* sub,
+                           const void* val, const void* x, void* out, int H,
+                           int T, int m, void* stream) {
+  return launch_mul<double>(win, lane, sub, val, x, out, H, T, m, stream);
+}
+
+// `out` must be zeroed, of (n_grp * gb, 128); `prod` is the
+// (n_chunks, p1, 128) product grid of pass 1.
 extern "C" int xch_route4_f32(const void* gids, const void* off,
                               const void* cs, const void* win,
                               const void* lane, const void* sub,
@@ -135,16 +212,19 @@ extern "C" int xch_route4_f32(const void* gids, const void* off,
                               const void* idx, const void* prod, void* out,
                               int H, int T, int m, int kblk, int p_oh,
                               int n_grp, int gb, int p1, void* stream) {
-  if (m < 1 || m > kMaxWindow || kblk < 1 || p_oh < 1 || p_oh > kMaxPoh ||
-      T < 1 || H < 0 || H % T || n_grp < 0 || gb < 1 || p1 < 1)
-    return (int)cudaErrorInvalidValue;
-  if (H == 0) return 0;
-  const int rpb = rows_per_block(T);
-  xch_route4_kernel<<<H / rpb, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)gids, (const int32_t*)off, (const int32_t*)cs,
-      (const int32_t*)win, (const int8_t*)lane, (const int8_t*)sub,
-      (const int8_t*)hm1, (const int8_t*)sig, (const int8_t*)idx,
-      (const float*)prod, (float*)out, H, T, rpb, m, kblk, p_oh, gb, p1,
-      (long long)n_grp * gb);
-  return (int)cudaGetLastError();
+  return launch_route4<float>(gids, off, cs, win, lane, sub, hm1, sig, idx,
+                              prod, out, H, T, m, kblk, p_oh, n_grp, gb, p1,
+                              stream);
+}
+
+extern "C" int xch_route4_f64(const void* gids, const void* off,
+                              const void* cs, const void* win,
+                              const void* lane, const void* sub,
+                              const void* hm1, const void* sig,
+                              const void* idx, const void* prod, void* out,
+                              int H, int T, int m, int kblk, int p_oh,
+                              int n_grp, int gb, int p1, void* stream) {
+  return launch_route4<double>(gids, off, cs, win, lane, sub, hm1, sig, idx,
+                               prod, out, H, T, m, kblk, p_oh, n_grp, gb, p1,
+                               stream);
 }

@@ -1,4 +1,5 @@
-"""Format registry of the port: ``slab`` and ``xch`` so far."""
+"""Format registry of the port: ``dia``, ``hyb``, ``slab`` and ``xch`` so
+far."""
 from __future__ import annotations
 
 from .base import (available_formats, convert, get_format, report_fields,
@@ -12,9 +13,11 @@ def _ensure_loaded():
     if _LOADED:
         return
     _LOADED = True
-    from . import slab, xch
+    from . import dia, hyb, slab, xch
     from .base import register_format
 
+    register_format("dia", dia)
+    register_format("hyb", hyb)
     register_format("slab", slab)
     register_format("xch", xch)
 

@@ -10,7 +10,8 @@ Every format is a module registered by name that exposes
     to_coo(state) -> COOMatrix                        # inverse conversion
 
 States are frozen dataclasses of torch tensors (``TensorState``); ``convert``
-returns them on the CPU and ``state.to(device)`` moves them.
+returns them on the CPU and ``state.to(device)`` moves them.  Values are
+float32 or float64 (``check_dtype``).
 """
 from __future__ import annotations
 
@@ -24,6 +25,17 @@ from singlespmv_tpu.config import Config
 from singlespmv_tpu.core.types import COOMatrix
 
 _REGISTRY: Dict[str, Any] = {}
+VALUE_DTYPES = ("float32", "float64")
+
+
+def check_dtype(fmt: str, dtype) -> None:
+    """Refuses a value type the port has no kernels for; ``dtype`` is a
+    config string or a torch dtype."""
+    name = str(dtype).replace("torch.", "")
+    if name not in VALUE_DTYPES:
+        raise NotImplementedError(
+            f"{fmt}: float32 and float64 are ported to the GPU, {name} is "
+            "not (ROADMAP A.10)")
 
 
 def register_format(name: str, module) -> None:

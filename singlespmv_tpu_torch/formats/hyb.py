@@ -1,0 +1,175 @@
+"""HYB — dense-diagonal peel plus a scattered residual, as in
+``singlespmv_tpu/formats/hyb.py``.
+
+Every diagonal offset whose nonzero count clears the reference's cost-model
+threshold is peeled into a DIA table (``formats/dia.py``); the rest of the
+matrix rides the cheapest scattered engine.  ``plan_peel``,
+``_diag_histogram`` and ``_split`` are copies of the reference's (it imports
+``jax.numpy`` through its dia module, so it cannot be imported here), and one
+COO gives the same peel and residual in both packages.
+
+The residual engines are the port's own, ``slab`` and ``xch``, ranked with
+the rules the reference's ``auto.estimate_costs`` applies to them
+(``_rest_costs``): slab is skipped on the hyper-sparse class, each engine
+costs its planner's ``est_s``, and at float64 xch's cost is ×7 while slab's
+is not scaled.  The reference also ranks bkt, bkt_g, bsr and css, which the
+port has not ported yet (ROADMAP A.6, A.12); where it picks one of those the
+port takes the cheaper of slab and xch.
+
+Values are float32 or float64 (``base.check_dtype``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from singlespmv_tpu.config import Config
+from singlespmv_tpu.core.types import COOMatrix, round_up
+
+from . import dia as dia_mod
+from . import slab as slab_mod
+from . import xch as xch_mod
+from .base import TensorState, check_dtype
+
+# the reference's cost-model constants (TPU v5e, measured there)
+HBM_BPS = 700e9          # streamed bytes/s achieved
+DIA_BYTES_PER_SLOT = 8   # diag element + x element (f32)
+RESID_SEC_PER_NNZ = 0.5e-9   # scattered-path marginal cost
+MAX_PEEL_ELEMENTS = 1 << 28  # respect dia's density guard (1 GiB of f32)
+
+REST_MODULES = {"slab": slab_mod, "xch": xch_mod}
+
+
+def _diag_histogram(coo: COOMatrix):
+    """Offset histogram of col-row; returns (offsets, counts) sorted by count
+    descending."""
+    if not coo.nnz:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    offs = coo.col.astype(np.int64) - coo.row.astype(np.int64)
+    uniq, counts = np.unique(offs, return_counts=True)
+    order = np.argsort(-counts, kind="stable")
+    return uniq[order], counts[order]
+
+
+def plan_peel(coo: COOMatrix, cfg: Config):
+    """Greedy diagonal selection: peel offsets (densest first) while the DIA
+    stream cost of one more diagonal is below the scattered-path cost of its
+    nnz, within dia's memory guard.  Returns (peel_offsets, peel_nnz)."""
+    uniq, counts = _diag_histogram(coo)
+    n_row_pad = round_up(max(coo.n_row, 1), cfg.lane_width)
+    dia_sec_per_diag = n_row_pad * DIA_BYTES_PER_SLOT / HBM_BPS
+    max_diags = max(0, int(MAX_PEEL_ELEMENTS // max(n_row_pad, 1)))
+    gain = counts * RESID_SEC_PER_NNZ
+    keep = gain > dia_sec_per_diag
+    n_keep = min(int(keep.sum()), max_diags)
+    return uniq[:n_keep], int(counts[:n_keep].sum())
+
+
+def _split(coo: COOMatrix, peel_offs: np.ndarray, cfg: Config):
+    offs = coo.col.astype(np.int64) - coo.row.astype(np.int64)
+    on_diag = np.isin(offs, peel_offs)
+    dia_coo = COOMatrix.from_triplets(
+        coo.n_row, coo.n_col, coo.row[on_diag], coo.col[on_diag],
+        coo.val[on_diag], index_bits=cfg.index_bits, sort=True)
+    rest_coo = COOMatrix.from_triplets(
+        coo.n_row, coo.n_col, coo.row[~on_diag], coo.col[~on_diag],
+        coo.val[~on_diag], index_bits=cfg.index_bits, sort=True)
+    return dia_coo, rest_coo
+
+
+def _rest_costs(rest: COOMatrix, cfg: Config) -> dict:
+    """{engine: (seconds, plan)} for the residual, cheapest first, by the
+    reference's ``auto.estimate_costs`` rules for slab and xch
+    (``singlespmv_tpu/formats/auto.py:120,165-189,275-282``)."""
+    hyper_sparse = rest.nnz / max(rest.n_row, 1) < 12 \
+        and rest.n_row >= 500_000
+    costs = {}
+    if not hyper_sparse:
+        plan = slab_mod.estimate(rest, cfg)
+        if plan["feasible"]:
+            costs["slab"] = (plan["est_s"], plan)
+    plan = xch_mod.estimate(rest, cfg)
+    if plan["feasible"]:
+        scale = 7.0 if cfg.dtype == "float64" else 1.0
+        costs["xch"] = (plan["est_s"] * scale, plan)
+    return dict(sorted(costs.items(), key=lambda kv: kv[1][0]))
+
+
+@dataclasses.dataclass(frozen=True)
+class HYBState(TensorState):
+    n_row: int
+    n_col: int
+    nnz: int
+    rest_fmt: str                  # "" when the residual is empty
+    peel_nnz: int
+    dia_state: dia_mod.DIAState
+    rest_state: Optional[TensorState]   # slab or xch state, or None
+
+
+def convert(coo: COOMatrix, cfg: Config) -> HYBState:
+    """Peel and residual on the host; tensors come back on the CPU."""
+    check_dtype("hyb", cfg.dtype)
+    peel_offs, peel_nnz = plan_peel(coo, cfg)
+    if peel_offs.size == 0 and coo.nnz:
+        # stay valid on any input: peel the densest offset so the DIA part
+        # is never empty
+        uniq, counts = _diag_histogram(coo)
+        peel_offs, peel_nnz = uniq[:1], int(counts[0])
+    dia_coo, rest_coo = _split(coo, peel_offs, cfg)
+    dia_state = dia_mod.convert(dia_coo, cfg)
+    if rest_coo.nnz == 0:
+        return HYBState(n_row=coo.n_row, n_col=coo.n_col, nnz=coo.nnz,
+                        rest_fmt="", peel_nnz=peel_nnz,
+                        dia_state=dia_state, rest_state=None)
+    last_err = None
+    for name, (_, plan) in _rest_costs(rest_coo, cfg).items():
+        try:
+            rest_state = REST_MODULES[name].convert(rest_coo, cfg, plan=plan)
+            return HYBState(n_row=coo.n_row, n_col=coo.n_col, nnz=coo.nnz,
+                            rest_fmt=name, peel_nnz=peel_nnz,
+                            dia_state=dia_state, rest_state=rest_state)
+        except (ValueError, TypeError) as e:
+            last_err = e
+    raise last_err if last_err else ValueError("hyb: no viable residual "
+                                               "format")
+
+
+def spmv(state: HYBState, x: torch.Tensor) -> torch.Tensor:
+    y = dia_mod.spmv(state.dia_state, x)
+    if state.rest_fmt:
+        y = y + REST_MODULES[state.rest_fmt].spmv(state.rest_state, x)
+    return y
+
+
+def report_fields(state: HYBState, cfg: Config) -> dict:
+    out = {"PeelDiags": state.dia_state.n_diag, "PeelNnz": state.peel_nnz,
+           "RestFormat": (state.rest_fmt or "none").upper(),
+           "RestNnz": state.nnz - state.peel_nnz}
+    if state.rest_fmt:
+        out.update({f"Rest{k}": v for k, v in REST_MODULES[
+            state.rest_fmt].report_fields(state.rest_state, cfg).items()})
+    return out
+
+
+def traffic_bytes(state: HYBState, cfg: Config) -> int:
+    total = dia_mod.traffic_bytes(state.dia_state, cfg)
+    if state.rest_fmt:
+        total += int(REST_MODULES[state.rest_fmt].traffic_bytes(
+            state.rest_state, cfg))
+    return total
+
+
+def to_coo(state: HYBState) -> COOMatrix:
+    dia_coo = dia_mod.to_coo(state.dia_state)
+    if not state.rest_fmt:
+        return dia_coo
+    rest = REST_MODULES[state.rest_fmt].to_coo(state.rest_state)
+    return COOMatrix.from_triplets(
+        state.n_row, state.n_col,
+        np.concatenate([dia_coo.row, rest.row.astype(dia_coo.row.dtype)]),
+        np.concatenate([dia_coo.col, rest.col.astype(dia_coo.col.dtype)]),
+        np.concatenate([dia_coo.val, rest.val]),
+        sort=True, sum_duplicates=True)

@@ -19,8 +19,12 @@ per stream chunk (``ops/slab.py``), then assembles y — blk mode shift-adds
 the plane diagonals, unit mode overlap-adds the halves of pair blocks — and
 scatters by unit id.
 
-Only float32 is ported; float64 and bfloat16 raise ``NotImplementedError``
-(ROADMAP A.10).
+Values are float32 or float64; bfloat16 raises ``NotImplementedError``
+(ROADMAP A.10).  At float64 the planner takes the reference's float64
+branch, unit mode only and priced ×``DF_COST``, so one COO gives the same
+plan and arrays in both packages; the state holds ``val`` as float64 where
+the reference splits it into (hi, lo) float32 planes, and the unit kernel
+runs at native fp64.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ from singlespmv_tpu.core import hostmem as hm
 from singlespmv_tpu.core.types import COOMatrix, cdiv
 
 from ..ops.slab import slab_spmv, slab_spmv_blk
-from .base import TensorState
+from .base import TensorState, check_dtype
 
 LANES = 128
 UNIT_ROWS = 1024           # y rows per unit: 8 planes × 128 lanes
@@ -57,10 +61,8 @@ SEL_ENTRY_S = _cc.get("sel_entry_s")     # select entry cost, any m > 1
 BLK_ROUTE_S = _cc.get("blk_route_s")     # blk mode, per kblk plane
 BLK_FIXED_S = _cc.get("blk_fixed_s")     # blk mode, per-slot fixed route
 BLK_MXU_S = 0.0003e-9      # blk mode, per span plane
-
-FLOAT32_ONLY = ("slab: only float32 is ported to the GPU so far; float64 "
-                "and bfloat16 are ROADMAP A.10 (f64 as a native-fp64 build "
-                "of the same kernels)")
+DF_COST = 6.0   # the reference's df64 per-slot multiplier over float32, kept
+#                 in the float64 plan's price so both packages plan alike
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,7 +84,7 @@ class SlabState(TensorState):
     win: tuple             # (H_c,) int32 — window base per stream row
     lane: tuple            # (H_c, 128) int8
     sub: tuple             # (H_c, 128) int8
-    val: tuple             # (H_c, 128) float32
+    val: tuple             # (H_c, 128) float32 or float64
     hm1: tuple             # (H_c, 128) int8 — run head lane − 1
     idx: tuple             # (planes | kblk, H_c, 128) int8 — end-lanes, −1 masked
     unit_ids: torch.Tensor   # (n_units,) int32 — original unit/block ids
@@ -91,11 +93,6 @@ class SlabState(TensorState):
     sig: Optional[tuple] = None   # blk: (H_c, 128) int8 block offset per row
     sg0: Optional[tuple] = None   # unit: (n_steps_c,) int32 first active plane
     sg1: Optional[tuple] = None   # unit: (n_steps_c,) int32 last active plane
-
-
-def _check_dtype(dtype) -> None:
-    if dtype not in ("float32", torch.float32):
-        raise NotImplementedError(FLOAT32_ONLY)
 
 
 # ----------------------------------------------------------------- packing ---
@@ -370,9 +367,9 @@ SAMPLE_NNZ = 6_000_000      # estimate on a 1/s row-unit sample past this
 
 
 def estimate(coo: COOMatrix, cfg: Config) -> dict:
-    """The reference planner for float32.  Its float64 branch (unit mode
-    only, priced for the df64 kernel) is left out: the port's f64 will be a
-    native-fp64 build of the same kernels (ROADMAP A.10)."""
+    """The reference planner; float64 plans are unit mode only, priced
+    ×``DF_COST``."""
+    unit_only = cfg.dtype == "float64"
     if coo.nnz == 0 or coo.n_row == 0:
         return {"feasible": False, "est_s": 0.0, "slots": 0, "m": 1, "t": 32,
                 "hub_cols": None, "cols_eff": None, "hub_off": 0}
@@ -397,7 +394,7 @@ def estimate(coo: COOMatrix, cfg: Config) -> dict:
             return {"feasible": False, "est_s": float("inf"), "slots": 0,
                     "m": 1, "t": 32, "mode": "unit", "planes": 8, "kblk": 1}
         p = _estimate_cols(rows_e, cols_e, len(cols_e), extra_s=extra_s,
-                           mem_scale=s)
+                           mem_scale=s, unit_only=unit_only)
         if s > 1 and p["feasible"]:
             for q in (p,) + ((p["alt"],) if p.get("alt") else ()):
                 q["est_s"] = s * (q["est_s"] - extra_s) + extra_s
@@ -410,19 +407,26 @@ def estimate(coo: COOMatrix, cfg: Config) -> dict:
                             hub_off=0)
         return p
 
+    def _df_scale(pp):
+        if unit_only and pp.get("feasible"):
+            pp["est_s"] = pp["est_s"] * DF_COST
+            if pp.get("alt"):
+                pp["alt"]["est_s"] = pp["alt"]["est_s"] * DF_COST
+        return pp
+
     plan = _est(cols0)
     plan.update(hub_cols=None, cols_eff=None, hub_off=0)
     if plan["feasible"] and plan["slots"] <= 1.8 * coo.nnz:
-        return plan
+        return _df_scale(plan)
     degs = np.bincount(cols0, minlength=coo.n_col)
     hub_cols, cols_eff, off = _hub_relabel(cols0, degs, coo.n_col)
     if hub_cols is None:
-        return plan
+        return _df_scale(plan)
     plan2 = _est(cols_eff, extra_s=len(hub_cols) / HUB_GATHER_RATE)
     if plan2["feasible"] and plan2["est_s"] < plan["est_s"]:
         plan2.update(hub_cols=hub_cols, cols_eff=cols_eff, hub_off=off)
-        return plan2
-    return plan
+        return _df_scale(plan2)
+    return _df_scale(plan)
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
@@ -431,12 +435,12 @@ def _t(a: np.ndarray) -> torch.Tensor:
 
 def convert(coo: COOMatrix, cfg: Config, plan: dict = None) -> SlabState:
     """Build the slab layout on the host; tensors come back on the CPU."""
-    _check_dtype(cfg.dtype)
+    check_dtype("slab", cfg.dtype)
     if plan is None:
         plan = estimate(coo, cfg)
     if not plan["feasible"]:
         if coo.nnz == 0:
-            return _empty_state(coo)
+            return _empty_state(coo, cfg)
         raise ValueError("slab: padding/collision bounds exceeded "
                          f"(slots={plan['slots']}, nnz={coo.nnz})")
     if plan.get("sampled"):
@@ -459,6 +463,9 @@ def convert(coo: COOMatrix, cfg: Config, plan: dict = None) -> SlabState:
     mode, planes = plan["mode"], plan["planes"]
     kblk = plan.get("kblk", 1)
     dtype = cfg.np_dtype
+    if mode == "blk" and cfg.dtype == "float64":
+        raise ValueError("slab: float64 runs the unit route only, as in the "
+                         "reference; a blk plan was given")
 
     o = plan["order"]
     sizes, bases = plan["sizes"], plan["bases"]
@@ -619,7 +626,8 @@ def convert(coo: COOMatrix, cfg: Config, plan: dict = None) -> SlabState:
         sg1=tuple(s1_t) if sg0_s is not None else None)
 
 
-def _empty_state(coo):
+def _empty_state(coo, cfg):
+    vt = getattr(torch, cfg.dtype)
     z8 = torch.zeros((0, LANES), dtype=torch.int8)
     return SlabState(
         n_row=coo.n_row, n_col=coo.n_col, nnz=0, m=1, t_step=32, planes=8,
@@ -628,11 +636,11 @@ def _empty_state(coo):
         uids=(torch.zeros(0, dtype=torch.int32),),
         win=(torch.zeros(0, dtype=torch.int32),),
         lane=(z8,), sub=(z8,),
-        val=(torch.zeros((0, LANES), dtype=torch.float32),),
+        val=(torch.zeros((0, LANES), dtype=vt),),
         hm1=(z8,),
         idx=(torch.full((8, 0, LANES), -1, dtype=torch.int8),),
         unit_ids=torch.zeros(0, dtype=torch.int32),
-        lo_mask=torch.zeros((0, 1), dtype=torch.float32))
+        lo_mask=torch.zeros((0, 1), dtype=vt))
 
 
 _ARRAY_FIELDS = ("uids", "win", "lane", "sub", "val", "hm1", "idx", "sig",
@@ -644,9 +652,13 @@ def state_from_reference(arrays: dict) -> SlabState:
 
     ``arrays`` maps field names to numpy arrays (per-chunk tuples stay
     tuples) and scalars, as ``dataclasses.asdict`` of a reference state
-    moved to the host gives them.  float64 (df64) states are refused."""
+    moved to the host gives them.  A df64 state's (hi, lo) float32 value
+    planes (``val``, ``val_lo``) fold into float64 ``val = hi + lo``."""
+    arrays = dict(arrays)
     if arrays.get("val_lo") is not None:
-        raise NotImplementedError(FLOAT32_ONLY)
+        arrays["val"] = tuple(
+            np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
+            for hi, lo in zip(arrays["val"], arrays["val_lo"]))
     kw = {}
     for f in dataclasses.fields(SlabState):
         v = arrays.get(f.name)
@@ -657,7 +669,7 @@ def state_from_reference(arrays: dict) -> SlabState:
         kw[f.name] = v
     state = SlabState(**kw)
     for v in state.val:
-        _check_dtype(v.dtype)
+        check_dtype("slab", v.dtype)
     return state
 
 
@@ -676,7 +688,9 @@ def x_table(state: SlabState, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmv(state: SlabState, x: torch.Tensor) -> torch.Tensor:
-    _check_dtype(x.dtype)
+    if x.dtype != state.val[0].dtype:
+        raise TypeError(f"slab: x is {x.dtype}, the state holds "
+                        f"{state.val[0].dtype} values")
     n = state.n_row
     dev = x.device
     if state.nnz == 0 or state.n_units == 0:
@@ -801,14 +815,17 @@ def to_coo(state: SlabState) -> COOMatrix:
 
 def attainable_seconds(state: SlabState, cfg: Config) -> float:
     """The reference planner's step-cost model evaluated at the converted
-    state's own plan and slot count, plus x-table and y traffic.  Its
-    constants come from ``chipconst``, which holds no H100 measurement yet
-    (ROADMAP A.7), so this prices the plan, not the card."""
+    state's own plan and slot count, plus x-table and y traffic at the
+    state's value size.  Its constants come from ``chipconst``, which holds
+    no H100 measurement yet (ROADMAP A.7), so this prices the plan, not the
+    card.  float64 runs natively here: the reference's ×``DF_COST`` for its
+    df64 kernel is not applied."""
     if state.n_slots == 0:
         return 0.0
     kblk = state.idx[0].shape[0] if state.mode == "blk" else 1
     h = state.n_slots // LANES
     sec = _mode_cost(state.mode, state.planes, state.m, h, state.n_slots,
                      state.t_step, 0.0, kblk=kblk)
-    sec += (state.cb_pad * LANES + 2 * state.n_row) * 4 / _cc.get("hbm_bps")
+    sec += ((state.cb_pad * LANES + 2 * state.n_row)
+            * state.val[0].element_size() / _cc.get("hbm_bps"))
     return float(sec)

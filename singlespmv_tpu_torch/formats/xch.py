@@ -25,8 +25,11 @@ pass-1 call and one ``xch_route4`` per pass-2 call (``ops/xch.py``), places
 the visited out groups into y, adds the nested long-row state's y at
 ``long_rows`` and the peeled bands as shifted slices of x.
 
-Only float32 is ported; float64 (df64) and bfloat16 raise
-``NotImplementedError`` (ROADMAP A.10).
+Values are float32 or float64; bfloat16 raises ``NotImplementedError``
+(ROADMAP A.10).  The layout at float64 is the float32 layout, as in the
+reference; the state holds ``val1`` and ``dia_vals`` as float64 where the
+reference splits them into (hi, lo) float32 planes, and both kernels run at
+native fp64.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ from singlespmv_tpu.core import hostmem as hm
 from singlespmv_tpu.core.types import COOMatrix, cdiv
 
 from ..ops.xch import xch_mul, xch_route4
-from .base import TensorState
+from .base import TensorState, check_dtype
 from .slab import _t, _walk
 
 LANES = 128
@@ -61,15 +64,12 @@ SEL_ENTRY_S = 0.0157e-9                 # one-hot select entry cost (m > 1)
 SEL_SLOT_S = 0.002e-9                   # per window member per slot
 HBM_BPS = _cc.get("hbm_bps")
 
-FLOAT32_ONLY = ("xch: only float32 is ported to the GPU so far; float64 "
-                "(df64) and bfloat16 are ROADMAP A.10 (f64 as a native-fp64 "
-                "build of the same kernels)")
-
 
 @dataclasses.dataclass(frozen=True)
 class Xch4State(TensorState):
-    """The reference's ``Xch4State`` with torch tensors; its df64 planes
-    (``val1_lo``, ``dia_lo``) are left out with float64."""
+    """The reference's ``Xch4State`` with torch tensors; at float64 its
+    df64 lo planes (``val1_lo``, ``dia_lo``) are folded into ``val1`` and
+    ``dia_vals``."""
     n_row: int
     n_col: int
     nnz: int
@@ -91,7 +91,7 @@ class Xch4State(TensorState):
     win1: tuple              # (H1_c,) int32 — x window base col-block
     lane1: tuple             # (H1_c, 128) int8
     sub1: tuple              # (H1_c, 128) int8
-    val1: tuple              # (H1_c, 128) float32
+    val1: tuple              # (H1_c, 128) float32 or float64
     # pass 2 (per-call tuples)
     gids2: tuple             # (S_c,) int32 — call-local out group per step
     off2: tuple              # (S_c,) int32 — step base block − gid·gb
@@ -108,11 +108,6 @@ class Xch4State(TensorState):
     long_rows: Optional[torch.Tensor] = None  # (long_n,) int32 row ids
     dia_vals: Optional[torch.Tensor] = None   # (len(dia_offs), n_row)
     dia_offs: tuple = ()     # peeled high-fill diagonal offsets
-
-
-def _check_dtype(dtype) -> None:
-    if dtype not in ("float32", torch.float32):
-        raise NotImplementedError(FLOAT32_ONLY)
 
 
 # ---------------------------------------------------------------- planning ---
@@ -892,7 +887,7 @@ def estimate(coo: COOMatrix, cfg: Config) -> dict:
 
 def convert(coo: COOMatrix, cfg: Config, plan: dict = None) -> Xch4State:
     """Build the v4 layout on the host; tensors come back on the CPU."""
-    _check_dtype(cfg.dtype)
+    check_dtype("xch", cfg.dtype)
     if coo.nnz == 0 or coo.n_row == 0:
         return _empty_state4(coo, cfg)
     p = plan or estimate(coo, cfg)
@@ -914,10 +909,17 @@ def state_from_reference(arrays: dict) -> Xch4State:
 
     ``arrays`` maps field names to numpy arrays (per-call tuples stay
     tuples) and scalars, as ``dataclasses.asdict`` of a reference state
-    moved to the host gives them; ``long`` is such a dict in turn.  float64
-    (df64) states are refused."""
-    if arrays.get("val1_lo") is not None or arrays.get("dia_lo") is not None:
-        raise NotImplementedError(FLOAT32_ONLY)
+    moved to the host gives them; ``long`` is such a dict in turn.  A df64
+    state's (hi, lo) float32 planes fold into float64: ``val1 = val1 +
+    val1_lo`` and ``dia_vals = dia_vals + dia_lo``."""
+    arrays = dict(arrays)
+    if arrays.get("val1_lo") is not None:
+        arrays["val1"] = tuple(
+            np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
+            for hi, lo in zip(arrays["val1"], arrays["val1_lo"]))
+    if arrays.get("dia_lo") is not None:
+        arrays["dia_vals"] = (np.asarray(arrays["dia_vals"], np.float64)
+                              + np.asarray(arrays["dia_lo"], np.float64))
     kw = {}
     for f in dataclasses.fields(Xch4State):
         v = arrays.get(f.name)
@@ -930,7 +932,7 @@ def state_from_reference(arrays: dict) -> Xch4State:
         kw[f.name] = v
     state = Xch4State(**kw)
     for v in state.val1:
-        _check_dtype(v.dtype)
+        check_dtype("xch", v.dtype)
     return state
 
 
@@ -953,7 +955,9 @@ def products(state: Xch4State, xp: torch.Tensor) -> torch.Tensor:
 
 
 def spmv(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
-    _check_dtype(x.dtype)
+    if x.dtype != state.val1[0].dtype:
+        raise TypeError(f"xch: x is {x.dtype}, the state holds "
+                        f"{state.val1[0].dtype} values")
     n = state.n_row
     if state.n_slots1:
         prod3 = products(state, x_table(state, x))
@@ -1110,9 +1114,12 @@ def to_coo(state: Xch4State) -> COOMatrix:
 
 def attainable_seconds(state: Xch4State, cfg: Config) -> float:
     """The reference's fitted v4 rate model at the state's own (m1, m2,
-    kblk, p_oh, t) and padded slot counts.  Its rates and ``hbm_bps`` are
-    TPU v5e constants (``chipconst``), which hold no H100 measurement yet
-    (ROADMAP A.7), so this prices the plan, not the card."""
+    kblk, p_oh, t) and padded slot counts, with band and y traffic at the
+    state's value size.  Its rates and ``hbm_bps`` are TPU v5e constants
+    (``chipconst``), which hold no H100 measurement yet (ROADMAP A.7), so
+    this prices the plan, not the card.  float64 runs natively here: the
+    reference's ×7 for its df64 kernels is not applied."""
+    vsz = state.val1[0].element_size()
     sec = 0.0
     if state.n_slots1:
         sec += (state.n_slots1 * _r4_mul_slot_s(state.m1)
@@ -1121,9 +1128,9 @@ def attainable_seconds(state: Xch4State, cfg: Config) -> float:
                                                   state.p_oh)
                 + state.n_slots2 / LANES / max(state.t2, 1) * R4_FIXED_S)
     if state.dia_vals is not None:
-        sec += len(state.dia_offs) * state.n_row * 8.0 / HBM_BPS
+        sec += len(state.dia_offs) * state.n_row * 2.0 * vsz / HBM_BPS
     if state.long is not None:
         sec += attainable_seconds(state.long, cfg)
         sec += state.long_n * 7e-9          # final scatter-add
-    sec += 3 * state.n_row * 4.0 / HBM_BPS  # x pad + y grid assembly
+    sec += 3 * state.n_row * vsz / HBM_BPS  # x pad + y grid assembly
     return float(sec)

@@ -1,6 +1,7 @@
 """Benchmark report block: a copy of ``singlespmv_tpu/harness/report.py``'s
-``format_block``, ``FORMAT_NAMES`` and ``get_basename`` (that package's
-``harness/__init__`` imports jax, so it cannot be imported here).
+``format_block``, ``FORMAT_NAMES`` (with ``hyb`` added) and ``get_basename``
+(that package's ``harness/__init__`` imports jax, so it cannot be imported
+here).
 
 The block is ``%25s\\t%s`` key-value rows between a 40×'+' opener and a
 40×'-' closer, the reference benchmark's machine-readable output.
@@ -17,7 +18,7 @@ CLOSE = "-" * 40
 FORMAT_NAMES = {
     "csr": "CRS", "crs": "CRS", "coo": "COO", "ell": "ELL", "jds": "JDS",
     "dia": "DIA", "ss": "SS", "css": "CSS", "csr5": "CSR5", "dense": "DENSE",
-    "bcoo": "BCOO", "bsr": "BSR", "auto": "AUTO",
+    "bcoo": "BCOO", "bsr": "BSR", "auto": "AUTO", "hyb": "HYB",
 }
 
 

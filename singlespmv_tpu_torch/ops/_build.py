@@ -33,13 +33,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # uids sg0 sg1 win lane sub val hm1 idx x out | H T m planes | stream
     "slab_spmv_f32": [_P] * 11 + [_I] * 4 + [_P],
+    "slab_spmv_f64": [_P] * 11 + [_I] * 4 + [_P],
     # uids win lane sub val hm1 idx sig x out | H T m planes kblk | stream
     "slab_spmv_blk_f32": [_P] * 10 + [_I] * 5 + [_P],
     # win lane sub val x out | H T m | stream
     "xch_mul_f32": [_P] * 6 + [_I] * 3 + [_P],
+    "xch_mul_f64": [_P] * 6 + [_I] * 3 + [_P],
     # gids off cs win lane sub hm1 sig idx prod out
     # | H T m kblk p_oh n_grp gb p1 | stream
     "xch_route4_f32": [_P] * 11 + [_I] * 8 + [_P],
+    "xch_route4_f64": [_P] * 11 + [_I] * 8 + [_P],
 }
 
 

@@ -8,7 +8,15 @@ launches its kernel, or raises; on a CPU tensor it runs the plain version
 (``slab_spmv_ref``, ``slab_spmv_blk_ref``), which the tests hold against the
 Pallas kernels and ``chip_smoke.py`` holds against the kernels on the card.
 
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+The value type is float32 or float64, the same for val, the x table and the
+out blocks.  At float64 ``slab_spmv`` launches the native-fp64 build of the
+unit kernel, which stands for the df64 kernel ``slab_spmv_df`` (:463) of the
+reference; the block route is float32 only, as the reference's float64
+plans are unit mode only.
+
+Each wrapper counts the launches of its float32 kernel in
+``<wrapper>.launches`` and of its float64 kernel in
+``<wrapper>.launches_f64``.
 
 Out blocks that no grid step owns (``lo_mask`` of the format is 0 there) come
 back zero here, where the TPU leaves them unwritten.
@@ -22,6 +30,7 @@ import torch
 from . import _build
 
 LANES = 128
+VALUE_TYPES = (torch.float32, torch.float64)
 UNIT_PLANES = (8, 16)
 BLK_PLANES = (8, 16, 32)
 BLK_KBLK = (1, 2, 4)
@@ -41,8 +50,16 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} is not 16-byte aligned")
 
 
-def _check_stream(lane, val, hm1, sub, win, x_table, T):
-    """Checks shared by both kernels; returns (H, n_steps, device)."""
+def value_type(t, types=VALUE_TYPES):
+    """The value type of a kernel call, from one of its value tensors."""
+    if t.dtype not in types:
+        raise TypeError(f"the kernels take values of {types}, not {t.dtype}")
+    return t.dtype
+
+
+def _check_stream(lane, val, hm1, sub, win, x_table, T, types=VALUE_TYPES):
+    """Checks shared by both kernels; returns (H, n_steps, device, value
+    type)."""
     dev = x_table.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"slab kernels run on cuda (or cpu: plain version), "
@@ -50,16 +67,16 @@ def _check_stream(lane, val, hm1, sub, win, x_table, T):
     h = lane.shape[0]
     if T < 1 or h % T:
         raise ValueError(f"stream rows {h} are not a multiple of T={T}")
+    vt = value_type(val, types)
     for name, t, dt in (("lane", lane, torch.int8), ("sub", sub, torch.int8),
-                        ("hm1", hm1, torch.int8),
-                        ("val", val, torch.float32)):
+                        ("hm1", hm1, torch.int8), ("val", val, vt)):
         _check(name, t, dt, (h, LANES), dev)
     _check("win", win, torch.int32, (h,), dev)
     if x_table.dim() != 2 or x_table.shape[1] != LANES:
         raise ValueError(f"x_table has shape {tuple(x_table.shape)}, "
                          f"expected (CB, {LANES})")
-    _check("x_table", x_table, torch.float32, x_table.shape, dev)
-    return h, h // T, dev
+    _check("x_table", x_table, vt, x_table.shape, dev)
+    return h, h // T, dev, vt
 
 
 def _ptr(t):
@@ -70,6 +87,20 @@ def _raise_on(rc, name):
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "
                            f"cudaError {rc}")
+
+
+def _entry(name, vt):
+    """The C entry of kernel ``name`` for value type ``vt``."""
+    return getattr(_build.load(),
+                   f"{name}_{'f64' if vt == torch.float64 else 'f32'}")
+
+
+def _count(wrapper, vt):
+    """One more launch of ``wrapper``'s kernel for value type ``vt``."""
+    if vt == torch.float64:
+        wrapper.launches_f64 += 1
+    else:
+        wrapper.launches += 1
 
 
 # ----------------------------------------------------- plain PyTorch versions
@@ -137,12 +168,13 @@ def slab_spmv(uids, sg0, sg1, win, lane, sub, val, hm1, idx, x_table,
     uids:    (n_steps,) int32 — compact first unit per grid step.
     sg0/sg1: (n_steps,) int32 — first/last active σ plane per step.
     win:     (H,) int32 — window base col-block per stream row.
-    lane, sub, hm1: (H, 128) int8; val: (H, 128) float32.
+    lane, sub, hm1: (H, 128) int8; val: (H, 128) float32 or float64.
     idx:     (planes, H, 128) int8 — σ-plane end-lanes, −1 masked;
              planes 8 (one unit per block) or 16 (unit pairs).
-    x_table: (CB, 128) float32.
-    Returns (nu·planes, 128) float32."""
-    h, n_steps, dev = _check_stream(lane, val, hm1, sub, win, x_table, T)
+    x_table: (CB, 128) of val's type.
+    Returns (nu·planes, 128) of val's type."""
+    h, n_steps, dev, vt = _check_stream(lane, val, hm1, sub, win, x_table,
+                                        T)
     planes = idx.shape[0]
     if planes not in UNIT_PLANES:
         raise ValueError(f"unit route takes {UNIT_PLANES} planes, "
@@ -153,15 +185,15 @@ def slab_spmv(uids, sg0, sg1, win, lane, sub, val, hm1, idx, x_table,
     if dev.type == "cpu":
         return slab_spmv_ref(uids, sg0, sg1, win, lane, sub, val, hm1, idx,
                              x_table, nu, m, T)
-    out = torch.zeros(nu * planes, LANES, dtype=torch.float32, device=dev)
+    out = torch.zeros(nu * planes, LANES, dtype=vt, device=dev)
     if h:
-        rc = _build.load().slab_spmv_f32(
+        rc = _entry("slab_spmv", vt)(
             *map(_ptr, (uids, sg0, sg1, win, lane, sub, val, hm1, idx,
                         x_table, out)),
             h, T, m, planes,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
         _raise_on(rc, "slab_spmv")
-        slab_spmv.launches += 1
+        _count(slab_spmv, vt)
     return out
 
 
@@ -173,9 +205,11 @@ def slab_spmv_blk(uids, win, lane, sub, val, hm1, idx, sig, x_table,
     idx:  (kblk, H, 128) int8 — per group-block end-lanes, −1 masked.
     sig:  (H, 128) int8 — per stream row its block-slot offset from the
           step's first block slot, lane-replicated.
-    Other arguments as in ``slab_spmv``.  Returns (nb·planes, 128) float32:
-    out block f plane p sums the contributions to compact block slot f + p."""
-    h, n_steps, dev = _check_stream(lane, val, hm1, sub, win, x_table, T)
+    Other arguments as in ``slab_spmv``, at float32 only.  Returns
+    (nb·planes, 128) float32: out block f plane p sums the contributions to
+    compact block slot f + p."""
+    h, n_steps, dev, _ = _check_stream(lane, val, hm1, sub, win, x_table, T,
+                                       types=(torch.float32,))
     kblk = idx.shape[0]
     if planes not in BLK_PLANES or kblk not in BLK_KBLK or planes % kblk:
         raise ValueError(f"block route takes planes {BLK_PLANES} and kblk "
@@ -198,5 +232,5 @@ def slab_spmv_blk(uids, win, lane, sub, val, hm1, idx, sig, x_table,
     return out
 
 
-slab_spmv.launches = 0
+slab_spmv.launches = slab_spmv.launches_f64 = 0
 slab_spmv_blk.launches = 0

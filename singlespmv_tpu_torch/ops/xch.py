@@ -8,7 +8,14 @@ or raises; on a CPU tensor it runs the plain version (``xch_mul_ref``,
 ``xch_route4_ref``), which the tests hold against the Pallas kernels and
 ``chip_smoke.py`` holds against the kernels on the card.
 
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+The value type is float32 or float64, the same for val, the x table, the
+products and the out rows.  At float64 the wrappers launch the native-fp64
+builds of the kernels, which stand for the df64 kernels ``xch_mul_df`` (:495)
+and ``xch_route4_df`` (:594) of the reference.
+
+Each wrapper counts the launches of its float32 kernel in
+``<wrapper>.launches`` and of its float64 kernel in
+``<wrapper>.launches_f64``.
 
 Pass 2 reads the products that pass 1 wrote on the same stream, so the
 caller needs no synchronisation between the two.
@@ -20,7 +27,8 @@ import ctypes
 import torch
 
 from . import _build
-from .slab import LANES, _check, _gather, _picked, _ptr, _raise_on, _totals
+from .slab import (LANES, _check, _count, _entry, _gather, _picked, _ptr,
+                   _raise_on, _totals, value_type)
 
 M_MAX = 120        # window blocks: int8 sub headroom (formats/xch.M_MAX)
 P_OH_MAX = 64      # one-hot rows per step: the kernel's shared accumulator
@@ -80,33 +88,35 @@ def xch_mul(win, lane, sub, val, x_table, m: int, T: int = 64):
     gather], written linearly.
 
     win:      (H,) int32 — x window base col-block per stream row.
-    lane/sub: (H, 128) int8; val: (H, 128) float32.
-    x_table:  (CB, 128) float32.
-    Returns (H, 128) float32."""
+    lane/sub: (H, 128) int8; val: (H, 128) float32 or float64.
+    x_table:  (CB, 128) of val's type.
+    Returns (H, 128) of val's type."""
     dev = _device(x_table)
     h = lane.shape[0]
     _check_rows(h, T, m, dev, win, lane, sub)
-    _check("val", val, torch.float32, (h, LANES), dev)
+    vt = value_type(val)
+    _check("val", val, vt, (h, LANES), dev)
     if x_table.dim() != 2 or x_table.shape[1] != LANES:
         raise ValueError(f"x_table has shape {tuple(x_table.shape)}, "
                          f"expected (CB, {LANES})")
-    _check("x_table", x_table, torch.float32, x_table.shape, dev)
+    _check("x_table", x_table, vt, x_table.shape, dev)
     if dev.type == "cpu":
         return xch_mul_ref(win, lane, sub, val, x_table, m, T)
-    out = torch.empty(h, LANES, dtype=torch.float32, device=dev)  # all written
+    out = torch.empty(h, LANES, dtype=vt, device=dev)  # all written
     if h:
-        rc = _build.load().xch_mul_f32(
+        rc = _entry("xch_mul", vt)(
             *map(_ptr, (win, lane, sub, val, x_table, out)), h, T, m,
             _stream(dev))
         _raise_on(rc, "xch_mul")
-        xch_mul.launches += 1
+        _count(xch_mul, vt)
     return out
 
 
 def xch_route4(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
                n_grp: int, gb: int, m: int, T: int = 64, p_oh: int = 16):
-    """Pass 2 over one call chunk: returns (n_grp·gb, 128) float32 — out row
-    g·gb + i holds the i-th 128-row block of the call's compact group g.
+    """Pass 2 over one call chunk: returns (n_grp·gb, 128) of prod3's type —
+    out row g·gb + i holds the i-th 128-row block of the call's compact
+    group g.
 
     gids: (n_steps,) int32 — call-local out group per step, non-decreasing.
     off:  (n_steps,) int32 — step base block − gids·gb, off + p_oh ≤ gb.
@@ -114,7 +124,7 @@ def xch_route4(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
     win:  (H,) int32 — chunk-local product-row window base.
     lane/sub/hm1/sig: (H, 128) int8; sig is lane-replicated.
     idx:  (kblk, H, 128) int8 — end lanes, −1 masked.
-    prod3: (n_chunks, P1, 128) float32 pass-1 products.
+    prod3: (n_chunks, P1, 128) float32 or float64 pass-1 products.
     The Pallas kernel's ``msel`` (select width) is ``m`` here: its callers
     pass the two equal."""
     dev = _device(prod3)
@@ -132,20 +142,21 @@ def xch_route4(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
     if prod3.dim() != 3 or prod3.shape[2] != LANES or prod3.shape[1] < 1:
         raise ValueError(f"prod3 has shape {tuple(prod3.shape)}, "
                          f"expected (n_chunks, P1, {LANES})")
-    _check("prod3", prod3, torch.float32, prod3.shape, dev)
+    vt = value_type(prod3)
+    _check("prod3", prod3, vt, prod3.shape, dev)
     if dev.type == "cpu":
         return xch_route4_ref(gids, off, cs, win, lane, sub, hm1, sig, idx,
                               prod3, n_grp, gb, m, T, p_oh)
-    out = torch.zeros(n_grp * gb, LANES, dtype=torch.float32, device=dev)
+    out = torch.zeros(n_grp * gb, LANES, dtype=vt, device=dev)
     if h:
-        rc = _build.load().xch_route4_f32(
+        rc = _entry("xch_route4", vt)(
             *map(_ptr, (gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
                         out)),
             h, T, m, kblk, p_oh, n_grp, gb, prod3.shape[1], _stream(dev))
         _raise_on(rc, "xch_route4")
-        xch_route4.launches += 1
+        _count(xch_route4, vt)
     return out
 
 
-xch_mul.launches = 0
-xch_route4.launches = 0
+xch_mul.launches = xch_mul.launches_f64 = 0
+xch_route4.launches = xch_route4.launches_f64 = 0

@@ -243,26 +243,32 @@ def test_state_moves_between_devices():
 
 @pytest.mark.parametrize("dtype", ["float64", "bfloat16"])
 def test_other_dtypes_name_the_roadmap(dtype):
+    """float64 is ported (native fp64); bfloat16 still names ROADMAP A.10.
+    A state never takes an x of another value type."""
     coo = powerlaw(500, 3000, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        slab.convert(coo, F32.replace(dtype=dtype))
     st = slab.convert(coo, F32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        slab.spmv(st, torch.zeros(coo.n_col, dtype=torch.float64))
+    with pytest.raises(TypeError, match="float32 values"):
+        slab.spmv(st, torch.zeros(coo.n_col, dtype=getattr(torch, dtype)))
+    if dtype == "bfloat16":
+        with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
+            slab.convert(coo, F32.replace(dtype=dtype))
+        return
+    st64 = slab.convert(coo, F32.replace(dtype=dtype))
+    assert st64.mode == "unit" and st64.val[0].dtype == torch.float64
     df = ref_slab.convert(generate("band", 256, 4, seed=0),
                           F32.replace(dtype="float64"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        slab.state_from_reference(_reference_arrays(df))
+    carried = slab.state_from_reference(_reference_arrays(df))
+    assert carried.val[0].dtype == torch.float64
 
 
 def test_registry():
     from singlespmv_tpu_torch.formats import xch
 
-    assert formats.available_formats() == ["slab", "xch"]
+    assert formats.available_formats() == ["dia", "hyb", "slab", "xch"]
     assert formats.spmv_fn(F32) is slab.spmv
     assert formats.spmv_fn(F32.replace(format="xch")) is xch.spmv
     with pytest.raises(KeyError):
-        formats.get_format("hyb")
+        formats.get_format("csr")
 
 
 def test_port_never_imports_jax():

@@ -216,16 +216,21 @@ def test_state_moves_nested_state():
 
 @pytest.mark.parametrize("dtype", ["float64", "bfloat16"])
 def test_other_dtypes_name_the_roadmap(dtype):
+    """float64 is ported (native fp64); bfloat16 still names ROADMAP A.10.
+    A state never takes an x of another value type."""
     coo = generate("band", 512, 5, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        xch.convert(coo, F32.replace(dtype=dtype))
     st = xch.convert(coo, F32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
+    with pytest.raises(TypeError, match="float32 values"):
         xch.spmv(st, torch.zeros(coo.n_col, dtype=getattr(torch, dtype)))
-    if dtype == "float64":
-        df = ref_xch.convert(_mix(2000, 9000, 3), F32.replace(dtype=dtype))
+    if dtype == "bfloat16":
         with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-            xch.state_from_reference(_reference_arrays(df))
+            xch.convert(coo, F32.replace(dtype=dtype))
+        return
+    assert xch.convert(coo, F32.replace(dtype=dtype)).val1[0].dtype \
+        == torch.float64
+    df = ref_xch.convert(_mix(2000, 9000, 3), F32.replace(dtype=dtype))
+    carried = xch.state_from_reference(_reference_arrays(df))
+    assert carried.val1[0].dtype == torch.float64
 
 
 def test_v3_is_not_ported():

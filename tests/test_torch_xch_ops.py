@@ -198,5 +198,6 @@ def test_sources_digest_covers_headers(tmp_path):
     assert with_extra not in (base, edited)
     (csrc / "notes.txt").write_text("not a source")
     assert _build.sources_digest(str(csrc)) == with_extra
-    assert set(_build.SIGNATURES) == {"slab_spmv_f32", "slab_spmv_blk_f32",
-                                      "xch_mul_f32", "xch_route4_f32"}
+    assert set(_build.SIGNATURES) == {
+        "slab_spmv_f32", "slab_spmv_f64", "slab_spmv_blk_f32", "xch_mul_f32",
+        "xch_mul_f64", "xch_route4_f32", "xch_route4_f64"}
