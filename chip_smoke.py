@@ -34,14 +34,23 @@
 7. drives the auto path: ``run_benchmark`` with format="auto" in float32 on
    g7jac200sc, lhr34, twotone, mac_econ_fwd500, raefsky3 and thermomech_dK
    (bkt_g among the measured candidates), webbase-1M (the hyper-sparse
-   class) and Chebyshev4 (hyb), printing the three cheapest estimates, the
+   class) and Chebyshev4 (hyb), printing every engine's estimate, the
    measured trials, the chosen engine and every candidate auto skipped;
    fails on any skip that is not a guard error;
 8. drives the float64 paths: ``run_benchmark`` in float64 with
    format="slab" on torso1, "xch" on webbase-1M, "hyb" on Chebyshev4 and
    "auto" on g7jac200sc; each must pass Verify and agree with the float64
    COO oracle to 1e-12·max|y|, which a float32 computation would not;
-9. checks that each path launched each of its kernels: the launch counts are
+9. holds the scan kernels against their plain versions at full size:
+   ``segmented_scan_tiles`` on torso1's ss stream and webbase-1M's csr5
+   normal track, ``block_gather_scan`` on the css streams of thermomech_dK
+   and raefsky3, and the fp64 builds of both on g7jac200sc's ss and css
+   streams;
+10. drives the scan formats: ``run_benchmark`` in float32 with format="css"
+   on thermomech_dK and webbase-1M, "ss" on torso1 and "csr5" on torso1 and
+   webbase-1M, and in float64 with "css" and "ss" on g7jac200sc against the
+   oracle at 1e-12·max|y|; the auto phase prints css's and ss's estimates;
+11. checks that each path launched each of its kernels: the launch counts are
    set to 0 just before a path and read just after it.
 
 Each phase prints its seconds.
@@ -406,6 +415,10 @@ def compare_rest(label, state, slab, xch, ops, xops, x, tol):
         from singlespmv_tpu_torch.ops import bucket as bops
 
         return compare_bucket(label, state.rest_state, bkt, bops, x, tol)
+    if state.rest_fmt == "css":
+        from singlespmv_tpu_torch.formats import css
+
+        return compare_scan(label, state.rest_state, css, x, tol)
     return compare_xch(label, state.rest_state, xch, xops, x, tol)
 
 
@@ -471,6 +484,72 @@ def compare_bucket(label, state, bkt, bops, x, tol=TOL):
     res["spmv_busy_ms"] = _busy_ms(lambda: bkt.spmv(state, x))
     print(f"kernel {label}: {json.dumps(res)}", flush=True)
     return res
+
+
+def compare_scan(label, state, mod, x, tol=TOL):
+    """Phase 9 for one ss, csr5 or css state: its scan kernel against the
+    plain version on the stream its spmv scans, kernel and plain times, the
+    bound, and the whole spmv's time.  No one PyTorch call computes a
+    segmented scan, so there is no library time."""
+    from singlespmv_tpu_torch.ops import blockgather as gops
+    from singlespmv_tpu_torch.ops import segscan as sops
+
+    name = mod.__name__.rsplit(".", 1)[1]
+    if name == "css":
+        args = (state.block_ids, state.col, state.val, state.heads,
+                mod.x_table(state, x))
+        fn, ref = gops.block_gather_scan, gops.block_gather_scan_ref
+        kernel, match = "block_gather_scan", "block_gather_scan_kernel"
+        # bytes: tile ids, col, val, heads and the x table in, out once;
+        # operations: a multiply and an add per slot
+        nbytes, ops_per = _nbytes(*args) + _nbytes(state.val), 2
+    else:
+        prod = (mod.normal_products(state, x) if name == "csr5"
+                else mod.mul(state, x))
+        args = (prod, state.heads)
+        fn, ref = sops.segmented_scan_tiles, sops.segmented_scan_tiles_ref
+        kernel, match = "segmented_scan_tiles", "segscan_kernel"
+        nbytes, ops_per = _nbytes(prod, state.heads, prod), 1
+    got, want = fn(*args), ref(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / max(float(want.abs().max()), 1e-30)
+    h, w = state.heads.shape
+    del got, want
+    res = {
+        "label": label, "dtype": str(x.dtype),
+        "kernel": kernel + ("_f64" if x.dtype == torch.float64 else ""),
+        "stream": [h, w], "nnz": state.nnz,
+        "pad": round(h * w / max(state.nnz, 1), 3),
+        "max_abs_err": err, "rel_err": rel,
+        "ms": _busy_ms(lambda: fn(*args), match),
+        "plain_ms": _busy_ms(lambda: ref(*args)),
+        "call_ms": _cuda_ms(lambda: fn(*args)),
+        "spmv_ms": _cuda_ms(lambda: mod.spmv(state, x)),
+        "spmv_busy_ms": _busy_ms(lambda: mod.spmv(state, x)),
+        "library_ms": None,
+    } | _bound(nbytes, ops_per * h * w, x.dtype)
+    print(f"kernel {label}: {json.dumps(res)}", flush=True)
+    if not rel <= tol:
+        raise SystemExit(f"{label} {kernel}: kernel disagrees with its plain "
+                         f"version (max |diff| / max |out| = {rel:.3g} > "
+                         f"{tol})")
+    return res
+
+
+def print_scan_estimates(reports):
+    """Prints where auto priced css and ss on each stand-in; fails if ss,
+    priced on every matrix, is missing."""
+    for name, rep in reports.items():
+        est = dict(e.rsplit(" ", 1)
+                   for e in rep["AutoEstimates(us)"].split(", "))
+        ranked = list(est)
+        where = {k: (est[k], ranked.index(k) + 1) if k in est else None
+                 for k in ("css", "ss")}
+        print(f"auto {name} scan estimates (us, rank of {len(ranked)}): "
+              f"{where}", flush=True)
+        if where["ss"] is None:
+            raise SystemExit(f"{name}: auto did not price ss")
 
 
 def run_path(mats, cfg, run_benchmark, keys, dev, oracle=None,
@@ -548,10 +627,13 @@ def main() -> int:
     from singlespmv_tpu_torch import Config
     from singlespmv_tpu_torch.core import (create_random_vector,
                                            reference_spmv, verify_result)
-    from singlespmv_tpu_torch.formats import bkt, dia, hyb, slab, xch
+    from singlespmv_tpu_torch.formats import (bkt, csr5, css, dia, hyb, slab,
+                                              ss, xch)
     from singlespmv_tpu_torch.harness import run_benchmark
     from singlespmv_tpu_torch.ops import _build
+    from singlespmv_tpu_torch.ops import blockgather as gops
     from singlespmv_tpu_torch.ops import bucket as bops
+    from singlespmv_tpu_torch.ops import segscan as sops
     from singlespmv_tpu_torch.ops import slab as ops
     from singlespmv_tpu_torch.ops import xch as xops
 
@@ -639,10 +721,33 @@ def main() -> int:
             compared.append(compare_bucket(label, st, bkt, bops,
                                            x_of(mats[name])))
             del st
+    with Phase("scan kernels float32"):
+        for name, mod in (("torso1", ss), ("webbase-1M", csr5),
+                          ("thermomech_dK", css), ("raefsky3", css)):
+            fmt = mod.__name__.rsplit(".", 1)[1]
+            t0 = time.perf_counter()
+            st = mod.convert(mats[name], cfg.replace(format=fmt)).to(dev)
+            torch.cuda.synchronize()
+            print(f"{fmt} convert {name}: {time.perf_counter() - t0:.1f} s")
+            compared.append(compare_scan(f"{name} {fmt}", st, mod,
+                                         x_of(mats[name])))
+            del st
+    with Phase("scan kernels float64"):
+        for mod in (ss, css):
+            fmt = mod.__name__.rsplit(".", 1)[1]
+            st = mod.convert(g7, cfg64.replace(format=fmt)).to(dev)
+            if st.val.dtype != torch.float64:
+                raise SystemExit(f"g7jac200sc: float64 {fmt} state holds "
+                                 f"{st.val.dtype}")
+            compared.append(compare_scan(f"g7jac200sc {fmt}", st, mod,
+                                         x_of(g7, np.float64), F64_TOL))
+            del st
 
     slab_k, xch_k = (ops.slab_spmv, ops.slab_spmv_blk), (xops.xch_mul,
                                                          xops.xch_route4)
     bkt_k = tuple(getattr(bops, k) for k in BUCKET_KERNELS)
+    scan_k = (sops.segmented_scan_tiles, gops.block_gather_scan)
+    all_k = slab_k + xch_k + bkt_k + scan_k
     launches = {}
 
     def count_path(path, wrappers, need):
@@ -688,11 +793,11 @@ def main() -> int:
     hyb_keys = ("PeelDiags", "PeelNnz", "RestFormat", "RestNnz",
                 "RestPadFactor")
     with Phase("hyb path float32"):
-        _zero(*slab_k, *xch_k, *bkt_k)
+        _zero(*all_k)
         run_path({n: mats[n] for n in HYB_MATS},
                  run_cfg.replace(format="hyb"), run_benchmark, hyb_keys, dev,
-                 rest=("SLAB", "XCH", "BKT", "BKT_G"))
-        got = count_path("hyb float32", slab_k + xch_k + bkt_k, ())
+                 rest=("SLAB", "XCH", "BKT", "BKT_G", "CSS"))
+        got = count_path("hyb float32", all_k, ())
         if not sum(got.values()):
             raise SystemExit("hyb float32: no residual kernel launched")
 
@@ -727,16 +832,31 @@ def main() -> int:
                 ("SlotDepth", "GroupWidth", "ChainK", "PadFactor"), dev)
         count_path("bkt float32", bkt_k, BUCKET_KERNELS)
 
+    # --- 6b. the scan formats: css, ss and csr5 ---
+    scan_keys = {"css": ("N_BLOCK", "SEGMENT_WIDTH(byte)", "R_max"),
+                 "ss": ("SEGMENT_WIDTH(byte)", "R_max", "nStep"),
+                 "csr5": ("Sigma", "nFastTile", "nNormalTile", "R_max")}
+    for fmt, names, need in (
+            ("css", ("thermomech_dK", "webbase-1M"), "block_gather_scan"),
+            ("ss", ("torso1",), "segmented_scan_tiles"),
+            ("csr5", ("torso1", "webbase-1M"), "segmented_scan_tiles")):
+        with Phase(f"{fmt} path float32"):
+            _zero(*scan_k)
+            run_path({n: mats[n] for n in names}, run_cfg.replace(format=fmt),
+                     run_benchmark, scan_keys[fmt], dev)
+            count_path(f"{fmt} float32", scan_k, (need,))
+
     # --- 7. the auto path, with bkt_g among the measured candidates ---
     auto_keys = ("ChosenFormat", "AutoEstimates(us)", "AutoTrials(us)",
                  "AutoFailed", "AutoExcluded")
     auto_cfg = Config(format="auto", calibrate_seconds=0.4, n_trials=5)
     with Phase("auto path float32"):
-        _zero(*slab_k, *xch_k, *bkt_k)
+        _zero(*all_k)
         reps = run_path({n: mats[n] for n in AUTO_MATS}, auto_cfg,
                         run_benchmark, auto_keys, dev)
         check_auto(reps)
-        count_path("auto float32", slab_k + xch_k + bkt_k,
+        print_scan_estimates(reps)
+        count_path("auto float32", all_k,
                    ("block_gather_mul", "bucket_reduce_grouped",
                     "lane_unpermute"))
 
@@ -744,21 +864,27 @@ def main() -> int:
     oracle = {"x": lambda coo: create_random_vector(coo.n_col),
               "spmv": reference_spmv}
     run64 = run_cfg.replace(dtype="float64")
-    for fmt, name, keys, wrappers, need in (
-            ("slab", "torso1", ("PadFactor", "RoutePlanes"), slab_k,
+    for fmt, name, keys, need in (
+            ("slab", "torso1", ("PadFactor", "RoutePlanes"),
              ("slab_spmv_f64",)),
             ("xch", "webbase-1M", ("KBlk", "POh", "PeelOffs", "LongRows"),
-             xch_k, ("xch_mul_f64", "xch_route4_f64")),
-            ("hyb", "Chebyshev4", hyb_keys, slab_k + xch_k, ()),
-            ("auto", "g7jac200sc", auto_keys, slab_k + xch_k + bkt_k, ())):
+             ("xch_mul_f64", "xch_route4_f64")),
+            ("hyb", "Chebyshev4", hyb_keys, ()),
+            ("auto", "g7jac200sc", auto_keys, ()),
+            ("css", "g7jac200sc", scan_keys["css"],
+             ("block_gather_scan_f64",)),
+            ("ss", "g7jac200sc", scan_keys["ss"],
+             ("segmented_scan_tiles_f64",))):
         with Phase(f"{fmt} path float64"):
-            _zero(*slab_k, *xch_k, *bkt_k)
+            _zero(*all_k)
             check_auto(run_path(
                 {name: mats[name]}, run64.replace(format=fmt),
                 run_benchmark, keys, dev, oracle=oracle))
-            got = count_path(f"{fmt} float64", wrappers, need)
+            got = count_path(f"{fmt} float64", all_k, need)
             if any(got.get(k) for k in ("slab_spmv", "slab_spmv_blk",
-                                        "xch_mul", "xch_route4")
+                                        "xch_mul", "xch_route4",
+                                        "segmented_scan_tiles",
+                                        "block_gather_scan")
                    + BUCKET_KERNELS):
                 raise SystemExit(f"{fmt} float64: a float32 kernel ran")
             if fmt in ("hyb", "auto") and not sum(got.values()):
@@ -793,13 +919,15 @@ def main() -> int:
         del state
     mats.close()
 
-    # --- 9. every kernel of each path ran in that path ---
+    # --- 11. every kernel of each path ran in that path ---
     print(f"launches in the main paths: {launches}")
 
     kernels = []
     slab_src = "singlespmv_tpu_torch/csrc/slab.cu"
     xch_src = "singlespmv_tpu_torch/csrc/xch.cu"
     bkt_src = "singlespmv_tpu_torch/csrc/bucket.cu"
+    gather_src = "singlespmv_tpu_torch/csrc/blockgather.cu"
+    scan_src = "singlespmv_tpu_torch/csrc/segscan.cu"
     checks = by_kernel(compared)
     print("kernel checks: " + json.dumps(
         {k: [r["label"] for r in rs] for k, rs in checks.items()}))
@@ -818,7 +946,15 @@ def main() -> int:
             ("bucket_reduce_grouped", bkt_src, "bucket.py:264",
              "thermomech_dK bkt_g"),
             ("lane_unpermute", bkt_src, "bucket.py:313",
-             "thermomech_dK bkt_g")):
+             "thermomech_dK bkt_g"),
+            ("block_gather_scan", gather_src, "blockgather.py:111",
+             "thermomech_dK css"),
+            ("block_gather_scan_f64", gather_src, "blockgather.py:144",
+             "g7jac200sc css"),
+            ("segmented_scan_tiles", scan_src, "segscan.py:51",
+             "torso1 ss"),
+            ("segmented_scan_tiles_f64", scan_src, "segscan.py:51",
+             "g7jac200sc ss")):
         rs = checks.get(kname, [])
         t = [r for r in rs if r["label"] == timed]
         if not t:

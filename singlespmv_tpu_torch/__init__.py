@@ -7,11 +7,10 @@ jax, and nothing of the reference package: it keeps its own copies of the
 reference's framework-free host modules (``config``, ``core``, ``data``), so
 it imports and runs where ``singlespmv_tpu`` is absent.
 
-Ported so far: the slab format (``formats/slab.py``) and its two CUDA
-kernels (``csrc/slab.cu`` behind ``ops/slab.py``), the xch v4 exchange
-engine (``formats/xch.py``) and its two CUDA kernels (``csrc/xch.cu`` behind
-``ops/xch.py``), and the benchmark driver (``harness/driver.py``).
-ROADMAP.md lists what is still to come.
+The formats are in ``formats/`` (``formats.available_formats()`` lists
+them), their hand-written CUDA kernels in ``csrc/`` behind the wrappers of
+``ops/``, and the benchmark driver in ``harness/driver.py``.  README.md says
+what is ported, ROADMAP.md what is still to come.
 """
 from .config import Config
 

@@ -1,6 +1,7 @@
 """Format registry of the port: ``auto``, ``bkt``, ``bsr``, ``csr``,
-``dense``, ``dia``, ``hyb``, ``slab`` and ``xch`` so far (``bkt_g``, bkt at
-1024-row buckets, is ``auto``'s internal name, as in the reference)."""
+``csr5``, ``css``, ``dense``, ``dia``, ``hyb``, ``slab``, ``ss`` and ``xch``
+so far (``bkt_g``, bkt at 1024-row buckets, is ``auto``'s internal name, as
+in the reference)."""
 from __future__ import annotations
 
 from .base import (available_formats, convert, get_format, report_fields,
@@ -14,12 +15,14 @@ def _ensure_loaded():
     if _LOADED:
         return
     _LOADED = True
-    from . import auto, bkt, bsr, csr, dense, dia, hyb, slab, xch
+    from . import (auto, bkt, bsr, csr, csr5, css, dense, dia, hyb, slab, ss,
+                   xch)
     from .base import register_format
 
     for name, mod in (("auto", auto), ("bkt", bkt), ("bsr", bsr),
-                      ("csr", csr), ("dense", dense), ("dia", dia),
-                      ("hyb", hyb), ("slab", slab), ("xch", xch)):
+                      ("csr", csr), ("csr5", csr5), ("css", css),
+                      ("dense", dense), ("dia", dia), ("hyb", hyb),
+                      ("slab", slab), ("ss", ss), ("xch", xch)):
         register_format(name, mod)
 
 

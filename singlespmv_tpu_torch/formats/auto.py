@@ -2,16 +2,17 @@
 ``singlespmv_tpu/formats/auto.py``.
 
 ``estimate_costs`` is the reference's cost model, term for term, over the
-engines the port has: dia, dense, bsr, bkt, bkt_g, slab, slab2, xch, csr and
-hyb (css and ss are not ported; ROADMAP B.9, B.10).  It prices with the
-reference's v5e constants (``core/chipconst.py``) until Hopper probes
-measure the H100's own (ROADMAP A.7), so its ranking is the reference's.
-Which engines it offers at a value type is the port's own rule
-(``supports``): bkt and bkt_g at float32 only, as on the TPU; every other
-ported engine at float32 and float64.  The reference offers xch only where
-its Pallas kernels take the value type, which on the TPU excludes float64,
-so its ×7 price of xch at float64 never ran on the chip; the port offers
-xch at float64 with that ×7.
+engines the port has: dia, dense, bsr, css, bkt, bkt_g, slab, slab2, xch,
+csr, ss and hyb.  It prices with the reference's v5e constants
+(``core/chipconst.py``) until Hopper probes measure the H100's own (ROADMAP
+A.7), so its ranking is the reference's.  Which engines it offers at a
+value type is the port's own rule (``supports``): bkt and bkt_g at float32
+only, as on the TPU; every other ported engine at float32 and float64.  At
+float64 css keeps the reference's df64 price (×4 on its kernel term, no
+×20), though the port runs it on native fp64.  The reference offers xch
+only where its Pallas kernels take the value type, which on the TPU
+excludes float64, so its ×7 price of xch at float64 never ran on the chip;
+the port offers xch at float64 with that ×7.
 
 ``convert`` ranks by the model and, as the reference does on its chip, then
 converts and times every candidate within ``TRIAL_SPREAD`` of the cheapest
@@ -37,15 +38,18 @@ from ..core.types import COOMatrix
 from . import bkt as bkt_mod
 from . import bsr as bsr_mod
 from . import csr as csr_mod
+from . import css as css_mod
 from . import dense as dense_mod
 from . import dia as dia_mod
 from . import hyb as hyb_mod
 from . import slab as slab_mod
+from . import ss as ss_mod
 from . import xch as xch_mod
 from .base import TensorState
 
 HBM_BPS = _cc.get("hbm_bps")               # streamed bytes/s achieved
 SCATTER_RATE = _cc.get("scatter_rate")     # XLA gather/scatter elements/s
+LANE_GATHER_RATE = _cc.get("lane_gather_rate")   # fused css stream elem/s
 MXU_FLOPS = _cc.get("mxu_flops")           # effective f32 matmul flops/s
 
 TRIAL_NNZ_CAP = 20_000_000   # past this a spare conversion costs minutes
@@ -58,9 +62,9 @@ TRIAL_WINDOW_S = 0.35        # each timed loop of a trial lasts at least this
 GUARD_ERRORS = (ValueError, TypeError, MemoryError, torch.cuda.OutOfMemoryError)
 
 _MODULES = {"dia": dia_mod, "dense": dense_mod, "bsr": bsr_mod,
-            "bkt": bkt_mod, "bkt_g": bkt_mod, "hyb": hyb_mod,
-            "csr": csr_mod, "slab": slab_mod, "slab2": slab_mod,
-            "xch": xch_mod}
+            "css": css_mod, "bkt": bkt_mod, "bkt_g": bkt_mod,
+            "hyb": hyb_mod, "csr": csr_mod, "ss": ss_mod, "slab": slab_mod,
+            "slab2": slab_mod, "xch": xch_mod}
 
 
 def supports(fmt: str, dtype: str) -> bool:
@@ -71,7 +75,7 @@ def supports(fmt: str, dtype: str) -> bool:
 
 
 def _stats(coo: COOMatrix, cfg: Config):
-    """The reference's structure statistics (its CSS terms left out)."""
+    """The reference's structure statistics."""
     vsz = np.dtype(cfg.dtype).itemsize
     # past 20 M nnz, a contiguous-slice sample scaled by the sampling factor
     SAMP = 20_000_000
@@ -88,7 +92,17 @@ def _stats(coo: COOMatrix, cfg: Config):
     bm, bn = max(8, cfg.row_block), cfg.lane_width
     blocks = int(len(np.unique((row // bm) * (2 ** 32) + col // bn))
                  * scale) if coo.nnz else 1
-    return vsz, n_diag, blocks
+    # css combine slots ≈ (row, col-block) runs; pad ≈ half a tile per
+    # nonempty column block (tile = 8·W_eff, W_eff ~ the average block / 8)
+    if coo.nnz:
+        cb = col // 128
+        runs = int(len(np.unique(row * (2 ** 32) + cb)) * scale)
+        n_cb = max(int(len(np.unique(cb)) * min(scale, 4.0)), 1)
+        w_eff = max(128, -(-int(coo.nnz / n_cb / 8) // 128) * 128)
+        css_stream = coo.nnz + n_cb * 4 * w_eff
+    else:
+        runs, css_stream = 1, 1
+    return vsz, n_diag, blocks, runs, css_stream
 
 
 def bkt_seconds(slots, k, idx_b, vsz, extra_sec=0.0):
@@ -110,7 +124,7 @@ def estimate_costs(coo: COOMatrix, cfg: Config, plans: dict = None,
     ``_inner`` marks the recursive call that prices hyb's residual;
     ``skip`` names engines not to price (hyb's residual chooser skips
     hyb)."""
-    vsz, n_diag, blocks = _stats(coo, cfg)
+    vsz, n_diag, blocks, runs, css_stream = _stats(coo, cfg)
     n, m, nnz = coo.n_row, coo.n_col, max(coo.nnz, 1)
     dt = cfg.dtype
     costs = {}
@@ -122,6 +136,13 @@ def estimate_costs(coo: COOMatrix, cfg: Config, plans: dict = None,
         costs["dense"] = dense_elems * vsz / HBM_BPS
     bm, bn = max(8, cfg.row_block), cfg.lane_width
     costs["bsr"] = blocks * bm * bn * vsz / HBM_BPS + blocks * 1e-8
+    if css_stream <= 8 * nnz + (1 << 16) and supports("css", dt):
+        # mirrors css's padding guard; the combine is bounded by the stream
+        combine_slots = min(css_stream, 8 * runs)
+        dff = 4.0 if dt == "float64" else 1.0    # the reference's df64 price
+        costs["css"] = (dff * css_stream / LANE_GATHER_RATE
+                        + 2 * combine_slots / SCATTER_RATE
+                        + css_stream * (vsz + 4) / HBM_BPS)
 
     # hyper-sparse giant class: the windowed engines' sampled estimators are
     # skipped (they lose to xch there and cost minutes to run)
@@ -157,8 +178,10 @@ def estimate_costs(coo: COOMatrix, cfg: Config, plans: dict = None,
             costs["xch"] = est_x["est_s"]
             if plans is not None:
                 plans["xch"] = est_x
-    # csr: the fallback that runs every value type on every structure
+    # csr and ss: the fallbacks that run every value type on every structure
     costs["csr"] = nnz / SCATTER_RATE + (nnz * (vsz + 4) + n * vsz) / HBM_BPS
+    if supports("ss", dt):
+        costs["ss"] = 1.05 * costs["csr"]     # the same gather + a scan pass
 
     if not _inner and not hyper_sparse and "hyb" not in skip:
         est_h = hyb_mod.estimate(coo, cfg)
@@ -187,7 +210,7 @@ def estimate_costs(coo: COOMatrix, cfg: Config, plans: dict = None,
         # the reference's TPU prices at float64: emulated f64 ×20 except
         # its df64 engines, xch-df64 ×7
         for k in costs:
-            if k not in ("slab", "slab2", "xch"):
+            if k not in ("css", "slab", "slab2", "xch"):
                 costs[k] *= 20.0
         if "xch" in costs:
             costs["xch"] *= 7.0
@@ -335,7 +358,7 @@ def report_fields(state: AutoState, cfg: Config) -> dict:
     if fn:
         out.update(fn(state.inner, cfg))
     out.update({
-        "AutoEstimates(us)": _us(state.costs[:TRIAL_MAX]),
+        "AutoEstimates(us)": _us(state.costs),
         "AutoTrials(us)": _us(state.trials),
         "AutoFailed": "; ".join(f"{k}: {v}" for k, v in state.failed)
                       or "none"})

@@ -77,6 +77,26 @@ class TensorState:
             for f in dataclasses.fields(self)})
 
 
+def state_from_arrays(cls, arrays: dict, fmt: str):
+    """A state of dataclass ``cls`` from the fields of the reference's state
+    of format ``fmt``, given as numpy arrays and scalars: arrays become
+    tensors (bool flags uint8), fields of the reference that ``cls`` lacks
+    are not read, and fields of ``cls`` that the reference lacks keep their
+    defaults.  Checks the value type of ``val``."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in arrays:
+            continue
+        v = arrays[f.name]
+        if isinstance(v, np.ndarray) and v.ndim:
+            v = torch.from_numpy(np.array(
+                v, dtype=np.uint8 if v.dtype == np.bool_ else v.dtype))
+        kw[f.name] = v
+    state = cls(**kw)
+    check_dtype(fmt, state.val.dtype)
+    return state
+
+
 def convert(coo: COOMatrix, cfg: Config):
     return get_format(cfg.format).convert(coo, cfg)
 

@@ -8,12 +8,12 @@ matrix rides the cheapest scattered engine.  ``plan_peel``,
 ``jax.numpy`` through its dia module, so it cannot be imported here), and one
 COO gives the same peel and residual in both packages.
 
-The residual rides the cheapest of the port's scattered engines — bkt,
-bkt_g, bsr, slab and xch (``REST_MODULES``) — ranked by the port's
-``auto.estimate_costs`` on the residual, as the reference ranks its own with
-its ``auto.estimate_costs``.  The reference also ranks css, which the port
-has not ported yet (ROADMAP B.9); where css is the reference's pick, the
-port takes its cheapest other engine.
+The residual rides the cheapest of the scattered engines — bkt, bkt_g,
+bsr, css, slab and xch (``REST_MODULES``, the reference's
+``_rest_modules()``) — ranked by the port's ``auto.estimate_costs`` on the
+residual, as the reference ranks its own with its ``auto.estimate_costs``.
+An engine whose convert refuses (css's padding guard, a ``ValueError``) is
+passed over for the next.
 
 Values are float32 or float64 (``base.check_dtype``).
 """
@@ -30,6 +30,7 @@ from ..core.types import COOMatrix, round_up
 
 from . import bkt as bkt_mod
 from . import bsr as bsr_mod
+from . import css as css_mod
 from . import dia as dia_mod
 from . import slab as slab_mod
 from . import xch as xch_mod
@@ -42,7 +43,7 @@ RESID_SEC_PER_NNZ = 0.5e-9   # scattered-path marginal cost
 MAX_PEEL_ELEMENTS = 1 << 28  # respect dia's density guard (1 GiB of f32)
 
 REST_MODULES = {"bkt": bkt_mod, "bkt_g": bkt_mod, "bsr": bsr_mod,
-                "slab": slab_mod, "xch": xch_mod}
+                "css": css_mod, "slab": slab_mod, "xch": xch_mod}
 
 
 def _diag_histogram(coo: COOMatrix):
@@ -103,7 +104,7 @@ class HYBState(TensorState):
     rest_fmt: str                  # "" when the residual is empty
     peel_nnz: int
     dia_state: dia_mod.DIAState
-    rest_state: Optional[TensorState]   # slab or xch state, or None
+    rest_state: Optional[TensorState]   # the residual engine's state
 
 
 def convert(coo: COOMatrix, cfg: Config) -> HYBState:

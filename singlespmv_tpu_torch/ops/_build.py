@@ -63,6 +63,12 @@ SIGNATURES = {
     "bucket_reduce_grouped_f32": [_P] * 4 + [_I] * 3 + [_P],
     # yt src_lane src_chunk out | rows cols | stream
     "lane_unpermute_f32": [_P] * 4 + [_I] * 2 + [_P],
+    # prod heads out | H W | stream
+    "segmented_scan_tiles_f32": [_P] * 3 + [_I] * 2 + [_P],
+    "segmented_scan_tiles_f64": [_P] * 3 + [_I] * 2 + [_P],
+    # bids col val heads x out | H W B | stream
+    "block_gather_scan_f32": [_P] * 6 + [_I] * 3 + [_P],
+    "block_gather_scan_f64": [_P] * 6 + [_I] * 3 + [_P],
 }
 
 

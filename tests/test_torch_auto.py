@@ -2,9 +2,8 @@
 
 ``auto.estimate_costs`` is the reference's model over the engines the port
 has, so every key both packages price agrees to 1e-12 relative (bkt and
-bkt_g only at float32, the port's rule; hyb only where the reference's
-residual is not css, which the port lacks), and ``choose`` picks the
-reference's engine wherever that engine is ported.  On the CPU auto ranks by
+bkt_g only at float32, the port's rule; css and ss included), and
+``choose`` picks the reference's engine wherever that engine is ported.  On the CPU auto ranks by
 the model alone.  A kernel that fails to launch (``KernelError``) stops
 ``auto`` and the driver; a guard error excludes the candidate.  The port
 runs with the reference package absent, and its copies of the reference's
@@ -23,7 +22,6 @@ from singlespmv_tpu.core.types import COOMatrix
 from singlespmv_tpu.data.generators import generate, powerlaw
 from singlespmv_tpu.data.structgen import synthesize_structured as ref_synth
 from singlespmv_tpu.formats import auto as ref_auto
-from singlespmv_tpu.formats import hyb as ref_hyb
 from singlespmv_tpu_torch.core import hostmem, native
 from singlespmv_tpu_torch.data import synthesize_structured
 from singlespmv_tpu_torch.formats import auto, bkt
@@ -45,19 +43,6 @@ MATS = [
 IDS = [m[0] for m in MATS]
 
 
-def _ref_residual_is_css(coo, cfg):
-    """Whether the reference's hyb prices its residual on css, an engine the
-    port does not have."""
-    est = ref_hyb.estimate(coo, cfg)
-    if not est["feasible"] or est["resid_nnz"] == 0:
-        return False
-    rest = ref_hyb._split(coo, ref_hyb.plan_peel(coo, cfg)[0], cfg)[1]
-    rc = ref_auto.estimate_costs(rest, cfg, _inner=True)
-    pool = {k: v for k, v in rc.items()
-            if k in ref_hyb._rest_modules() or k == "csr"}
-    return bool(pool) and min(pool, key=pool.get) == "css"
-
-
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("label,make", MATS, ids=IDS)
 def test_estimate_costs_match_reference(label, make, dtype):
@@ -65,12 +50,9 @@ def test_estimate_costs_match_reference(label, make, dtype):
     cfg = Config(format="auto", dtype=dtype)
     want = ref_auto.estimate_costs(coo, cfg)
     got = auto.estimate_costs(port_coo(coo), port_cfg(cfg))
-    left_out = {"css", "ss"}
-    if dtype == "float64":
-        left_out |= {"bkt", "bkt_g"}   # float32 only in the port
-    if _ref_residual_is_css(coo, cfg):
-        left_out.add("hyb")
-    assert set(got) == set(want) - left_out
+    left_out = {"bkt", "bkt_g"} if dtype == "float64" else set()
+    assert set(got) == set(want) - left_out   # bkt: float32 only here
+    assert {"css", "ss"} <= set(got)
     for k, v in got.items():
         assert v == pytest.approx(want[k], rel=1e-12, abs=0), k
     assert {"bkt", "bkt_g"} <= set(got) or dtype == "float64" \
@@ -83,7 +65,8 @@ def test_estimate_costs_match_reference(label, make, dtype):
 def test_supports_rule():
     assert auto.supports("bkt_g", "float32") and \
         not auto.supports("bkt_g", "float64")
-    for fmt in ("slab", "xch", "csr", "bsr", "dense", "dia", "hyb"):
+    for fmt in ("slab", "xch", "csr", "bsr", "dense", "dia", "hyb", "css",
+                "ss"):
         assert auto.supports(fmt, "float64")
 
 

@@ -274,15 +274,16 @@ def test_registry():
     from singlespmv_tpu_torch.formats import auto, bkt
 
     assert formats.available_formats() == [
-        "auto", "bkt", "bsr", "csr", "dense", "dia", "hyb", "slab", "xch"]
+        "auto", "bkt", "bsr", "csr", "csr5", "css", "dense", "dia", "hyb",
+        "slab", "ss", "xch"]
     assert formats.spmv_fn(F32) is slab.spmv
     assert formats.spmv_fn(F32.replace(format="xch")) is xch.spmv
     assert formats.spmv_fn(F32.replace(format="bkt")) is bkt.spmv
     assert formats.spmv_fn(F32.replace(format="auto")) is auto.spmv
     with pytest.raises(KeyError):        # auto's internal name only
         formats.get_format("bkt_g")
-    with pytest.raises(KeyError):
-        formats.get_format("css")
+    with pytest.raises(KeyError):        # not ported
+        formats.get_format("ellg")
 
 
 def test_port_never_imports_jax():
