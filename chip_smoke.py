@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py          # from the root of the repository
 
+Its phases, in the order they run:
+
 1. prints the card's name and power limit, builds the CUDA kernels of
    ``singlespmv_tpu_torch/csrc`` with nvcc for sm_90a (one nvcc per source,
    in parallel), and synthesizes the stand-ins in worker processes (one
@@ -11,47 +13,58 @@
    nested long-row state), and times kernel, plain version and the whole
    spmv call: in float32, and in float64 the native-fp64 builds of the slab
    unit kernel (torso1 and g7jac200sc, the float64 planner's unit-only
-   plans) and of both xch kernels (webbase-1M and ASIC_680ks); and the four
+   plans) and of both xch kernels (webbase-1M and ASIC_680ks); the four
    bucket kernels on the full-size bkt_g states (1024-row buckets) of
    g7jac200sc, lhr34, twotone, raefsky3 and thermomech_dK and the bkt state
    (128-row buckets) of raefsky3, with ``torch.gather``'s time beside
-   ``lane_unpermute``'s;
-3. drives the slab main path: ``run_benchmark`` with format="slab" in float32
+   ``lane_unpermute``'s; and the scan kernels: ``segmented_scan_tiles`` on
+   torso1's ss stream and webbase-1M's csr5 normal track,
+   ``block_gather_scan`` on the css streams of thermomech_dK and raefsky3,
+   and the fp64 builds of both on g7jac200sc's ss and css streams;
+3. SpMM, Y = A @ X: holds the panel kernels against their plain versions
+   (``slab_spmm`` on g7jac200sc's unit-only plan at B = 8 and 32,
+   ``xch_mul_panel`` and ``xch_route4_panel`` on every call of webbase-1M's
+   and ASIC_680ks's states, nested ones included, at B = 8 and 16), then
+   drives ``spmm_fn`` at B = 1 (the spmv), 8 and 32 on webbase-1M and
+   ASIC_680ks (xch), unbalance-16384 (bsr), g7jac200sc (slab unit) and torso1
+   (slab blk: the column loop), printing the table of
+   ``results/r5_tpu_spmm.txt`` with torch's own CSR product beside each row
+   and every column of Y held to the oracle; auto with ``spmm_b`` = 8 on
+   webbase-1M and g7jac200sc; and float64 SpMM with xch on ASIC_680ks at
+   B = 8 (the column loop over the fp64 spmv) against the oracle at
+   1e-12·max|Y|;
+4. drives the slab main path: ``run_benchmark`` with format="slab" in float32
    on the full-size raefsky3 and torso1 stand-ins (both plan blk mode), and
    the full-size g7jac200sc stand-in's spmv with the planner's unit-only plan
    against the float64 COO oracle;
-4. drives the xch main path: ``run_benchmark`` with format="xch" in float32
-   on the full-size webbase-1M and ASIC_680ks stand-ins, and the spmv of the
-   full-size circuit5M stand-in (several kernel calls per pass, a nested
-   long-row state) against the float64 COO oracle;
-5. drives the hyb main path: ``run_benchmark`` with format="hyb" in float32
-   on the full-size Chebyshev4 and PR02R stand-ins (a band peel plus a slab
+5. drives the xch main path: ``run_benchmark`` with format="xch" in float32
+   on the full-size webbase-1M and ASIC_680ks stand-ins;
+6. drives the hyb main path: ``run_benchmark`` with format="hyb" in float32
+   on the full-size Chebyshev4 and PR02R stand-ins (a band peel plus a
    residual); then, on those in float32 and on Chebyshev4 in float64, times
    a hyb spmv, its dia part and its residual, and holds the residual's
    kernels against their plain versions at the residual's shapes;
-6. drives the bkt path: ``run_benchmark`` with format="bkt" on raefsky3
+7. drives the bkt path: ``run_benchmark`` with format="bkt" on raefsky3
    (128-row buckets) and g7jac200sc (1024-row buckets);
-7. drives the auto path: ``run_benchmark`` with format="auto" in float32 on
+8. drives the scan formats: ``run_benchmark`` in float32 with format="css"
+   on thermomech_dK and webbase-1M, "ss" on torso1 and "csr5" on torso1 and
+   webbase-1M;
+9. drives the auto path: ``run_benchmark`` with format="auto" in float32 on
    g7jac200sc, lhr34, twotone, mac_econ_fwd500, raefsky3 and thermomech_dK
    (bkt_g among the measured candidates), webbase-1M (the hyper-sparse
-   class) and Chebyshev4 (hyb), printing every engine's estimate, the
-   measured trials, the chosen engine and every candidate auto skipped;
-   fails on any skip that is not a guard error;
-8. drives the float64 paths: ``run_benchmark`` in float64 with
-   format="slab" on torso1, "xch" on webbase-1M, "hyb" on Chebyshev4 and
-   "auto" on g7jac200sc; each must pass Verify and agree with the float64
-   COO oracle to 1e-12·max|y|, which a float32 computation would not;
-9. holds the scan kernels against their plain versions at full size:
-   ``segmented_scan_tiles`` on torso1's ss stream and webbase-1M's csr5
-   normal track, ``block_gather_scan`` on the css streams of thermomech_dK
-   and raefsky3, and the fp64 builds of both on g7jac200sc's ss and css
-   streams;
-10. drives the scan formats: ``run_benchmark`` in float32 with format="css"
-   on thermomech_dK and webbase-1M, "ss" on torso1 and "csr5" on torso1 and
-   webbase-1M, and in float64 with "css" and "ss" on g7jac200sc against the
-   oracle at 1e-12·max|y|; the auto phase prints css's and ss's estimates;
-11. checks that each path launched each of its kernels: the launch counts are
-   set to 0 just before a path and read just after it.
+   class) and Chebyshev4 (hyb), printing every engine's estimate (css's and
+   ss's with their ranks), the measured trials, the chosen engine and every
+   candidate auto skipped; fails on any skip that is not a guard error;
+10. drives the float64 paths: ``run_benchmark`` in float64 with
+   format="slab" on torso1, "xch" on webbase-1M, "hyb" on Chebyshev4, and
+   "auto", "css" and "ss" on g7jac200sc; each must pass Verify and agree with
+   the float64 COO oracle to 1e-12·max|y|, which a float32 computation would
+   not;
+11. the xch path on circuit5M (several kernel calls per pass, a nested
+   long-row state): kernels against their plain versions on every call, then
+   its spmv against the float64 COO oracle;
+12. checks that each path launched each of its kernels: the launch counts
+   are set to 0 just before a path and read just after it.
 
 Each phase prints its seconds.
 
@@ -80,6 +93,7 @@ TOL = 1e-5          # kernel vs plain version, relative to max|out|: the
 #                     prefix and the atomics sum in other orders
 F64_TOL = 1e-12     # the same at float64, and an f64 spmv vs the oracle
 REPS = 20
+PLAIN_REPS = 3      # the panels' plain versions: B spmv plain versions a call
 SLAB_MATS = ("raefsky3", "torso1", "g7jac200sc")
 XCH_MATS = ("webbase-1M", "ASIC_680ks", "circuit5M")
 HYB_MATS = ("Chebyshev4", "PR02R")
@@ -90,6 +104,13 @@ BKT_MATS = (("g7jac200sc", 1024), ("lhr34", 1024), ("twotone", 1024),
 AUTO_MATS = ("g7jac200sc", "lhr34", "twotone", "mac_econ_fwd500",
              "raefsky3", "thermomech_dK", "webbase-1M", "Chebyshev4")
 GUARD_ERRORS = ("ValueError", "TypeError", "MemoryError", "OutOfMemoryError")
+SPMM_B = (8, 32)         # the SpMM path's panels (B = 1: the spmv)
+XCH_PANEL_B = (8, 16)    # the xch panel kernels' checks (their gate: B <= 16)
+SPMM_MATS = (("webbase-1M", "xch"), ("ASIC_680ks", "xch"),
+             ("unbalance-16384", "bsr"), ("g7jac200sc", "slab"),
+             ("torso1", "slab"))
+SPMM_WINDOW_S = 0.1      # each timed loop of the SpMM table lasts this
+PANEL_KERNELS = ("slab_spmm", "xch_mul_panel", "xch_route4_panel")
 HBM_BPS = 3.35e12   # H100 SXM device memory, NVIDIA's data sheet
 PEAK_OPS = {torch.float32: 67e12,   # float32 outside the tensor cores
             torch.float64: 34e12}   # float64 outside the tensor cores
@@ -327,6 +348,24 @@ def _xch_calls(state, xch, ops, x):
     return calls
 
 
+def _check_calls(label, name, ks, rs, tol):
+    """Runs each kernel call and its plain version; fails past ``tol`` of
+    max|out|.  Returns (max |diff|, max |diff| / max |out|)."""
+    err = rel = 0.0
+    for k, r in zip(ks, rs):
+        got, want = k(), r()
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        err = max(err, e)
+        rel = max(rel, e / max(float(want.abs().max()), 1e-30))
+        del got, want
+    if not rel <= tol:
+        raise SystemExit(f"{label} {name}: kernel disagrees with its plain "
+                         f"version (max |diff| / max |out| = {rel:.3g} > "
+                         f"{tol})")
+    return err, rel
+
+
 def compare_xch(label, state, xch, ops, x, tol=TOL):
     """Phase 2 for one xch state: each kernel vs its plain version on every
     call of the state and of its nested state."""
@@ -358,14 +397,7 @@ def compare_xch(label, state, xch, ops, x, tol=TOL):
                 + (_nbytes(sub) if st.m2 > 1 else 0))
             cost["xch_route4"][1] += 2 * h * 128 + _routed(idx)
     for name, (ks, rs) in calls.items():
-        err = rel = 0.0
-        for k, r in zip(ks, rs):
-            got, want = k(), r()
-            torch.cuda.synchronize()
-            e = float((got - want).abs().max())
-            err = max(err, e)
-            rel = max(rel, e / max(float(want.abs().max()), 1e-30))
-            del got, want
+        err, rel = _check_calls(label, name, ks, rs, tol)
         res[name] = {
             "max_abs_err": err, "rel_err": rel,
             # device busy time over all the calls: kernel, plain version
@@ -376,10 +408,6 @@ def compare_xch(label, state, xch, ops, x, tol=TOL):
             "call_ms": _cuda_ms(lambda ks=ks: [f() for f in ks]),
             "library_ms": None,    # no one PyTorch call computes it
         } | _bound(*cost[name], x.dtype)
-        if not rel <= tol:
-            raise SystemExit(f"{label} {name}: kernel disagrees with its "
-                             f"plain version (max |diff| / max |out| = "
-                             f"{rel:.3g} > {tol})")
     res["spmv_ms"] = _cuda_ms(lambda: xch.spmv(state, x))
     res["spmv_busy_ms"] = _busy_ms(lambda: xch.spmv(state, x))
     print(f"kernel {label}: {json.dumps(res)}", flush=True)
@@ -391,15 +419,14 @@ BUCKET_KERNELS = ("block_gather_mul", "bucket_reduce",
 
 
 def by_kernel(compared):
-    """{kernel: [its comparison results]} over compare_kernel, compare_xch
-    and compare_bucket results."""
+    """{kernel: [its comparison results]} over the compare_* results."""
     out = {}
     for res in compared:
         if "kernel" in res:
             out.setdefault(res["kernel"], []).append(res)
             continue
         sfx = "_f64" if res["dtype"] == str(torch.float64) else ""
-        for k in ("xch_mul", "xch_route4") + BUCKET_KERNELS:
+        for k in ("xch_mul", "xch_route4") + BUCKET_KERNELS + PANEL_KERNELS:
             if k in res:
                 out.setdefault(k + sfx, []).append(
                     res[k] | {"label": res["label"]})
@@ -537,6 +564,136 @@ def compare_scan(label, state, mod, x, tol=TOL):
     return res
 
 
+def compare_slab_spmm(label, state, slab, ops, X, tol=TOL):
+    """Phase 3: ``slab_spmm`` against its plain version on every chunk of a
+    unit-mode state, for the panel X (n_col, B)."""
+    xp = slab.x_table(state, X)
+    n_cols = X.shape[1]
+    args = [(*a, xp, nu, state.m, state.t_step)
+            for *a, nu in zip(state.uids, state.win, state.lane, state.sub,
+                              state.val, state.hm1, state.idx,
+                              state.chunk_nu)]
+    kern = [lambda a=a: ops.slab_spmm(*a) for a in args]
+    ref = [lambda a=a: ops.slab_spmm_ref(*a) for a in args]
+    err, rel = _check_calls(label, "slab_spmm", kern, ref, tol)
+    # bytes: the streams once (sub only when m > 1), B x tables, B columns
+    # of out blocks; operations: per column a multiply, a prefix add and a
+    # difference per slot and an add per routed run end
+    nbytes = _nbytes(xp)
+    for i, lane in enumerate(state.lane):
+        nbytes += _nbytes(state.uids[i], state.win[i], lane, state.val[i],
+                          state.hm1[i], state.idx[i])
+        nbytes += _nbytes(state.sub[i]) if state.m > 1 else 0
+        nbytes += state.chunk_nu[i] * n_cols * state.planes * 128 * 4
+    res = {
+        "label": label, "dtype": str(X.dtype), "kernel": "slab_spmm",
+        "B": n_cols, "planes": state.planes, "m": state.m, "T": state.t_step,
+        "stream_rows": state.n_slots // 128, "chunks": len(args),
+        "max_abs_err": err, "rel_err": rel,
+        "ms": _busy_ms(lambda: [f() for f in kern], "slab_spmm_kernel"),
+        "plain_ms": _busy_ms(lambda: [f() for f in ref], reps=PLAIN_REPS),
+        "call_ms": _cuda_ms(lambda: [f() for f in kern]),
+        "spmm_ms": _cuda_ms(lambda: slab.spmm(state, X)),
+        "spmm_busy_ms": _busy_ms(lambda: slab.spmm(state, X)),
+        "library_ms": None,    # no one PyTorch call computes it
+    } | _bound(nbytes, n_cols * (3 * state.n_slots + _routed(*state.idx)),
+               X.dtype)
+    print(f"kernel {label}: {json.dumps(res)}", flush=True)
+    return res
+
+
+def compare_xch_panels(label, state, xch, ops, X, tol=TOL):
+    """Phase 3: ``xch_mul_panel`` and ``xch_route4_panel`` against their
+    plain versions on every call of the state and of its nested state, for
+    the panel X (n_col, B)."""
+    n_cols = X.shape[1]
+    calls = {"xch_mul_panel": ([], []), "xch_route4_panel": ([], [])}
+    cost = {k: [0, 0] for k in calls}
+    for st in _states(state):
+        xp = xch.x_table(st, X)
+        prods = [ops.xch_mul_panel(w, la, su, va, xp, st.m1, st.t1)
+                 for w, la, su, va in zip(st.win1, st.lane1, st.sub1,
+                                          st.val1)]
+        prod4 = torch.cat(prods, 1).view(n_cols, st.n_chunks, st.p1, 128)
+        del prods
+        cost["xch_mul_panel"][0] += _nbytes(xp)
+        for a in zip(st.win1, st.lane1, st.sub1, st.val1):
+            for i, fn in enumerate((ops.xch_mul_panel, ops.xch_mul_panel_ref)):
+                calls["xch_mul_panel"][i].append(
+                    lambda a=a, st=st, xp=xp, f=fn: f(*a, xp, st.m1, st.t1))
+            win, lane, sub, val = a
+            # bytes: the streams once, B x tables, B product rows per slot
+            cost["xch_mul_panel"][0] += (
+                _nbytes(win, lane, val) + n_cols * _nbytes(val)
+                + (_nbytes(sub) if st.m1 > 1 else 0))
+            cost["xch_mul_panel"][1] += n_cols * val.numel()
+        for *a, ng in zip(st.gids2, st.off2, st.cs2, st.win2, st.lane2,
+                          st.sub2, st.hm2, st.sig2, st.idx2, st.chunk_ngrp):
+            for i, fn in enumerate((ops.xch_route4_panel,
+                                    ops.xch_route4_panel_ref)):
+                calls["xch_route4_panel"][i].append(
+                    lambda a=a, st=st, p=prod4, ng=ng, f=fn: f(
+                        *a, p, ng, st.gb, st.m2, st.t2, st.p_oh))
+            g, o, c, win, lane, sub, hm, _, idx = a
+            h = lane.shape[0]
+            # bytes: the streams once (sig one byte a row), per column one
+            # product gathered per slot and the out rows; operations: per
+            # column a prefix add and a difference per slot and an add per
+            # routed run end
+            cost["xch_route4_panel"][0] += (
+                _nbytes(g, o, c, win, lane, hm, idx) + h
+                + (_nbytes(sub) if st.m2 > 1 else 0)
+                + n_cols * (h * 128 + ng * st.gb * 128) * 4)
+            cost["xch_route4_panel"][1] += n_cols * (2 * h * 128
+                                                     + _routed(idx))
+    res = {"label": label, "dtype": str(X.dtype), "B": n_cols,
+           "states": len(list(_states(state)))}
+    for name, (ks, rs) in calls.items():
+        err, rel = _check_calls(label, name, ks, rs, tol)
+        res[name] = {
+            "max_abs_err": err, "rel_err": rel,
+            "ms": _busy_ms(lambda ks=ks: [f() for f in ks], f"{name}_kernel"),
+            "plain_ms": _busy_ms(lambda rs=rs: [f() for f in rs],
+                                 reps=PLAIN_REPS),
+            "call_ms": _cuda_ms(lambda ks=ks: [f() for f in ks]),
+            "library_ms": None,    # no one PyTorch call computes it
+        } | _bound(*cost[name], X.dtype)
+    res["spmm_ms"] = _cuda_ms(lambda: xch.spmm(state, X))
+    res["spmm_busy_ms"] = _busy_ms(lambda: xch.spmm(state, X))
+    print(f"kernel {label}: {json.dumps(res)}", flush=True)
+    return res
+
+
+def torch_csr(coo, dev):
+    """torch's own CSR tensor of ``coo`` on ``dev``: the yardstick of the
+    SpMM table (``A_csr @ X``), on no path of the port."""
+    row, col, val = coo.row, coo.col, coo.val
+    if not np.all(row[1:] >= row[:-1]):
+        order = np.lexsort((col, row))
+        row, col, val = row[order], col[order], val[order]
+    crow = np.zeros(coo.n_row + 1, np.int64)
+    np.cumsum(np.bincount(row, minlength=coo.n_row), out=crow[1:])
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(crow), torch.from_numpy(col.astype(np.int64)),
+        torch.from_numpy(val.astype(np.float32)),
+        size=(coo.n_row, coo.n_col)).to(dev)
+
+
+def verify_columns(label, coo, X, Y, verify_result, dtype=np.float32):
+    """Holds every column of Y to the float64 COO oracle; fails on one
+    FAIL.  Returns the largest max_abs_err."""
+    X, Y = X.cpu().numpy(), Y.cpu().numpy()
+    if Y.shape != (coo.n_row, X.shape[1]) or not np.isfinite(Y).all():
+        raise SystemExit(f"{label}: Y has shape {Y.shape} or is not finite")
+    worst = 0.0
+    for b in range(X.shape[1]):
+        ok, det = verify_result(coo, X[:, b], Y[:, b], dtype=dtype)
+        if not ok:
+            raise SystemExit(f"{label}: column {b} Verify FAIL {det}")
+        worst = max(worst, det["max_abs_err"])
+    return worst
+
+
 def print_scan_estimates(reports):
     """Prints where auto priced css and ss on each stand-in; fails if ss,
     priced on every matrix, is missing."""
@@ -627,9 +784,12 @@ def main() -> int:
     from singlespmv_tpu_torch import Config
     from singlespmv_tpu_torch.core import (create_random_vector,
                                            reference_spmv, verify_result)
-    from singlespmv_tpu_torch.formats import (bkt, csr5, css, dia, hyb, slab,
-                                              ss, xch)
+    from singlespmv_tpu_torch.data.generators import generate
+    from singlespmv_tpu_torch.formats import (auto, bkt, bsr, csr5, css, dia,
+                                              hyb, slab, spmm_fn, spmv_fn, ss,
+                                              xch)
     from singlespmv_tpu_torch.harness import run_benchmark
+    from singlespmv_tpu_torch.harness.driver import marginal_seconds
     from singlespmv_tpu_torch.ops import _build
     from singlespmv_tpu_torch.ops import blockgather as gops
     from singlespmv_tpu_torch.ops import bucket as bops
@@ -674,11 +834,14 @@ def main() -> int:
     unit_plan.update(hub_cols=None, cols_eff=None, hub_off=0)
     plans = {"raefsky3": None, "torso1": None, "g7jac200sc": unit_plan}
     compared = []
+    spmm_states = {}     # the states of phase 3, kept from their conversion
     with Phase("slab kernels float32"):
         for name in SLAB_MATS:
             st = slab.convert(mats[name], cfg, plan=plans[name]).to(dev)
             compared.append(compare_kernel(name, st, slab, ops,
                                            x_of(mats[name])))
+            if name in dict(SPMM_MATS):
+                spmm_states[name] = st
             del st
     with Phase("xch kernels float32"):
         for name in XCH_MATS[:-1]:
@@ -688,6 +851,7 @@ def main() -> int:
             print(f"xch convert {name}: {time.perf_counter() - t0:.1f} s")
             compared.append(compare_xch(name, st, xch, xops,
                                         x_of(mats[name])))
+            spmm_states[name] = st
             del st
     with Phase("slab kernels float64"):
         for name in SLAB64_MATS:
@@ -709,6 +873,8 @@ def main() -> int:
                                  f"{st.val1[0].dtype}")
             compared.append(compare_xch(
                 name, st, xch, xops, x_of(mats[name], np.float64), F64_TOL))
+            if name == "ASIC_680ks":
+                asic64 = st
             del st
     with Phase("bucket kernels float32"):
         for name, rg in BKT_MATS:
@@ -747,7 +913,11 @@ def main() -> int:
                                                          xops.xch_route4)
     bkt_k = tuple(getattr(bops, k) for k in BUCKET_KERNELS)
     scan_k = (sops.segmented_scan_tiles, gops.block_gather_scan)
-    all_k = slab_k + xch_k + bkt_k + scan_k
+    panel_k = (ops.slab_spmm, xops.xch_mul_panel, xops.xch_route4_panel)
+    all_k = slab_k + xch_k + bkt_k + scan_k + panel_k
+    f32_kernels = (("slab_spmv", "slab_spmv_blk", "xch_mul", "xch_route4",
+                    "segmented_scan_tiles", "block_gather_scan")
+                   + BUCKET_KERNELS + PANEL_KERNELS)
     launches = {}
 
     def count_path(path, wrappers, need):
@@ -762,7 +932,113 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + v
         return got
 
-    # --- 3. the slab main path; count the launches it makes ---
+    # --- 3. SpMM: the panel kernels against their plain versions, then the
+    #     path through spmm_fn at B = 1, 8 and 32, auto with spmm_b and
+    #     float64 SpMM ---
+    rng = np.random.default_rng(0)
+
+    def panel(coo, n_cols, dtype=np.float32):
+        return torch.from_numpy(rng.uniform(
+            -1.0, 1.0, (coo.n_col, n_cols)).astype(dtype)).to(dev)
+
+    with Phase("spmm kernels float32"):
+        g7_unit = spmm_states["g7jac200sc"]
+        for n_cols in SPMM_B:
+            compared.append(compare_slab_spmm(
+                f"g7jac200sc B{n_cols}", g7_unit, slab, ops,
+                panel(g7, n_cols)))
+        for name in XCH_MATS[:-1]:
+            for n_cols in XCH_PANEL_B:
+                compared.append(compare_xch_panels(
+                    f"{name} B{n_cols}", spmm_states[name], xch, xops,
+                    panel(mats[name], n_cols)))
+    spmm_coo = {"unbalance-16384": generate("unbalance", 16384, None,
+                                            seed=1)}
+    spmm_states["unbalance-16384"] = bsr.convert(
+        spmm_coo["unbalance-16384"], cfg.replace(format="bsr")).to(dev)
+    with Phase("spmm path float32"):
+        _zero(*all_k)
+        print(f"SpMM Y = A @ X, f32, {card.splitlines()[0]} (flops = "
+              "2*nnz*B); median of 3 marginal differences of CUDA-event "
+              f"loops of at least {SPMM_WINDOW_S} s; torch_csr_us: torch's "
+              "A_csr @ X at the same B (a yardstick, on no path)")
+        print(f"{'matrix':<18} {'plan':<14} {'B':>4} {'us/iter':>9} "
+              f"{'GFLOPS':>8} {'vs spmv x':>9} {'torch_csr_us':>12}")
+        for name, fmt in SPMM_MATS:
+            coo = spmm_coo.get(name) or mats[name]
+            st = spmm_states[name]
+            fcfg = cfg.replace(format=fmt)
+            plan = fmt + (f"/{st.mode}" if fmt == "slab" else "")
+            a_csr = torch_csr(coo, dev)
+            t_spmv = None
+            for n_cols in (1,) + SPMM_B:
+                X = panel(coo, n_cols)
+                if n_cols == 1:
+                    fn, arg = spmv_fn(fcfg), X[:, 0]
+                else:
+                    fn, arg = spmm_fn(fcfg), X
+                sec = marginal_seconds(fn, st, arg, dev, SPMM_WINDOW_S)
+                err = verify_columns(f"spmm {name} B{n_cols}", coo, X,
+                                     fn(st, arg).reshape(coo.n_row, n_cols),
+                                     verify_result)
+                lib = marginal_seconds(lambda a, b: a @ b, a_csr, X, dev,
+                                       SPMM_WINDOW_S)
+                t_spmv = t_spmv or sec
+                ratio = n_cols * t_spmv / sec if n_cols > 1 else None
+                row = {"matrix": name, "plan": ("spmv:" if n_cols == 1
+                                                else "spmm:") + plan,
+                       "B": n_cols, "us": sec * 1e6,
+                       "gflops": 2 * coo.nnz * n_cols / sec / 1e9,
+                       "vs_spmv": ratio, "torch_csr_us": lib * 1e6,
+                       "max_abs_err": err, "verify": "PASS"}
+                print(f"{name:<18} {row['plan']:<14} {n_cols:>4} "
+                      f"{row['us']:>9.1f} {row['gflops']:>8.1f} "
+                      f"{'' if ratio is None else f'{ratio:.2f}':>9} "
+                      f"{row['torch_csr_us']:>12.1f}", flush=True)
+                print(f"spmm_row {json.dumps(row)}", flush=True)
+            del a_csr, st
+        count_path("spmm float32", all_k, PANEL_KERNELS)
+    for name in ("webbase-1M", "ASIC_680ks", "unbalance-16384", "torso1"):
+        del spmm_states[name]
+    with Phase("spmm auto float32"):
+        _zero(*all_k)
+        acfg = Config(format="auto", spmm_b=8)
+        for name in ("webbase-1M", "g7jac200sc"):
+            st = auto.convert(mats[name], acfg, device=dev).to(dev)
+            rep = auto.report_fields(st, acfg)
+            print(f"auto spmm_b=8 {name}: " + " ".join(
+                f"{k}: {rep[k]}" for k in ("ChosenFormat", "AutoEstimates(us)",
+                                           "AutoTrials(us)", "AutoFailed")),
+                flush=True)
+            check_auto({name: rep})
+            X = panel(mats[name], 8)
+            err = verify_columns(f"auto spmm {name}", mats[name], X,
+                                 auto.spmm(st, X), verify_result)
+            print(f"auto spmm_b=8 {name}: Verify: PASS (8 columns) "
+                  f"max_abs_err {err}", flush=True)
+            del st
+        count_path("spmm auto float32", all_k, ())
+    with Phase("spmm float64"):
+        coo = mats["ASIC_680ks"]
+        X = panel(coo, 8, np.float64)
+        _zero(*all_k)
+        Y = spmm_fn(xcfg64)(asic64, X)
+        got = count_path("spmm float64", all_k,
+                         ("xch_mul_f64", "xch_route4_f64"))
+        if any(got.get(k) for k in f32_kernels):
+            raise SystemExit("spmm float64: a float32 kernel ran")
+        verify_columns("spmm float64 ASIC_680ks", coo, X, Y, verify_result,
+                       np.float64)
+        Xh, Yh = X.cpu().numpy(), Y.cpu().numpy()
+        want = np.stack([reference_spmv(coo, Xh[:, b]) for b in range(8)], 1)
+        rel = float(np.abs(Yh - want).max() / np.abs(want).max())
+        print(f"spmm float64 ASIC_680ks B8: oracle_rel_err {rel}", flush=True)
+        if not rel <= F64_TOL:
+            raise SystemExit(f"spmm float64: off the oracle by {rel:.3g} > "
+                             f"{F64_TOL} of max|Y|")
+        del asic64, Y, spmm_states, g7_unit
+
+    # --- 4. the slab main path; count the launches it makes ---
     run_cfg = Config(**CFG_KW, calibrate_seconds=0.2, n_trials=3)
     with Phase("slab path float32"):
         _zero(*slab_k)
@@ -781,7 +1057,7 @@ def main() -> int:
         count_path("slab float32", slab_k, ("slab_spmv", "slab_spmv_blk"))
         del state
 
-    # --- 4. the xch main path; count the launches it makes ---
+    # --- 5. the xch main path; count the launches it makes ---
     with Phase("xch path float32"):
         _zero(*xch_k)
         run_path({n: mats[n] for n in ("webbase-1M", "ASIC_680ks")},
@@ -789,7 +1065,7 @@ def main() -> int:
                  ("PadFactor", "KBlk", "POh", "PeelOffs", "LongRows"), dev)
         count_path("xch float32", xch_k, ("xch_mul", "xch_route4"))
 
-    # --- 5. the hyb main path: band peel plus slab residual ---
+    # --- 6. the hyb main path: band peel plus a residual ---
     hyb_keys = ("PeelDiags", "PeelNnz", "RestFormat", "RestNnz",
                 "RestPadFactor")
     with Phase("hyb path float32"):
@@ -801,7 +1077,7 @@ def main() -> int:
         if not sum(got.values()):
             raise SystemExit("hyb float32: no residual kernel launched")
 
-    # --- 5b. where a hyb spmv's time goes, and the residual's kernels
+    # --- 6b. where a hyb spmv's time goes, and the residual's kernels
     #     against their plain versions at the residual's shapes ---
     for name, dtype in [(n, "float32") for n in HYB_MATS] + [
             ("Chebyshev4", "float64")]:
@@ -823,7 +1099,7 @@ def main() -> int:
                 F64_TOL if dtype == "float64" else TOL))
             del st
 
-    # --- 6. the bkt path: 128-row and 1024-row buckets ---
+    # --- 7. the bkt path: 128-row and 1024-row buckets ---
     with Phase("bkt path float32"):
         _zero(*bkt_k)
         for name, rg in (("raefsky3", 128), ("g7jac200sc", 1024)):
@@ -832,7 +1108,7 @@ def main() -> int:
                 ("SlotDepth", "GroupWidth", "ChainK", "PadFactor"), dev)
         count_path("bkt float32", bkt_k, BUCKET_KERNELS)
 
-    # --- 6b. the scan formats: css, ss and csr5 ---
+    # --- 8. the scan formats: css, ss and csr5 ---
     scan_keys = {"css": ("N_BLOCK", "SEGMENT_WIDTH(byte)", "R_max"),
                  "ss": ("SEGMENT_WIDTH(byte)", "R_max", "nStep"),
                  "csr5": ("Sigma", "nFastTile", "nNormalTile", "R_max")}
@@ -846,7 +1122,7 @@ def main() -> int:
                      run_benchmark, scan_keys[fmt], dev)
             count_path(f"{fmt} float32", scan_k, (need,))
 
-    # --- 7. the auto path, with bkt_g among the measured candidates ---
+    # --- 9. the auto path, with bkt_g among the measured candidates ---
     auto_keys = ("ChosenFormat", "AutoEstimates(us)", "AutoTrials(us)",
                  "AutoFailed", "AutoExcluded")
     auto_cfg = Config(format="auto", calibrate_seconds=0.4, n_trials=5)
@@ -860,7 +1136,7 @@ def main() -> int:
                    ("block_gather_mul", "bucket_reduce_grouped",
                     "lane_unpermute"))
 
-    # --- 8. the float64 paths, held to the oracle at F64_TOL ---
+    # --- 10. the float64 paths, held to the oracle at F64_TOL ---
     oracle = {"x": lambda coo: create_random_vector(coo.n_col),
               "spmv": reference_spmv}
     run64 = run_cfg.replace(dtype="float64")
@@ -881,16 +1157,12 @@ def main() -> int:
                 {name: mats[name]}, run64.replace(format=fmt),
                 run_benchmark, keys, dev, oracle=oracle))
             got = count_path(f"{fmt} float64", all_k, need)
-            if any(got.get(k) for k in ("slab_spmv", "slab_spmv_blk",
-                                        "xch_mul", "xch_route4",
-                                        "segmented_scan_tiles",
-                                        "block_gather_scan")
-                   + BUCKET_KERNELS):
+            if any(got.get(k) for k in f32_kernels):
                 raise SystemExit(f"{fmt} float64: a float32 kernel ran")
             if fmt in ("hyb", "auto") and not sum(got.values()):
                 raise SystemExit(f"{fmt} float64: no kernel launched")
 
-    # --- 8b. the xch path on circuit5M, last because its stand-in takes
+    # --- 11. the xch path on circuit5M, last because its stand-in takes
     #     longest to build: kernels vs plain versions on every call, then
     #     its spmv against the oracle ---
     with Phase("xch circuit5M float32"):
@@ -919,7 +1191,7 @@ def main() -> int:
         del state
     mats.close()
 
-    # --- 11. every kernel of each path ran in that path ---
+    # --- 12. every kernel of each path ran in that path ---
     print(f"launches in the main paths: {launches}")
 
     kernels = []
@@ -954,7 +1226,10 @@ def main() -> int:
             ("segmented_scan_tiles", scan_src, "segscan.py:51",
              "torso1 ss"),
             ("segmented_scan_tiles_f64", scan_src, "segscan.py:51",
-             "g7jac200sc ss")):
+             "g7jac200sc ss"),
+            ("slab_spmm", slab_src, "slab.py:228", "g7jac200sc B32"),
+            ("xch_mul_panel", xch_src, "xch.py:338", "webbase-1M B16"),
+            ("xch_route4_panel", xch_src, "xch.py:424", "webbase-1M B16")):
         rs = checks.get(kname, [])
         t = [r for r in rs if r["label"] == timed]
         if not t:

@@ -9,7 +9,11 @@
 //     through Dekker products and compensated sums;
 //   slab_blk_kernel replaces _slab_blk_kernel, the kernel of slab_spmv_blk
 //     (singlespmv_tpu/ops/pallas/slab.py:140 and :310); float only, as the
-//     reference's float64 plans are unit mode only.
+//     reference's float64 plans are unit mode only;
+//   slab_spmm_kernel replaces _slab_spmm_kernel, the kernel of slab_spmm
+//     (singlespmv_tpu/ops/pallas/slab.py:184 and :228): the unit route over a
+//     panel of B columns; float only, as the TPU ran it (its float64 SpMM
+//     is a column loop over the spmv kernels).
 //
 // Per stream row r of 128 slots l, in grid step t = r / T, both compute
 //   gather   g[l] = x[(win[r] + sub[r,l]) * 128 + lane[r,l]]  (sub unread if m == 1)
@@ -35,6 +39,19 @@
 // sums, and so their rounding, vary from run to run.  At double the shared
 // buffers are 16 KB (accumulator) + 8 KB (row buffers), under the 48 KB
 // static limit.
+//
+// slab_spmm.  Column b of the panel has its own x table (x + b * cb * 128)
+// and its own planes of unit block u: out rows (u * B + b) * planes + s.
+// A warp loads a stream row's lane, sub, val, hm1 and idx once into
+// registers, then for each column gathers, takes the run totals and routes
+// every plane (the TPU kernel takes no sg0/sg1).  The accumulator of all B
+// columns, planes * B * 128 floats, is 256 KB at planes 16 and B 32, past
+// the 227 KB a block may hold, so the columns are tiled IN A LOOP: the block
+// runs its rows once per tile of `tile` columns (kPanelSmemBytes of dynamic
+// shared memory, 8 columns at planes 16, 16 at planes 8), flushes the tile
+// to the out blocks and zeroes it for the next.  A panel of B <= tile reads
+// the streams once; a wider one re-reads them per tile, from cache.  Bound:
+// the streams once plus B times the x table and the out blocks, bytes.
 //
 // Bound.  Per slot the kernel streams 4 B of val (8 B at double), 2 B of
 // int8 (lane, hm1) or 3 B when m > 1 (sub), and idx: up to `planes` B in
@@ -117,6 +134,51 @@ __global__ void __launch_bounds__(kThreads) slab_blk_kernel(
   flush(acc, 0, planes - 1, out + (size_t)uids[t] * planes * kLanes);
 }
 
+__global__ void __launch_bounds__(kThreads) slab_spmm_kernel(
+    const int32_t* __restrict__ uids, const int32_t* __restrict__ win,
+    const int8_t* __restrict__ lane, const int8_t* __restrict__ sub,
+    const float* __restrict__ val, const int8_t* __restrict__ hm1,
+    const int8_t* __restrict__ idx, const float* __restrict__ x,
+    float* __restrict__ out, int H, int T, int rpb, int m, int planes, int B,
+    int cb, int tile) {
+  extern __shared__ float acc[];  // (tile, planes, 128)
+  __shared__ __align__(16) float wbuf[kWarps][kLanes];
+  const int warp = threadIdx.x >> 5, k = threadIdx.x & 31;
+  const int r0 = blockIdx.x * rpb;
+  const int t = r0 / T;
+  const size_t table = (size_t)cb * kLanes;
+  float* out_u = out + (size_t)uids[t] * B * planes * kLanes;
+  for (int b0 = 0; b0 < B; b0 += tile) {
+    const int nb = min(tile, B - b0);
+    for (int i = threadIdx.x; i < nb * planes * kLanes; i += kThreads)
+      acc[i] = 0.f;
+    __syncthreads();
+    for (int r = r0 + warp; r < r0 + rpb; r += kWarps) {
+      const size_t off = (size_t)r * kLanes + 4 * k;
+      const char4 ln = load_c4(lane + off);
+      const char4 sb = m > 1 ? load_c4(sub + off) : make_char4(0, 0, 0, 0);
+      const char4 hd = load_c4(hm1 + off);
+      const float4 v = load4(val + off);
+      char4 e[kMaxUnitPlanes];
+#pragma unroll
+      for (int s = 0; s < kMaxUnitPlanes; ++s)
+        e[s] = s < planes ? load_c4(idx + (size_t)s * H * kLanes + off)
+                          : make_char4(-1, -1, -1, -1);
+      const float* xw = x + (size_t)b0 * table + (size_t)win[r] * kLanes;
+      for (int b = 0; b < nb; ++b, xw += table) {
+        run_totals(mul4(v, gather4(xw, ln, sb, m)), hd, wbuf[warp]);
+        float* acc_b = acc + b * planes * kLanes + 4 * k;
+#pragma unroll
+        for (int s = 0; s < kMaxUnitPlanes; ++s)
+          if (s < planes) route4(e[s], wbuf[warp], acc_b + s * kLanes);
+      }
+    }
+    __syncthreads();
+    flush(acc, 0, nb * planes - 1, out_u + (size_t)b0 * planes * kLanes);
+    __syncthreads();  // the flush has read the tile before it is zeroed
+  }
+}
+
 template <typename V>
 int launch_unit(const void* uids, const void* sg0, const void* sg1,
                 const void* win, const void* lane, const void* sub,
@@ -177,5 +239,30 @@ extern "C" int slab_spmv_blk_f32(const void* uids, const void* win,
       (const int8_t*)sub, (const float*)val, (const int8_t*)hm1,
       (const int8_t*)idx, (const int8_t*)sig, (const float*)x, (float*)out,
       H, T, rpb, m, planes, kblk);
+  return (int)cudaGetLastError();
+}
+
+// `out` must be zeroed, of (nu * B * planes, 128) floats; `x` is the
+// (B, cb, 128) panel of x tables.
+extern "C" int slab_spmm_f32(const void* uids, const void* win,
+                             const void* lane, const void* sub,
+                             const void* val, const void* hm1,
+                             const void* idx, const void* x, void* out,
+                             int H, int T, int m, int planes, int B, int cb,
+                             void* stream) {
+  if (planes < 1 || planes > kMaxUnitPlanes || T < 1 || H < 0 || H % T ||
+      B < 1 || cb < 1)
+    return (int)cudaErrorInvalidValue;
+  if (H == 0) return 0;
+  static const int rc = allow_panel_smem((const void*)slab_spmm_kernel);
+  if (rc) return rc;
+  const int rpb = rows_per_block(T);
+  const int tile = min(B, kPanelSmemBytes / (planes * kLanes * 4));
+  slab_spmm_kernel<<<H / rpb, kThreads, (size_t)tile * planes * kLanes * 4,
+                     (cudaStream_t)stream>>>(
+      (const int32_t*)uids, (const int32_t*)win, (const int8_t*)lane,
+      (const int8_t*)sub, (const float*)val, (const int8_t*)hm1,
+      (const int8_t*)idx, (const float*)x, (float*)out, H, T, rpb, m, planes,
+      B, cb, tile);
   return (int)cudaGetLastError();
 }

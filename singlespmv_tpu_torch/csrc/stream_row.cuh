@@ -28,6 +28,9 @@ constexpr int kLanes = 128;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr unsigned kFull = 0xffffffffu;
+// The panel kernels' (SpMM) column-tile accumulator: dynamic shared memory
+// past the 48 KB static limit, so their launchers raise the cap once.
+constexpr int kPanelSmemBytes = 64 * 1024;
 
 // Four consecutive values of a stream row, held by one lane: float4 in
 // float, a plain struct of four in double.
@@ -78,20 +81,17 @@ __device__ __forceinline__ Double4 mul4(Double4 a, Double4 b) {
   return {a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w};
 }
 
-// The four gathered values of stream row r held by the calling lane.
+__device__ __forceinline__ char4 load_c4(const int8_t* p) {
+  return *reinterpret_cast<const char4*>(p);
+}
+
+// The four values gathered for one lane from window xw = x + win[r] * 128,
+// by the lane's four slot columns ln and, when m > 1, their blocks sb.
 template <typename V>
-__device__ __forceinline__ V4<V> gather4(int r, int m,
-                                         const int32_t* __restrict__ win,
-                                         const int8_t* __restrict__ lane,
-                                         const int8_t* __restrict__ sub,
-                                         const V* __restrict__ x) {
-  const int k = threadIdx.x & 31;
-  const size_t off = (size_t)r * kLanes + 4 * k;
-  const char4 ln = *reinterpret_cast<const char4*>(lane + off);
-  const V* xw = x + (size_t)win[r] * kLanes;
+__device__ __forceinline__ V4<V> gather4(const V* __restrict__ xw, char4 ln,
+                                         char4 sb, int m) {
   int c0 = ln.x, c1 = ln.y, c2 = ln.z, c3 = ln.w;
   if (m > 1) {
-    const char4 sb = *reinterpret_cast<const char4*>(sub + off);
     c0 += sb.x * kLanes;
     c1 += sb.y * kLanes;
     c2 += sb.z * kLanes;
@@ -100,15 +100,24 @@ __device__ __forceinline__ V4<V> gather4(int r, int m,
   return {__ldg(xw + c0), __ldg(xw + c1), __ldg(xw + c2), __ldg(xw + c3)};
 }
 
-// Run totals of stream row r from the calling lane's four values a.  On
-// return w[0..127] holds W of the row, visible to the whole warp.
+// The four gathered values of stream row r held by the calling lane.
 template <typename V>
-__device__ __forceinline__ void run_totals(int r, V4<V> a,
-                                           const int8_t* __restrict__ hm1,
-                                           V* w) {
+__device__ __forceinline__ V4<V> gather4(int r, int m,
+                                         const int32_t* __restrict__ win,
+                                         const int8_t* __restrict__ lane,
+                                         const int8_t* __restrict__ sub,
+                                         const V* __restrict__ x) {
+  const size_t off = (size_t)r * kLanes + 4 * (threadIdx.x & 31);
+  const char4 sb = m > 1 ? load_c4(sub + off) : make_char4(0, 0, 0, 0);
+  return gather4(x + (size_t)win[r] * kLanes, load_c4(lane + off), sb, m);
+}
+
+// Run totals of a stream row from the calling lane's four values a and
+// head lanes hd (hm1 of its four slots).  On return w[0..127] holds W of the
+// row, visible to the whole warp.
+template <typename V>
+__device__ __forceinline__ void run_totals(V4<V> a, char4 hd, V* w) {
   const int k = threadIdx.x & 31;
-  const char4 hd =
-      *reinterpret_cast<const char4*>(hm1 + (size_t)r * kLanes + 4 * k);
   const V a1 = a.x + a.y;
   const V a2 = a1 + a.z;
   const V a3 = a2 + a.w;
@@ -133,15 +142,28 @@ __device__ __forceinline__ void run_totals(int r, V4<V> a,
   __syncwarp();
 }
 
+// Run totals of stream row r from the calling lane's four values a.
+template <typename V>
+__device__ __forceinline__ void run_totals(int r, V4<V> a,
+                                           const int8_t* __restrict__ hm1,
+                                           V* w) {
+  run_totals(a, load_c4(hm1 + (size_t)r * kLanes + 4 * (threadIdx.x & 31)),
+             w);
+}
+
 // acc[4k + i] += w[e_i] for the four end-lanes e of lane k (e < 0: none).
 template <typename V>
-__device__ __forceinline__ void route4(const int8_t* __restrict__ e4,
-                                       const V* w, V* acc_row) {
-  const char4 e = *reinterpret_cast<const char4*>(e4);
+__device__ __forceinline__ void route4(char4 e, const V* w, V* acc_row) {
   if (e.x >= 0) atomicAdd(acc_row + 0, w[e.x]);
   if (e.y >= 0) atomicAdd(acc_row + 1, w[e.y]);
   if (e.z >= 0) atomicAdd(acc_row + 2, w[e.z]);
   if (e.w >= 0) atomicAdd(acc_row + 3, w[e.w]);
+}
+
+template <typename V>
+__device__ __forceinline__ void route4(const int8_t* __restrict__ e4,
+                                       const V* w, V* acc_row) {
+  route4(load_c4(e4), w, acc_row);
 }
 
 // Adds the nonzero entries of acc[lo*128, (hi+1)*128) into out_block.
@@ -153,6 +175,14 @@ __device__ __forceinline__ void flush(const V* acc, int lo, int hi,
     const V v = acc[i];
     if (v != V(0)) atomicAdd(out_block + i, v);
   }
+}
+
+// Lets `kernel` take kPanelSmemBytes of dynamic shared memory; returns
+// cudaGetLastError().  A launcher calls it once, into a static.
+int allow_panel_smem(const void* kernel) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kPanelSmemBytes);
+  return (int)cudaGetLastError();
 }
 
 // Rows per block: the largest power of two up to 32 that divides T.

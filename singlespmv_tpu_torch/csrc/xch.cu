@@ -11,7 +11,12 @@
 //     and xch_route4_df (singlespmv_tpu/ops/pallas/xch.py:463, :495 and :524,
 //     :594): the same functions at native fp64, where the TPU carried (hi, lo)
 //     float planes through Dekker products and a compensated per-(plane, row)
-//     route.
+//     route;
+//   xch_mul_panel_kernel and xch_route4_panel_kernel replace
+//     _xch_mul_panel_kernel and _xch_route4_panel_kernel, the kernels of
+//     xch_mul_panel and xch_route4_panel (singlespmv_tpu/ops/pallas/xch.py:313,
+//     :338 and :364, :424): both passes over a panel of B columns, float only,
+//     as the TPU ran them.
 //
 // Pass 1, per stream row r of 128 slots l:
 //   out[r,l] = val[r,l] * x[(win[r] + sub[r,l]) * 128 + lane[r,l]]
@@ -42,6 +47,22 @@
 // declared in the kernel: carved out of one dynamic array they cost the
 // float route 4-10% (the compiler, no longer sure that the atomics into the
 // accumulator leave the row buffer alone, unrolled the route loop less).
+//
+// The panels.  Column b has its own x table (x + b * cb * 128), its own
+// products (prod + b * n_chunks * p1 * 128, written by pass 1 as (B, H, 128)
+// per call) and its own out rows (out + b * n_grp * gb * 128).  Pass 1 loads
+// a stream row's win, lane, sub and val once and writes B product rows: a
+// plain stream, bound by its 4 B per slot and column of writes.  Pass 2 loads
+// lane, sub, hm1 and sig once per row and tile, then per column gathers the
+// products, takes the run totals and routes through idx into the shared
+// accumulator; the TPU's (p_oh, T) @ (T, B*128) one-hot matmul becomes these
+// indexed shared adds.  Its accumulator, (p_oh, 128) floats per column, is
+// 32 KB at p_oh 64 and 512 KB at B 16, so the columns are tiled IN A LOOP:
+// the block sizes its tile from the accumulator rows its stream rows reach
+// (hi - lo + 1 <= p_oh), as many columns as kPanelSmemBytes holds, runs its
+// rows once per tile and flushes each tile's rows to the out rows of its
+// columns, clipped at n_grp * gb as in the spmv route (the Pallas panel kernel
+// writes out[:, off:off+p_oh] unclipped).
 //
 // Bound.  Pass 1 streams 4 B of val (8 B at double) and 1 B of lane per slot
 // (2 B when m > 1) and writes 4 B (8 B) of product; x is gathered from L2.
@@ -130,6 +151,88 @@ __global__ void __launch_bounds__(kThreads) xch_route4_kernel(
   const long long room = n_out - 1 - base;
   const int last = room < hi ? (int)room : hi;
   if (base >= 0 && last >= lo) flush(acc, lo, last, out + base * kLanes);
+}
+
+__global__ void __launch_bounds__(kThreads) xch_mul_panel_kernel(
+    const int32_t* __restrict__ win, const int8_t* __restrict__ lane,
+    const int8_t* __restrict__ sub, const float* __restrict__ val,
+    const float* __restrict__ x, float* __restrict__ out, int H, int m, int B,
+    int cb) {
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (r >= H) return;
+  const size_t off = (size_t)r * kLanes + 4 * (threadIdx.x & 31);
+  const char4 ln = load_c4(lane + off);
+  const char4 sb = m > 1 ? load_c4(sub + off) : make_char4(0, 0, 0, 0);
+  const float4 v = load4(val + off);
+  const size_t table = (size_t)cb * kLanes, plane = (size_t)H * kLanes;
+  const float* xw = x + (size_t)win[r] * kLanes;
+  for (int b = 0; b < B; ++b, xw += table)
+    store4(out + b * plane + off, mul4(v, gather4(xw, ln, sb, m)));
+}
+
+__global__ void __launch_bounds__(kThreads) xch_route4_panel_kernel(
+    const int32_t* __restrict__ gids, const int32_t* __restrict__ off,
+    const int32_t* __restrict__ cs, const int32_t* __restrict__ win,
+    const int8_t* __restrict__ lane, const int8_t* __restrict__ sub,
+    const int8_t* __restrict__ hm1, const int8_t* __restrict__ sig,
+    const int8_t* __restrict__ idx, const float* __restrict__ prod,
+    float* __restrict__ out, int H, int T, int rpb, int m, int kblk,
+    int p_oh, int gb, int p1, int B, int n_chunks, long long n_out) {
+  extern __shared__ float acc[];  // (tile, hi - lo + 1, 128)
+  __shared__ __align__(16) float wbuf[kWarps][kLanes];
+  __shared__ int row_lo, row_hi;
+  const int warp = threadIdx.x >> 5, k = threadIdx.x & 31;
+  const int r0 = blockIdx.x * rpb;
+  const int t = r0 / T;
+  if (threadIdx.x == 0) {
+    row_lo = p_oh;
+    row_hi = -1;
+  }
+  __syncthreads();
+  if (threadIdx.x < rpb) {
+    const int s = sig[(size_t)(r0 + threadIdx.x) * kLanes];
+    atomicMin(&row_lo, max(s, 0));
+    atomicMax(&row_hi, min(s + kblk - 1, p_oh - 1));
+  }
+  __syncthreads();
+  const int lo = row_lo, hi = row_hi;
+  if (lo > hi) return;  // the block routes nothing; uniform over the block
+  const int span = hi - lo + 1;
+  const int tile = min(B, kPanelSmemBytes / (span * kLanes * 4));
+  const size_t column = (size_t)n_chunks * p1 * kLanes;  // one column's prod
+  const float* chunk = prod + (size_t)cs[t] * p1 * kLanes;
+  // out row of accumulator row 0; rows past the end of out are dropped
+  const long long base = (long long)gids[t] * gb + off[t];
+  const long long room = n_out - 1 - base;
+  const int last = room < hi ? (int)room : hi;
+  for (int b0 = 0; b0 < B; b0 += tile) {
+    const int nb = min(tile, B - b0);
+    for (int i = threadIdx.x; i < nb * span * kLanes; i += kThreads)
+      acc[i] = 0.f;
+    __syncthreads();
+    for (int r = r0 + warp; r < r0 + rpb; r += kWarps) {
+      const size_t o = (size_t)r * kLanes + 4 * k;
+      const char4 ln = load_c4(lane + o);
+      const char4 sb = m > 1 ? load_c4(sub + o) : make_char4(0, 0, 0, 0);
+      const char4 hd = load_c4(hm1 + o);
+      const int s = sig[(size_t)r * kLanes];
+      const int j0 = max(-s, 0), j1 = min(kblk, p_oh - s);
+      const float* xw = chunk + (size_t)b0 * column + (size_t)win[r] * kLanes;
+      for (int b = 0; b < nb; ++b, xw += column) {
+        run_totals(gather4(xw, ln, sb, m), hd, wbuf[warp]);
+        float* acc_b = acc + b * span * kLanes + 4 * k;
+        for (int j = j0; j < j1; ++j)
+          route4(idx + (size_t)j * H * kLanes + o, wbuf[warp],
+                 acc_b + (s + j - lo) * kLanes);
+      }
+    }
+    __syncthreads();
+    if (base >= 0 && last >= lo)
+      for (int b = 0; b < nb; ++b)
+        flush(acc + b * span * kLanes, 0, last - lo,
+              out + ((b0 + b) * n_out + base + lo) * kLanes);
+    __syncthreads();  // the flush has read the tile before it is zeroed
+  }
 }
 
 // Lets the route kernel take the dynamic shared memory of the largest p_oh
@@ -227,4 +330,49 @@ extern "C" int xch_route4_f64(const void* gids, const void* off,
   return launch_route4<double>(gids, off, cs, win, lane, sub, hm1, sig, idx,
                                prod, out, H, T, m, kblk, p_oh, n_grp, gb, p1,
                                stream);
+}
+
+// `out` (B, H, 128) is written in full; `x` is the (B, cb, 128) panel of x
+// tables.
+extern "C" int xch_mul_panel_f32(const void* win, const void* lane,
+                                 const void* sub, const void* val,
+                                 const void* x, void* out, int H, int T,
+                                 int m, int B, int cb, void* stream) {
+  if (m < 1 || m > kMaxWindow || T < 1 || H < 0 || H % T || B < 1 || cb < 1)
+    return (int)cudaErrorInvalidValue;
+  if (H == 0) return 0;
+  xch_mul_panel_kernel<<<(H + kWarps - 1) / kWarps, kThreads, 0,
+                         (cudaStream_t)stream>>>(
+      (const int32_t*)win, (const int8_t*)lane, (const int8_t*)sub,
+      (const float*)val, (const float*)x, (float*)out, H, m, B, cb);
+  return (int)cudaGetLastError();
+}
+
+// `out` must be zeroed, of (B, n_grp * gb, 128); `prod` is the
+// (B, n_chunks, p1, 128) product panel of pass 1.
+extern "C" int xch_route4_panel_f32(const void* gids, const void* off,
+                                    const void* cs, const void* win,
+                                    const void* lane, const void* sub,
+                                    const void* hm1, const void* sig,
+                                    const void* idx, const void* prod,
+                                    void* out, int H, int T, int m, int kblk,
+                                    int p_oh, int n_grp, int gb, int p1,
+                                    int B, int n_chunks, void* stream) {
+  if (m < 1 || m > kMaxWindow || kblk < 1 || p_oh < 1 || p_oh > kMaxPoh ||
+      T < 1 || H < 0 || H % T || n_grp < 0 || gb < 1 || p1 < 1 || B < 1 ||
+      n_chunks < 1)
+    return (int)cudaErrorInvalidValue;
+  if (H == 0) return 0;
+  static const int rc =
+      allow_panel_smem((const void*)xch_route4_panel_kernel);
+  if (rc) return rc;
+  const int rpb = rows_per_block(T);
+  xch_route4_panel_kernel<<<H / rpb, kThreads, kPanelSmemBytes,
+                            (cudaStream_t)stream>>>(
+      (const int32_t*)gids, (const int32_t*)off, (const int32_t*)cs,
+      (const int32_t*)win, (const int8_t*)lane, (const int8_t*)sub,
+      (const int8_t*)hm1, (const int8_t*)sig, (const int8_t*)idx,
+      (const float*)prod, (float*)out, H, T, rpb, m, kblk, p_oh, gb, p1, B,
+      n_chunks, (long long)n_grp * gb);
+  return (int)cudaGetLastError();
 }

@@ -5,7 +5,7 @@ in the reference)."""
 from __future__ import annotations
 
 from .base import (available_formats, convert, get_format, report_fields,
-                   spmv_fn, to_coo, traffic_bytes)
+                   spmm_fn, spmv_fn, to_coo, traffic_bytes)
 
 _LOADED = False
 
@@ -28,5 +28,5 @@ def _ensure_loaded():
 
 __all__ = [
     "available_formats", "convert", "get_format", "report_fields",
-    "spmv_fn", "to_coo", "traffic_bytes",
+    "spmm_fn", "spmv_fn", "to_coo", "traffic_bytes",
 ]

@@ -14,6 +14,13 @@ only where its Pallas kernels take the value type, which on the TPU
 excludes float64, so its ×7 price of xch at float64 never ran on the chip;
 the port offers xch at float64 with that ×7.
 
+With ``cfg.spmm_b`` = B > 1 the model prices an SpMM over a B-column panel,
+as the reference's does: dense and bsr by the panel's flops and the X
+gather, slab and slab2 at B / 1.05 for B ≤ 32 (the panel kernel), every
+other engine B×, and hyb's dia part B×.  The trials still time ``spmv``, as
+the reference's do.  ``spmm`` runs the chosen engine's ``spmm``, or the
+column loop of its ``spmv``.
+
 ``convert`` ranks by the model and, as the reference does on its chip, then
 converts and times every candidate within ``TRIAL_SPREAD`` of the cheapest
 (at most ``TRIAL_MAX``, up to ``TRIAL_NNZ_CAP`` nonzeros) and keeps the
@@ -45,7 +52,7 @@ from . import hyb as hyb_mod
 from . import slab as slab_mod
 from . import ss as ss_mod
 from . import xch as xch_mod
-from .base import TensorState
+from .base import TensorState, module_spmm
 
 HBM_BPS = _cc.get("hbm_bps")               # streamed bytes/s achieved
 SCATTER_RATE = _cc.get("scatter_rate")     # XLA gather/scatter elements/s
@@ -117,7 +124,8 @@ def bkt_seconds(slots, k, idx_b, vsz, extra_sec=0.0):
 
 def estimate_costs(coo: COOMatrix, cfg: Config, plans: dict = None,
                    _inner: bool = False, skip=()) -> dict:
-    """Seconds per SpMV by engine, the reference's model
+    """Seconds per SpMV by engine (per SpMM of ``cfg.spmm_b`` columns where
+    that is > 1), the reference's model
     (``singlespmv_tpu/formats/auto.py:77-283``) over the ported engines.
 
     ``plans`` collects the slab and xch plans so convert can reuse them;
@@ -183,13 +191,33 @@ def estimate_costs(coo: COOMatrix, cfg: Config, plans: dict = None,
     if supports("ss", dt):
         costs["ss"] = 1.05 * costs["csr"]     # the same gather + a scan pass
 
+    # SpMM: a B-column panel amortizes the index streams; dense and bsr grow
+    # by the panel flops and the X gather, slab by the panel kernel's
+    # measured (on the TPU) 1.05 over B spmvs, the rest B×
+    if cfg.spmm_b and cfg.spmm_b > 1:
+        b = cfg.spmm_b
+        for k in list(costs):
+            if k == "dense":
+                costs[k] = (dense_elems * vsz / HBM_BPS
+                            + dense_elems * b * 2.0 / MXU_FLOPS)
+            elif k == "bsr":
+                costs[k] = (blocks * bm * bn * vsz / HBM_BPS      # A once
+                            + blocks * bn * b * vsz / HBM_BPS     # X gather
+                            + blocks * bm * bn * b * 2.0 / MXU_FLOPS
+                            + blocks * 1e-8)
+            elif k in ("slab", "slab2") and b <= 32:
+                costs[k] = costs[k] * b / 1.05
+            else:
+                costs[k] = costs[k] * b
+
     if not _inner and not hyper_sparse and "hyb" not in skip:
+        bscale = max(cfg.spmm_b, 1)     # hyb's dia part runs B spmvs
         est_h = hyb_mod.estimate(coo, cfg)
         if est_h["feasible"]:
             if est_h["resid_nnz"] == 0:
                 # pure-diagonal matrix: offered only when dia is infeasible
                 if "dia" not in costs:
-                    costs["hyb"] = est_h["dia_sec"]
+                    costs["hyb"] = bscale * est_h["dia_sec"]
             else:
                 peel_offs, _ = hyb_mod.plan_peel(coo, cfg)
                 _, rest = hyb_mod._split(coo, peel_offs, cfg)
@@ -199,7 +227,7 @@ def estimate_costs(coo: COOMatrix, cfg: Config, plans: dict = None,
                             default=None)
                 if rbest is not None:
                     # two-engine fixed tax: dia dispatch + the y-add pass
-                    costs["hyb"] = est_h["dia_sec"] + rbest + 80e-6
+                    costs["hyb"] = bscale * est_h["dia_sec"] + rbest + 80e-6
 
     if hyper_sparse:
         for k in ("slab", "hyb", "bkt", "bkt_g"):
@@ -252,29 +280,14 @@ def _measures(device) -> bool:
 
 
 def _quick_bench(mod, state, n_col: int, dtype, device) -> float:
-    """Seconds per spmv: the median of 3 marginals, each the difference of
-    two CUDA-event loops (``loop`` and ``loop // 2`` calls) with ``loop``
-    doubled until one loop lasts ``TRIAL_WINDOW_S``."""
-    from ..harness.driver import _time_loop
+    """Seconds per spmv: ``harness.driver.marginal_seconds`` (the median of
+    3 CUDA-event marginals) at a ``TRIAL_WINDOW_S`` window."""
+    from ..harness.driver import marginal_seconds
 
     device = torch.device(device)
     x = torch.from_numpy(np.linspace(-1.0, 1.0, max(n_col, 1),
                                      dtype=dtype)).to(device)
-    mod.spmv(state, x)
-    loop = 2
-    while loop < (1 << 16):
-        if _time_loop(mod.spmv, state, x, loop, device) >= TRIAL_WINDOW_S:
-            break
-        loop *= 2
-    pers = []
-    for _ in range(3):
-        half = max(loop // 2, 1)
-        t_half = _time_loop(mod.spmv, state, x, half, device)
-        t_full = _time_loop(mod.spmv, state, x, loop, device)
-        margin = t_full - t_half
-        pers.append(margin / (loop - half) if margin > 0
-                    else (t_full + t_half) / (loop + half))
-    return float(np.median(pers))
+    return marginal_seconds(mod.spmv, state, x, device, TRIAL_WINDOW_S)
 
 
 def convert(coo: COOMatrix, cfg: Config, log=None, device=None) -> AutoState:
@@ -341,6 +354,10 @@ def convert(coo: COOMatrix, cfg: Config, log=None, device=None) -> AutoState:
 
 def spmv(state: AutoState, x: torch.Tensor) -> torch.Tensor:
     return _MODULES[state.chosen].spmv(state.inner, x)
+
+
+def spmm(state: AutoState, X: torch.Tensor) -> torch.Tensor:
+    return module_spmm(_MODULES[state.chosen])(state.inner, X)
 
 
 def to_coo(state: AutoState) -> COOMatrix:

@@ -5,9 +5,14 @@ Every format is a module registered by name that exposes
 
     convert(coo: COOMatrix, cfg: Config) -> state     # host layout, CPU tensors
     spmv(state, x: torch.Tensor) -> torch.Tensor      # on the state's device
+    spmm(state, X: torch.Tensor) -> torch.Tensor      # optional: Y = A @ X
     report_fields(state, cfg) -> dict                 # format-specific report keys
     traffic_bytes(state, cfg) -> int                  # roofline traffic model
     to_coo(state) -> COOMatrix                        # inverse conversion
+
+``spmm_fn`` returns a format's ``spmm`` where it has one, else a loop of its
+``spmv`` over the columns of X (``column_loop``), the port's stand-in for the
+reference's ``jax.vmap``.  X is (n_col, B) and Y (n_row, B).
 
 States are frozen dataclasses of torch tensors (``TensorState``); ``convert``
 returns them on the CPU and ``state.to(device)`` moves them.  Values are
@@ -77,12 +82,12 @@ class TensorState:
             for f in dataclasses.fields(self)})
 
 
-def state_from_arrays(cls, arrays: dict, fmt: str):
+def state_from_arrays(cls, arrays: dict, fmt: str, values: str = "val"):
     """A state of dataclass ``cls`` from the fields of the reference's state
     of format ``fmt``, given as numpy arrays and scalars: arrays become
     tensors (bool flags uint8), fields of the reference that ``cls`` lacks
     are not read, and fields of ``cls`` that the reference lacks keep their
-    defaults.  Checks the value type of ``val``."""
+    defaults.  Checks the value type of field ``values``."""
     kw = {}
     for f in dataclasses.fields(cls):
         if f.name not in arrays:
@@ -93,7 +98,7 @@ def state_from_arrays(cls, arrays: dict, fmt: str):
                 v, dtype=np.uint8 if v.dtype == np.bool_ else v.dtype))
         kw[f.name] = v
     state = cls(**kw)
-    check_dtype(fmt, state.val.dtype)
+    check_dtype(fmt, getattr(state, values).dtype)
     return state
 
 
@@ -103,6 +108,27 @@ def convert(coo: COOMatrix, cfg: Config):
 
 def spmv_fn(cfg: Config) -> Callable:
     return get_format(cfg.format).spmv
+
+
+def column_loop(spmv: Callable, state, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X by one ``spmv`` per column of X (n_col, B): (n_row, B)."""
+    return torch.stack([spmv(state, x) for x in X.t().contiguous()], dim=1)
+
+
+def module_spmm(mod) -> Callable:
+    """The ``spmm`` of format module ``mod``, or the column loop of its
+    ``spmv``."""
+    native = getattr(mod, "spmm", None)
+    if native is not None:
+        return native
+    return lambda state, X: column_loop(mod.spmv, state, X)
+
+
+def spmm_fn(cfg: Config) -> Callable:
+    """SpMM, Y = A @ X with X (n_col, B): the format's ``spmm`` where it has
+    one, else the column loop of its ``spmv``
+    (``singlespmv_tpu/formats/base.py:90``)."""
+    return module_spmm(get_format(cfg.format))
 
 
 def to_coo(state, cfg: Config) -> COOMatrix:

@@ -6,20 +6,29 @@ reference's convert, guard and fill ratio are copied as they are.  Its
 product is XLA (a gather of x blocks, a broadcast multiply with a lane sum,
 a sorted segment sum), so the port's is plain torch: ``index_select`` of the
 x blocks, one batched matrix-vector product (``torch.bmm``) and
-``index_add_`` by block row.  The block-ELL panel the reference builds for
-SpMM is not built: the port has no SpMM yet (ROADMAP A.11).
+``index_add_`` by block row.
+
+SpMM, as the reference's (XLA ``dot_general``, no Pallas kernel), is plain
+torch too.  Where convert built the reference's block-ELL layout (each
+block row's K blocks side by side, under the reference's padding guard),
+Y is one ``torch.bmm`` of (n_brow, bm, K·bn) @ (n_brow, K·bn, B); otherwise
+the gathered X blocks, one ``torch.bmm`` per column chunk of at most
+``MAX_GATHERED_ELEMS`` gathered elements, and ``index_add_`` by block row.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..config import Config
 from ..core.types import COOMatrix, cdiv
-from .base import TensorState, check_dtype
+from .base import TensorState, check_dtype, state_from_arrays
 from .slab import _t
+
+MAX_GATHERED_ELEMS = 1 << 28    # cap on the gathered (n_blocks, bn, Bc) X
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +44,9 @@ class BSRState(TensorState):
     blocks: torch.Tensor   # (n_blocks, bm, bn) dense values
     brow: torch.Tensor     # (n_blocks,) block-row id, sorted
     bcol: torch.Tensor     # (n_blocks,) block-col id
+    ell_k: int = 0         # block-ELL SpMM panel width (0: not built)
+    ell_blocks: Optional[torch.Tensor] = None   # (n_brow, bm, K·bn)
+    ell_bcol: Optional[torch.Tensor] = None     # (n_brow, K) int32, pad → CB
 
 
 def convert(coo: COOMatrix, cfg: Config) -> BSRState:
@@ -65,10 +77,37 @@ def convert(coo: COOMatrix, cfg: Config) -> BSRState:
         brow = np.zeros(1, dtype=cfg.index_dtype)
         bcol = np.zeros(1, dtype=cfg.index_dtype)
     fill = coo.nnz / float(n_blocks * bm * bn)
+    # block-ELL SpMM layout: each block row's K blocks side by side along
+    # the contraction, built where padding to the widest block row stays
+    # within 3x the blocks (the reference's guard)
+    ell_k, ell_blocks, ell_bcol = 0, None, None
+    if coo.nnz:
+        counts = np.bincount(brow.astype(np.int64), minlength=n_brow)
+        k_max = int(counts.max())
+        cb = cdiv(max(coo.n_col, 1), bn)
+        if 0 < k_max * n_brow <= 3 * n_blocks and \
+                k_max * n_brow * bm * bn * blocks.itemsize <= (2 << 30):
+            ell_bcol = np.full((n_brow, k_max), cb, dtype=np.int32)
+            eb = np.zeros((n_brow, k_max, bm, bn), dtype=blocks.dtype)
+            pos = np.arange(n_blocks) - np.concatenate(
+                [[0], np.cumsum(counts)[:-1]])[brow.astype(np.int64)]
+            ell_bcol[brow.astype(np.int64), pos] = bcol.astype(np.int32)
+            eb[brow.astype(np.int64), pos] = blocks
+            ell_blocks = eb.transpose(0, 2, 1, 3).reshape(n_brow, bm,
+                                                          k_max * bn)
+            ell_k = k_max
     return BSRState(
         n_row=coo.n_row, n_col=coo.n_col, nnz=coo.nnz, bm=bm, bn=bn,
         n_blocks=n_blocks, n_brow=n_brow, fill=fill, blocks=_t(blocks),
-        brow=_t(brow), bcol=_t(bcol))
+        brow=_t(brow), bcol=_t(bcol), ell_k=ell_k,
+        ell_blocks=_t(ell_blocks) if ell_k else None,
+        ell_bcol=_t(ell_bcol) if ell_k else None)
+
+
+def state_from_reference(arrays: dict) -> BSRState:
+    """The port's state from the fields of a reference ``BSRState``, given
+    as numpy arrays and scalars; the block-ELL fields come across too."""
+    return state_from_arrays(BSRState, arrays, "bsr", values="blocks")
 
 
 def spmv(state: BSRState, x: torch.Tensor) -> torch.Tensor:
@@ -80,6 +119,37 @@ def spmv(state: BSRState, x: torch.Tensor) -> torch.Tensor:
     yb = torch.zeros(state.n_brow, state.bm, dtype=x.dtype, device=x.device)
     yb.index_add_(0, state.brow, part)
     return yb.view(-1)[: state.n_row]
+
+
+def spmm(state: BSRState, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X, X (n_col, B) (the reference's ``formats/bsr.py:118``)."""
+    b, bn = X.shape[1], state.bn
+    cb = cdiv(state.n_col, bn)
+    if state.ell_k:
+        # one batched matmul; block col cb is the all-zero pad target
+        Xp = torch.zeros((cb + 1) * bn, b, dtype=X.dtype, device=X.device)
+        Xp[: state.n_col] = X
+        Xg = Xp.view(cb + 1, bn, b).index_select(
+            0, state.ell_bcol.view(-1)).view(state.n_brow, state.ell_k * bn,
+                                             b)
+        return torch.bmm(state.ell_blocks, Xg).view(-1, b)[: state.n_row]
+    chunk = max(8, min(b, MAX_GATHERED_ELEMS
+                       // max(state.n_blocks * bn, 1)))
+
+    def one_chunk(Xc):
+        bc = Xc.shape[1]
+        Xp = torch.zeros(cb * bn, bc, dtype=X.dtype, device=X.device)
+        Xp[: state.n_col] = Xc
+        Xb = Xp.view(cb, bn, bc).index_select(0, state.bcol)
+        Yb = torch.zeros(state.n_brow, state.bm, bc, dtype=X.dtype,
+                         device=X.device)
+        Yb.index_add_(0, state.brow, torch.bmm(state.blocks, Xb))
+        return Yb.view(-1, bc)[: state.n_row]
+
+    if chunk >= b:
+        return one_chunk(X)
+    return torch.cat([one_chunk(X[:, i: i + chunk])
+                      for i in range(0, b, chunk)], 1)
 
 
 def report_fields(state: BSRState, cfg: Config) -> dict:

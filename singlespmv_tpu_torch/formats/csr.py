@@ -4,8 +4,9 @@ The layout is the reference's: the CSR arrays plus the row-id expansion of
 ``row_ptr`` padded to a multiple of ``PAD_MULTIPLE`` (pads: value 0 on the
 last row).  The reference computes the product in XLA (a gather and a sorted
 segment sum, ``ops/segsum.py``), so the port does too in plain torch:
-``index_select`` of x by column, a multiply, and ``index_add_`` by row.  It
-is auto's fallback that always exists, at any value type.
+``index_select`` of x by column, a multiply, and ``index_add_`` by row, and
+for SpMM the same over the rows of X.  It is auto's fallback that always
+exists, at any value type.
 """
 from __future__ import annotations
 
@@ -62,6 +63,16 @@ def spmv(state: CSRState, x: torch.Tensor) -> torch.Tensor:
     if state.n_row:
         y.index_add_(0, state.rows, products)
     return y
+
+
+def spmm(state: CSRState, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X, X (n_col, B): products of the rows of X, summed by row."""
+    products = state.val[:, None] * X.index_select(0, state.col)
+    Y = torch.zeros(state.n_row, X.shape[1], dtype=products.dtype,
+                    device=X.device)
+    if state.n_row:
+        Y.index_add_(0, state.rows, products)
+    return Y
 
 
 def report_fields(state: CSRState, cfg: Config) -> dict:

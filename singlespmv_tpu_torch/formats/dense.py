@@ -2,8 +2,9 @@
 
 The matrix is stored dense, (n_row padded to 8) × (n_col padded to 128),
 within the reference's density guard, and the product is one
-``torch.matmul`` (a matrix-vector product), as the reference's is one XLA
-``jnp.dot``.
+``torch.matmul`` (a matrix-vector product, or for SpMM a matrix product),
+as the reference's is one XLA ``jnp.dot``.  A float32 ``torch.matmul`` on
+the card runs in full float32 unless the caller enables TF32.
 """
 from __future__ import annotations
 
@@ -47,6 +48,14 @@ def spmv(state: DenseState, x: torch.Tensor) -> torch.Tensor:
     xp = torch.zeros(state.mat.shape[1], dtype=x.dtype, device=x.device)
     xp[: state.n_col] = x
     return torch.matmul(state.mat, xp)[: state.n_row]
+
+
+def spmm(state: DenseState, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X, X (n_col, B): one matrix product."""
+    Xp = torch.zeros(state.mat.shape[1], X.shape[1], dtype=X.dtype,
+                     device=X.device)
+    Xp[: state.n_col] = X
+    return torch.matmul(state.mat, Xp)[: state.n_row]
 
 
 def traffic_bytes(state: DenseState, cfg: Config) -> int:

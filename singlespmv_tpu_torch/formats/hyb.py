@@ -15,6 +15,10 @@ residual, as the reference ranks its own with its ``auto.estimate_costs``.
 An engine whose convert refuses (css's padding guard, a ``ValueError``) is
 passed over for the next.
 
+``spmm`` takes the dia part by the column loop of its spmv, as the
+reference vmaps it, plus the residual's ``spmm`` where its engine has one,
+else the column loop of the residual's spmv.
+
 Values are float32 or float64 (``base.check_dtype``).
 """
 from __future__ import annotations
@@ -34,7 +38,7 @@ from . import css as css_mod
 from . import dia as dia_mod
 from . import slab as slab_mod
 from . import xch as xch_mod
-from .base import TensorState, check_dtype
+from .base import TensorState, check_dtype, column_loop, module_spmm
 
 # the reference's cost-model constants (TPU v5e, measured there)
 HBM_BPS = 700e9          # streamed bytes/s achieved
@@ -147,6 +151,13 @@ def spmv(state: HYBState, x: torch.Tensor) -> torch.Tensor:
     if state.rest_fmt:
         y = y + REST_MODULES[state.rest_fmt].spmv(state.rest_state, x)
     return y
+
+
+def spmm(state: HYBState, X: torch.Tensor) -> torch.Tensor:
+    Y = column_loop(dia_mod.spmv, state.dia_state, X)
+    if state.rest_fmt:
+        Y = Y + module_spmm(REST_MODULES[state.rest_fmt])(state.rest_state, X)
+    return Y
 
 
 def report_fields(state: HYBState, cfg: Config) -> dict:

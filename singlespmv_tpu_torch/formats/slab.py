@@ -9,15 +9,17 @@ end-lanes route every run to its y row; in *blk* mode a scope is a group of
 
 Host half (``estimate``, ``convert``): the reference's numpy planner and
 layout builder, carried over unchanged in behaviour, so that one COO yields
-the same arrays in both packages.  It prices plans with the same
-``singlespmv_tpu.core.chipconst`` constants.  ``M_CANDS``, ``X_TABLE_CAP`` and
+the same arrays in both packages.  It prices plans with the port's own copy
+of the reference's constants (``core/chipconst.py``: the v5e literals until
+Hopper probes measure the H100's).  ``M_CANDS``, ``X_TABLE_CAP`` and
 ``CHUNK_ROWS``/``_chunk_cuts`` size TPU memories; they stay until the port
 sheds them (ROADMAP A.7).
 
 Device half (``spmv``): pads x and appends the hub columns, runs one kernel
 per stream chunk (``ops/slab.py``), then assembles y — blk mode shift-adds
 the plane diagonals, unit mode overlap-adds the halves of pair blocks — and
-scatters by unit id.
+scatters by unit id.  ``spmm`` does the same for a panel of columns with one
+``slab_spmm`` per stream chunk in unit mode, under the reference's gates.
 
 Values are float32 or float64; bfloat16 raises ``NotImplementedError``
 (ROADMAP A.10).  At float64 the planner takes the reference's float64
@@ -39,8 +41,8 @@ from ..core import chipconst as _cc
 from ..core import hostmem as hm
 from ..core.types import COOMatrix, cdiv
 
-from ..ops.slab import slab_spmv, slab_spmv_blk
-from .base import TensorState, check_dtype
+from ..ops.slab import PANEL_TYPES, slab_spmm, slab_spmv, slab_spmv_blk
+from .base import TensorState, check_dtype, column_loop
 
 LANES = 128
 UNIT_ROWS = 1024           # y rows per unit: 8 planes × 128 lanes
@@ -677,14 +679,17 @@ def state_from_reference(arrays: dict) -> SlabState:
 
 def x_table(state: SlabState, x: torch.Tensor) -> torch.Tensor:
     """The kernels' (cb_pad, 128) x table: x zero-padded to whole windows,
-    with the hub columns copied into the appendix."""
-    xp = torch.zeros(state.cb_pad * LANES, dtype=x.dtype, device=x.device)
-    xp[: state.n_col] = x
+    with the hub columns copied into the appendix.  For a panel X
+    (n_col, B), the (B, cb_pad, 128) tables of its columns."""
+    cols = x.t() if x.dim() == 2 else x
+    xp = torch.zeros(cols.shape[:-1] + (state.cb_pad * LANES,),
+                     dtype=x.dtype, device=x.device)
+    xp[..., : state.n_col] = cols
     if state.hub_cols is not None:
         n_hub = state.hub_cols.shape[0]
-        xp[state.hub_off: state.hub_off + n_hub] = x.index_select(
-            0, state.hub_cols)
-    return xp.view(state.cb_pad, LANES)
+        xp[..., state.hub_off: state.hub_off + n_hub] = cols.index_select(
+            -1, state.hub_cols)
+    return xp.view(cols.shape[:-1] + (state.cb_pad, LANES))
 
 
 def spmv(state: SlabState, x: torch.Tensor) -> torch.Tensor:
@@ -738,6 +743,49 @@ def spmv(state: SlabState, x: torch.Tensor) -> torch.Tensor:
     y2 = torch.zeros(n_blocks, rows_per_unit, dtype=x.dtype, device=dev)
     y2[state.unit_ids.long()] = yu
     return y2.view(-1)[:n]
+
+
+PANEL_B_MAX = 32           # the reference's panel kernel unrolls B in-kernel
+
+
+def spmm(state: SlabState, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X, X (n_col, B): the reference's panel path (its
+    ``formats/slab.py:867``).  In unit mode with 2 ≤ B ≤ ``PANEL_B_MAX``, a
+    float32 panel and B x tables within ``X_TABLE_CAP``, one ``slab_spmm``
+    per stream chunk reads the streams once for all B columns; blk mode and
+    every other B take the column loop of ``spmv``.  The gates are the
+    reference's, the TPU's x-table cap included, so both packages take the
+    same branch for one state and B; shedding the cap is ROADMAP A.7's
+    work."""
+    if X.dtype != state.val[0].dtype:
+        raise TypeError(f"slab: X is {X.dtype}, the state holds "
+                        f"{state.val[0].dtype} values")
+    n_cols = X.shape[1]
+    table_bytes = state.cb_pad * LANES * X.element_size()
+    if (state.mode != "unit" or state.nnz == 0 or state.n_units == 0
+            or not 2 <= n_cols <= PANEL_B_MAX
+            or n_cols * table_bytes > X_TABLE_CAP
+            or X.dtype not in PANEL_TYPES):
+        return column_loop(spmv, state, X)
+    xp = x_table(state, X)
+    nu, planes = state.n_units, state.planes
+    outs = [slab_spmm(u, w, la, su, va, h1, ix, xp, nu_c, state.m,
+                      state.t_step)
+            for u, w, la, su, va, h1, ix, nu_c in zip(
+                state.uids, state.win, state.lane, state.sub, state.val,
+                state.hm1, state.idx, state.chunk_nu)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, 0)
+    if planes == 8:
+        yu = out.view(nu, n_cols, UNIT_ROWS)
+    else:
+        # pair-block overlap-add: block u rows 0-7 → unit u, 8-15 → u+1
+        out4 = out.view(nu, n_cols, 2, UNIT_ROWS)
+        yu = out4[:, :, 0].clone()
+        yu[1:] += out4[:-1, :, 1]
+    y2 = torch.zeros(cdiv(max(state.n_row, 1), UNIT_ROWS), n_cols, UNIT_ROWS,
+                     dtype=X.dtype, device=X.device)
+    y2[state.unit_ids.long()] = yu
+    return y2.transpose(1, 2).reshape(-1, n_cols)[: state.n_row]
 
 
 # ----------------------------------------------------------------- reports ---

@@ -14,8 +14,9 @@ nested ``Xch4State`` (``long``) scatter-added at ``long_rows``.
 
 Host half (``estimate``, ``convert``): the reference's live v4 planner and
 layout builder in numpy, carried over unchanged in behaviour, so that one COO
-yields the same arrays in both packages.  It prices plans with the same
-``singlespmv_tpu.core.chipconst`` constants and the reference's v5e fits.
+yields the same arrays in both packages.  It prices plans with the port's
+own copy of the reference's constants (``core/chipconst.py``) and the
+reference's v5e fits.
 ``X_TABLE_CAP``, ``M2_CAP``, ``CHUNK_ROWS`` and ``PASS1_CALL_ROWS`` size TPU
 memories; they stay until the port sheds them (ROADMAP A.7).  The v3
 σ-plane engine (``route_v`` 3) is not ported (ROADMAP B.15).
@@ -23,7 +24,9 @@ memories; they stay until the port sheds them (ROADMAP A.7).  The v3
 Device half (``spmv``): pads x into the x table, runs one ``xch_mul`` per
 pass-1 call and one ``xch_route4`` per pass-2 call (``ops/xch.py``), places
 the visited out groups into y, adds the nested long-row state's y at
-``long_rows`` and the peeled bands as shifted slices of x.
+``long_rows`` and the peeled bands as shifted slices of x.  ``spmm`` does the
+same for a panel of columns with ``xch_mul_panel`` and ``xch_route4_panel``,
+under the reference's gates.
 
 Values are float32 or float64; bfloat16 raises ``NotImplementedError``
 (ROADMAP A.10).  The layout at float64 is the float32 layout, as in the
@@ -44,8 +47,9 @@ from ..core import chipconst as _cc
 from ..core import hostmem as hm
 from ..core.types import COOMatrix, cdiv
 
-from ..ops.xch import xch_mul, xch_route4
-from .base import TensorState, check_dtype
+from ..ops.slab import PANEL_TYPES
+from ..ops.xch import xch_mul, xch_mul_panel, xch_route4, xch_route4_panel
+from .base import TensorState, check_dtype, column_loop
 from .slab import _t, _walk
 
 LANES = 128
@@ -939,10 +943,13 @@ def state_from_reference(arrays: dict) -> Xch4State:
 # -------------------------------------------------------------------- spmv ---
 
 def x_table(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
-    """Pass 1's (cb_pad, 128) x table: x zero-padded to whole windows."""
-    xp = torch.zeros(state.cb_pad * LANES, dtype=x.dtype, device=x.device)
-    xp[: state.n_col] = x
-    return xp.view(state.cb_pad, LANES)
+    """Pass 1's (cb_pad, 128) x table: x zero-padded to whole windows.  For
+    a panel X (n_col, B), the (B, cb_pad, 128) tables of its columns."""
+    cols = x.t() if x.dim() == 2 else x
+    xp = torch.zeros(cols.shape[:-1] + (state.cb_pad * LANES,),
+                     dtype=x.dtype, device=x.device)
+    xp[..., : state.n_col] = cols
+    return xp.view(cols.shape[:-1] + (state.cb_pad, LANES))
 
 
 def products(state: Xch4State, xp: torch.Tensor) -> torch.Tensor:
@@ -984,17 +991,72 @@ def spmv(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
 
 
 def _dia_part(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
-    """Peeled bands: one static shifted slice of x per offset."""
+    """Peeled bands: one static shifted slice of x per offset.  x may be a
+    panel (n_col, B): each column sums the same products in the same
+    order."""
     n = state.n_row
     offs = state.dia_offs
     mmax = max(max(abs(o) for o in offs), 1)
-    xp = torch.zeros(max(n, state.n_col) + 2 * mmax, dtype=x.dtype,
-                     device=x.device)
+    xp = torch.zeros((max(n, state.n_col) + 2 * mmax,) + x.shape[1:],
+                     dtype=x.dtype, device=x.device)
     xp[mmax: mmax + state.n_col] = x
-    acc = torch.zeros(n, dtype=x.dtype, device=x.device)
+    acc = torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device)
+    vals = state.dia_vals.view(state.dia_vals.shape + (1,) * (x.dim() - 1))
     for k, d in enumerate(offs):
-        acc.addcmul_(state.dia_vals[k], xp[mmax + d: mmax + d + n])
+        acc.addcmul_(vals[k], xp[mmax + d: mmax + d + n])
     return acc
+
+
+PANEL_B_MAX = 16           # the reference's panel gate (its xch.py:2188)
+
+
+def spmm(state: Xch4State, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X, X (n_col, B): the reference's panel path (its
+    ``formats/xch.py:2182``).  With 2 ≤ B ≤ ``PANEL_B_MAX``, pass-1 slots,
+    a float32 panel and B x tables within ``X_TABLE_CAP``, the panel kernels
+    read the index streams once for all B columns; otherwise the column
+    loop of ``spmv``.  The gates are the reference's, the TPU's x-table cap
+    included (ROADMAP A.7 sheds it)."""
+    if X.dtype != state.val1[0].dtype:
+        raise TypeError(f"xch: X is {X.dtype}, the state holds "
+                        f"{state.val1[0].dtype} values")
+    n_cols = X.shape[1]
+    if (2 <= n_cols <= PANEL_B_MAX and state.n_slots1
+            and X.dtype in PANEL_TYPES
+            and n_cols * state.cb_pad * LANES * X.element_size()
+            <= X_TABLE_CAP):
+        return _spmm_panel_v4(state, X)
+    return column_loop(spmv, state, X)
+
+
+def _spmm_panel_v4(state: Xch4State, X: torch.Tensor) -> torch.Tensor:
+    """Both passes over the panel, the visited out groups placed into Y,
+    then the nested long-row state's ``spmm`` at ``long_rows`` and the
+    peeled bands."""
+    n, n_cols = state.n_row, X.shape[1]
+    xp = x_table(state, X)
+    prods = [xch_mul_panel(w, la, su, va, xp, state.m1, state.t1)
+             for w, la, su, va in zip(state.win1, state.lane1, state.sub1,
+                                      state.val1)]
+    prod = prods[0] if len(prods) == 1 else torch.cat(prods, 1)
+    prod4 = prod.view(n_cols, state.n_chunks, state.p1, LANES)
+    outs = [xch_route4_panel(g, o, c, w, la, su, h2, sg, ix, prod4, ng,
+                             state.gb, state.m2, state.t2, state.p_oh)
+            for g, o, c, w, la, su, h2, sg, ix, ng in zip(
+                state.gids2, state.off2, state.cs2, state.win2, state.lane2,
+                state.sub2, state.hm2, state.sig2, state.idx2,
+                state.chunk_ngrp)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, 1)
+    n_grp_tot = cdiv(cdiv(max(n, 1), LANES), state.gb)
+    yg = torch.zeros(n_cols, n_grp_tot, state.gb * LANES, dtype=X.dtype,
+                     device=X.device)
+    yg[:, state.vis_gids.long()] = out.view(n_cols, -1, state.gb * LANES)
+    Y = yg.view(n_cols, -1)[:, :n].t().contiguous()
+    if state.long is not None:
+        Y.index_add_(0, state.long_rows.long(), spmm(state.long, X))
+    if state.dia_vals is not None:
+        Y += _dia_part(state, X)
+    return Y
 
 
 # ----------------------------------------------------------------- reports ---

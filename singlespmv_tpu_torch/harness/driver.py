@@ -87,6 +87,29 @@ def _time_loop(spmv, state, x, loop: int, device: torch.device) -> float:
     return time.perf_counter() - t0
 
 
+def marginal_seconds(fn, state, x, device: torch.device,
+                     window: float) -> float:
+    """Seconds per call of ``fn(state, x)``: the median of 3 marginals, each
+    the difference of two timed loops (``loop`` and ``loop // 2`` calls),
+    with ``loop`` doubled until one loop lasts ``window`` seconds (the
+    reference's trial timing, ``singlespmv_tpu/formats/auto.py:345``)."""
+    fn(state, x)
+    loop = 2
+    while loop < (1 << 16):
+        if _time_loop(fn, state, x, loop, device) >= window:
+            break
+        loop *= 2
+    pers = []
+    for _ in range(3):
+        half = max(loop // 2, 1)
+        t_half = _time_loop(fn, state, x, half, device)
+        t_full = _time_loop(fn, state, x, loop, device)
+        margin = t_full - t_half
+        pers.append(margin / (loop - half) if margin > 0
+                    else (t_full + t_half) / (loop + half))
+    return float(np.median(pers))
+
+
 def run_benchmark(
     matrix,                      # path or COOMatrix
     cfg: Config = None,

@@ -1,18 +1,20 @@
 """Slab SpMV kernels: the wrappers of ``csrc/slab.cu`` and their plain
 PyTorch versions.
 
-``slab_spmv`` (unit route) and ``slab_spmv_blk`` (block route) take the
-arguments of their Pallas counterparts in ``singlespmv_tpu/ops/pallas/slab.py``
-(:263 and :310) and return the same out blocks.  On a CUDA tensor a wrapper
-launches its kernel, or raises; on a CPU tensor it runs the plain version
-(``slab_spmv_ref``, ``slab_spmv_blk_ref``), which the tests hold against the
-Pallas kernels and ``chip_smoke.py`` holds against the kernels on the card.
+``slab_spmv`` (unit route), ``slab_spmv_blk`` (block route) and
+``slab_spmm`` (unit route over a panel of columns) take the arguments of their
+Pallas counterparts in ``singlespmv_tpu/ops/pallas/slab.py`` (:263, :310 and
+:228) and return the same out blocks.  On a CUDA tensor a wrapper launches its
+kernel, or raises; on a CPU tensor it runs the plain version
+(``slab_spmv_ref``, ``slab_spmv_blk_ref``, ``slab_spmm_ref``), which the tests
+hold against the Pallas kernels and ``chip_smoke.py`` holds against the
+kernels on the card.
 
 The value type is float32 or float64, the same for val, the x table and the
 out blocks.  At float64 ``slab_spmv`` launches the native-fp64 build of the
 unit kernel, which stands for the df64 kernel ``slab_spmv_df`` (:463) of the
 reference; the block route is float32 only, as the reference's float64
-plans are unit mode only.
+plans are unit mode only, and so is the panel, as the TPU ran it.
 
 Each wrapper counts the launches of its float32 kernel in
 ``<wrapper>.launches`` and of its float64 kernel in
@@ -31,6 +33,7 @@ from . import _build
 
 LANES = 128
 VALUE_TYPES = (torch.float32, torch.float64)
+PANEL_TYPES = (torch.float32,)   # the SpMM panel kernels', as on the TPU
 UNIT_PLANES = (8, 16)
 BLK_PLANES = (8, 16, 32)
 BLK_KBLK = (1, 2, 4)
@@ -57,9 +60,19 @@ def value_type(t, types=VALUE_TYPES):
     return t.dtype
 
 
-def _check_stream(lane, val, hm1, sub, win, x_table, T, types=VALUE_TYPES):
-    """Checks shared by both kernels; returns (H, n_steps, device, value
-    type)."""
+def _check_table(name, t, vt, dev, rank=2):
+    """``t`` is a contiguous (CB, 128) x table (rank 2) or (B, CB, 128)
+    panel of tables (rank 3) of type ``vt`` on ``dev``, with B ≥ 1."""
+    if t.dim() != rank or t.shape[-1] != LANES or not all(t.shape[:-1]):
+        want = "(CB, 128)" if rank == 2 else "(B, CB, 128)"
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want}")
+    _check(name, t, vt, t.shape, dev)
+
+
+def _check_stream(lane, val, hm1, sub, win, x_table, T, types=VALUE_TYPES,
+                  rank=2):
+    """Checks shared by the kernels; ``x_table`` is a table or, at rank 3, a
+    panel of tables.  Returns (H, n_steps, device, value type)."""
     dev = x_table.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"slab kernels run on cuda (or cpu: plain version), "
@@ -72,10 +85,7 @@ def _check_stream(lane, val, hm1, sub, win, x_table, T, types=VALUE_TYPES):
                         ("hm1", hm1, torch.int8), ("val", val, vt)):
         _check(name, t, dt, (h, LANES), dev)
     _check("win", win, torch.int32, (h,), dev)
-    if x_table.dim() != 2 or x_table.shape[1] != LANES:
-        raise ValueError(f"x_table has shape {tuple(x_table.shape)}, "
-                         f"expected (CB, {LANES})")
-    _check("x_table", x_table, vt, x_table.shape, dev)
+    _check_table("x_table", x_table, vt, dev, rank)
     return h, h // T, dev, vt
 
 
@@ -159,6 +169,20 @@ def slab_spmv_blk_ref(uids, win, lane, sub, val, hm1, idx, sig, x_table,
     return out
 
 
+def slab_spmm_ref(uids, win, lane, sub, val, hm1, idx, x_panel, nu: int,
+                  m: int, T: int = 64):
+    """Plain version of ``slab_spmm``: ``slab_spmv_ref`` of each column,
+    placed in that column's planes of every unit block."""
+    planes, n_cols = idx.shape[0], x_panel.shape[0]
+    out = torch.empty(nu, n_cols, planes, LANES, dtype=val.dtype,
+                      device=val.device)
+    for b in range(n_cols):
+        out[:, b] = slab_spmv_ref(uids, None, None, win, lane, sub, val, hm1,
+                                  idx, x_panel[b], nu, m, T).view(
+                                      nu, planes, LANES)
+    return out.view(nu * n_cols * planes, LANES)
+
+
 # --------------------------------------------------------------- wrappers ---
 
 def slab_spmv(uids, sg0, sg1, win, lane, sub, val, hm1, idx, x_table,
@@ -232,5 +256,38 @@ def slab_spmv_blk(uids, win, lane, sub, val, hm1, idx, sig, x_table,
     return out
 
 
+def slab_spmm(uids, win, lane, sub, val, hm1, idx, x_panel, nu: int, m: int,
+              T: int = 64):
+    """Unit-route slab SpMM over one stream chunk, float32.
+
+    x_panel: (B, CB, 128) float32 — column b's x table in row b.
+    Other arguments as in ``slab_spmv``, which routes the same streams for
+    one column; the panel routes every plane (no sg0/sg1), as the TPU's.
+    Returns (nu·B·planes, 128) float32: block u rows [b·planes, (b+1)·planes)
+    hold column b's σ-planes."""
+    h, n_steps, dev, _ = _check_stream(lane, val, hm1, sub, win, x_panel, T,
+                                       types=PANEL_TYPES, rank=3)
+    planes, n_cols = idx.shape[0], x_panel.shape[0]
+    if planes not in UNIT_PLANES:
+        raise ValueError(f"unit route takes {UNIT_PLANES} planes, "
+                         f"not {planes}")
+    _check("idx", idx, torch.int8, (planes, h, LANES), dev)
+    _check("uids", uids, torch.int32, (n_steps,), dev)
+    if dev.type == "cpu":
+        return slab_spmm_ref(uids, win, lane, sub, val, hm1, idx, x_panel, nu,
+                             m, T)
+    out = torch.zeros(nu * n_cols * planes, LANES, dtype=torch.float32,
+                      device=dev)
+    if h:
+        rc = _build.load().slab_spmm_f32(
+            *map(_ptr, (uids, win, lane, sub, val, hm1, idx, x_panel, out)),
+            h, T, m, planes, n_cols, x_panel.shape[1],
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        _raise_on(rc, "slab_spmm")
+        slab_spmm.launches += 1
+    return out
+
+
 slab_spmv.launches = slab_spmv.launches_f64 = 0
 slab_spmv_blk.launches = 0
+slab_spmm.launches = 0

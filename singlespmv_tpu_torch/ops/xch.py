@@ -1,17 +1,19 @@
 """XCH kernels: the wrappers of ``csrc/xch.cu`` and their plain PyTorch
 versions.
 
-``xch_mul`` (pass 1) and ``xch_route4`` (pass 2) take the arguments of their
-Pallas counterparts in ``singlespmv_tpu/ops/pallas/xch.py`` (:48 and :151)
-and return the same arrays.  On a CUDA tensor a wrapper launches its kernel,
-or raises; on a CPU tensor it runs the plain version (``xch_mul_ref``,
-``xch_route4_ref``), which the tests hold against the Pallas kernels and
+``xch_mul`` (pass 1) and ``xch_route4`` (pass 2), and their panels over B
+columns ``xch_mul_panel`` and ``xch_route4_panel``, take the arguments of
+their Pallas counterparts in ``singlespmv_tpu/ops/pallas/xch.py`` (:48, :151,
+:338 and :424) and return the same arrays.  On a CUDA tensor a wrapper
+launches its kernel, or raises; on a CPU tensor it runs the plain version
+(``<wrapper>_ref``), which the tests hold against the Pallas kernels and
 ``chip_smoke.py`` holds against the kernels on the card.
 
 The value type is float32 or float64, the same for val, the x table, the
 products and the out rows.  At float64 the wrappers launch the native-fp64
 builds of the kernels, which stand for the df64 kernels ``xch_mul_df`` (:495)
-and ``xch_route4_df`` (:594) of the reference.
+and ``xch_route4_df`` (:594) of the reference.  The panels are float32 only,
+as the TPU ran them.
 
 Each wrapper counts the launches of its float32 kernel in
 ``<wrapper>.launches`` and of its float64 kernel in
@@ -27,8 +29,9 @@ import ctypes
 import torch
 
 from . import _build
-from .slab import (LANES, _check, _count, _entry, _gather, _picked, _ptr,
-                   _raise_on, _totals, value_type)
+from .slab import (LANES, PANEL_TYPES, VALUE_TYPES, _check, _check_table,
+                   _count, _entry, _gather, _picked, _ptr, _raise_on,
+                   _totals, value_type)
 
 M_MAX = 120        # window blocks: int8 sub headroom (formats/xch.M_MAX)
 P_OH_MAX = 64      # one-hot rows per step: the kernel's shared accumulator
@@ -56,6 +59,45 @@ def _stream(dev):
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
+def _check_mul(win, lane, sub, val, x, m, T, types, rank):
+    """Checks of pass 1; ``x`` is the x table or, at rank 3, the panel of
+    tables.  Returns (H, device, value type)."""
+    dev = _device(x)
+    h = lane.shape[0]
+    _check_rows(h, T, m, dev, win, lane, sub)
+    vt = value_type(val, types)
+    _check("val", val, vt, (h, LANES), dev)
+    _check_table("x_table", x, vt, dev, rank)
+    return h, dev, vt
+
+
+def _check_route(gids, off, cs, win, lane, sub, hm1, sig, idx, prod, gb,
+                 n_grp, m, T, p_oh, types, rank):
+    """Checks of pass 2; ``prod`` is (n_chunks, P1, 128) or, at rank 4, the
+    panel (B, n_chunks, P1, 128).  Returns (H, device, value type, kblk)."""
+    dev = _device(prod)
+    h = lane.shape[0]
+    _check_rows(h, T, m, dev, win, lane, sub)
+    kblk = idx.shape[0] if idx.dim() == 3 else 0
+    if kblk < 1 or not 1 <= p_oh <= P_OH_MAX or gb < 1 or n_grp < 0:
+        raise ValueError(f"route takes kblk ≥ 1, p_oh in [1, {P_OH_MAX}], "
+                         f"gb ≥ 1; not {kblk}, {p_oh}, {gb}")
+    for name, t in (("hm1", hm1), ("sig", sig)):
+        _check(name, t, torch.int8, (h, LANES), dev)
+    _check("idx", idx, torch.int8, (kblk, h, LANES), dev)
+    for name, t in (("gids", gids), ("off", off), ("cs", cs)):
+        _check(name, t, torch.int32, (h // T,), dev)
+    if prod.dim() != rank or prod.shape[-1] != LANES \
+            or not all(prod.shape[:-1]):
+        want = "(n_chunks, P1, 128)" if rank == 3 else \
+            "(B, n_chunks, P1, 128)"
+        raise ValueError(f"prod3 has shape {tuple(prod.shape)}, expected "
+                         f"{want}")
+    vt = value_type(prod, types)
+    _check("prod3", prod, vt, prod.shape, dev)
+    return h, dev, vt, kblk
+
+
 # ----------------------------------------------------- plain PyTorch versions
 
 def xch_mul_ref(win, lane, sub, val, x_table, m: int, T: int = 64):
@@ -81,6 +123,23 @@ def xch_route4_ref(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
     return out
 
 
+def xch_mul_panel_ref(win, lane, sub, val, x_tables, m: int, T: int = 64):
+    """Plain version of ``xch_mul_panel``: ``xch_mul_ref`` of each
+    column."""
+    return torch.stack([xch_mul_ref(win, lane, sub, val, xt, m, T)
+                        for xt in x_tables])
+
+
+def xch_route4_panel_ref(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
+                         n_grp: int, gb: int, m: int, T: int = 64,
+                         p_oh: int = 16):
+    """Plain version of ``xch_route4_panel``: ``xch_route4_ref`` of each
+    column."""
+    return torch.stack([
+        xch_route4_ref(gids, off, cs, win, lane, sub, hm1, sig, idx, p, n_grp,
+                       gb, m, T, p_oh) for p in prod3])
+
+
 # --------------------------------------------------------------- wrappers ---
 
 def xch_mul(win, lane, sub, val, x_table, m: int, T: int = 64):
@@ -91,15 +150,8 @@ def xch_mul(win, lane, sub, val, x_table, m: int, T: int = 64):
     lane/sub: (H, 128) int8; val: (H, 128) float32 or float64.
     x_table:  (CB, 128) of val's type.
     Returns (H, 128) of val's type."""
-    dev = _device(x_table)
-    h = lane.shape[0]
-    _check_rows(h, T, m, dev, win, lane, sub)
-    vt = value_type(val)
-    _check("val", val, vt, (h, LANES), dev)
-    if x_table.dim() != 2 or x_table.shape[1] != LANES:
-        raise ValueError(f"x_table has shape {tuple(x_table.shape)}, "
-                         f"expected (CB, {LANES})")
-    _check("x_table", x_table, vt, x_table.shape, dev)
+    h, dev, vt = _check_mul(win, lane, sub, val, x_table, m, T, VALUE_TYPES,
+                            2)
     if dev.type == "cpu":
         return xch_mul_ref(win, lane, sub, val, x_table, m, T)
     out = torch.empty(h, LANES, dtype=vt, device=dev)  # all written
@@ -127,23 +179,9 @@ def xch_route4(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
     prod3: (n_chunks, P1, 128) float32 or float64 pass-1 products.
     The Pallas kernel's ``msel`` (select width) is ``m`` here: its callers
     pass the two equal."""
-    dev = _device(prod3)
-    h = lane.shape[0]
-    _check_rows(h, T, m, dev, win, lane, sub)
-    kblk = idx.shape[0] if idx.dim() == 3 else 0
-    if kblk < 1 or not 1 <= p_oh <= P_OH_MAX or gb < 1 or n_grp < 0:
-        raise ValueError(f"route takes kblk ≥ 1, p_oh in [1, {P_OH_MAX}], "
-                         f"gb ≥ 1; not {kblk}, {p_oh}, {gb}")
-    for name, t in (("hm1", hm1), ("sig", sig)):
-        _check(name, t, torch.int8, (h, LANES), dev)
-    _check("idx", idx, torch.int8, (kblk, h, LANES), dev)
-    for name, t in (("gids", gids), ("off", off), ("cs", cs)):
-        _check(name, t, torch.int32, (h // T,), dev)
-    if prod3.dim() != 3 or prod3.shape[2] != LANES or prod3.shape[1] < 1:
-        raise ValueError(f"prod3 has shape {tuple(prod3.shape)}, "
-                         f"expected (n_chunks, P1, {LANES})")
-    vt = value_type(prod3)
-    _check("prod3", prod3, vt, prod3.shape, dev)
+    h, dev, vt, kblk = _check_route(
+        gids, off, cs, win, lane, sub, hm1, sig, idx, prod3, gb, n_grp, m, T,
+        p_oh, VALUE_TYPES, 3)
     if dev.type == "cpu":
         return xch_route4_ref(gids, off, cs, win, lane, sub, hm1, sig, idx,
                               prod3, n_grp, gb, m, T, p_oh)
@@ -158,5 +196,59 @@ def xch_route4(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
     return out
 
 
+def xch_mul_panel(win, lane, sub, val, x_tables, m: int, T: int = 64):
+    """Pass 1 over one call chunk for a panel of B columns, float32.
+
+    x_tables: (B, CB, 128) float32 — column b's x table in row b.
+    Other arguments as in ``xch_mul``.  Returns (B, H, 128) float32 products,
+    column b's in row b."""
+    h, dev, _ = _check_mul(win, lane, sub, val, x_tables, m, T, PANEL_TYPES,
+                           3)
+    if dev.type == "cpu":
+        return xch_mul_panel_ref(win, lane, sub, val, x_tables, m, T)
+    n_cols = x_tables.shape[0]
+    out = torch.empty(n_cols, h, LANES, dtype=torch.float32,
+                      device=dev)    # all written
+    if h:
+        rc = _build.load().xch_mul_panel_f32(
+            *map(_ptr, (win, lane, sub, val, x_tables, out)), h, T, m,
+            n_cols, x_tables.shape[1], _stream(dev))
+        _raise_on(rc, "xch_mul_panel")
+        xch_mul_panel.launches += 1
+    return out
+
+
+def xch_route4_panel(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
+                     n_grp: int, gb: int, m: int, T: int = 64,
+                     p_oh: int = 16):
+    """Pass 2 over one call chunk for a panel of B columns, float32.
+
+    prod3: (B, n_chunks, P1, 128) float32 — column b's pass-1 products in
+    row b.  Other arguments as in ``xch_route4``.  Returns
+    (B, n_grp·gb, 128) float32, column b's out rows in row b; out rows past
+    n_grp·gb are dropped, as in ``xch_route4``, where the Pallas panel
+    kernel writes its step's p_oh rows unclipped."""
+    h, dev, _, kblk = _check_route(
+        gids, off, cs, win, lane, sub, hm1, sig, idx, prod3, gb, n_grp, m, T,
+        p_oh, PANEL_TYPES, 4)
+    if dev.type == "cpu":
+        return xch_route4_panel_ref(gids, off, cs, win, lane, sub, hm1, sig,
+                                    idx, prod3, n_grp, gb, m, T, p_oh)
+    n_cols, n_chunks, p1, _ = prod3.shape
+    out = torch.zeros(n_cols, n_grp * gb, LANES, dtype=torch.float32,
+                      device=dev)
+    if h:
+        rc = _build.load().xch_route4_panel_f32(
+            *map(_ptr, (gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
+                        out)),
+            h, T, m, kblk, p_oh, n_grp, gb, p1, n_cols, n_chunks,
+            _stream(dev))
+        _raise_on(rc, "xch_route4_panel")
+        xch_route4_panel.launches += 1
+    return out
+
+
 xch_mul.launches = xch_mul.launches_f64 = 0
 xch_route4.launches = xch_route4.launches_f64 = 0
+xch_mul_panel.launches = 0
+xch_route4_panel.launches = 0

@@ -200,8 +200,9 @@ def test_sources_digest_covers_headers(tmp_path):
     (csrc / "notes.txt").write_text("not a source")
     assert _build.sources_digest(str(csrc)) == with_extra
     assert set(_build.SIGNATURES) == {
-        "slab_spmv_f32", "slab_spmv_f64", "slab_spmv_blk_f32", "xch_mul_f32",
-        "xch_mul_f64", "xch_route4_f32", "xch_route4_f64",
+        "slab_spmv_f32", "slab_spmv_f64", "slab_spmv_blk_f32", "slab_spmm_f32",
+        "xch_mul_f32", "xch_mul_f64", "xch_route4_f32", "xch_route4_f64",
+        "xch_mul_panel_f32", "xch_route4_panel_f32",
         "block_gather_mul_f32", "bucket_reduce_f32",
         "bucket_reduce_grouped_f32", "lane_unpermute_f32",
         "segmented_scan_tiles_f32", "segmented_scan_tiles_f64",
