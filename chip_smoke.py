@@ -60,10 +60,24 @@ Its phases, in the order they run:
    "auto", "css" and "ss" on g7jac200sc; each must pass Verify and agree with
    the float64 COO oracle to 1e-12·max|y|, which a float32 computation would
    not;
-11. the xch path on circuit5M (several kernel calls per pass, a nested
+11. the calibration path: holds ``xch_route`` against its plain version on
+   calibrate's own inputs (H 16,384 at 8 and 16 planes, and a case whose
+   sg0/sg1 prune by groups of pg 4), each probe kernel on the inputs of
+   every probe that times it (``microbench.KERNEL_CASES``: each kernel
+   configuration of ``PROBES``, ``probe_pal2step``'s and the bfloat16 lane
+   gather among them) with a PyTorch call beside the transpose, the bin
+   sums and the accumulate, and ``probe_slab``'s kernel at every
+   (T, S8, stage) of its nine rows and at stage "route", each kernel timed
+   at its first shape; then drives ``calibrate.measure`` (printing the six
+   fitted keys, each flagged as left out by ``calibrate.screen``, taken
+   or left to the default by ``chipconst.load``, what is kept saved only
+   to a temporary file), ``microbench.run`` over the 35 ``PROBES`` and
+   ``probe_pal2step`` (printing the TSV), and ``probe_slab.main``'s nine
+   rows, each probe's loop at ``CAL_TARGET_S``;
+12. the xch path on circuit5M (several kernel calls per pass, a nested
    long-row state): kernels against their plain versions on every call, then
    its spmv against the float64 COO oracle;
-12. checks that each path launched each of its kernels: the launch counts
+13. checks that each path launched each of its kernels: the launch counts
    are set to 0 just before a path and read just after it.
 
 Each phase prints its seconds.
@@ -762,6 +776,255 @@ def check_auto(reports):
                                      f"{entry}")
 
 
+CAL_MATCH = {       # wrapper → its kernel's name in a torch.profiler trace
+    "xch_route": "xch_route_kernel", "lane_gather": "gather_mul_kernel",
+    "gather1024": "gather_mul_kernel", "palette_gather": "gather_mul_kernel",
+    "pal2step": "gather_mul_kernel", "sublane_gather": "gather_mul_kernel",
+    "onehot_bins": "onehot_bins_kernel",
+    "dynslice_accum": "dynslice_accum_kernel",
+    "seg_scan": "segscan_steps_kernel", "seg_scan_roll": "segscan_steps_kernel",
+    "tile_transpose": "tile_transpose_kernel", "slab_step": "probe_slab_kernel"}
+# kernel line name → (wrapper, source, the TPU kernel's function)
+CAL_KERNELS = {
+    "xch_route": ("xch_route", "csrc/xch.cu",
+                  "singlespmv_tpu/ops/pallas/xch.py:259"),
+    "probe_lane_gather": ("lane_gather", "csrc/probes.cu",
+                          "singlespmv_tpu/harness/microbench.py:118"),
+    "probe_gather1024": ("gather1024", "csrc/probes.cu",
+                         "singlespmv_tpu/harness/microbench.py:166"),
+    "probe_palette_gather": ("palette_gather", "csrc/probes.cu",
+                             "singlespmv_tpu/harness/microbench.py:212"),
+    "probe_pal2step": ("pal2step", "csrc/probes.cu",
+                       "singlespmv_tpu/harness/microbench.py:265"),
+    "probe_onehot_inkernel": ("onehot_bins", "csrc/probes.cu",
+                              "singlespmv_tpu/harness/microbench.py:324"),
+    "probe_sublane_gather": ("sublane_gather", "csrc/probes.cu",
+                             "singlespmv_tpu/harness/microbench.py:364"),
+    "probe_dynslice_accum": ("dynslice_accum", "csrc/probes.cu",
+                             "singlespmv_tpu/harness/microbench.py:435"),
+    "probe_seg_scan": ("seg_scan", "csrc/probes.cu",
+                       "singlespmv_tpu/harness/microbench.py:478"),
+    "probe_seg_scan_roll": ("seg_scan_roll", "csrc/probes.cu",
+                            "singlespmv_tpu/harness/microbench.py:520"),
+    "probe_pallas_tile_transpose": (
+        "tile_transpose", "csrc/probes.cu",
+        "singlespmv_tpu/harness/microbench.py:565"),
+    "probe_slab": ("slab_step", "csrc/probe_slab.cu",
+                   "scripts/probe_slab.py:28"),
+}
+CAL_TARGET_S = 0.03     # the probes' loop length (the reference's: 0.25 s)
+
+
+def _check_one(label, fn, args, kw, ref, bound, match, library=None,
+               tol=TOL, timed=True):
+    """One kernel call against its plain version on the card: errors and
+    the bound, and when ``timed`` the kernel, plain and library busy times.
+    ``library`` is one PyTorch call computing the same function, checked
+    against the plain version's result with ``check`` before it is timed."""
+    got, want = fn(*args, **kw), ref(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    rel = err / max(float(want.float().abs().max()), 1e-30)
+    res = {"label": label, "max_abs_err": err, "rel_err": rel, "ms": None,
+           "plain_ms": None, "call_ms": None, "library_ms": None} | bound
+    if timed:
+        if library is not None:
+            call, check = library
+            if not check(want):
+                raise SystemExit(f"{label}: the library call computes "
+                                 "another function")
+            res["library_ms"] = _busy_ms(call)
+        res |= {"ms": _busy_ms(lambda: fn(*args, **kw), match),
+                "plain_ms": _busy_ms(lambda: ref(*args, **kw)),
+                "call_ms": _cuda_ms(lambda: fn(*args, **kw))}
+    print(f"kernel {label}: {json.dumps(res)}", flush=True)
+    if not rel <= tol:
+        raise SystemExit(f"{label}: kernel disagrees with its plain version "
+                         f"(max |diff| / max |out| = {rel:.3g} > {tol})")
+    return res
+
+
+def compare_calibration(dev):
+    """The calibration path's kernels against their plain versions at every
+    shape the path gives them: ``xch_route`` on calibrate's own inputs (H
+    16,384 at planes 8 and 16, and a case whose sg0/sg1 prune, pg 4 <
+    planes), each probe kernel on the inputs of every probe of ``PROBES``
+    that times it and ``probe_pal2step``'s, ``slab_step`` at every
+    (T, S8, stage) of ``probe_slab.ROWS`` and at stage "route".  Only the
+    first check of each kernel (and dtype) is timed.  Returns {kernel line
+    name: [results]}, the timed one first."""
+    from singlespmv_tpu_torch.harness import calibrate, microbench
+    from singlespmv_tpu_torch.harness import probe_slab as pslab
+    from singlespmv_tpu_torch.ops import probes
+    from singlespmv_tpu_torch.ops import xch as xops
+
+    out = {}
+    rng = np.random.default_rng(0)
+    # xch_route: bytes are the streams, the active planes of idx, the
+    # product chunks once and the out rows; operations a prefix add and a
+    # difference per slot and an add per routed run end
+    cases = []
+    for planes in (16, 8):
+        a, ngb = calibrate._route_args(rng, 16 * 1024, planes, 1, 64,
+                                       device=dev)
+        cases.append((f"xch_route planes {planes}", a, ngb, 1, planes, 64,
+                      16, 8))
+    a, _ = calibrate._route_args(rng, 16 * 1024, 16, 8, 64, device=dev)
+    a[1] = (a[0] // 2).contiguous()
+    n_steps = a[0].shape[0]
+    a[3] = torch.from_numpy(rng.integers(-2, 18, n_steps).astype(
+        np.int32)).to(dev)
+    a[4] = torch.from_numpy(rng.integers(-2, 18, n_steps).astype(
+        np.int32)).to(dev)
+    cases.append(("xch_route pruned pg 4", a, int(a[1][-1]) + 1, 8, 16, 64,
+                  2, 4))
+    for label, a, ngb, m, planes, T, g_grp, pg in cases:
+        uids, _, cs, sg0, sg1, win, lane, sub, hm1, idx, prod3 = a
+        act = xops._active_planes(sg0, sg1, planes, pg)   # (n_steps, planes)
+        rows = act.repeat_interleave(T, 0).T[:, :, None]  # (planes, H, 1)
+        nbytes = (_nbytes(uids, cs, sg0, sg1, win, lane, hm1, prod3)
+                  + int(act.sum()) * T * 128 + ngb * g_grp * planes * 512
+                  + (_nbytes(sub) if m > 1 else 0))
+        ops = 2 * lane.numel() + int(((idx >= 0) & rows).sum())
+        first = "xch_route" not in out
+        out.setdefault("xch_route", []).append(_check_one(
+            label, xops.xch_route, (*a, ngb, m, planes, T, g_grp, pg), {},
+            xops.xch_route_ref, _bound(nbytes, ops, torch.float32),
+            CAL_MATCH["xch_route"], timed=first))
+        del a
+    # the probe kernels on every probe's inputs, each kernel (and dtype)
+    # timed on the first: its probe's defaults, and bfloat16's w 512
+    line_of = {w: k for k, (w, _, _) in CAL_KERNELS.items()}
+    timed = set()
+    for name, (case, ckw) in microbench.KERNEL_CASES.items():
+        fn, args, kw = case(**ckw, device=dev)
+        ref = getattr(probes, fn.__name__ + "_ref")
+        res = ref(*args, **kw)
+        n = res.numel()
+        nbytes = _nbytes(*args, res)
+        ops = {"seg_scan": 7, "seg_scan_roll": kw.get("steps", 7),
+               "tile_transpose": 0}.get(fn.__name__, 1) * n
+        library = None
+        if fn is probes.tile_transpose:
+            cb, nu, s = args[0].shape[0], kw["nu"], kw["s"]
+            v3 = args[0].view(cb, nu, s)
+            library = (lambda v3=v3: v3.transpose(0, 1).contiguous(),
+                       lambda want, v3=v3: torch.equal(
+                           v3.transpose(0, 1).reshape(want.shape), want))
+        elif fn is probes.onehot_bins:
+            tiles = args[0].shape[0] // 8
+            idx64 = args[0].view(tiles, -1).long()
+            src = args[1].view(tiles, -1)
+            acc = torch.zeros(tiles, 128, device=dev)
+            library = (lambda: acc.scatter_add_(1, idx64, src),
+                       lambda want: torch.allclose(
+                           torch.zeros_like(acc).scatter_add_(1, idx64, src),
+                           want[::8], rtol=0,
+                           atol=TOL * float(want.abs().max())))
+            ops = args[1].numel()
+        elif fn is probes.dynslice_accum:
+            dst = (args[0].long()[:, None]
+                   + torch.arange(8, device=dev)).reshape(-1)
+            y = torch.zeros(1024, 128, device=dev)
+            library = (lambda: y.index_add_(0, dst, args[1]),
+                       lambda want: torch.allclose(
+                           torch.zeros_like(y).index_add_(0, dst, args[1]),
+                           want, rtol=0, atol=TOL * float(want.abs().max())))
+            ops = args[1].numel()
+        kname = line_of[fn.__name__]
+        first = (kname, res.dtype) not in timed
+        timed.add((kname, res.dtype))
+        out.setdefault(kname, []).append(_check_one(
+            f"{kname} {name}", fn, args, kw, ref,
+            _bound(nbytes, ops, torch.float32), CAL_MATCH[fn.__name__],
+            library, timed=first))
+        del fn, args, res, library
+    # slab_step at every row of probe_slab.main and at stage "route", timed
+    # at T 32, S8 8, "all": bytes the streams its stage reads, x once and
+    # the out blocks; operations a multiply (gather stages), a prefix add
+    # and a difference (totals stages), an add per routed run end (route
+    # stages) or per slot
+    slab_rows = sorted(set(pslab.ROWS) | {(32, 8, "route")},
+                       key=lambda r: (r != (32, 8, "all"), r))
+    inputs = {}
+    for T, s8, stage in slab_rows:
+        if (T, s8) not in inputs:
+            n_steps = 3200 // (T // 8)
+            arrs = pslab.make_inputs(np.random.default_rng(7), n_steps, T,
+                                     s8, pslab.CB, pslab.NU)
+            inputs[T, s8] = [torch.from_numpy(v).to(dev) for v in arrs]
+        uids, base, lane, sub, val, hm1, idx, x = inputs[T, s8]
+        nbytes = _nbytes(uids, base, val, x) + pslab.NU * 8 * 512
+        ops = 0
+        if stage in probes.MULTIPLY_STAGES:
+            ops += val.numel()
+            nbytes += _nbytes(lane) if stage != "window" else 0
+            nbytes += _nbytes(sub) if stage in ("all", "select") else 0
+        if stage in probes.TOTALS_STAGES:
+            ops += 2 * val.numel()
+            nbytes += _nbytes(hm1)
+        if stage in probes.ROUTE_STAGES:
+            ops += _routed(idx)
+            nbytes += _nbytes(idx)
+        else:
+            ops += val.numel()
+        first = "probe_slab" not in out
+        out.setdefault("probe_slab", []).append(_check_one(
+            f"probe_slab T {T} S8 {s8} {stage}", probes.slab_step,
+            (uids, base, lane, sub, val, hm1, idx, x, pslab.NU, T,
+             stage), {}, probes.slab_step_ref,
+            _bound(nbytes, ops, torch.float32), CAL_MATCH["slab_step"],
+            timed=first))
+    return out
+
+
+def run_calibration_path(dev):
+    """The calibration path through its entry points: calibrate.measure
+    (saved to a temporary file, never into the tree), the microbench's 35
+    probes and probe_pal2step, and probe_slab's nine rows."""
+    from singlespmv_tpu_torch.core import chipconst
+    from singlespmv_tpu_torch.harness import calibrate, microbench
+    from singlespmv_tpu_torch.harness import probe_slab as pslab
+    from singlespmv_tpu_torch.harness.roofline import detect_chip
+
+    vals = calibrate.measure(dev, log=lambda m: print(f"calibrate: {m}",
+                                                      flush=True))
+    if set(vals) != {"hbm_bps", "step_fixed_s", "base_slot_s", "sel_slot_s",
+                     "route_slot_s", "scatter_rate"} or not all(
+                         np.isfinite(v) and v >= 0 for v in vals.values()):
+        raise SystemExit(f"calibrate: unexpected keys or values {vals}")
+    keep, why = calibrate.screen(vals, detect_chip(dev).hbm_gbps)
+    for k, v in vals.items():
+        take = (f"left out by calibrate.main: {why[k]}" if k in why else
+                "taken by chipconst.load" if v > 0 else
+                "default kept by chipconst.load")
+        print(f"calibrated {k} = {v!r} ({take}; v5e default "
+              f"{chipconst.DEFAULTS[k]!r})", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = chipconst.save(keep, os.path.join(tmp, "chip_constants.json"))
+        with open(path) as f:
+            print(f"calibrate: saved {json.load(f)} to a temporary file")
+    print(f"calibrated_keys {json.dumps(vals)}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        tsv = os.path.join(tmp, "micro.tsv")
+        rows = microbench.run(out=tsv, target_s=CAL_TARGET_S, device=dev,
+                              log=lambda m: print(f"probe {m}", flush=True))
+        with open(tsv) as f:
+            print("microbench TSV:\n" + f.read(), flush=True)
+    if len(rows) != 35 or not all(np.isfinite(r[2]) and r[2] > 0
+                                  for r in rows):
+        raise SystemExit(f"microbench: expected 35 timed probes, got {rows}")
+    elems, sec = microbench.probe_pal2step(device=dev, target_s=CAL_TARGET_S)
+    print(f"probe pal2step_w1024_k1 {elems / sec / 1e9:10.2f} G elem/s   "
+          f"({sec * 1e6:9.1f} us)", flush=True)
+    slab_rows = pslab.main(dev, CAL_TARGET_S,
+                           log=lambda m: print(f"probe_slab {m}", flush=True))
+    if len(slab_rows) != 9 or not all(r[3] > 0 for r in slab_rows):
+        raise SystemExit(f"probe_slab: expected 9 timed rows, got "
+                         f"{slab_rows}")
+    return vals
+
+
 def _counts(*wrappers):
     """The launch counts of the wrappers, f32 and f64 builds."""
     return {w.__name__ + sfx: getattr(w, attr)
@@ -1162,7 +1425,21 @@ def main() -> int:
             if fmt in ("hyb", "auto") and not sum(got.values()):
                 raise SystemExit(f"{fmt} float64: no kernel launched")
 
-    # --- 11. the xch path on circuit5M, last because its stand-in takes
+    # --- 11. the calibration path: its kernels against their plain
+    #     versions, then calibrate, the microbenchmarks and the slab probe
+    #     through their entry points, while circuit5M's stand-in builds ---
+    from singlespmv_tpu_torch.ops import probes as pops
+
+    cal_k = (xops.xch_route, xops.xch_mul) + pops.WRAPPERS
+    with Phase("calibration kernels"):
+        cal_checks = compare_calibration(dev)
+    with Phase("calibration path"):
+        _zero(*cal_k)
+        run_calibration_path(dev)
+        count_path("calibration", cal_k, ("xch_route", "xch_mul") + tuple(
+            w.__name__ for w in pops.WRAPPERS))
+
+    # --- 12. the xch path on circuit5M, last because its stand-in takes
     #     longest to build: kernels vs plain versions on every call, then
     #     its spmv against the oracle ---
     with Phase("xch circuit5M float32"):
@@ -1191,7 +1468,7 @@ def main() -> int:
         del state
     mats.close()
 
-    # --- 12. every kernel of each path ran in that path ---
+    # --- 13. every kernel of each path ran in that path ---
     print(f"launches in the main paths: {launches}")
 
     kernels = []
@@ -1242,6 +1519,21 @@ def main() -> int:
             "ms": t[0]["ms"], "plain_ms": t[0]["plain_ms"],
             "bound_ms": t[0]["bound_ms"], "bound_by": t[0]["bound_by"],
             "library_ms": t[0]["library_ms"]})
+    # the calibration path's: max_abs_err over every check, times of the
+    # first (xch_route at 16 planes, each probe at its defaults, probe_slab
+    # at T 32, S8 8, stage all)
+    for kname, (wname, src, replaces) in CAL_KERNELS.items():
+        rs = cal_checks[kname]
+        if rs[0]["ms"] is None:
+            raise SystemExit(f"{kname}: its first check was not timed")
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"singlespmv_tpu_torch/{src}", "replaces": replaces,
+            "launches": launches[wname],
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "ms": rs[0]["ms"], "plain_ms": rs[0]["plain_ms"],
+            "bound_ms": rs[0]["bound_ms"], "bound_by": rs[0]["bound_by"],
+            "library_ms": rs[0]["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,11 @@
 
 Every cost model of the port pulls its constants from here.  ``DEFAULTS``
 are the reference's hand-measured TPU v5e literals, kept as they are: the
-port's planners price plans with them until Hopper probes measure the
-H100's own (ROADMAP A.7).  A calibration file of the port's own,
-``singlespmv_tpu_torch/chip_constants.json``, overrides them where it
-exists; none is written yet, and the reference's
+port's planners price plans with them until the planner is refit for the
+H100 (ROADMAP A.7b).  A calibration file of the port's own,
+``singlespmv_tpu_torch/chip_constants.json`` (git-ignored; written by
+``python -m singlespmv_tpu_torch.harness.calibrate`` on a card), overrides
+them where it exists, key by key where the value is > 0; the reference's
 ``results/chip_constants.json`` is never read.
 
 Override the file location with SPMV_TORCH_CHIP_CONSTANTS=<path> (an empty

@@ -16,7 +16,11 @@
 //     _xch_mul_panel_kernel and _xch_route4_panel_kernel, the kernels of
 //     xch_mul_panel and xch_route4_panel (singlespmv_tpu/ops/pallas/xch.py:313,
 //     :338 and :364, :424): both passes over a panel of B columns, float only,
-//     as the TPU ran them.
+//     as the TPU ran them;
+//   xch_route_kernel replaces _xch_route_kernel, the kernel of xch_route
+//     (singlespmv_tpu/ops/pallas/xch.py:197 and :259): the v3 sigma-plane
+//     route, float only (the calibration's route_slot_s fit runs it; the TPU
+//     had no df64 build of it).
 //
 // Pass 1, per stream row r of 128 slots l:
 //   out[r,l] = val[r,l] * x[(win[r] + sub[r,l]) * 128 + lane[r,l]]
@@ -64,13 +68,34 @@
 // columns, clipped at n_grp * gb as in the spmv route (the Pallas panel kernel
 // writes out[:, off:off+p_oh] unclipped).
 //
+// The v3 route.  Per stream row r in step t it gathers from the products of
+// chunk cs[t] and takes run totals as pass 2 does, then for each plane s of
+// the active pg-groups
+//   out[uids[t]*planes + s, l] += W[idx[s,r,l]]   (idx >= 0).
+// The TPU kernel adds a step's planes at in-block offset
+// (uids[t] - gids[t]*g_grp)*planes of the out block gids[t], which holds
+// g_grp*planes rows: the two add up to row uids[t]*planes, so gids only
+// named the TPU's out block and the kernel never reads it.  A group of pg
+// planes [g0, g0 + n_p) is routed when sg0[t] < g0 + n_p and sg1[t] >= g0,
+// the TPU kernel's pl.when, so a step routes every plane of a group that
+// meets its range and none when no group does.  It is slab_unit_kernel
+// without the multiply: a block of 8 warps takes rpb rows of one step, the
+// planes of the active groups collect in a (planes, 128) accumulator of
+// dynamic shared memory (planes <= 64: 32 KB) and go to out with one global
+// atomicAdd per nonzero entry; the wrapper zeroes out, which stands in for
+// the TPU's zeroed block on a new gids, and rows past its end are dropped.
+//
 // Bound.  Pass 1 streams 4 B of val (8 B at double) and 1 B of lane per slot
 // (2 B when m > 1) and writes 4 B (8 B) of product; x is gathered from L2.
 // Pass 2 streams 3 B of lane, hm1, sig (4 B when m > 1) and kblk B of idx
 // per slot, and gathers the products, which pass 1 has just written and
 // which stay in L2 (50 MB) unless the product stream is larger.  Both are
-// streaming kernels bound by device memory bandwidth.  This first version
-// aims to be right: no TMA, no wgmma, no software pipelining.
+// streaming kernels bound by device memory bandwidth.  The v3 route streams
+// 2 B of lane and hm1 per slot (3 B when m > 1) and one byte of idx per slot
+// and active plane, so its bytes grow with the planes: at calibrate's
+// H 16,384 and 16 planes idx is 32 MB of its ~40 MB, a bound of ~12 us.
+// This first version aims to be right: no TMA, no wgmma, no software
+// pipelining.
 
 #include "stream_row.cuh"
 
@@ -78,6 +103,7 @@ namespace {
 
 constexpr int kMaxWindow = 120;  // the planner's M_MAX: int8 sub headroom
 constexpr int kMaxPoh = 64;      // the planner's largest one-hot width
+constexpr int kMaxRoutePlanes = 64;  // v3: span 2 x 32 planes
 
 template <typename V>
 __global__ void __launch_bounds__(kThreads) xch_mul_kernel(
@@ -235,6 +261,49 @@ __global__ void __launch_bounds__(kThreads) xch_route4_panel_kernel(
   }
 }
 
+__global__ void __launch_bounds__(kThreads) xch_route_kernel(
+    const int32_t* __restrict__ uids, const int32_t* __restrict__ cs,
+    const int32_t* __restrict__ sg0, const int32_t* __restrict__ sg1,
+    const int32_t* __restrict__ win, const int8_t* __restrict__ lane,
+    const int8_t* __restrict__ sub, const int8_t* __restrict__ hm1,
+    const int8_t* __restrict__ idx, const float* __restrict__ prod,
+    float* __restrict__ out, int H, int T, int rpb, int m, int planes,
+    int pg, int p1, long long n_out) {
+  extern __shared__ float acc[];  // (planes, 128)
+  __shared__ __align__(16) float wbuf[kWarps][kLanes];
+  const int warp = threadIdx.x >> 5, k = threadIdx.x & 31;
+  const int r0 = blockIdx.x * rpb;
+  const int t = r0 / T;
+  // the planes of the active groups: a contiguous range, since a group is
+  // active when it starts at or before sg1 and ends after sg0
+  int lo = planes, hi = -1;
+  for (int g0 = 0; g0 < planes; g0 += pg) {
+    const int n_p = min(pg, planes - g0);
+    if (sg0[t] < g0 + n_p && sg1[t] >= g0) {
+      lo = min(lo, g0);
+      hi = g0 + n_p - 1;
+    }
+  }
+  const long long base = (long long)uids[t] * planes;  // out row of plane 0
+  const long long room = n_out - 1 - base;
+  const int last = room < hi ? (int)room : hi;
+  if (lo > hi || base < 0 || last < lo) return;  // uniform over the block
+  for (int i = lo * kLanes + threadIdx.x; i < (hi + 1) * kLanes;
+       i += kThreads)
+    acc[i] = 0.f;
+  __syncthreads();
+  const float* x = prod + (size_t)cs[t] * p1 * kLanes;
+  for (int r = r0 + warp; r < r0 + rpb; r += kWarps) {
+    run_totals<float>(r, gather4<float>(r, m, win, lane, sub, x), hm1,
+                      wbuf[warp]);
+    for (int s = lo; s <= hi; ++s)
+      route4(idx + ((size_t)s * H + r) * kLanes + 4 * k, wbuf[warp],
+             acc + s * kLanes + 4 * k);
+  }
+  __syncthreads();
+  flush(acc, lo, last, out + base * kLanes);
+}
+
 // Lets the route kernel take the dynamic shared memory of the largest p_oh
 // (once; double only); returns cudaGetLastError().
 template <typename V>
@@ -345,6 +414,31 @@ extern "C" int xch_mul_panel_f32(const void* win, const void* lane,
                          (cudaStream_t)stream>>>(
       (const int32_t*)win, (const int8_t*)lane, (const int8_t*)sub,
       (const float*)val, (const float*)x, (float*)out, H, m, B, cb);
+  return (int)cudaGetLastError();
+}
+
+// `out` must be zeroed, of (n_out, 128) floats (ngb * g_grp * planes rows);
+// `prod` is the (n_chunks, p1, 128) product grid of pass 1, `idx` the
+// (planes, H, 128) sigma-plane end lanes.
+extern "C" int xch_route_f32(const void* uids, const void* cs,
+                             const void* sg0, const void* sg1,
+                             const void* win, const void* lane,
+                             const void* sub, const void* hm1,
+                             const void* idx, const void* prod, void* out,
+                             int H, int T, int m, int planes, int pg, int p1,
+                             int n_out, void* stream) {
+  if (m < 1 || m > kMaxWindow || planes < 1 || planes > kMaxRoutePlanes ||
+      pg < 1 || T < 1 || H < 0 || H % T || p1 < 1 || n_out < 0)
+    return (int)cudaErrorInvalidValue;
+  if (H == 0) return 0;
+  const int rpb = rows_per_block(T);
+  xch_route_kernel<<<H / rpb, kThreads, (size_t)planes * kLanes * 4,
+                     (cudaStream_t)stream>>>(
+      (const int32_t*)uids, (const int32_t*)cs, (const int32_t*)sg0,
+      (const int32_t*)sg1, (const int32_t*)win, (const int8_t*)lane,
+      (const int8_t*)sub, (const int8_t*)hm1, (const int8_t*)idx,
+      (const float*)prod, (float*)out, H, T, rpb, m, planes, pg, p1,
+      (long long)n_out);
   return (int)cudaGetLastError();
 }
 

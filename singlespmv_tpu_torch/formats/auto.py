@@ -4,8 +4,8 @@
 ``estimate_costs`` is the reference's cost model, term for term, over the
 engines the port has: dia, dense, bsr, css, bkt, bkt_g, slab, slab2, xch,
 csr, ss and hyb.  It prices with the reference's v5e constants
-(``core/chipconst.py``) until Hopper probes measure the H100's own (ROADMAP
-A.7), so its ranking is the reference's.  Which engines it offers at a
+(``core/chipconst.py``) until the planner is refit for the H100 (ROADMAP
+A.7b), so its ranking is the reference's.  Which engines it offers at a
 value type is the port's own rule (``supports``): bkt and bkt_g at float32
 only, as on the TPU; every other ported engine at float32 and float64.  At
 float64 css keeps the reference's df64 price (×4 on its kernel term, no

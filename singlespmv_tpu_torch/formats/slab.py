@@ -10,10 +10,10 @@ end-lanes route every run to its y row; in *blk* mode a scope is a group of
 Host half (``estimate``, ``convert``): the reference's numpy planner and
 layout builder, carried over unchanged in behaviour, so that one COO yields
 the same arrays in both packages.  It prices plans with the port's own copy
-of the reference's constants (``core/chipconst.py``: the v5e literals until
-Hopper probes measure the H100's).  ``M_CANDS``, ``X_TABLE_CAP`` and
+of the reference's constants (``core/chipconst.py``: the v5e literals until the
+planner is refit for the H100).  ``M_CANDS``, ``X_TABLE_CAP`` and
 ``CHUNK_ROWS``/``_chunk_cuts`` size TPU memories; they stay until the port
-sheds them (ROADMAP A.7).
+sheds them (ROADMAP A.7b).
 
 Device half (``spmv``): pads x and appends the hub columns, runs one kernel
 per stream chunk (``ops/slab.py``), then assembles y — blk mode shift-adds
@@ -755,7 +755,7 @@ def spmm(state: SlabState, X: torch.Tensor) -> torch.Tensor:
     per stream chunk reads the streams once for all B columns; blk mode and
     every other B take the column loop of ``spmv``.  The gates are the
     reference's, the TPU's x-table cap included, so both packages take the
-    same branch for one state and B; shedding the cap is ROADMAP A.7's
+    same branch for one state and B; shedding the cap is ROADMAP A.7b's
     work."""
     if X.dtype != state.val[0].dtype:
         raise TypeError(f"slab: X is {X.dtype}, the state holds "
@@ -865,7 +865,7 @@ def attainable_seconds(state: SlabState, cfg: Config) -> float:
     """The reference planner's step-cost model evaluated at the converted
     state's own plan and slot count, plus x-table and y traffic at the
     state's value size.  Its constants come from ``chipconst``, which holds
-    no H100 measurement yet (ROADMAP A.7), so this prices the plan, not the
+    no H100 measurement yet (ROADMAP A.7b), so this prices the plan, not the
     card.  float64 runs natively here: the reference's ×``DF_COST`` for its
     df64 kernel is not applied."""
     if state.n_slots == 0:

@@ -18,8 +18,9 @@ yields the same arrays in both packages.  It prices plans with the port's
 own copy of the reference's constants (``core/chipconst.py``) and the
 reference's v5e fits.
 ``X_TABLE_CAP``, ``M2_CAP``, ``CHUNK_ROWS`` and ``PASS1_CALL_ROWS`` size TPU
-memories; they stay until the port sheds them (ROADMAP A.7).  The v3
-σ-plane engine (``route_v`` 3) is not ported (ROADMAP B.15).
+memories; they stay until the port sheds them (ROADMAP A.7b).  The v3
+σ-plane engine's format path (``route_v`` 3) is not ported (ROADMAP B.15);
+its kernel is, as ``ops/xch.py:xch_route``, for the calibration.
 
 Device half (``spmv``): pads x into the x table, runs one ``xch_mul`` per
 pass-1 call and one ``xch_route4`` per pass-2 call (``ops/xch.py``), places
@@ -1016,7 +1017,7 @@ def spmm(state: Xch4State, X: torch.Tensor) -> torch.Tensor:
     a float32 panel and B x tables within ``X_TABLE_CAP``, the panel kernels
     read the index streams once for all B columns; otherwise the column
     loop of ``spmv``.  The gates are the reference's, the TPU's x-table cap
-    included (ROADMAP A.7 sheds it)."""
+    included (ROADMAP A.7b sheds it)."""
     if X.dtype != state.val1[0].dtype:
         raise TypeError(f"xch: X is {X.dtype}, the state holds "
                         f"{state.val1[0].dtype} values")
@@ -1178,7 +1179,7 @@ def attainable_seconds(state: Xch4State, cfg: Config) -> float:
     """The reference's fitted v4 rate model at the state's own (m1, m2,
     kblk, p_oh, t) and padded slot counts, with band and y traffic at the
     state's value size.  Its rates and ``hbm_bps`` are TPU v5e constants
-    (``chipconst``), which hold no H100 measurement yet (ROADMAP A.7), so
+    (``chipconst``), which hold no H100 measurement yet (ROADMAP A.7b), so
     this prices the plan, not the card.  float64 runs natively here: the
     reference's ×7 for its df64 kernels is not applied."""
     vsz = state.val1[0].element_size()

@@ -70,21 +70,38 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _time_loop(spmv, state, x, loop: int, device: torch.device) -> float:
-    """Seconds for ``loop`` back-to-back calls."""
+def device_of(device) -> torch.device:
+    """``device`` as a torch.device; raises for cuda without a card."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass device='cpu' to run the "
+                           "kernels' plain versions on the host")
+    return device
+
+
+def device_seconds(fn, device: torch.device) -> float:
+    """Seconds that ``fn()`` takes: CUDA events around it on the card (the
+    device's span, host gaps included), a host clock on the CPU."""
     if device.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(loop):
-            spmv(state, x)
+        fn()
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / 1e3
     t0 = time.perf_counter()
-    for _ in range(loop):
-        spmv(state, x)
+    fn()
     return time.perf_counter() - t0
+
+
+def _time_loop(spmv, state, x, loop: int, device: torch.device) -> float:
+    """Seconds for ``loop`` back-to-back calls."""
+    def calls():
+        for _ in range(loop):
+            spmv(state, x)
+
+    return device_seconds(calls, device)
 
 
 def marginal_seconds(fn, state, x, device: torch.device,
@@ -110,6 +127,32 @@ def marginal_seconds(fn, state, x, device: torch.device,
     return float(np.median(pers))
 
 
+def best_marginal_seconds(run_n, carry, consts=(), *, target_s,
+                          trials=3) -> float:
+    """Seconds per iteration of ``run_n(carry, n, *consts)``: the best of
+    ``trials`` marginals t(n) − t(n/2), with n doubled from 4 until one
+    loop lasts ``target_s`` (the reference microbenchmarks' ``_time``,
+    ``singlespmv_tpu/harness/microbench.py``)."""
+    def loop(n):
+        return device_seconds(lambda: run_n(carry, n, *consts), carry.device)
+
+    loop(1)
+    n = 4
+    while True:
+        if loop(n) >= target_s or n >= (1 << 20):
+            break
+        n *= 2
+    best = float("inf")
+    for _ in range(trials):
+        t_half = loop(n // 2)
+        t_full = loop(n)
+        margin = t_full - t_half
+        per = margin / (n - n // 2) if margin > 0 \
+            else (t_full + t_half) / (n + n // 2)
+        best = min(best, per)
+    return best
+
+
 def run_benchmark(
     matrix,                      # path or COOMatrix
     cfg: Config = None,
@@ -121,10 +164,7 @@ def run_benchmark(
     log=lambda msg: print(msg, file=sys.stderr),
 ) -> BenchResult:
     cfg = cfg or Config()
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("run_benchmark: no CUDA device; pass device='cpu' "
-                           "to run the kernels' plain versions on the host")
+    device = device_of(device)
     if isinstance(matrix, COOMatrix):
         coo, mat_name = matrix, (name or "in-memory")
     else:

@@ -1,10 +1,14 @@
 """XCH kernels: the wrappers of ``csrc/xch.cu`` and their plain PyTorch
 versions.
 
-``xch_mul`` (pass 1) and ``xch_route4`` (pass 2), and their panels over B
-columns ``xch_mul_panel`` and ``xch_route4_panel``, take the arguments of
-their Pallas counterparts in ``singlespmv_tpu/ops/pallas/xch.py`` (:48, :151,
-:338 and :424) and return the same arrays.  On a CUDA tensor a wrapper
+``xch_mul`` (pass 1) and ``xch_route4`` (pass 2), their panels over B
+columns ``xch_mul_panel`` and ``xch_route4_panel``, and the v3 σ-plane route
+``xch_route`` take the arguments of their Pallas counterparts in
+``singlespmv_tpu/ops/pallas/xch.py`` (:48, :151, :338, :424 and :259) and
+return the same arrays.  ``xch_route`` has one caller in the port, the
+calibration's ``route_slot_s`` fit (``harness/calibrate.py``): the v3 format
+path that the reference reaches through ``plan={'route_v': 3}`` is not
+ported.  On a CUDA tensor a wrapper
 launches its kernel, or raises; on a CPU tensor it runs the plain version
 (``<wrapper>_ref``), which the tests hold against the Pallas kernels and
 ``chip_smoke.py`` holds against the kernels on the card.
@@ -12,8 +16,8 @@ launches its kernel, or raises; on a CPU tensor it runs the plain version
 The value type is float32 or float64, the same for val, the x table, the
 products and the out rows.  At float64 the wrappers launch the native-fp64
 builds of the kernels, which stand for the df64 kernels ``xch_mul_df`` (:495)
-and ``xch_route4_df`` (:594) of the reference.  The panels are float32 only,
-as the TPU ran them.
+and ``xch_route4_df`` (:594) of the reference.  The panels and ``xch_route``
+are float32 only, as the TPU ran them.
 
 Each wrapper counts the launches of its float32 kernel in
 ``<wrapper>.launches`` and of its float64 kernel in
@@ -35,6 +39,7 @@ from .slab import (LANES, PANEL_TYPES, VALUE_TYPES, _check, _check_table,
 
 M_MAX = 120        # window blocks: int8 sub headroom (formats/xch.M_MAX)
 P_OH_MAX = 64      # one-hot rows per step: the kernel's shared accumulator
+ROUTE_PLANES_MAX = 64   # xch_route's σ planes: its shared accumulator
 
 
 def _device(t):
@@ -120,6 +125,34 @@ def xch_route4_ref(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
         keep = ((s + j >= 0) & (s + j < p_oh))[:, None]    # one-hot range
         out.index_add_(0, (base + j).clamp(0, max(n_out - 1, 0)),
                        torch.where(keep, _picked(w, idx[j]), 0.0))
+    return out
+
+
+def _active_planes(sg0, sg1, planes, pg):
+    """(n_steps, planes) bool: plane s of step t lies in a pg-group that the
+    TPU kernel routes, one with sg0[t] < g0 + n_p and sg1[t] >= g0."""
+    g0 = torch.arange(planes, device=sg0.device) // pg * pg
+    end = torch.clamp(g0 + pg, max=planes)
+    return (sg0[:, None] < end) & (sg1[:, None] >= g0)
+
+
+def xch_route_ref(uids, gids, cs, sg0, sg1, win, lane, sub, hm1, idx, prod3,
+                  ngb: int, m: int, planes: int, T: int = 32,
+                  g_grp: int = 16, pg: int = 8):
+    """Plain version of ``xch_route``."""
+    h = lane.shape[0]
+    step = torch.arange(h, device=lane.device) // T
+    rows = cs.long()[step] * prod3.shape[1] + win.long()   # product rows
+    w = _totals(_gather(rows, lane, sub, prod3, m), hm1)
+    active = _active_planes(sg0, sg1, planes, pg)[step]    # (H, planes)
+    n_out = ngb * g_grp * planes
+    out = torch.zeros(n_out, LANES, dtype=prod3.dtype, device=lane.device)
+    base = uids.long()[step] * planes
+    for s in range(planes if n_out else 0):
+        row = base + s
+        keep = active[:, s] & (row >= 0) & (row < n_out)
+        out.index_add_(0, row.clamp(0, n_out - 1),
+                       torch.where(keep[:, None], _picked(w, idx[s]), 0.0))
     return out
 
 
@@ -248,7 +281,59 @@ def xch_route4_panel(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
     return out
 
 
+def xch_route(uids, gids, cs, sg0, sg1, win, lane, sub, hm1, idx, prod3,
+              ngb: int, m: int, planes: int, T: int = 32, g_grp: int = 16,
+              pg: int = 8):
+    """The v3 pass 2 over one call chunk, float32: returns
+    (ngb·g_grp·planes, 128) — out rows [u·planes, (u+1)·planes) hold the σ
+    planes of compact bucket u.
+
+    uids: (n_steps,) int32 — compact bucket per step, non-decreasing.
+    gids: (n_steps,) int32 — uids // g_grp, the TPU's out block per step;
+          checked, not read: the out row of plane s is uids·planes + s.
+    cs:   (n_steps,) int32 — source chunk per step.
+    sg0/sg1: (n_steps,) int32 — first/last active σ plane per step; a
+          pg-group of planes is routed when it meets [sg0, sg1].
+    win:  (H,) int32 — chunk-local product-row window base.
+    lane/sub/hm1: (H, 128) int8.  idx: (planes, H, 128) int8 end lanes,
+          −1 masked.
+    prod3: (n_chunks, P1, 128) float32 pass-1 products.
+    Out rows that no step reaches stay 0."""
+    dev = _device(prod3)
+    h = lane.shape[0]
+    _check_rows(h, T, m, dev, win, lane, sub)
+    if not 1 <= planes <= ROUTE_PLANES_MAX or pg < 1 or g_grp < 1 \
+            or ngb < 0:
+        raise ValueError(f"xch_route takes 1 ≤ planes ≤ {ROUTE_PLANES_MAX}, "
+                         f"pg ≥ 1, g_grp ≥ 1 and ngb ≥ 0; not {planes}, "
+                         f"{pg}, {g_grp}, {ngb}")
+    _check("hm1", hm1, torch.int8, (h, LANES), dev)
+    _check("idx", idx, torch.int8, (planes, h, LANES), dev)
+    for name, t in (("uids", uids), ("gids", gids), ("cs", cs),
+                    ("sg0", sg0), ("sg1", sg1)):
+        _check(name, t, torch.int32, (h // T,), dev)
+    if prod3.dim() != 3 or prod3.shape[-1] != LANES \
+            or not all(prod3.shape[:-1]):
+        raise ValueError(f"prod3 has shape {tuple(prod3.shape)}, expected "
+                         "(n_chunks, P1, 128)")
+    _check("prod3", prod3, value_type(prod3, PANEL_TYPES), prod3.shape, dev)
+    if dev.type == "cpu":
+        return xch_route_ref(uids, gids, cs, sg0, sg1, win, lane, sub, hm1,
+                             idx, prod3, ngb, m, planes, T, g_grp, pg)
+    n_out = ngb * g_grp * planes
+    out = torch.zeros(n_out, LANES, dtype=torch.float32, device=dev)
+    if h and n_out:
+        rc = _build.load().xch_route_f32(
+            *map(_ptr, (uids, cs, sg0, sg1, win, lane, sub, hm1, idx, prod3,
+                        out)),
+            h, T, m, planes, pg, prod3.shape[1], n_out, _stream(dev))
+        _raise_on(rc, "xch_route")
+        xch_route.launches += 1
+    return out
+
+
 xch_mul.launches = xch_mul.launches_f64 = 0
 xch_route4.launches = xch_route4.launches_f64 = 0
 xch_mul_panel.launches = 0
 xch_route4_panel.launches = 0
+xch_route.launches = 0

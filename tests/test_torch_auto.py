@@ -156,6 +156,10 @@ def test_port_runs_without_the_reference_package():
         "import numpy as np, torch\n"
         "import singlespmv_tpu_torch.formats, "
         "singlespmv_tpu_torch.harness.driver\n"
+        "import singlespmv_tpu_torch.harness.calibrate, "
+        "singlespmv_tpu_torch.harness.microbench, "
+        "singlespmv_tpu_torch.harness.probe_slab, "
+        "singlespmv_tpu_torch.ops.probes\n"
         "from singlespmv_tpu_torch import Config\n"
         "from singlespmv_tpu_torch.core import verify_result\n"
         "from singlespmv_tpu_torch.data import powerlaw\n"

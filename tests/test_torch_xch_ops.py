@@ -206,4 +206,7 @@ def test_sources_digest_covers_headers(tmp_path):
         "block_gather_mul_f32", "bucket_reduce_f32",
         "bucket_reduce_grouped_f32", "lane_unpermute_f32",
         "segmented_scan_tiles_f32", "segmented_scan_tiles_f64",
-        "block_gather_scan_f32", "block_gather_scan_f64"}
+        "block_gather_scan_f32", "block_gather_scan_f64", "xch_route_f32",
+        "probe_gather_f32", "probe_gather_bf16", "probe_onehot_f32",
+        "probe_dynslice_f32", "probe_segscan_f32", "probe_transpose_f32",
+        "probe_slab_f32"}
