@@ -22,9 +22,10 @@ Its phases, in the order they run:
    ``block_gather_scan`` on the css streams of thermomech_dK and raefsky3,
    and the fp64 builds of both on g7jac200sc's ss and css streams;
 3. SpMM, Y = A @ X: holds the panel kernels against their plain versions
-   (``slab_spmm`` on g7jac200sc's unit-only plan at B = 8 and 32,
-   ``xch_mul_panel`` and ``xch_route4_panel`` on every call of webbase-1M's
-   and ASIC_680ks's states, nested ones included, at B = 8 and 16), then
+   on interleaved panels (``slab_spmm`` on g7jac200sc's unit-only plan at
+   B = 8, 16 and 32, ``xch_mul_panel`` and ``xch_route4_panel`` on every
+   call of webbase-1M's and ASIC_680ks's states, nested ones included, at
+   B = 8 and 16), with torch's CSR product ``A_csr @ X`` beside each, then
    drives ``spmm_fn`` at B = 1 (the spmv), 8 and 32 on webbase-1M and
    ASIC_680ks (xch), unbalance-16384 (bsr), g7jac200sc (slab unit) and torso1
    (slab blk: the column loop), printing the table of
@@ -83,10 +84,12 @@ Its phases, in the order they run:
 Each phase prints its seconds.
 
 Prints a JSON line of per-kernel results (kernel, plain-version and, where
-one PyTorch call computes the same function, that call's device time; the
-launches on the main paths; the bound: the larger of the bytes the call
-must move at 3.35 TB/s and its operations at the card's peak), and as its
-last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
+one PyTorch call computes the same function, that call's device time: for
+the product kernels torch's CSR product ``A_csr @ x`` (cuSPARSE's kernels)
+on the same matrix, dtype and B, the whole product where an xch kernel is
+one of two passes; the launches on the main paths; the bound: the larger
+of the bytes the call must move at 3.35 TB/s and its operations at the
+card's peak), and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, when no CUDA device is present or any phase fails.
 """
 import json
@@ -119,6 +122,7 @@ AUTO_MATS = ("g7jac200sc", "lhr34", "twotone", "mac_econ_fwd500",
              "raefsky3", "thermomech_dK", "webbase-1M", "Chebyshev4")
 GUARD_ERRORS = ("ValueError", "TypeError", "MemoryError", "OutOfMemoryError")
 SPMM_B = (8, 32)         # the SpMM path's panels (B = 1: the spmv)
+SLAB_PANEL_B = (8, 16, 32)   # slab_spmm's checks (its gate: B <= 32)
 XCH_PANEL_B = (8, 16)    # the xch panel kernels' checks (their gate: B <= 16)
 SPMM_MATS = (("webbase-1M", "xch"), ("ASIC_680ks", "xch"),
              ("unbalance-16384", "bsr"), ("g7jac200sc", "slab"),
@@ -182,6 +186,29 @@ def _busy_ms(fn, match="", reps=REPS):
     print(f"busy time for {match!r} taken on the device's clock instead "
           "(host gaps included)", flush=True)
     return _cuda_ms(fn, reps)
+
+
+LIBRARY_MATCH = "cusparse"   # torch's CSR products run cuSPARSE's kernels
+
+
+def _library_ms(a_csr, x):
+    """Milliseconds per call that the device spends in cuSPARSE's kernels
+    for torch's CSR product ``a_csr @ x`` (torch.profiler): one PyTorch
+    call computing the function of a product kernel, on no path of the
+    port.  Prints the kernels of one trace, so that the match is seen."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn = lambda: a_csr @ x
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {e.key[:80]: e.self_device_time_total for e in prof.key_averages()
+             if e.self_device_time_total > 0}
+    print(f"library kernels of A_csr @ x {tuple(x.shape)} {x.dtype}: {names}",
+          flush=True)
+    return _busy_ms(fn, LIBRARY_MATCH)
 
 
 def _nbytes(*tensors):
@@ -278,8 +305,10 @@ def _chunk_calls(state, x_table, ops, plain):
                               state.idx, state.chunk_nu)]
 
 
-def compare_kernel(label, state, slab, ops, x, tol=TOL):
-    """Phase 2 for one state: kernel vs plain version on every chunk."""
+def compare_kernel(label, state, slab, ops, x, tol=TOL, a_csr=None):
+    """Phase 2 for one state: kernel vs plain version on every chunk;
+    ``a_csr``, torch's CSR tensor of the state's matrix, times the library
+    product beside it."""
     xt = slab.x_table(state, x)
     kern = _chunk_calls(state, xt, ops, plain=False)
     ref = _chunk_calls(state, xt, ops, plain=True)
@@ -324,7 +353,7 @@ def compare_kernel(label, state, slab, ops, x, tol=TOL):
         "plain_call_ms": _cuda_ms(lambda: [f() for f in ref]),
         "spmv_ms": _cuda_ms(lambda: slab.spmv(state, x)),
         "spmv_busy_ms": _busy_ms(lambda: slab.spmv(state, x)),
-        "library_ms": None,    # no one PyTorch call computes it
+        "library_ms": None if a_csr is None else _library_ms(a_csr, x),
     } | _bound(nbytes, ops, x.dtype)
     print(f"kernel {label}: {res}", flush=True)
     if not rel <= tol:
@@ -380,9 +409,11 @@ def _check_calls(label, name, ks, rs, tol):
     return err, rel
 
 
-def compare_xch(label, state, xch, ops, x, tol=TOL):
+def compare_xch(label, state, xch, ops, x, tol=TOL, a_csr=None):
     """Phase 2 for one xch state: each kernel vs its plain version on every
-    call of the state and of its nested state."""
+    call of the state and of its nested state; ``a_csr`` as in
+    ``compare_kernel``: the library time of the whole product stands beside
+    each of the two passes."""
     calls = _xch_calls(state, xch, ops, x)
     res = {"label": label, "dtype": str(x.dtype),
            "plans": [{k: getattr(st, k) for k in (
@@ -396,6 +427,7 @@ def compare_xch(label, state, xch, ops, x, tol=TOL):
     # and a run-total difference per pass-2 slot, an add per routed run end
     vsz = x.element_size()
     cost = {"xch_mul": [0, 0], "xch_route4": [0, 0]}
+    library = None if a_csr is None else _library_ms(a_csr, x)
     for st in _states(state):
         for win, lane, sub, val in zip(st.win1, st.lane1, st.sub1, st.val1):
             cost["xch_mul"][0] += _nbytes(win, lane, val, val, xch.x_table(
@@ -420,7 +452,7 @@ def compare_xch(label, state, xch, ops, x, tol=TOL):
             "plain_ms": _busy_ms(lambda rs=rs: [f() for f in rs]),
             # the calls on the device's clock, host gaps included
             "call_ms": _cuda_ms(lambda ks=ks: [f() for f in ks]),
-            "library_ms": None,    # no one PyTorch call computes it
+            "library_ms": library,    # the whole product's
         } | _bound(*cost[name], x.dtype)
     res["spmv_ms"] = _cuda_ms(lambda: xch.spmv(state, x))
     res["spmv_busy_ms"] = _busy_ms(lambda: xch.spmv(state, x))
@@ -578,25 +610,31 @@ def compare_scan(label, state, mod, x, tol=TOL):
     return res
 
 
-def compare_slab_spmm(label, state, slab, ops, X, tol=TOL):
+def compare_slab_spmm(label, state, slab, ops, X, a_csr, tol=TOL):
     """Phase 3: ``slab_spmm`` against its plain version on every chunk of a
-    unit-mode state, for the panel X (n_col, B)."""
+    unit-mode state, for the panel X (n_col, B), with torch's ``a_csr @ X``
+    beside it."""
     xp = slab.x_table(state, X)
     n_cols = X.shape[1]
     args = [(*a, xp, nu, state.m, state.t_step)
-            for *a, nu in zip(state.uids, state.win, state.lane, state.sub,
-                              state.val, state.hm1, state.idx,
-                              state.chunk_nu)]
+            for *a, nu in zip(state.uids, state.sg0, state.sg1, state.win,
+                              state.lane, state.sub, state.val, state.hm1,
+                              state.idx, state.chunk_nu)]
     kern = [lambda a=a: ops.slab_spmm(*a) for a in args]
     ref = [lambda a=a: ops.slab_spmm_ref(*a) for a in args]
     err, rel = _check_calls(label, "slab_spmm", kern, ref, tol)
-    # bytes: the streams once (sub only when m > 1), B x tables, B columns
-    # of out blocks; operations: per column a multiply, a prefix add and a
-    # difference per slot and an add per routed run end
+    # bytes: the streams once (sub only when m > 1; idx only the planes
+    # [sg0, sg1] of each step, which are all the kernel reads), the panel,
+    # B columns of out blocks; operations: per column a multiply, a prefix
+    # add and a difference per slot and an add per routed run end
     nbytes = _nbytes(xp)
     for i, lane in enumerate(state.lane):
-        nbytes += _nbytes(state.uids[i], state.win[i], lane, state.val[i],
-                          state.hm1[i], state.idx[i])
+        lo = state.sg0[i].clamp(min=0)
+        hi = state.sg1[i].clamp(max=state.planes - 1)
+        routed = int((hi - lo + 1).clamp(min=0).sum())  # planes over steps
+        nbytes += _nbytes(state.uids[i], state.sg0[i], state.sg1[i],
+                          state.win[i], lane, state.val[i], state.hm1[i])
+        nbytes += routed * state.t_step * 128
         nbytes += _nbytes(state.sub[i]) if state.m > 1 else 0
         nbytes += state.chunk_nu[i] * n_cols * state.planes * 128 * 4
     res = {
@@ -609,17 +647,18 @@ def compare_slab_spmm(label, state, slab, ops, X, tol=TOL):
         "call_ms": _cuda_ms(lambda: [f() for f in kern]),
         "spmm_ms": _cuda_ms(lambda: slab.spmm(state, X)),
         "spmm_busy_ms": _busy_ms(lambda: slab.spmm(state, X)),
-        "library_ms": None,    # no one PyTorch call computes it
+        "library_ms": _library_ms(a_csr, X),
     } | _bound(nbytes, n_cols * (3 * state.n_slots + _routed(*state.idx)),
                X.dtype)
     print(f"kernel {label}: {json.dumps(res)}", flush=True)
     return res
 
 
-def compare_xch_panels(label, state, xch, ops, X, tol=TOL):
+def compare_xch_panels(label, state, xch, ops, X, a_csr, tol=TOL):
     """Phase 3: ``xch_mul_panel`` and ``xch_route4_panel`` against their
     plain versions on every call of the state and of its nested state, for
-    the panel X (n_col, B)."""
+    the panel X (n_col, B), with torch's ``a_csr @ X`` (the whole product)
+    beside each."""
     n_cols = X.shape[1]
     calls = {"xch_mul_panel": ([], []), "xch_route4_panel": ([], [])}
     cost = {k: [0, 0] for k in calls}
@@ -628,7 +667,7 @@ def compare_xch_panels(label, state, xch, ops, X, tol=TOL):
         prods = [ops.xch_mul_panel(w, la, su, va, xp, st.m1, st.t1)
                  for w, la, su, va in zip(st.win1, st.lane1, st.sub1,
                                           st.val1)]
-        prod4 = torch.cat(prods, 1).view(n_cols, st.n_chunks, st.p1, 128)
+        prod4 = torch.cat(prods, 0).view(st.n_chunks, st.p1, 128, n_cols)
         del prods
         cost["xch_mul_panel"][0] += _nbytes(xp)
         for a in zip(st.win1, st.lane1, st.sub1, st.val1):
@@ -662,6 +701,7 @@ def compare_xch_panels(label, state, xch, ops, X, tol=TOL):
                                                      + _routed(idx))
     res = {"label": label, "dtype": str(X.dtype), "B": n_cols,
            "states": len(list(_states(state)))}
+    library = _library_ms(a_csr, X)
     for name, (ks, rs) in calls.items():
         err, rel = _check_calls(label, name, ks, rs, tol)
         res[name] = {
@@ -670,7 +710,7 @@ def compare_xch_panels(label, state, xch, ops, X, tol=TOL):
             "plain_ms": _busy_ms(lambda rs=rs: [f() for f in rs],
                                  reps=PLAIN_REPS),
             "call_ms": _cuda_ms(lambda ks=ks: [f() for f in ks]),
-            "library_ms": None,    # no one PyTorch call computes it
+            "library_ms": library,    # the whole product's
         } | _bound(*cost[name], X.dtype)
     res["spmm_ms"] = _cuda_ms(lambda: xch.spmm(state, X))
     res["spmm_busy_ms"] = _busy_ms(lambda: xch.spmm(state, X))
@@ -678,9 +718,10 @@ def compare_xch_panels(label, state, xch, ops, X, tol=TOL):
     return res
 
 
-def torch_csr(coo, dev):
-    """torch's own CSR tensor of ``coo`` on ``dev``: the yardstick of the
-    SpMM table (``A_csr @ X``), on no path of the port."""
+def torch_csr(coo, dev, dtype=np.float32):
+    """torch's own CSR tensor of ``coo`` on ``dev`` with values of
+    ``dtype``: the yardstick of the product kernels and of the SpMM table
+    (``A_csr @ X``), on no path of the port."""
     row, col, val = coo.row, coo.col, coo.val
     if not np.all(row[1:] >= row[:-1]):
         order = np.lexsort((col, row))
@@ -689,7 +730,7 @@ def torch_csr(coo, dev):
     np.cumsum(np.bincount(row, minlength=coo.n_row), out=crow[1:])
     return torch.sparse_csr_tensor(
         torch.from_numpy(crow), torch.from_numpy(col.astype(np.int64)),
-        torch.from_numpy(val.astype(np.float32)),
+        torch.from_numpy(val.astype(dtype)),
         size=(coo.n_row, coo.n_col)).to(dev)
 
 
@@ -1098,11 +1139,21 @@ def main() -> int:
     plans = {"raefsky3": None, "torso1": None, "g7jac200sc": unit_plan}
     compared = []
     spmm_states = {}     # the states of phase 3, kept from their conversion
+    csrs = {}            # torch's CSR tensors of the stand-ins, by dtype
+
+    def csr_of(name, dtype=np.float32):
+        """torch's CSR tensor of stand-in ``name``: the library yardstick."""
+        key = (name, np.dtype(dtype).name)
+        if key not in csrs:
+            csrs[key] = torch_csr(mats[name], dev, dtype)
+        return csrs[key]
+
     with Phase("slab kernels float32"):
         for name in SLAB_MATS:
             st = slab.convert(mats[name], cfg, plan=plans[name]).to(dev)
             compared.append(compare_kernel(name, st, slab, ops,
-                                           x_of(mats[name])))
+                                           x_of(mats[name]),
+                                           a_csr=csr_of(name)))
             if name in dict(SPMM_MATS):
                 spmm_states[name] = st
             del st
@@ -1113,7 +1164,8 @@ def main() -> int:
             torch.cuda.synchronize()
             print(f"xch convert {name}: {time.perf_counter() - t0:.1f} s")
             compared.append(compare_xch(name, st, xch, xops,
-                                        x_of(mats[name])))
+                                        x_of(mats[name]),
+                                        a_csr=csr_of(name)))
             spmm_states[name] = st
             del st
     with Phase("slab kernels float64"):
@@ -1126,7 +1178,8 @@ def main() -> int:
                 raise SystemExit(f"{name}: float64 slab plan is not unit "
                                  "mode over float64 values")
             compared.append(compare_kernel(
-                name, st, slab, ops, x_of(mats[name], np.float64), F64_TOL))
+                name, st, slab, ops, x_of(mats[name], np.float64), F64_TOL,
+                a_csr=csr_of(name, np.float64)))
             del st
     with Phase("xch kernels float64"):
         for name in XCH64_MATS:
@@ -1135,7 +1188,8 @@ def main() -> int:
                 raise SystemExit(f"{name}: float64 xch state holds "
                                  f"{st.val1[0].dtype}")
             compared.append(compare_xch(
-                name, st, xch, xops, x_of(mats[name], np.float64), F64_TOL))
+                name, st, xch, xops, x_of(mats[name], np.float64), F64_TOL,
+                a_csr=csr_of(name, np.float64)))
             if name == "ASIC_680ks":
                 asic64 = st
             del st
@@ -1206,15 +1260,15 @@ def main() -> int:
 
     with Phase("spmm kernels float32"):
         g7_unit = spmm_states["g7jac200sc"]
-        for n_cols in SPMM_B:
+        for n_cols in SLAB_PANEL_B:
             compared.append(compare_slab_spmm(
                 f"g7jac200sc B{n_cols}", g7_unit, slab, ops,
-                panel(g7, n_cols)))
+                panel(g7, n_cols), csr_of("g7jac200sc")))
         for name in XCH_MATS[:-1]:
             for n_cols in XCH_PANEL_B:
                 compared.append(compare_xch_panels(
                     f"{name} B{n_cols}", spmm_states[name], xch, xops,
-                    panel(mats[name], n_cols)))
+                    panel(mats[name], n_cols), csr_of(name)))
     spmm_coo = {"unbalance-16384": generate("unbalance", 16384, None,
                                             seed=1)}
     spmm_states["unbalance-16384"] = bsr.convert(
@@ -1232,7 +1286,7 @@ def main() -> int:
             st = spmm_states[name]
             fcfg = cfg.replace(format=fmt)
             plan = fmt + (f"/{st.mode}" if fmt == "slab" else "")
-            a_csr = torch_csr(coo, dev)
+            a_csr = torch_csr(coo, dev) if name in spmm_coo else csr_of(name)
             t_spmv = None
             for n_cols in (1,) + SPMM_B:
                 X = panel(coo, n_cols)
@@ -1261,6 +1315,7 @@ def main() -> int:
                 print(f"spmm_row {json.dumps(row)}", flush=True)
             del a_csr, st
         count_path("spmm float32", all_k, PANEL_KERNELS)
+    csrs.clear()
     for name in ("webbase-1M", "ASIC_680ks", "unbalance-16384", "torso1"):
         del spmm_states[name]
     with Phase("spmm auto float32"):
@@ -1453,7 +1508,7 @@ def main() -> int:
             raise SystemExit("circuit5M: expected several kernel calls per "
                              "pass and a nested long-row state")
         compared.append(compare_xch("circuit5M", state, xch, xops,
-                                    x_of(big)))
+                                    x_of(big), a_csr=torch_csr(big, dev)))
         _zero(*xch_k)
         x_host = create_random_vector(big.n_col, dtype=np.float32)
         y = xch.spmv(state, torch.from_numpy(x_host).to(dev)).cpu().numpy()

@@ -40,18 +40,31 @@
 // buffers are 16 KB (accumulator) + 8 KB (row buffers), under the 48 KB
 // static limit.
 //
-// slab_spmm.  Column b of the panel has its own x table (x + b * cb * 128)
-// and its own planes of unit block u: out rows (u * B + b) * planes + s.
-// A warp loads a stream row's lane, sub, val, hm1 and idx once into
-// registers, then for each column gathers, takes the run totals and routes
-// every plane (the TPU kernel takes no sg0/sg1).  The accumulator of all B
-// columns, planes * B * 128 floats, is 256 KB at planes 16 and B 32, past
-// the 227 KB a block may hold, so the columns are tiled IN A LOOP: the block
-// runs its rows once per tile of `tile` columns (kPanelSmemBytes of dynamic
-// shared memory, 8 columns at planes 16, 16 at planes 8), flushes the tile
-// to the out blocks and zeroes it for the next.  A panel of B <= tile reads
-// the streams once; a wider one re-reads them per tile, from cache.  Bound:
-// the streams once plus B times the x table and the out blocks, bytes.
+// slab_spmm (redesigned for Hopper).  The x panel is interleaved,
+// (CB, 128, B): slot column c's B values are contiguous, and so are out's,
+// (nu * planes * 128, B): unit block u's plane s lane l holds row
+// (u * planes + s) * 128 + l, its B columns side by side, which is Y's own
+// (row, B) layout (the reference's (nu * B * planes, 128) put the columns
+// of a block apart, and Y's assembly had to transpose them).  A warp takes
+// one stream row through panel_row.cuh: it stages the row once, reads only
+// the idx planes [sg0[t], sg1[t]] of its step (the converts leave every
+// entry outside them at -1, so the pruning is exact), then each group of
+// C lanes (the power of two up to 32 that covers B) walks its slots with
+// one coalesced gather of the slot's C values, keeping run sums, and adds
+// each run total into out with global atomics: C consecutive floats per
+// run end, one coalesced access.  A
+// panel wider than 32 columns walks the staged row once per tile.  There
+// is no shared accumulator: on sm_90 a float atomicAdd to shared memory
+// compiles to a compare-and-swap loop (ATOMS.CAST.SPIN) that retries where
+// warps add to the same y row, as the rows of a step do, where a global
+// one is a native reduction in L2.  On an H100, a first version that
+// routed into a (span * 128, tile) shared accumulator, with column tiles
+// and two blocks an SM, took 142.74 us for g7jac200sc's unit plan at B 32
+// (chip_smoke.py), this one 58.65; harness/panel_ab.py times this walk
+// with its atomics sent to distinct shared addresses instead.  Bound:
+// the streams once (idx only for the routed planes), the panel once (from
+// L2: far smaller than the 50 MB L2 on the main path) and the out rows
+// once, bytes.
 //
 // Bound.  Per slot the kernel streams 4 B of val (8 B at double), 2 B of
 // int8 (lane, hm1) or 3 B when m > 1 (sub), and idx: up to `planes` B in
@@ -60,7 +73,7 @@
 // memory bandwidth.  This first version aims to be right: no TMA, no wgmma,
 // no software pipelining.
 
-#include "stream_row.cuh"
+#include "panel_row.cuh"
 
 namespace {
 
@@ -135,48 +148,26 @@ __global__ void __launch_bounds__(kThreads) slab_blk_kernel(
 }
 
 __global__ void __launch_bounds__(kThreads) slab_spmm_kernel(
-    const int32_t* __restrict__ uids, const int32_t* __restrict__ win,
+    const int32_t* __restrict__ uids, const int32_t* __restrict__ sg0,
+    const int32_t* __restrict__ sg1, const int32_t* __restrict__ win,
     const int8_t* __restrict__ lane, const int8_t* __restrict__ sub,
     const float* __restrict__ val, const int8_t* __restrict__ hm1,
     const int8_t* __restrict__ idx, const float* __restrict__ x,
-    float* __restrict__ out, int H, int T, int rpb, int m, int planes, int B,
-    int cb, int tile) {
-  extern __shared__ float acc[];  // (tile, planes, 128)
-  __shared__ __align__(16) float wbuf[kWarps][kLanes];
-  const int warp = threadIdx.x >> 5, k = threadIdx.x & 31;
-  const int r0 = blockIdx.x * rpb;
-  const int t = r0 / T;
-  const size_t table = (size_t)cb * kLanes;
-  float* out_u = out + (size_t)uids[t] * B * planes * kLanes;
-  for (int b0 = 0; b0 < B; b0 += tile) {
-    const int nb = min(tile, B - b0);
-    for (int i = threadIdx.x; i < nb * planes * kLanes; i += kThreads)
-      acc[i] = 0.f;
-    __syncthreads();
-    for (int r = r0 + warp; r < r0 + rpb; r += kWarps) {
-      const size_t off = (size_t)r * kLanes + 4 * k;
-      const char4 ln = load_c4(lane + off);
-      const char4 sb = m > 1 ? load_c4(sub + off) : make_char4(0, 0, 0, 0);
-      const char4 hd = load_c4(hm1 + off);
-      const float4 v = load4(val + off);
-      char4 e[kMaxUnitPlanes];
-#pragma unroll
-      for (int s = 0; s < kMaxUnitPlanes; ++s)
-        e[s] = s < planes ? load_c4(idx + (size_t)s * H * kLanes + off)
-                          : make_char4(-1, -1, -1, -1);
-      const float* xw = x + (size_t)b0 * table + (size_t)win[r] * kLanes;
-      for (int b = 0; b < nb; ++b, xw += table) {
-        run_totals(mul4(v, gather4(xw, ln, sb, m)), hd, wbuf[warp]);
-        float* acc_b = acc + b * planes * kLanes + 4 * k;
-#pragma unroll
-        for (int s = 0; s < kMaxUnitPlanes; ++s)
-          if (s < planes) route4(e[s], wbuf[warp], acc_b + s * kLanes);
-      }
-    }
-    __syncthreads();
-    flush(acc, 0, nb * planes - 1, out_u + (size_t)b0 * planes * kLanes);
-    __syncthreads();  // the flush has read the tile before it is zeroed
-  }
+    float* __restrict__ out, int H, int T, int m, int planes, int B) {
+  __shared__ __align__(16) PanelSlot stage[kWarps][kPanelStage];
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (r >= H) return;
+  const int t = r / T;
+  const int lo = max(sg0[t], 0), hi = min(sg1[t], planes - 1);
+  if (lo > hi) return;  // the step routes nothing; uniform over the warp
+  const LaneGroups lg(column_tile(B), 1);
+  PanelSlot* st = stage[threadIdx.x >> 5];
+  stage_row<true>(st, lg, r, m, 0, win, lane, sub, val, hm1);
+  __syncwarp();
+  read_dests(st, lg, idx + ((size_t)lo * H + r) * kLanes, (size_t)H * kLanes,
+             hi - lo + 1, (uids[t] * planes + lo) * kLanes);
+  __syncwarp();
+  route_row<true>(st, lg, x, out, B);
 }
 
 template <typename V>
@@ -242,27 +233,24 @@ extern "C" int slab_spmv_blk_f32(const void* uids, const void* win,
   return (int)cudaGetLastError();
 }
 
-// `out` must be zeroed, of (nu * B * planes, 128) floats; `x` is the
-// (B, cb, 128) panel of x tables.
-extern "C" int slab_spmm_f32(const void* uids, const void* win,
+// `out` must be zeroed, of (nu * planes * 128, B) floats; `x` is the
+// interleaved (cb, 128, B) panel.
+extern "C" int slab_spmm_f32(const void* uids, const void* sg0,
+                             const void* sg1, const void* win,
                              const void* lane, const void* sub,
                              const void* val, const void* hm1,
                              const void* idx, const void* x, void* out,
-                             int H, int T, int m, int planes, int B, int cb,
+                             int H, int T, int m, int planes, int B,
                              void* stream) {
   if (planes < 1 || planes > kMaxUnitPlanes || T < 1 || H < 0 || H % T ||
-      B < 1 || cb < 1)
+      B < 1)
     return (int)cudaErrorInvalidValue;
   if (H == 0) return 0;
-  static const int rc = allow_panel_smem((const void*)slab_spmm_kernel);
-  if (rc) return rc;
-  const int rpb = rows_per_block(T);
-  const int tile = min(B, kPanelSmemBytes / (planes * kLanes * 4));
-  slab_spmm_kernel<<<H / rpb, kThreads, (size_t)tile * planes * kLanes * 4,
+  slab_spmm_kernel<<<(H + kWarps - 1) / kWarps, kThreads, 0,
                      (cudaStream_t)stream>>>(
-      (const int32_t*)uids, (const int32_t*)win, (const int8_t*)lane,
-      (const int8_t*)sub, (const float*)val, (const int8_t*)hm1,
-      (const int8_t*)idx, (const float*)x, (float*)out, H, T, rpb, m, planes,
-      B, cb, tile);
+      (const int32_t*)uids, (const int32_t*)sg0, (const int32_t*)sg1,
+      (const int32_t*)win, (const int8_t*)lane, (const int8_t*)sub,
+      (const float*)val, (const int8_t*)hm1, (const int8_t*)idx,
+      (const float*)x, (float*)out, H, T, m, planes, B);
   return (int)cudaGetLastError();
 }

@@ -28,10 +28,6 @@ constexpr int kLanes = 128;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr unsigned kFull = 0xffffffffu;
-// The panel kernels' (SpMM) column-tile accumulator: dynamic shared memory
-// past the 48 KB static limit, so their launchers raise the cap once.
-constexpr int kPanelSmemBytes = 64 * 1024;
-
 // Four consecutive values of a stream row, held by one lane: float4 in
 // float, a plain struct of four in double.
 struct Double4 {
@@ -175,14 +171,6 @@ __device__ __forceinline__ void flush(const V* acc, int lo, int hi,
     const V v = acc[i];
     if (v != V(0)) atomicAdd(out_block + i, v);
   }
-}
-
-// Lets `kernel` take kPanelSmemBytes of dynamic shared memory; returns
-// cudaGetLastError().  A launcher calls it once, into a static.
-int allow_panel_smem(const void* kernel) {
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kPanelSmemBytes);
-  return (int)cudaGetLastError();
 }
 
 // Rows per block: the largest power of two up to 32 that divides T.

@@ -52,21 +52,38 @@
 // float route 4-10% (the compiler, no longer sure that the atomics into the
 // accumulator leave the row buffer alone, unrolled the route loop less).
 //
-// The panels.  Column b has its own x table (x + b * cb * 128), its own
-// products (prod + b * n_chunks * p1 * 128, written by pass 1 as (B, H, 128)
-// per call) and its own out rows (out + b * n_grp * gb * 128).  Pass 1 loads
-// a stream row's win, lane, sub and val once and writes B product rows: a
-// plain stream, bound by its 4 B per slot and column of writes.  Pass 2 loads
-// lane, sub, hm1 and sig once per row and tile, then per column gathers the
-// products, takes the run totals and routes through idx into the shared
-// accumulator; the TPU's (p_oh, T) @ (T, B*128) one-hot matmul becomes these
-// indexed shared adds.  Its accumulator, (p_oh, 128) floats per column, is
-// 32 KB at p_oh 64 and 512 KB at B 16, so the columns are tiled IN A LOOP:
-// the block sizes its tile from the accumulator rows its stream rows reach
-// (hi - lo + 1 <= p_oh), as many columns as kPanelSmemBytes holds, runs its
-// rows once per tile and flushes each tile's rows to the out rows of its
-// columns, clipped at n_grp * gb as in the spmv route (the Pallas panel kernel
-// writes out[:, off:off+p_oh] unclipped).
+// The panels (redesigned for Hopper).  Both passes take interleaved
+// panels, where a slot's B column values are contiguous: x (cb, 128, B),
+// the products (n_chunks, p1, 128, B), written by pass 1 as (H, 128, B) per
+// call, and out (n_out, 128, B), which is Y's own (rows, B) layout inside a
+// group's rows.  Both run panel_row.cuh's lane groups.  Pass 1 stages a
+// row's 128 slots once, then each group takes one slot a step, gathers its
+// columns in one access (a lane takes 4 adjacent columns with 16-byte
+// loads and stores where B is a multiple of 4) and writes their products:
+// the warp's writes are one contiguous run of the row's 128 * B products.
+// Pass 2 stages the row, reads each of its kblk idx planes once per row
+// (not once per column) to give every routed end lane its out row, then
+// walks the row's slots per group of C lanes (the power of two up to 32
+// that covers B) with one coalesced gather of a slot's products, takes
+// the run totals once for all columns of the tile, and adds each run total
+// straight into the out rows with global atomics (C consecutive floats per
+// run end, one coalesced access).  There is no
+// shared accumulator: a (span, 128, B) one at p_oh 64 and B 16 would take
+// 512 KB, past the 227 KB a block may hold, and tiling its columns would
+// read the streams once per tile, as the first port did (2 to 8 columns a
+// pass); a float atomicAdd to shared memory is a compare-and-swap loop on
+// sm_90 (see slab.cu), and a pass-2 out position takes few run ends per
+// step (a y row's entries rarely span stream rows), so merging them there
+// first would save few of the native global reductions.  The route keeps
+// a lane per column: lanes of 4 columns (16-byte gathers) would make each
+// run end 4 atomic instructions of 2 lanes instead of one of 8.
+// Out rows past n_grp * gb are dropped, as in the spmv route (the Pallas
+// panel kernel writes out[:, off:off+p_oh] unclipped).  A warp takes one
+// row, so blocks need not share a step.  Bound: pass 1 the streams once,
+// the x panel once and the products once; pass 2 the streams once, one
+// gathered product per slot and column (the product panel of a large
+// matrix outgrows L2, so these come from device memory) and the out rows
+// once; bytes both.
 //
 // The v3 route.  Per stream row r in step t it gathers from the products of
 // chunk cs[t] and takes run totals as pass 2 does, then for each plane s of
@@ -97,7 +114,7 @@
 // This first version aims to be right: no TMA, no wgmma, no software
 // pipelining.
 
-#include "stream_row.cuh"
+#include "panel_row.cuh"
 
 namespace {
 
@@ -179,21 +196,48 @@ __global__ void __launch_bounds__(kThreads) xch_route4_kernel(
   if (base >= 0 && last >= lo) flush(acc, lo, last, out + base * kLanes);
 }
 
+template <int V>
 __global__ void __launch_bounds__(kThreads) xch_mul_panel_kernel(
     const int32_t* __restrict__ win, const int8_t* __restrict__ lane,
     const int8_t* __restrict__ sub, const float* __restrict__ val,
-    const float* __restrict__ x, float* __restrict__ out, int H, int m, int B,
-    int cb) {
-  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+    const float* __restrict__ x, float* __restrict__ out, int H, int m,
+    int B) {
+  __shared__ __align__(16) PanelSlot stage[kWarps][kPanelStage];
+  const int warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * kWarps + warp;
   if (r >= H) return;
-  const size_t off = (size_t)r * kLanes + 4 * (threadIdx.x & 31);
-  const char4 ln = load_c4(lane + off);
-  const char4 sb = m > 1 ? load_c4(sub + off) : make_char4(0, 0, 0, 0);
-  const float4 v = load4(val + off);
-  const size_t table = (size_t)cb * kLanes, plane = (size_t)H * kLanes;
-  const float* xw = x + (size_t)win[r] * kLanes;
-  for (int b = 0; b < B; ++b, xw += table)
-    store4(out + b * plane + off, mul4(v, gather4(xw, ln, sb, m)));
+  const LaneGroups lg(column_tile(B, V), V);
+  PanelSlot* st = stage[warp];
+  stage_row<true>(st, lg, r, m, 0, win, lane, sub, val, nullptr);
+  __syncwarp();
+  // a step writes G consecutive slots' products: one contiguous run;
+  // kWalkBatch steps' gathers are in flight together
+  float* orow = out + (size_t)r * kLanes * B;
+  for (int b = lg.c; b < B; b += lg.C)
+    for (int l0 = lg.g; l0 < kLanes; l0 += kWalkBatch * lg.G) {
+      float xv[kWalkBatch][V], v[kWalkBatch];
+#pragma unroll
+      for (int u = 0; u < kWalkBatch; ++u) {
+        const int l = l0 + u * lg.G;
+        const PanelSlot q = st[lg.pos(l < kLanes ? l : 0)];
+        load_cols<V>(x + (size_t)q.col * B + b, xv[u]);
+        v[u] = q.val;
+      }
+#pragma unroll
+      for (int u = 0; u < kWalkBatch; ++u) {
+        const int l = l0 + u * lg.G;
+        if (l >= kLanes) continue;
+        float* o = orow + (size_t)l * B + b;
+        if constexpr (V == 4) {
+          *reinterpret_cast<float4*>(o) =
+              make_float4(v[u] * xv[u][0], v[u] * xv[u][1], v[u] * xv[u][2],
+                          v[u] * xv[u][3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < V; ++j) o[j] = v[u] * xv[u][j];
+        }
+      }
+    }
 }
 
 __global__ void __launch_bounds__(kThreads) xch_route4_panel_kernel(
@@ -202,63 +246,30 @@ __global__ void __launch_bounds__(kThreads) xch_route4_panel_kernel(
     const int8_t* __restrict__ lane, const int8_t* __restrict__ sub,
     const int8_t* __restrict__ hm1, const int8_t* __restrict__ sig,
     const int8_t* __restrict__ idx, const float* __restrict__ prod,
-    float* __restrict__ out, int H, int T, int rpb, int m, int kblk,
-    int p_oh, int gb, int p1, int B, int n_chunks, long long n_out) {
-  extern __shared__ float acc[];  // (tile, hi - lo + 1, 128)
-  __shared__ __align__(16) float wbuf[kWarps][kLanes];
-  __shared__ int row_lo, row_hi;
-  const int warp = threadIdx.x >> 5, k = threadIdx.x & 31;
-  const int r0 = blockIdx.x * rpb;
-  const int t = r0 / T;
-  if (threadIdx.x == 0) {
-    row_lo = p_oh;
-    row_hi = -1;
-  }
-  __syncthreads();
-  if (threadIdx.x < rpb) {
-    const int s = sig[(size_t)(r0 + threadIdx.x) * kLanes];
-    atomicMin(&row_lo, max(s, 0));
-    atomicMax(&row_hi, min(s + kblk - 1, p_oh - 1));
-  }
-  __syncthreads();
-  const int lo = row_lo, hi = row_hi;
-  if (lo > hi) return;  // the block routes nothing; uniform over the block
-  const int span = hi - lo + 1;
-  const int tile = min(B, kPanelSmemBytes / (span * kLanes * 4));
-  const size_t column = (size_t)n_chunks * p1 * kLanes;  // one column's prod
-  const float* chunk = prod + (size_t)cs[t] * p1 * kLanes;
-  // out row of accumulator row 0; rows past the end of out are dropped
+    float* __restrict__ out, int H, int T, int m, int kblk, int p_oh,
+    int gb, int p1, int B, int n_out) {
+  __shared__ __align__(16) PanelSlot stage[kWarps][kPanelStage];
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (r >= H) return;
+  const int t = r / T;
+  // out row of one-hot row 0; rows before it or past the end are dropped
   const long long base = (long long)gids[t] * gb + off[t];
-  const long long room = n_out - 1 - base;
-  const int last = room < hi ? (int)room : hi;
-  for (int b0 = 0; b0 < B; b0 += tile) {
-    const int nb = min(tile, B - b0);
-    for (int i = threadIdx.x; i < nb * span * kLanes; i += kThreads)
-      acc[i] = 0.f;
-    __syncthreads();
-    for (int r = r0 + warp; r < r0 + rpb; r += kWarps) {
-      const size_t o = (size_t)r * kLanes + 4 * k;
-      const char4 ln = load_c4(lane + o);
-      const char4 sb = m > 1 ? load_c4(sub + o) : make_char4(0, 0, 0, 0);
-      const char4 hd = load_c4(hm1 + o);
-      const int s = sig[(size_t)r * kLanes];
-      const int j0 = max(-s, 0), j1 = min(kblk, p_oh - s);
-      const float* xw = chunk + (size_t)b0 * column + (size_t)win[r] * kLanes;
-      for (int b = 0; b < nb; ++b, xw += column) {
-        run_totals(gather4(xw, ln, sb, m), hd, wbuf[warp]);
-        float* acc_b = acc + b * span * kLanes + 4 * k;
-        for (int j = j0; j < j1; ++j)
-          route4(idx + (size_t)j * H * kLanes + o, wbuf[warp],
-                 acc_b + (s + j - lo) * kLanes);
-      }
-    }
-    __syncthreads();
-    if (base >= 0 && last >= lo)
-      for (int b = 0; b < nb; ++b)
-        flush(acc + b * span * kLanes, 0, last - lo,
-              out + ((b0 + b) * n_out + base + lo) * kLanes);
-    __syncthreads();  // the flush has read the tile before it is zeroed
-  }
+  if (base < 0) return;
+  const LaneGroups lg(column_tile(B), 1);
+  PanelSlot* st = stage[threadIdx.x >> 5];
+  stage_row<false>(st, lg, r, m, cs[t] * p1 * kLanes, win, lane, sub,
+                   nullptr, hm1);
+  __syncwarp();
+  // the planes j whose one-hot row s + j lies in [0, p_oh) and whose out
+  // row lies in [base, n_out)
+  const int s = sig[(size_t)r * kLanes];  // lane-replicated: slot 0 holds it
+  const int j0 = max(-s, 0);
+  const int j1 = (int)min((long long)min(kblk, p_oh - s), n_out - base - s);
+  if (j0 < j1)
+    read_dests(st, lg, idx + ((size_t)j0 * H + r) * kLanes,
+               (size_t)H * kLanes, j1 - j0, (int)(base + s + j0) * kLanes);
+  __syncwarp();
+  route_row<false>(st, lg, prod, out, B);
 }
 
 __global__ void __launch_bounds__(kThreads) xch_route_kernel(
@@ -401,19 +412,25 @@ extern "C" int xch_route4_f64(const void* gids, const void* off,
                                stream);
 }
 
-// `out` (B, H, 128) is written in full; `x` is the (B, cb, 128) panel of x
-// tables.
+// `out` (H, 128, B) is written in full; `x` is the interleaved (cb, 128, B)
+// panel.
 extern "C" int xch_mul_panel_f32(const void* win, const void* lane,
                                  const void* sub, const void* val,
                                  const void* x, void* out, int H, int T,
-                                 int m, int B, int cb, void* stream) {
-  if (m < 1 || m > kMaxWindow || T < 1 || H < 0 || H % T || B < 1 || cb < 1)
+                                 int m, int B, void* stream) {
+  if (m < 1 || m > kMaxWindow || T < 1 || H < 0 || H % T || B < 1)
     return (int)cudaErrorInvalidValue;
   if (H == 0) return 0;
-  xch_mul_panel_kernel<<<(H + kWarps - 1) / kWarps, kThreads, 0,
-                         (cudaStream_t)stream>>>(
-      (const int32_t*)win, (const int8_t*)lane, (const int8_t*)sub,
-      (const float*)val, (const float*)x, (float*)out, H, m, B, cb);
+  // lanes of 4 columns (16-byte gathers and stores) where B allows
+  const int grid = (H + kWarps - 1) / kWarps;
+  if (B % 4)
+    xch_mul_panel_kernel<1><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)win, (const int8_t*)lane, (const int8_t*)sub,
+        (const float*)val, (const float*)x, (float*)out, H, m, B);
+  else
+    xch_mul_panel_kernel<4><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)win, (const int8_t*)lane, (const int8_t*)sub,
+        (const float*)val, (const float*)x, (float*)out, H, m, B);
   return (int)cudaGetLastError();
 }
 
@@ -442,8 +459,8 @@ extern "C" int xch_route_f32(const void* uids, const void* cs,
   return (int)cudaGetLastError();
 }
 
-// `out` must be zeroed, of (B, n_grp * gb, 128); `prod` is the
-// (B, n_chunks, p1, 128) product panel of pass 1.
+// `out` must be zeroed, of (n_grp * gb, 128, B) floats; `prod` is the
+// interleaved (n_chunks, p1, 128, B) product panel of pass 1.
 extern "C" int xch_route4_panel_f32(const void* gids, const void* off,
                                     const void* cs, const void* win,
                                     const void* lane, const void* sub,
@@ -452,21 +469,20 @@ extern "C" int xch_route4_panel_f32(const void* gids, const void* off,
                                     void* out, int H, int T, int m, int kblk,
                                     int p_oh, int n_grp, int gb, int p1,
                                     int B, int n_chunks, void* stream) {
+  // an out position (row * 128 + lane) and a product row are ints
+  const long long n_out = (long long)n_grp * gb;
   if (m < 1 || m > kMaxWindow || kblk < 1 || p_oh < 1 || p_oh > kMaxPoh ||
       T < 1 || H < 0 || H % T || n_grp < 0 || gb < 1 || p1 < 1 || B < 1 ||
-      n_chunks < 1)
+      n_chunks < 1 || n_out * kLanes > INT32_MAX ||
+      (long long)n_chunks * p1 * kLanes > INT32_MAX)
     return (int)cudaErrorInvalidValue;
   if (H == 0) return 0;
-  static const int rc =
-      allow_panel_smem((const void*)xch_route4_panel_kernel);
-  if (rc) return rc;
-  const int rpb = rows_per_block(T);
-  xch_route4_panel_kernel<<<H / rpb, kThreads, kPanelSmemBytes,
+  xch_route4_panel_kernel<<<(H + kWarps - 1) / kWarps, kThreads, 0,
                             (cudaStream_t)stream>>>(
       (const int32_t*)gids, (const int32_t*)off, (const int32_t*)cs,
       (const int32_t*)win, (const int8_t*)lane, (const int8_t*)sub,
       (const int8_t*)hm1, (const int8_t*)sig, (const int8_t*)idx,
-      (const float*)prod, (float*)out, H, T, rpb, m, kblk, p_oh, gb, p1, B,
-      n_chunks, (long long)n_grp * gb);
+      (const float*)prod, (float*)out, H, T, m, kblk, p_oh, gb, p1, B,
+      (int)n_out);
   return (int)cudaGetLastError();
 }

@@ -19,7 +19,8 @@ Device half (``spmv``): pads x and appends the hub columns, runs one kernel
 per stream chunk (``ops/slab.py``), then assembles y — blk mode shift-adds
 the plane diagonals, unit mode overlap-adds the halves of pair blocks — and
 scatters by unit id.  ``spmm`` does the same for a panel of columns with one
-``slab_spmm`` per stream chunk in unit mode, under the reference's gates.
+``slab_spmm`` per stream chunk in unit mode, on the interleaved panel (each
+x row's B values contiguous), under the reference's gates.
 
 Values are float32 or float64; bfloat16 raises ``NotImplementedError``
 (ROADMAP A.10).  At float64 the planner takes the reference's float64
@@ -680,16 +681,16 @@ def state_from_reference(arrays: dict) -> SlabState:
 def x_table(state: SlabState, x: torch.Tensor) -> torch.Tensor:
     """The kernels' (cb_pad, 128) x table: x zero-padded to whole windows,
     with the hub columns copied into the appendix.  For a panel X
-    (n_col, B), the (B, cb_pad, 128) tables of its columns."""
-    cols = x.t() if x.dim() == 2 else x
-    xp = torch.zeros(cols.shape[:-1] + (state.cb_pad * LANES,),
-                     dtype=x.dtype, device=x.device)
-    xp[..., : state.n_col] = cols
+    (n_col, B), the interleaved (cb_pad, 128, B) panel: X padded the same
+    way, each x row's B values contiguous as in X."""
+    xp = torch.zeros((state.cb_pad * LANES,) + x.shape[1:], dtype=x.dtype,
+                     device=x.device)
+    xp[: state.n_col] = x
     if state.hub_cols is not None:
         n_hub = state.hub_cols.shape[0]
-        xp[..., state.hub_off: state.hub_off + n_hub] = cols.index_select(
-            -1, state.hub_cols)
-    return xp.view(cols.shape[:-1] + (state.cb_pad, LANES))
+        xp[state.hub_off: state.hub_off + n_hub] = x.index_select(
+            0, state.hub_cols)
+    return xp.view((state.cb_pad, LANES) + x.shape[1:])
 
 
 def spmv(state: SlabState, x: torch.Tensor) -> torch.Tensor:
@@ -752,7 +753,8 @@ def spmm(state: SlabState, X: torch.Tensor) -> torch.Tensor:
     """Y = A @ X, X (n_col, B): the reference's panel path (its
     ``formats/slab.py:867``).  In unit mode with 2 ≤ B ≤ ``PANEL_B_MAX``, a
     float32 panel and B x tables within ``X_TABLE_CAP``, one ``slab_spmm``
-    per stream chunk reads the streams once for all B columns; blk mode and
+    per stream chunk reads the streams once per column tile (its x panel
+    interleaved, ``x_table``); blk mode and
     every other B take the column loop of ``spmv``.  The gates are the
     reference's, the TPU's x-table cap included, so both packages take the
     same branch for one state and B; shedding the cap is ROADMAP A.7b's
@@ -769,23 +771,24 @@ def spmm(state: SlabState, X: torch.Tensor) -> torch.Tensor:
         return column_loop(spmv, state, X)
     xp = x_table(state, X)
     nu, planes = state.n_units, state.planes
-    outs = [slab_spmm(u, w, la, su, va, h1, ix, xp, nu_c, state.m,
+    outs = [slab_spmm(u, s0, s1, w, la, su, va, h1, ix, xp, nu_c, state.m,
                       state.t_step)
-            for u, w, la, su, va, h1, ix, nu_c in zip(
-                state.uids, state.win, state.lane, state.sub, state.val,
-                state.hm1, state.idx, state.chunk_nu)]
+            for u, s0, s1, w, la, su, va, h1, ix, nu_c in zip(
+                state.uids, state.sg0, state.sg1, state.win, state.lane,
+                state.sub, state.val, state.hm1, state.idx, state.chunk_nu)]
+    # out blocks are Y's (row, B) layout: no transpose
     out = outs[0] if len(outs) == 1 else torch.cat(outs, 0)
     if planes == 8:
-        yu = out.view(nu, n_cols, UNIT_ROWS)
+        yu = out.view(nu, UNIT_ROWS, n_cols)
     else:
         # pair-block overlap-add: block u rows 0-7 → unit u, 8-15 → u+1
-        out4 = out.view(nu, n_cols, 2, UNIT_ROWS)
-        yu = out4[:, :, 0].clone()
-        yu[1:] += out4[:-1, :, 1]
-    y2 = torch.zeros(cdiv(max(state.n_row, 1), UNIT_ROWS), n_cols, UNIT_ROWS,
+        out4 = out.view(nu, 2, UNIT_ROWS, n_cols)
+        yu = out4[:, 0].clone()
+        yu[1:] += out4[:-1, 1]
+    y2 = torch.zeros(cdiv(max(state.n_row, 1), UNIT_ROWS), UNIT_ROWS, n_cols,
                      dtype=X.dtype, device=X.device)
     y2[state.unit_ids.long()] = yu
-    return y2.transpose(1, 2).reshape(-1, n_cols)[: state.n_row]
+    return y2.view(-1, n_cols)[: state.n_row]
 
 
 # ----------------------------------------------------------------- reports ---

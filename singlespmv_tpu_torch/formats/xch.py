@@ -26,8 +26,9 @@ Device half (``spmv``): pads x into the x table, runs one ``xch_mul`` per
 pass-1 call and one ``xch_route4`` per pass-2 call (``ops/xch.py``), places
 the visited out groups into y, adds the nested long-row state's y at
 ``long_rows`` and the peeled bands as shifted slices of x.  ``spmm`` does the
-same for a panel of columns with ``xch_mul_panel`` and ``xch_route4_panel``,
-under the reference's gates.
+same for a panel of columns with ``xch_mul_panel`` and ``xch_route4_panel``
+on the interleaved panel (each row's B values contiguous, the out rows in
+Y's own layout), under the reference's gates.
 
 Values are float32 or float64; bfloat16 raises ``NotImplementedError``
 (ROADMAP A.10).  The layout at float64 is the float32 layout, as in the
@@ -945,12 +946,12 @@ def state_from_reference(arrays: dict) -> Xch4State:
 
 def x_table(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
     """Pass 1's (cb_pad, 128) x table: x zero-padded to whole windows.  For
-    a panel X (n_col, B), the (B, cb_pad, 128) tables of its columns."""
-    cols = x.t() if x.dim() == 2 else x
-    xp = torch.zeros(cols.shape[:-1] + (state.cb_pad * LANES,),
-                     dtype=x.dtype, device=x.device)
-    xp[..., : state.n_col] = cols
-    return xp.view(cols.shape[:-1] + (state.cb_pad, LANES))
+    a panel X (n_col, B), the interleaved (cb_pad, 128, B) panel: X
+    zero-padded, each x row's B values contiguous as in X."""
+    xp = torch.zeros((state.cb_pad * LANES,) + x.shape[1:], dtype=x.dtype,
+                     device=x.device)
+    xp[: state.n_col] = x
+    return xp.view((state.cb_pad, LANES) + x.shape[1:])
 
 
 def products(state: Xch4State, xp: torch.Tensor) -> torch.Tensor:
@@ -1039,20 +1040,21 @@ def _spmm_panel_v4(state: Xch4State, X: torch.Tensor) -> torch.Tensor:
     prods = [xch_mul_panel(w, la, su, va, xp, state.m1, state.t1)
              for w, la, su, va in zip(state.win1, state.lane1, state.sub1,
                                       state.val1)]
-    prod = prods[0] if len(prods) == 1 else torch.cat(prods, 1)
-    prod4 = prod.view(n_cols, state.n_chunks, state.p1, LANES)
+    prod = prods[0] if len(prods) == 1 else torch.cat(prods, 0)
+    prod4 = prod.view(state.n_chunks, state.p1, LANES, n_cols)
     outs = [xch_route4_panel(g, o, c, w, la, su, h2, sg, ix, prod4, ng,
                              state.gb, state.m2, state.t2, state.p_oh)
             for g, o, c, w, la, su, h2, sg, ix, ng in zip(
                 state.gids2, state.off2, state.cs2, state.win2, state.lane2,
                 state.sub2, state.hm2, state.sig2, state.idx2,
                 state.chunk_ngrp)]
-    out = outs[0] if len(outs) == 1 else torch.cat(outs, 1)
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, 0)
+    # out rows are Y's (row, B) layout: the groups drop into place
     n_grp_tot = cdiv(cdiv(max(n, 1), LANES), state.gb)
-    yg = torch.zeros(n_cols, n_grp_tot, state.gb * LANES, dtype=X.dtype,
+    yg = torch.zeros(n_grp_tot, state.gb * LANES, n_cols, dtype=X.dtype,
                      device=X.device)
-    yg[:, state.vis_gids.long()] = out.view(n_cols, -1, state.gb * LANES)
-    Y = yg.view(n_cols, -1)[:, :n].t().contiguous()
+    yg[state.vis_gids.long()] = out.view(-1, state.gb * LANES, n_cols)
+    Y = yg.view(-1, n_cols)[:n]
     if state.long is not None:
         Y.index_add_(0, state.long_rows.long(), spmm(state.long, X))
     if state.dia_vals is not None:

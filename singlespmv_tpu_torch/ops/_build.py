@@ -48,8 +48,8 @@ SIGNATURES = {
     "slab_spmv_f64": [_P] * 11 + [_I] * 4 + [_P],
     # uids win lane sub val hm1 idx sig x out | H T m planes kblk | stream
     "slab_spmv_blk_f32": [_P] * 10 + [_I] * 5 + [_P],
-    # uids win lane sub val hm1 idx x out | H T m planes B cb | stream
-    "slab_spmm_f32": [_P] * 9 + [_I] * 6 + [_P],
+    # uids sg0 sg1 win lane sub val hm1 idx x out | H T m planes B | stream
+    "slab_spmm_f32": [_P] * 11 + [_I] * 5 + [_P],
     # win lane sub val x out | H T m | stream
     "xch_mul_f32": [_P] * 6 + [_I] * 3 + [_P],
     "xch_mul_f64": [_P] * 6 + [_I] * 3 + [_P],
@@ -57,8 +57,8 @@ SIGNATURES = {
     # | H T m kblk p_oh n_grp gb p1 | stream
     "xch_route4_f32": [_P] * 11 + [_I] * 8 + [_P],
     "xch_route4_f64": [_P] * 11 + [_I] * 8 + [_P],
-    # win lane sub val x out | H T m B cb | stream
-    "xch_mul_panel_f32": [_P] * 6 + [_I] * 5 + [_P],
+    # win lane sub val x out | H T m B | stream
+    "xch_mul_panel_f32": [_P] * 6 + [_I] * 4 + [_P],
     # gids off cs win lane sub hm1 sig idx prod out
     # | H T m kblk p_oh n_grp gb p1 B n_chunks | stream
     "xch_route4_panel_f32": [_P] * 11 + [_I] * 10 + [_P],

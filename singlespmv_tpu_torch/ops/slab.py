@@ -4,7 +4,13 @@ PyTorch versions.
 ``slab_spmv`` (unit route), ``slab_spmv_blk`` (block route) and
 ``slab_spmm`` (unit route over a panel of columns) take the arguments of their
 Pallas counterparts in ``singlespmv_tpu/ops/pallas/slab.py`` (:263, :310 and
-:228) and return the same out blocks.  On a CUDA tensor a wrapper launches its
+:228) and return the same out blocks, but for the panel's layouts:
+``slab_spmm`` takes the interleaved (CB, 128, B) panel, whose slot column
+holds its B values contiguously, where the reference takes B (CB, 128)
+tables, returns its out blocks as (nu·planes, 128, B), each row's B
+columns contiguous, where the reference returns (nu·B·planes, 128), and it
+takes the steps' sg0/sg1, as ``slab_spmv`` does, to route only their
+planes.  On a CUDA tensor a wrapper launches its
 kernel, or raises; on a CPU tensor it runs the plain version
 (``slab_spmv_ref``, ``slab_spmv_blk_ref``, ``slab_spmm_ref``), which the tests
 hold against the Pallas kernels and ``chip_smoke.py`` holds against the
@@ -61,10 +67,10 @@ def value_type(t, types=VALUE_TYPES):
 
 
 def _check_table(name, t, vt, dev, rank=2):
-    """``t`` is a contiguous (CB, 128) x table (rank 2) or (B, CB, 128)
-    panel of tables (rank 3) of type ``vt`` on ``dev``, with B ≥ 1."""
-    if t.dim() != rank or t.shape[-1] != LANES or not all(t.shape[:-1]):
-        want = "(CB, 128)" if rank == 2 else "(B, CB, 128)"
+    """``t`` is a contiguous (CB, 128) x table (rank 2) or interleaved
+    (CB, 128, B) panel (rank 3) of type ``vt`` on ``dev``, with B ≥ 1."""
+    if t.dim() != rank or t.shape[1] != LANES or not all(t.shape):
+        want = "(CB, 128)" if rank == 2 else "(CB, 128, B)"
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want}")
     _check(name, t, vt, t.shape, dev)
 
@@ -169,18 +175,19 @@ def slab_spmv_blk_ref(uids, win, lane, sub, val, hm1, idx, sig, x_table,
     return out
 
 
-def slab_spmm_ref(uids, win, lane, sub, val, hm1, idx, x_panel, nu: int,
-                  m: int, T: int = 64):
-    """Plain version of ``slab_spmm``: ``slab_spmv_ref`` of each column,
-    placed in that column's planes of every unit block."""
-    planes, n_cols = idx.shape[0], x_panel.shape[0]
-    out = torch.empty(nu, n_cols, planes, LANES, dtype=val.dtype,
-                      device=val.device)
-    for b in range(n_cols):
-        out[:, b] = slab_spmv_ref(uids, None, None, win, lane, sub, val, hm1,
-                                  idx, x_panel[b], nu, m, T).view(
-                                      nu, planes, LANES)
-    return out.view(nu * n_cols * planes, LANES)
+def slab_spmm_ref(uids, sg0, sg1, win, lane, sub, val, hm1, idx, x_panel,
+                  nu: int, m: int, T: int = 64):
+    """Plain version of ``slab_spmm``: ``slab_spmv_ref`` of each column over
+    the planes [sg0[t], sg1[t]] of each step t, as column b of the out
+    blocks."""
+    planes, h, n_cols = idx.shape[0], lane.shape[0], x_panel.shape[-1]
+    step = torch.arange(h, device=val.device) // T
+    s = torch.arange(planes, device=val.device)[:, None]
+    routed = (sg0.long()[step] <= s) & (s <= sg1.long()[step])  # (planes, H)
+    pruned = torch.where(routed[..., None], idx, -1)
+    return torch.stack([
+        slab_spmv_ref(uids, sg0, sg1, win, lane, sub, val, hm1, pruned,
+                      x_panel[..., b], nu, m, T) for b in range(n_cols)], -1)
 
 
 # --------------------------------------------------------------- wrappers ---
@@ -256,32 +263,40 @@ def slab_spmv_blk(uids, win, lane, sub, val, hm1, idx, sig, x_table,
     return out
 
 
-def slab_spmm(uids, win, lane, sub, val, hm1, idx, x_panel, nu: int, m: int,
-              T: int = 64):
+def slab_spmm(uids, sg0, sg1, win, lane, sub, val, hm1, idx, x_panel,
+              nu: int, m: int, T: int = 64):
     """Unit-route slab SpMM over one stream chunk, float32.
 
-    x_panel: (B, CB, 128) float32 — column b's x table in row b.
+    x_panel: (CB, 128, B) float32 — the interleaved panel: x_panel[c, l]
+             holds the B column values of x row c·128 + l.
     Other arguments as in ``slab_spmv``, which routes the same streams for
-    one column; the panel routes every plane (no sg0/sg1), as the TPU's.
-    Returns (nu·B·planes, 128) float32: block u rows [b·planes, (b+1)·planes)
-    hold column b's σ-planes."""
+    one column; the panel too routes only the planes [sg0[t], sg1[t]] of
+    each step (the converts leave idx −1 outside them; the TPU's panel
+    routed every plane).  Returns (nu·planes, 128, B) float32: block u rows
+    [u·planes, (u+1)·planes) hold its σ-planes, each lane's B columns
+    contiguous (Y's own layout)."""
     h, n_steps, dev, _ = _check_stream(lane, val, hm1, sub, win, x_panel, T,
                                        types=PANEL_TYPES, rank=3)
-    planes, n_cols = idx.shape[0], x_panel.shape[0]
+    planes, n_cols = idx.shape[0], x_panel.shape[-1]
     if planes not in UNIT_PLANES:
         raise ValueError(f"unit route takes {UNIT_PLANES} planes, "
                          f"not {planes}")
     _check("idx", idx, torch.int8, (planes, h, LANES), dev)
-    _check("uids", uids, torch.int32, (n_steps,), dev)
+    for name, t in (("uids", uids), ("sg0", sg0), ("sg1", sg1)):
+        _check(name, t, torch.int32, (n_steps,), dev)
+    if nu * planes * LANES >= 2 ** 31:
+        raise ValueError(f"{nu} unit blocks of {planes} planes: the kernel "
+                         "indexes out positions with 32-bit ints")
     if dev.type == "cpu":
-        return slab_spmm_ref(uids, win, lane, sub, val, hm1, idx, x_panel, nu,
-                             m, T)
-    out = torch.zeros(nu * n_cols * planes, LANES, dtype=torch.float32,
+        return slab_spmm_ref(uids, sg0, sg1, win, lane, sub, val, hm1, idx,
+                             x_panel, nu, m, T)
+    out = torch.zeros(nu * planes, LANES, n_cols, dtype=torch.float32,
                       device=dev)
     if h:
         rc = _build.load().slab_spmm_f32(
-            *map(_ptr, (uids, win, lane, sub, val, hm1, idx, x_panel, out)),
-            h, T, m, planes, n_cols, x_panel.shape[1],
+            *map(_ptr, (uids, sg0, sg1, win, lane, sub, val, hm1, idx,
+                        x_panel, out)),
+            h, T, m, planes, n_cols,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
         _raise_on(rc, "slab_spmm")
         slab_spmm.launches += 1

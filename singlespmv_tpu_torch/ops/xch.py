@@ -5,7 +5,11 @@ versions.
 columns ``xch_mul_panel`` and ``xch_route4_panel``, and the v3 σ-plane route
 ``xch_route`` take the arguments of their Pallas counterparts in
 ``singlespmv_tpu/ops/pallas/xch.py`` (:48, :151, :338, :424 and :259) and
-return the same arrays.  ``xch_route`` has one caller in the port, the
+return the same arrays, but for the panels' layout: ``xch_mul_panel`` takes
+the interleaved (CB, 128, B) x panel and returns the (H, 128, B) products,
+and ``xch_route4_panel`` takes them as (n_chunks, P1, 128, B) and returns
+(n_grp·gb, 128, B), where the reference keeps one (…, 128) array per
+column in front.  ``xch_route`` has one caller in the port, the
 calibration's ``route_slot_s`` fit (``harness/calibrate.py``): the v3 format
 path that the reference reaches through ``plan={'route_v': 3}`` is not
 ported.  On a CUDA tensor a wrapper
@@ -65,8 +69,8 @@ def _stream(dev):
 
 
 def _check_mul(win, lane, sub, val, x, m, T, types, rank):
-    """Checks of pass 1; ``x`` is the x table or, at rank 3, the panel of
-    tables.  Returns (H, device, value type)."""
+    """Checks of pass 1; ``x`` is the x table or, at rank 3, the
+    interleaved panel.  Returns (H, device, value type)."""
     dev = _device(x)
     h = lane.shape[0]
     _check_rows(h, T, m, dev, win, lane, sub)
@@ -79,7 +83,8 @@ def _check_mul(win, lane, sub, val, x, m, T, types, rank):
 def _check_route(gids, off, cs, win, lane, sub, hm1, sig, idx, prod, gb,
                  n_grp, m, T, p_oh, types, rank):
     """Checks of pass 2; ``prod`` is (n_chunks, P1, 128) or, at rank 4, the
-    panel (B, n_chunks, P1, 128).  Returns (H, device, value type, kblk)."""
+    interleaved panel (n_chunks, P1, 128, B).  Returns (H, device, value
+    type, kblk)."""
     dev = _device(prod)
     h = lane.shape[0]
     _check_rows(h, T, m, dev, win, lane, sub)
@@ -92,10 +97,9 @@ def _check_route(gids, off, cs, win, lane, sub, hm1, sig, idx, prod, gb,
     _check("idx", idx, torch.int8, (kblk, h, LANES), dev)
     for name, t in (("gids", gids), ("off", off), ("cs", cs)):
         _check(name, t, torch.int32, (h // T,), dev)
-    if prod.dim() != rank or prod.shape[-1] != LANES \
-            or not all(prod.shape[:-1]):
+    if prod.dim() != rank or prod.shape[2] != LANES or not all(prod.shape):
         want = "(n_chunks, P1, 128)" if rank == 3 else \
-            "(B, n_chunks, P1, 128)"
+            "(n_chunks, P1, 128, B)"
         raise ValueError(f"prod3 has shape {tuple(prod.shape)}, expected "
                          f"{want}")
     vt = value_type(prod, types)
@@ -156,11 +160,11 @@ def xch_route_ref(uids, gids, cs, sg0, sg1, win, lane, sub, hm1, idx, prod3,
     return out
 
 
-def xch_mul_panel_ref(win, lane, sub, val, x_tables, m: int, T: int = 64):
+def xch_mul_panel_ref(win, lane, sub, val, x_panel, m: int, T: int = 64):
     """Plain version of ``xch_mul_panel``: ``xch_mul_ref`` of each
     column."""
-    return torch.stack([xch_mul_ref(win, lane, sub, val, xt, m, T)
-                        for xt in x_tables])
+    return torch.stack([xch_mul_ref(win, lane, sub, val, x_panel[..., b], m,
+                                    T) for b in range(x_panel.shape[-1])], -1)
 
 
 def xch_route4_panel_ref(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
@@ -169,8 +173,9 @@ def xch_route4_panel_ref(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
     """Plain version of ``xch_route4_panel``: ``xch_route4_ref`` of each
     column."""
     return torch.stack([
-        xch_route4_ref(gids, off, cs, win, lane, sub, hm1, sig, idx, p, n_grp,
-                       gb, m, T, p_oh) for p in prod3])
+        xch_route4_ref(gids, off, cs, win, lane, sub, hm1, sig, idx,
+                       prod3[..., b], n_grp, gb, m, T, p_oh)
+        for b in range(prod3.shape[-1])], -1)
 
 
 # --------------------------------------------------------------- wrappers ---
@@ -229,23 +234,24 @@ def xch_route4(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
     return out
 
 
-def xch_mul_panel(win, lane, sub, val, x_tables, m: int, T: int = 64):
+def xch_mul_panel(win, lane, sub, val, x_panel, m: int, T: int = 64):
     """Pass 1 over one call chunk for a panel of B columns, float32.
 
-    x_tables: (B, CB, 128) float32 — column b's x table in row b.
-    Other arguments as in ``xch_mul``.  Returns (B, H, 128) float32 products,
-    column b's in row b."""
-    h, dev, _ = _check_mul(win, lane, sub, val, x_tables, m, T, PANEL_TYPES,
+    x_panel: (CB, 128, B) float32 — the interleaved panel: x_panel[c, l]
+             holds the B column values of x row c·128 + l.
+    Other arguments as in ``xch_mul``.  Returns (H, 128, B) float32
+    products: a slot's B products are contiguous."""
+    h, dev, _ = _check_mul(win, lane, sub, val, x_panel, m, T, PANEL_TYPES,
                            3)
     if dev.type == "cpu":
-        return xch_mul_panel_ref(win, lane, sub, val, x_tables, m, T)
-    n_cols = x_tables.shape[0]
-    out = torch.empty(n_cols, h, LANES, dtype=torch.float32,
+        return xch_mul_panel_ref(win, lane, sub, val, x_panel, m, T)
+    n_cols = x_panel.shape[-1]
+    out = torch.empty(h, LANES, n_cols, dtype=torch.float32,
                       device=dev)    # all written
     if h:
         rc = _build.load().xch_mul_panel_f32(
-            *map(_ptr, (win, lane, sub, val, x_tables, out)), h, T, m,
-            n_cols, x_tables.shape[1], _stream(dev))
+            *map(_ptr, (win, lane, sub, val, x_panel, out)), h, T, m, n_cols,
+            _stream(dev))
         _raise_on(rc, "xch_mul_panel")
         xch_mul_panel.launches += 1
     return out
@@ -256,19 +262,19 @@ def xch_route4_panel(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
                      p_oh: int = 16):
     """Pass 2 over one call chunk for a panel of B columns, float32.
 
-    prod3: (B, n_chunks, P1, 128) float32 — column b's pass-1 products in
-    row b.  Other arguments as in ``xch_route4``.  Returns
-    (B, n_grp·gb, 128) float32, column b's out rows in row b; out rows past
-    n_grp·gb are dropped, as in ``xch_route4``, where the Pallas panel
-    kernel writes its step's p_oh rows unclipped."""
+    prod3: (n_chunks, P1, 128, B) float32 — the interleaved pass-1
+    products.  Other arguments as in ``xch_route4``.  Returns
+    (n_grp·gb, 128, B) float32: out row i's B columns are contiguous, as in
+    Y; out rows past n_grp·gb are dropped, as in ``xch_route4``, where the
+    Pallas panel kernel writes its step's p_oh rows unclipped."""
     h, dev, _, kblk = _check_route(
         gids, off, cs, win, lane, sub, hm1, sig, idx, prod3, gb, n_grp, m, T,
         p_oh, PANEL_TYPES, 4)
     if dev.type == "cpu":
         return xch_route4_panel_ref(gids, off, cs, win, lane, sub, hm1, sig,
                                     idx, prod3, n_grp, gb, m, T, p_oh)
-    n_cols, n_chunks, p1, _ = prod3.shape
-    out = torch.zeros(n_cols, n_grp * gb, LANES, dtype=torch.float32,
+    n_chunks, p1, _, n_cols = prod3.shape
+    out = torch.zeros(n_grp * gb, LANES, n_cols, dtype=torch.float32,
                       device=dev)
     if h:
         rc = _build.load().xch_route4_panel_f32(

@@ -8,11 +8,13 @@ runs where only the port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda_spmm.py
 
-Kernel and plain version agree to 1e-5·max|out|: the kernels sum row
-prefixes by warp shuffles and accumulate with atomics in run-dependent
-order.  A column tile holds 64 KB of accumulator: 8 columns at 16 planes and
-16 at 8 in slab_spmm, 128 / (accumulator rows) in xch_route4_panel, so B = 20
-takes several tiles in both.
+Kernel and plain version agree to 1e-5·max|out|: the kernels sum runs
+serially per lane group plus a scan across groups, and accumulate with
+atomics in run-dependent order.  The panels are interleaved, (CB, 128, B).
+A lane group of the panel kernels takes a column tile of the power of two
+up to 32 that covers B, so an odd B and a B between powers of two leave
+lanes idle, and xch_mul_panel takes 4 columns a lane where B is a multiple
+of 4.
 """
 import numpy as np
 import pytest
@@ -68,15 +70,16 @@ def _unit_state(coo, planes, m, t=32):
     return slab.convert(coo, Config(format="slab"), plan=plan)
 
 
-@pytest.mark.parametrize("n_cols", [5, 20])
+@pytest.mark.parametrize("n_cols", [2, 5, 8, 16, 20, 32])
 @pytest.mark.parametrize("planes,m", [(8, 1), (16, 8)])
 def test_slab_spmm_matches_plain(cuda, planes, m, n_cols):
     coo = powerlaw(1500, 8000, seed=2)
     st = _unit_state(coo, planes, m).to(cuda)
     X = _panel(coo.n_col, n_cols, planes + m, cuda)
     xp = slab.x_table(st, X)
-    for a in zip(st.uids, st.win, st.lane, st.sub, st.val, st.hm1, st.idx,
-                 st.chunk_nu):
+    assert xp.shape == (st.cb_pad, 128, n_cols)
+    for a in zip(st.uids, st.sg0, st.sg1, st.win, st.lane, st.sub, st.val,
+                 st.hm1, st.idx, st.chunk_nu):
         *streams, nu = a
         before = sops.slab_spmm.launches
         got = sops.slab_spmm(*streams, xp, nu, st.m, st.t_step)
@@ -108,7 +111,7 @@ def _xch_kernels_vs_plain(st, X):
         assert xops.xch_mul_panel.launches == before + 1
         _close(got, xops.xch_mul_panel_ref(*a, xp, st.m1, st.t1))
         prods.append(got)
-    prod4 = torch.cat(prods, 1).view(X.shape[1], st.n_chunks, st.p1, 128)
+    prod4 = torch.cat(prods, 0).view(st.n_chunks, st.p1, 128, X.shape[1])
     for *a, ng in zip(st.gids2, st.off2, st.cs2, st.win2, st.lane2, st.sub2,
                       st.hm2, st.sig2, st.idx2, st.chunk_ngrp):
         g = (prod4, ng, st.gb, st.m2, st.t2, st.p_oh)
@@ -128,7 +131,7 @@ ROUTES = [
 ]
 
 
-@pytest.mark.parametrize("n_cols", [5, 20])
+@pytest.mark.parametrize("n_cols", [2, 5, 8, 16, 20])
 @pytest.mark.parametrize("kblk,m2,t2,p_oh", ROUTES)
 def test_xch_panels_match_plain(cuda, kblk, m2, t2, p_oh, n_cols):
     coo = _scatter(40000, 200000, seed=kblk)
@@ -201,12 +204,12 @@ def test_failed_launch_raises_kernel_error(cuda, monkeypatch):
 
     stream = torch.cuda.current_stream(cuda).cuda_stream
     null = [None] * 11
-    # H T m planes B cb
-    assert lib.slab_spmm_f32(*null[:9], 64, 32, 1, 17, 4, 8, stream) != 0
-    assert lib.slab_spmm_f32(*null[:9], 64, 32, 1, 8, 0, 8, stream) != 0
-    # H T m B cb
-    assert lib.xch_mul_panel_f32(*null[:6], 96, 64, 8, 4, 8, stream) != 0
-    assert lib.xch_mul_panel_f32(*null[:6], 0, 64, 8, 4, 8, stream) == 0
+    # H T m planes B
+    assert lib.slab_spmm_f32(*null, 64, 32, 1, 17, 4, stream) != 0
+    assert lib.slab_spmm_f32(*null, 64, 32, 1, 8, 0, stream) != 0
+    # H T m B
+    assert lib.xch_mul_panel_f32(*null[:6], 96, 64, 8, 4, stream) != 0
+    assert lib.xch_mul_panel_f32(*null[:6], 0, 64, 8, 4, stream) == 0
     # H T m kblk p_oh n_grp gb p1 B n_chunks
     assert lib.xch_route4_panel_f32(*null, 64, 64, 8, 4, 65, 1, 1024, 64, 4,
                                     1, stream) != 0
