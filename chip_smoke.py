@@ -13,7 +13,9 @@ Its phases, in the order they run:
    nested long-row state), and times kernel, plain version and the whole
    spmv call: in float32, and in float64 the native-fp64 builds of the slab
    unit kernel (torso1 and g7jac200sc, the float64 planner's unit-only
-   plans) and of both xch kernels (webbase-1M and ASIC_680ks); the four
+   plans) and of both xch kernels (webbase-1M and ASIC_680ks): ``xch_mul``
+   and the spmv route ``xch_route4_rows``, the latter with the bound of the
+   idx-plane layout it replaced beside its own; the four
    bucket kernels on the full-size bkt_g states (1024-row buckets) of
    g7jac200sc, lhr34, twotone, raefsky3 and thermomech_dK and the bkt state
    (128-row buckets) of raefsky3, with ``torch.gather``'s time beside
@@ -41,8 +43,9 @@ Its phases, in the order they run:
 5. drives the xch main path: ``run_benchmark`` with format="xch" in float32
    on the full-size webbase-1M and ASIC_680ks stand-ins;
 6. drives the hyb main path: ``run_benchmark`` with format="hyb" in float32
-   on the full-size Chebyshev4 and PR02R stand-ins (a band peel plus a
-   residual); then, on those in float32 and on Chebyshev4 in float64, times
+   on the full-size Chebyshev4 and PR02R stand-ins (a band peel plus a slab
+   residual) and webbase-1M (whose hyper-sparse residual rides xch); then,
+   on the first two in float32 and on Chebyshev4 in float64, times
    a hyb spmv, its dia part and its residual, and holds the residual's
    kernels against their plain versions at the residual's shapes;
 7. drives the bkt path: ``run_benchmark`` with format="bkt" on raefsky3
@@ -76,10 +79,13 @@ Its phases, in the order they run:
    ``probe_pal2step`` (printing the TSV), and ``probe_slab.main``'s nine
    rows, each probe's loop at ``CAL_TARGET_S``;
 12. the xch path on circuit5M (several kernel calls per pass, a nested
-   long-row state): kernels against their plain versions on every call, then
-   its spmv against the float64 COO oracle;
+   long-row state): the time ``route_rows`` takes, kernels against their
+   plain versions on every call, then its spmv against the float64 COO
+   oracle;
 13. checks that each path launched each of its kernels: the launch counts
-   are set to 0 just before a path and read just after it.
+   are set to 0 just before a path and read just after it; and that no
+   path launched ``xch_route4``, the first port's route, which left the
+   spmv path.
 
 Each phase prints its seconds.
 
@@ -89,8 +95,10 @@ the product kernels torch's CSR product ``A_csr @ x`` (cuSPARSE's kernels)
 on the same matrix, dtype and B, the whole product where an xch kernel is
 one of two passes; the launches on the main paths; the bound: the larger
 of the bytes the call must move at 3.35 TB/s and its operations at the
-card's peak), and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
-result, when no CUDA device is present or any phase fails.
+card's peak; for ``xch_route4_rows`` also ``bound_ms_idx_layout``, the bound
+of the same work on the idx-plane layout it replaced), and as its last line
+``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
+no CUDA device is present or any phase fails.
 """
 import json
 import multiprocessing
@@ -372,8 +380,9 @@ def _states(state):
 def _xch_calls(state, xch, ops, x):
     """{kernel: (kernel calls, plain-version calls)} over every call of the
     state and its nested states, as formats/xch.spmv makes them, on the
-    same inputs; each call is a function of no argument."""
-    calls = {"xch_mul": ([], []), "xch_route4": ([], [])}
+    same inputs (a route call adds into a y of its own, zeroed); each call
+    is a function of no argument."""
+    calls = {"xch_mul": ([], []), "xch_route4_rows": ([], [])}
     for st in _states(state):
         xt = xch.x_table(st, x)
         prod3 = xch.products(st, xt)
@@ -381,13 +390,15 @@ def _xch_calls(state, xch, ops, x):
             calls["xch_mul"][i].extend(
                 lambda a=a, st=st, xt=xt, f=mul: f(*a, xt, st.m1, st.t1)
                 for a in zip(st.win1, st.lane1, st.sub1, st.val1))
-        for i, route in enumerate((ops.xch_route4, ops.xch_route4_ref)):
-            calls["xch_route4"][i].extend(
-                lambda a=a, st=st, p=prod3, ng=ng, f=route: f(
-                    *a, p, ng, st.gb, st.m2, st.t2, st.p_oh)
-                for *a, ng in zip(st.gids2, st.off2, st.cs2, st.win2,
-                                  st.lane2, st.sub2, st.hm2, st.sig2,
-                                  st.idx2, st.chunk_ngrp))
+        for i, route in enumerate((ops.xch_route4_rows,
+                                   ops.xch_route4_rows_ref)):
+            calls["xch_route4_rows"][i].extend(
+                lambda a=a, st=st, p=prod3, f=route: f(
+                    *a, p, torch.zeros(st.n_row, dtype=p.dtype,
+                                       device=p.device), st.m2, st.t2,
+                    st.merge2)
+                for a in zip(st.base2, st.cs2, st.win2, st.lane2, st.sub2,
+                             st.hm2, st.dest2))
     return calls
 
 
@@ -418,42 +429,52 @@ def compare_xch(label, state, xch, ops, x, tol=TOL, a_csr=None):
     res = {"label": label, "dtype": str(x.dtype),
            "plans": [{k: getattr(st, k) for k in (
                "m1", "m2", "t1", "t2", "kblk", "p_oh", "gb", "n_chunks",
-               "p1", "n_slots1", "n_slots2")} | {
+               "p1", "n_slots1", "n_slots2", "merge2")} | {
                "calls": (len(st.win1), len(st.gids2)),
                "peel_offs": len(st.dia_offs)} for st in _states(state)]}
-    # bytes each call must move: its streams (sub only when m > 1, sig one
-    # byte a row, one product gathered per pass-2 slot), the x table once,
-    # its output once; operations: a multiply per pass-1 slot, a prefix add
-    # and a run-total difference per pass-2 slot, an add per routed run end
+    # bytes each call must move: its streams (sub only when m > 1, one
+    # product gathered per pass-2 slot), the x table once, its output once
+    # (y once a state); operations: a multiply per pass-1 slot, a prefix add
+    # and a run-total difference per pass-2 slot, an add per routed run
+    # end.  Beside the route's, the bound of the idx-plane layout it
+    # replaced (sig one byte a row, the kblk idx planes, the out groups once)
     vsz = x.element_size()
-    cost = {"xch_mul": [0, 0], "xch_route4": [0, 0]}
+    cost = {"xch_mul": [0, 0], "xch_route4_rows": [0, 0]}
+    idx_layout = [0, 0]
     library = None if a_csr is None else _library_ms(a_csr, x)
     for st in _states(state):
         for win, lane, sub, val in zip(st.win1, st.lane1, st.sub1, st.val1):
             cost["xch_mul"][0] += _nbytes(win, lane, val, val, xch.x_table(
                 st, x)) + (_nbytes(sub) if st.m1 > 1 else 0)
             cost["xch_mul"][1] += val.numel()
-        for g, o, c, win, lane, sub, hm, idx, ng in zip(
-                st.gids2, st.off2, st.cs2, st.win2, st.lane2, st.sub2,
-                st.hm2, st.idx2, st.chunk_ngrp):
+        cost["xch_route4_rows"][0] += st.n_row * vsz
+        for g, o, c, b, win, lane, sub, hm, idx, d, ng in zip(
+                st.gids2, st.off2, st.cs2, st.base2, st.win2, st.lane2,
+                st.sub2, st.hm2, st.idx2, st.dest2, st.chunk_ngrp):
             h = lane.shape[0]
-            cost["xch_route4"][0] += (
-                _nbytes(g, o, c, win, lane, hm, idx) + h + h * 128 * vsz
-                + ng * st.gb * 128 * vsz
-                + (_nbytes(sub) if st.m2 > 1 else 0))
-            cost["xch_route4"][1] += 2 * h * 128 + _routed(idx)
+            streams = (h * 128 * vsz + _nbytes(c, win, lane, hm)
+                       + (_nbytes(sub) if st.m2 > 1 else 0))
+            cost["xch_route4_rows"][0] += streams + _nbytes(b, d)
+            cost["xch_route4_rows"][1] += 2 * h * 128 + int((d >= 0).sum())
+            idx_layout[0] += (streams + _nbytes(g, o, idx) + h
+                              + ng * st.gb * 128 * vsz)
+            idx_layout[1] += 2 * h * 128 + _routed(idx)
     for name, (ks, rs) in calls.items():
         err, rel = _check_calls(label, name, ks, rs, tol)
         res[name] = {
             "max_abs_err": err, "rel_err": rel,
             # device busy time over all the calls: kernel, plain version
+            # (the route's two kernels: the direct and the merge one)
             "ms": _busy_ms(lambda ks=ks: [f() for f in ks],
-                           f"{name}_kernel"),
+                           name if name == "xch_route4_rows"
+                           else f"{name}_kernel"),
             "plain_ms": _busy_ms(lambda rs=rs: [f() for f in rs]),
             # the calls on the device's clock, host gaps included
             "call_ms": _cuda_ms(lambda ks=ks: [f() for f in ks]),
             "library_ms": library,    # the whole product's
         } | _bound(*cost[name], x.dtype)
+    res["xch_route4_rows"]["bound_ms_idx_layout"] = _bound(
+        *idx_layout, x.dtype)["bound_ms"]
     res["spmv_ms"] = _cuda_ms(lambda: xch.spmv(state, x))
     res["spmv_busy_ms"] = _busy_ms(lambda: xch.spmv(state, x))
     print(f"kernel {label}: {json.dumps(res)}", flush=True)
@@ -472,7 +493,8 @@ def by_kernel(compared):
             out.setdefault(res["kernel"], []).append(res)
             continue
         sfx = "_f64" if res["dtype"] == str(torch.float64) else ""
-        for k in ("xch_mul", "xch_route4") + BUCKET_KERNELS + PANEL_KERNELS:
+        for k in ("xch_mul", "xch_route4_rows") + BUCKET_KERNELS \
+                + PANEL_KERNELS:
             if k in res:
                 out.setdefault(k + sfx, []).append(
                     res[k] | {"label": res["label"]})
@@ -1066,6 +1088,14 @@ def run_calibration_path(dev):
     return vals
 
 
+def _route_seconds(state, xch):
+    """Seconds ``route_rows`` takes on a host state and its nested ones."""
+    t0 = time.perf_counter()
+    for st in _states(state):
+        xch.route_rows(st)
+    return time.perf_counter() - t0
+
+
 def _counts(*wrappers):
     """The launch counts of the wrappers, f32 and f64 builds."""
     return {w.__name__ + sfx: getattr(w, attr)
@@ -1160,9 +1190,14 @@ def main() -> int:
     with Phase("xch kernels float32"):
         for name in XCH_MATS[:-1]:
             t0 = time.perf_counter()
-            st = xch.convert(mats[name], xcfg).to(dev)
+            st = xch.convert(mats[name], xcfg)
+            t1 = time.perf_counter()
+            routes = _route_seconds(st, xch)
+            st = st.to(dev)
             torch.cuda.synchronize()
-            print(f"xch convert {name}: {time.perf_counter() - t0:.1f} s")
+            print(f"xch convert {name}: host {t1 - t0:.2f} s, of which "
+                  f"route_rows {routes:.3f} s; to the card "
+                  f"{time.perf_counter() - t1 - routes:.2f} s")
             compared.append(compare_xch(name, st, xch, xops,
                                         x_of(mats[name]),
                                         a_csr=csr_of(name)))
@@ -1226,25 +1261,30 @@ def main() -> int:
                                          x_of(g7, np.float64), F64_TOL))
             del st
 
-    slab_k, xch_k = (ops.slab_spmv, ops.slab_spmv_blk), (xops.xch_mul,
-                                                         xops.xch_route4)
+    slab_k, xch_k = (ops.slab_spmv, ops.slab_spmv_blk), (
+        xops.xch_mul, xops.xch_route4_rows)
     bkt_k = tuple(getattr(bops, k) for k in BUCKET_KERNELS)
     scan_k = (sops.segmented_scan_tiles, gops.block_gather_scan)
     panel_k = (ops.slab_spmm, xops.xch_mul_panel, xops.xch_route4_panel)
     all_k = slab_k + xch_k + bkt_k + scan_k + panel_k
-    f32_kernels = (("slab_spmv", "slab_spmv_blk", "xch_mul", "xch_route4",
-                    "segmented_scan_tiles", "block_gather_scan")
+    f32_kernels = (("slab_spmv", "slab_spmv_blk", "xch_mul",
+                    "xch_route4_rows", "segmented_scan_tiles",
+                    "block_gather_scan")
                    + BUCKET_KERNELS + PANEL_KERNELS)
     launches = {}
 
     def count_path(path, wrappers, need):
         """Adds the path's launch counts; fails if a kernel in ``need`` was
-        not launched."""
+        not launched, or if the first port's route ever was (nothing here
+        calls it, so its counts stay 0 unless a path does)."""
         got = _counts(*wrappers)
         print(f"launches in the {path} path: {got}", flush=True)
         for k in need:
             if got[k] < 1:
                 raise SystemExit(f"{path}: kernel {k} was never launched")
+        if any(_counts(xops.xch_route4).values()):
+            raise SystemExit(f"{path}: the first port's route xch_route4 "
+                             f"ran: {_counts(xops.xch_route4)}")
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         return got
@@ -1342,7 +1382,7 @@ def main() -> int:
         _zero(*all_k)
         Y = spmm_fn(xcfg64)(asic64, X)
         got = count_path("spmm float64", all_k,
-                         ("xch_mul_f64", "xch_route4_f64"))
+                         ("xch_mul_f64", "xch_route4_rows_f64"))
         if any(got.get(k) for k in f32_kernels):
             raise SystemExit("spmm float64: a float32 kernel ran")
         verify_columns("spmm float64 ASIC_680ks", coo, X, Y, verify_result,
@@ -1381,19 +1421,20 @@ def main() -> int:
         run_path({n: mats[n] for n in ("webbase-1M", "ASIC_680ks")},
                  run_cfg.replace(format="xch"), run_benchmark,
                  ("PadFactor", "KBlk", "POh", "PeelOffs", "LongRows"), dev)
-        count_path("xch float32", xch_k, ("xch_mul", "xch_route4"))
+        count_path("xch float32", xch_k, ("xch_mul", "xch_route4_rows"))
 
     # --- 6. the hyb main path: band peel plus a residual ---
     hyb_keys = ("PeelDiags", "PeelNnz", "RestFormat", "RestNnz",
                 "RestPadFactor")
     with Phase("hyb path float32"):
         _zero(*all_k)
-        run_path({n: mats[n] for n in HYB_MATS},
-                 run_cfg.replace(format="hyb"), run_benchmark, hyb_keys, dev,
-                 rest=("SLAB", "XCH", "BKT", "BKT_G", "CSS"))
-        got = count_path("hyb float32", all_k, ())
-        if not sum(got.values()):
-            raise SystemExit("hyb float32: no residual kernel launched")
+        reps = run_path({n: mats[n] for n in HYB_MATS + ("webbase-1M",)},
+                        run_cfg.replace(format="hyb"), run_benchmark,
+                        hyb_keys, dev,
+                        rest=("SLAB", "XCH", "BKT", "BKT_G", "CSS"))
+        if reps["webbase-1M"]["RestFormat"] != "XCH":
+            raise SystemExit("webbase-1M: the hyb residual left xch")
+        count_path("hyb float32", all_k, ("xch_mul", "xch_route4_rows"))
 
     # --- 6b. where a hyb spmv's time goes, and the residual's kernels
     #     against their plain versions at the residual's shapes ---
@@ -1462,7 +1503,7 @@ def main() -> int:
             ("slab", "torso1", ("PadFactor", "RoutePlanes"),
              ("slab_spmv_f64",)),
             ("xch", "webbase-1M", ("KBlk", "POh", "PeelOffs", "LongRows"),
-             ("xch_mul_f64", "xch_route4_f64")),
+             ("xch_mul_f64", "xch_route4_rows_f64")),
             ("hyb", "Chebyshev4", hyb_keys, ()),
             ("auto", "g7jac200sc", auto_keys, ()),
             ("css", "g7jac200sc", scan_keys["css"],
@@ -1500,9 +1541,11 @@ def main() -> int:
     with Phase("xch circuit5M float32"):
         big = mats["circuit5M"]
         t0 = time.perf_counter()
-        state = xch.convert(big, xcfg).to(dev)
-        torch.cuda.synchronize()
-        print(f"xch convert circuit5M: {time.perf_counter() - t0:.1f} s")
+        state = xch.convert(big, xcfg)
+        t1 = time.perf_counter()
+        print(f"xch convert circuit5M: host {t1 - t0:.1f} s, of which "
+              f"route_rows {_route_seconds(state, xch):.2f} s")
+        state = state.to(dev)
         if not (len(state.win1) > 1 and len(state.gids2) > 1
                 and state.long is not None):
             raise SystemExit("circuit5M: expected several kernel calls per "
@@ -1519,12 +1562,15 @@ def main() -> int:
               f"max_abs_err {det['max_abs_err']}")
         if not (ok and y.shape == (big.n_row,) and np.isfinite(y).all()):
             raise SystemExit("circuit5M: xch spmv output is wrong")
-        count_path("xch float32 circuit5M", xch_k, ("xch_mul", "xch_route4"))
+        count_path("xch float32 circuit5M", xch_k,
+                   ("xch_mul", "xch_route4_rows"))
         del state
     mats.close()
 
-    # --- 13. every kernel of each path ran in that path ---
-    print(f"launches in the main paths: {launches}")
+    # --- 13. every kernel of each path ran in that path, and the first
+    #     port's route in none ---
+    print(f"launches in the main paths: {launches}; the first port's "
+          f"route (count_path fails on any): {_counts(xops.xch_route4)}")
 
     kernels = []
     slab_src = "singlespmv_tpu_torch/csrc/slab.cu"
@@ -1540,10 +1586,10 @@ def main() -> int:
             ("slab_spmv", slab_src, "slab.py:263", "g7jac200sc"),
             ("slab_spmv_blk", slab_src, "slab.py:310", "torso1"),
             ("xch_mul", xch_src, "xch.py:48", "circuit5M"),
-            ("xch_route4", xch_src, "xch.py:151", "circuit5M"),
+            ("xch_route4_rows", xch_src, "xch.py:151", "circuit5M"),
             ("slab_spmv_f64", slab_src, "slab.py:463", "torso1"),
             ("xch_mul_f64", xch_src, "xch.py:495", "webbase-1M"),
-            ("xch_route4_f64", xch_src, "xch.py:594", "webbase-1M"),
+            ("xch_route4_rows_f64", xch_src, "xch.py:594", "webbase-1M"),
             ("block_gather_mul", bkt_src, "bucket.py:91",
              "thermomech_dK bkt_g"),
             ("bucket_reduce", bkt_src, "bucket.py:198", "raefsky3 bkt"),
@@ -1573,7 +1619,8 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": t[0]["ms"], "plain_ms": t[0]["plain_ms"],
             "bound_ms": t[0]["bound_ms"], "bound_by": t[0]["bound_by"],
-            "library_ms": t[0]["library_ms"]})
+            "library_ms": t[0]["library_ms"]}
+            | {k: t[0][k] for k in ("bound_ms_idx_layout",) if k in t[0]})
     # the calibration path's: max_abs_err over every check, times of the
     # first (xch_route at 16 planes, each probe at its defaults, probe_slab
     # at T 32, S8 8, stage all)

@@ -13,7 +13,9 @@
 //            run's total.  The prefix is a serial sum of 4 plus a 5-step
 //            shuffle scan, in place of the TPU's triangle matmul;
 //   route    an end-lane e of plane j adds W[e] into a shared accumulator row
-//            (route4), which a block then adds into global memory (flush).
+//            (route4), which a block then adds into global memory (flush);
+//            or, in the spmv route of xch.cu, the lane holding end slot e adds
+//            W[e] straight into y at its destination (lane_totals).
 // At double the same code runs on native fp64: fp64 shuffles and atomicAdd
 // on double in shared and global memory, where the TPU needed (hi, lo) float
 // planes and compensated sums.
@@ -108,11 +110,11 @@ __device__ __forceinline__ V4<V> gather4(int r, int m,
   return gather4(x + (size_t)win[r] * kLanes, load_c4(lane + off), sb, m);
 }
 
-// Run totals of a stream row from the calling lane's four values a and
-// head lanes hd (hm1 of its four slots).  On return w[0..127] holds W of the
-// row, visible to the whole warp.
+// W of the calling lane's four slots, from its four values a and head
+// lanes hd (hm1 of its four slots); w[0..127] is the warp's scratch row and
+// holds the row's inclusive prefix on return.
 template <typename V>
-__device__ __forceinline__ void run_totals(V4<V> a, char4 hd, V* w) {
+__device__ __forceinline__ V4<V> lane_totals(V4<V> a, char4 hd, V* w) {
   const int k = threadIdx.x & 31;
   const V a1 = a.x + a.y;
   const V a2 = a1 + a.z;
@@ -129,12 +131,20 @@ __device__ __forceinline__ void run_totals(V4<V> a, char4 hd, V* w) {
   __syncwarp();  // the previous row's route has finished reading w
   store4(w + 4 * k, p);
   __syncwarp();
-  const V4<V> tot = {p.x - (hd.x >= 0 ? w[hd.x] : V(0)),
-                     p.y - (hd.y >= 0 ? w[hd.y] : V(0)),
-                     p.z - (hd.z >= 0 ? w[hd.z] : V(0)),
-                     p.w - (hd.w >= 0 ? w[hd.w] : V(0))};
+  return {p.x - (hd.x >= 0 ? w[hd.x] : V(0)),
+          p.y - (hd.y >= 0 ? w[hd.y] : V(0)),
+          p.z - (hd.z >= 0 ? w[hd.z] : V(0)),
+          p.w - (hd.w >= 0 ? w[hd.w] : V(0))};
+}
+
+// Run totals of a stream row from the calling lane's four values a and
+// head lanes hd.  On return w[0..127] holds W of the row, visible to the
+// whole warp.
+template <typename V>
+__device__ __forceinline__ void run_totals(V4<V> a, char4 hd, V* w) {
+  const V4<V> tot = lane_totals(a, hd, w);
   __syncwarp();
-  store4(w + 4 * k, tot);
+  store4(w + 4 * (threadIdx.x & 31), tot);
   __syncwarp();
 }
 

@@ -4,14 +4,20 @@
 //
 //   xch_mul_kernel<float> replaces _xch_mul_kernel, the kernel of xch_mul
 //     (singlespmv_tpu/ops/pallas/xch.py:41 and :48);
-//   xch_route4_kernel<float> replaces _xch_route4_kernel, the kernel of
-//     xch_route4 (singlespmv_tpu/ops/pallas/xch.py:78 and :151);
-//   xch_mul_kernel<double> and xch_route4_kernel<double> replace
+//   xch_route4_rows_kernel<float> and xch_route4_rows_merge_kernel<float>
+//     replace _xch_route4_kernel, the kernel of xch_route4
+//     (singlespmv_tpu/ops/pallas/xch.py:78 and :151), on the spmv path: the
+//     same sums, routed by a run-end destination stream that
+//     formats/xch.py:route_rows derives from the TPU's idx planes;
+//   xch_mul_kernel<double> and the two route kernels at <double> replace
 //     _xch_mul_df_kernel and _xch_route4_df_kernel, the kernels of xch_mul_df
 //     and xch_route4_df (singlespmv_tpu/ops/pallas/xch.py:463, :495 and :524,
 //     :594): the same functions at native fp64, where the TPU carried (hi, lo)
 //     float planes through Dekker products and a compensated per-(plane, row)
 //     route;
+//   xch_route4_kernel<float> and <double>, the first port of _xch_route4_kernel
+//     on the TPU's idx planes, are on no path: they stay as the "as before"
+//     variant of harness/xch_ab.py;
 //   xch_mul_panel_kernel and xch_route4_panel_kernel replace
 //     _xch_mul_panel_kernel and _xch_route4_panel_kernel, the kernels of
 //     xch_mul_panel and xch_route4_panel (singlespmv_tpu/ops/pallas/xch.py:313,
@@ -34,23 +40,52 @@
 // for j < kblk with idx >= 0 and 0 <= sig[r] + j < p_oh (what the TPU's
 // (p_oh, T) one-hot keeps).  sig is lane-replicated: slot 0 holds it.
 //
-// Design.  The TPU walks the steps in order and zeroes a group's out block
-// when gids changes.  A group's steps are contiguous within a call and never
-// split across calls, so zeroing all of `out` in the wrapper and
+// The spmv route (redesigned for Hopper).  Per stream row r in step t it
+// gathers and takes run totals as pass 2 does, then the lane that holds end
+// slot e of a run adds W[e] to
+//   y[base[t] + dest[r,e]]   (dest >= 0; -1 on every slot that ends no run)
+// with a native global reduction (atomicAdd whose result is unused: RED.ADD).
+// base[t] is the y position of the step's out row 0 and dest the run's
+// position relative to it, (sig[r] + j) * 128 + l where idx[j,r,l] == e:
+// route_rows computes both on the host, at convert time, from the TPU's
+// arrays, and keeps only the positions the one-hot keeps, in y.  A warp owns
+// a row and reads one 8-byte group of four int16 dests a lane: there is no
+// shared accumulator, no zero pass, no flush, no block barrier, and no read
+// of sig or idx, whose kblk planes (16 bytes a slot at kblk 16) carried the
+// TPU's (p_oh, T) one-hot matmul.  Bound: the streams once (lane, hm1, sub
+// when m > 1, two bytes of dest a slot, win a row, base and cs a step), one
+// gathered product a slot and y once; bytes.  On an H100 its time follows
+// the run ends instead, one reduction into L2 each (42-53 G a second,
+// harness/xch_ab.py), and plain stores in their place are no faster.
+//   Where many stream rows of a step end runs of the same few y rows (the
+// nested long-row state: webbase-1M's puts ~2,100 run ends on each of its
+// 960 y rows), one reduction a run end would queue thousands of them on
+// one address.  There route_rows sets a merge span (p_oh * 128, where a
+// block's rows end on average at least MERGE_HITS runs on each row of their
+// band and kWarps spans fit in kMergeSmem; formats/xch.py) and the merge
+// kernel takes a block of rpb rows of one step:
+// each warp adds its rows' run totals into a span of its own in shared
+// memory, with plain adds (the run ends of a row have distinct dests, and
+// the warp's rows follow each other), then the block sums the kWarps spans
+// and adds each nonzero sum into y: one reduction a position a block.
+//
+// Design of the first port.  The TPU walks the steps in order and zeroes a
+// group's out block when gids changes.  A group's steps are contiguous within a
+// call and never split across calls, so zeroing all of `out` in the wrapper and
 // accumulating with atomics computes the same function.  A block of 8 warps
 // takes `rpb` rows of one step (rpb divides T), so it shares gids[t], off[t]
-// and cs[t]; it collects routed totals in a (p_oh, 128) shared accumulator
-// and adds the nonzero entries of the rows its stream rows can reach to the
-// out block with global atomics.  The order of the sums, and so their
-// rounding, varies from run to run.  The per-warp row buffers are static
-// shared memory (4 KB in float, 8 KB in double).  The accumulator takes
-// p_oh * 128 values: in float a static array of the largest p_oh, 32 KB; in
-// double 64 KB at p_oh 64, past the 48 KB static limit, so there it is
-// dynamic shared memory sized by p_oh at launch, and the launcher raises the
-// kernel's dynamic shared-memory cap once.  The two stay separate arrays
-// declared in the kernel: carved out of one dynamic array they cost the
-// float route 4-10% (the compiler, no longer sure that the atomics into the
-// accumulator leave the row buffer alone, unrolled the route loop less).
+// and cs[t]; it collects routed totals in a (p_oh, 128) shared accumulator and
+// adds the nonzero entries of the rows its stream rows can reach to the out
+// block with global atomics.  The order of the sums, and so their rounding,
+// varies from run to run.  The per-warp row buffers are static shared memory (4
+// KB in float, 8 KB in double).  The accumulator takes p_oh * 128 values: in
+// float a static array of the largest p_oh, 32 KB; in double 64 KB at p_oh 64,
+// past the 48 KB static limit, so there it is dynamic shared memory sized by
+// p_oh at launch, and the launcher raises the kernel's dynamic shared-memory
+// cap once.  The two stay separate arrays declared in the kernel: carved out of
+// one dynamic array they cost the float route 4-10% (the compiler, no longer
+// sure that the atomics into the accumulator leave the row buffer alone,
+// unrolled the route loop less).
 //
 // The panels (redesigned for Hopper).  Both passes take interleaved
 // panels, where a slot's B column values are contiguous: x (cb, 128, B),
@@ -104,13 +139,15 @@
 //
 // Bound.  Pass 1 streams 4 B of val (8 B at double) and 1 B of lane per slot
 // (2 B when m > 1) and writes 4 B (8 B) of product; x is gathered from L2.
-// Pass 2 streams 3 B of lane, hm1, sig (4 B when m > 1) and kblk B of idx
-// per slot, and gathers the products, which pass 1 has just written and
-// which stay in L2 (50 MB) unless the product stream is larger.  Both are
-// streaming kernels bound by device memory bandwidth.  The v3 route streams
-// 2 B of lane and hm1 per slot (3 B when m > 1) and one byte of idx per slot
-// and active plane, so its bytes grow with the planes: at calibrate's
-// H 16,384 and 16 planes idx is 32 MB of its ~40 MB, a bound of ~12 us.
+// The spmv route streams 4 B of lane, hm1 and dest per slot (5 B when
+// m > 1), where the first port streamed 3 B of lane, hm1, sig (4 B when
+// m > 1) and kblk B of idx; both gather the products, which pass 1 has just
+// written and which stay in L2 (50 MB) unless the product grid is larger.
+// Both passes are streaming kernels bound by device memory bandwidth.  The
+// v3 route streams 2 B of lane and hm1 per slot (3 B when m > 1) and one
+// byte of idx per slot and active plane, so its bytes grow with the planes:
+// at calibrate's H 16,384 and 16 planes idx is 32 MB of its ~40 MB, a
+// bound of ~12 us.
 // This first version aims to be right: no TMA, no wgmma, no software
 // pipelining.
 
@@ -194,6 +231,89 @@ __global__ void __launch_bounds__(kThreads) xch_route4_kernel(
   const long long room = n_out - 1 - base;
   const int last = room < hi ? (int)room : hi;
   if (base >= 0 && last >= lo) flush(acc, lo, last, out + base * kLanes);
+}
+
+// The four dests of the calling lane's slots: int16 in the route's stream,
+// int32 in a variant of the A/B harness.
+__device__ __forceinline__ int4 load_dest4(const int16_t* p) {
+  const short4 d = *reinterpret_cast<const short4*>(p);
+  return make_int4(d.x, d.y, d.z, d.w);
+}
+
+__device__ __forceinline__ int4 load_dest4(const int32_t* p) {
+  return *reinterpret_cast<const int4*>(p);
+}
+
+// y[pos] += v for a run end (d >= 0) inside y.
+template <typename V>
+__device__ __forceinline__ void add_run(V* __restrict__ y, int b, int d, V v,
+                                        int n_y) {
+  const int pos = b + d;
+  if (d >= 0 && pos < n_y) atomicAdd(y + pos, v);  // result unused: RED.ADD
+}
+
+template <typename V, typename D>
+__global__ void __launch_bounds__(kThreads) xch_route4_rows_kernel(
+    const int32_t* __restrict__ base, const int32_t* __restrict__ cs,
+    const int32_t* __restrict__ win, const int8_t* __restrict__ lane,
+    const int8_t* __restrict__ sub, const int8_t* __restrict__ hm1,
+    const D* __restrict__ dest, const V* __restrict__ prod,
+    V* __restrict__ y, int H, int T, int m, int p1, int n_y) {
+  __shared__ __align__(16) V wbuf[kWarps][kLanes];
+  const int warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * kWarps + warp;
+  if (r >= H) return;  // uniform over the warp
+  const int t = r / T;
+  const size_t off = (size_t)r * kLanes + 4 * (threadIdx.x & 31);
+  const int4 d = load_dest4(dest + off);
+  const int b = base[t];
+  const V* x = prod + (size_t)cs[t] * p1 * kLanes;
+  const V4<V> w = lane_totals<V>(gather4<V>(r, m, win, lane, sub, x),
+                                 load_c4(hm1 + off), wbuf[warp]);
+  add_run(y, b, d.x, w.x, n_y);
+  add_run(y, b, d.y, w.y, n_y);
+  add_run(y, b, d.z, w.z, n_y);
+  add_run(y, b, d.w, w.w, n_y);
+}
+
+constexpr int kMergeSmem = 96 * 1024;  // the merge kernel's spans, at most
+
+template <typename V>
+__global__ void __launch_bounds__(kThreads) xch_route4_rows_merge_kernel(
+    const int32_t* __restrict__ base, const int32_t* __restrict__ cs,
+    const int32_t* __restrict__ win, const int8_t* __restrict__ lane,
+    const int8_t* __restrict__ sub, const int8_t* __restrict__ hm1,
+    const int16_t* __restrict__ dest, const V* __restrict__ prod,
+    V* __restrict__ y, int T, int rpb, int m, int p1, int n_y, int span) {
+  __shared__ __align__(16) V wbuf[kWarps][kLanes];
+  extern __shared__ __align__(16) unsigned char merge_smem[];
+  V* const spans = reinterpret_cast<V*>(merge_smem);  // (kWarps, span)
+  const int warp = threadIdx.x >> 5, k = threadIdx.x & 31;
+  const int r0 = blockIdx.x * rpb;  // rpb divides T: one step
+  const int t = r0 / T;
+  V* const mine = spans + (size_t)warp * span;
+  for (int i = k; i < span; i += 32) mine[i] = V(0);
+  __syncwarp();
+  const V* x = prod + (size_t)cs[t] * p1 * kLanes;
+  for (int r = r0 + warp; r < r0 + rpb; r += kWarps) {
+    const size_t off = (size_t)r * kLanes + 4 * k;
+    const int4 d = load_dest4(dest + off);
+    const V4<V> w = lane_totals<V>(gather4<V>(r, m, win, lane, sub, x),
+                                   load_c4(hm1 + off), wbuf[warp]);
+    if ((unsigned)d.x < (unsigned)span) mine[d.x] += w.x;
+    if ((unsigned)d.y < (unsigned)span) mine[d.y] += w.y;
+    if ((unsigned)d.z < (unsigned)span) mine[d.z] += w.z;
+    if ((unsigned)d.w < (unsigned)span) mine[d.w] += w.w;
+    __syncwarp();  // the next row's lanes may add to these positions
+  }
+  __syncthreads();
+  const int b = base[t];
+  for (int i = threadIdx.x; i < span; i += kThreads) {
+    V sum = V(0);
+#pragma unroll
+    for (int q = 0; q < kWarps; ++q) sum += spans[(size_t)q * span + i];
+    if (sum != V(0) && b + i < n_y) atomicAdd(y + b + i, sum);
+  }
 }
 
 template <int V>
@@ -366,6 +486,43 @@ int launch_route4(const void* gids, const void* off, const void* cs,
   return (int)cudaGetLastError();
 }
 
+// span 0: a reduction a run end; else the merge kernel over `span` dests.
+template <typename V>
+int launch_route4_rows(const void* base, const void* cs, const void* win,
+                       const void* lane, const void* sub, const void* hm1,
+                       const void* dest, const void* prod, void* y, int H,
+                       int T, int m, int p1, int n_y, int span,
+                       void* stream) {
+  const size_t smem = (size_t)kWarps * span * sizeof(V);
+  if (m < 1 || m > kMaxWindow || T < 1 || H < 0 || H % T || p1 < 1 ||
+      n_y < 0 || span < 0 || span % kLanes || smem > kMergeSmem)
+    return (int)cudaErrorInvalidValue;
+  if (H == 0) return 0;
+  if (span == 0) {
+    using Dest = int16_t;  // the stream's; harness/xch_ab.py times int32
+    xch_route4_rows_kernel<V, Dest><<<(H + kWarps - 1) / kWarps, kThreads,
+                                      0, (cudaStream_t)stream>>>(
+        (const int32_t*)base, (const int32_t*)cs, (const int32_t*)win,
+        (const int8_t*)lane, (const int8_t*)sub, (const int8_t*)hm1,
+        (const Dest*)dest, (const V*)prod, (V*)y, H, T, m, p1, n_y);
+    return (int)cudaGetLastError();
+  }
+  static bool raised = false;  // once: the spans may pass 48 KB
+  if (!raised) {
+    cudaFuncSetAttribute(xch_route4_rows_merge_kernel<V>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kMergeSmem);
+    raised = true;
+  }
+  const int rpb = rows_per_block(T);
+  xch_route4_rows_merge_kernel<V><<<H / rpb, kThreads, smem,
+                               (cudaStream_t)stream>>>(
+      (const int32_t*)base, (const int32_t*)cs, (const int32_t*)win,
+      (const int8_t*)lane, (const int8_t*)sub, (const int8_t*)hm1,
+      (const int16_t*)dest, (const V*)prod, (V*)y, T, rpb, m, p1, n_y, span);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Each entry launches one kernel on `stream` and returns cudaGetLastError().
@@ -410,6 +567,31 @@ extern "C" int xch_route4_f64(const void* gids, const void* off,
   return launch_route4<double>(gids, off, cs, win, lane, sub, hm1, sig, idx,
                                prod, out, H, T, m, kblk, p_oh, n_grp, gb, p1,
                                stream);
+}
+
+// Adds into `y` (n_y values, zeroed by the caller before its first call);
+// `prod` is the (n_chunks, p1, 128) product grid of pass 1, `dest` the
+// (H, 128) int16 run-end destinations relative to `base` (one int32 a step),
+// all below `span` when it is not 0 (the merge kernel's span, a multiple of
+// 128 whose kWarps copies fit in kMergeSmem).
+extern "C" int xch_route4_rows_f32(const void* base, const void* cs,
+                                   const void* win, const void* lane,
+                                   const void* sub, const void* hm1,
+                                   const void* dest, const void* prod,
+                                   void* y, int H, int T, int m, int p1,
+                                   int n_y, int span, void* stream) {
+  return launch_route4_rows<float>(base, cs, win, lane, sub, hm1, dest, prod,
+                                   y, H, T, m, p1, n_y, span, stream);
+}
+
+extern "C" int xch_route4_rows_f64(const void* base, const void* cs,
+                                   const void* win, const void* lane,
+                                   const void* sub, const void* hm1,
+                                   const void* dest, const void* prod,
+                                   void* y, int H, int T, int m, int p1,
+                                   int n_y, int span, void* stream) {
+  return launch_route4_rows<double>(base, cs, win, lane, sub, hm1, dest,
+                                    prod, y, H, T, m, p1, n_y, span, stream);
 }
 
 // `out` (H, 128, B) is written in full; `x` is the interleaved (cb, 128, B)

@@ -22,13 +22,23 @@ memories; they stay until the port sheds them (ROADMAP A.7b).  The v3
 σ-plane engine's format path (``route_v`` 3) is not ported (ROADMAP B.15);
 its kernel is, as ``ops/xch.py:xch_route``, for the calibration.
 
+``convert`` and ``state_from_reference`` also derive, with ``route_rows``,
+the one stream the card's spmv route needs from the reference's routing
+arrays (``gids2``, ``off2``, ``sig2``, ``idx2``, ``vis_gids``): ``base2``,
+the y position of each pass-2 step's out row 0, ``dest2``, each run's y
+position relative to it at the run's end slot, and ``merge2``, the span
+over which the route sums a block's rows first where their run ends pile
+onto few y rows.  The reference's arrays stay the source of truth: the SpMM
+panel route and ``to_coo`` read them.
+
 Device half (``spmv``): pads x into the x table, runs one ``xch_mul`` per
-pass-1 call and one ``xch_route4`` per pass-2 call (``ops/xch.py``), places
-the visited out groups into y, adds the nested long-row state's y at
-``long_rows`` and the peeled bands as shifted slices of x.  ``spmm`` does the
-same for a panel of columns with ``xch_mul_panel`` and ``xch_route4_panel``
-on the interleaved panel (each row's B values contiguous, the out rows in
-Y's own layout), under the reference's gates.
+pass-1 call, each writing its rows of one product grid, and one
+``xch_route4_rows`` per pass-2 call, each adding its run totals straight
+into one zeroed y (``ops/xch.py``); then adds the nested long-row state's y
+at ``long_rows`` and the peeled bands as shifted slices of x.  ``spmm`` runs
+``xch_mul_panel`` and ``xch_route4_panel`` on the interleaved panel (each
+row's B values contiguous, the out rows in Y's own layout) and places the
+visited out groups into Y, under the reference's gates.
 
 Values are float32 or float64; bfloat16 raises ``NotImplementedError``
 (ROADMAP A.10).  The layout at float64 is the float32 layout, as in the
@@ -50,7 +60,8 @@ from ..core import hostmem as hm
 from ..core.types import COOMatrix, cdiv
 
 from ..ops.slab import PANEL_TYPES
-from ..ops.xch import xch_mul, xch_mul_panel, xch_route4, xch_route4_panel
+from ..ops.xch import MERGE_SMEM, xch_mul, xch_mul_panel, xch_route4_panel, \
+    xch_route4_rows
 from .base import TensorState, check_dtype, column_loop
 from .slab import _t, _walk
 
@@ -114,6 +125,11 @@ class Xch4State(TensorState):
     long_rows: Optional[torch.Tensor] = None  # (long_n,) int32 row ids
     dia_vals: Optional[torch.Tensor] = None   # (len(dia_offs), n_row)
     dia_offs: tuple = ()     # peeled high-fill diagonal offsets
+    # the spmv route's stream, derived by route_rows (per-call tuples)
+    base2: tuple = ()        # (S_c,) int32 — y position of out row 0
+    dest2: tuple = ()        # (H_c, 128) int16 — run-end y position −
+    #                          base2, −1 off run ends
+    merge2: int = 0          # the route's merge span (0: none)
 
 
 # ---------------------------------------------------------------- planning ---
@@ -727,7 +743,7 @@ def _convert_v4(coo: COOMatrix, cfg: Config, p: dict) -> Xch4State:
         va1_t.append(_t(l1["val1"][r0:r1]))
 
     cb_tot = cdiv(max(coo.n_col, 1), LANES)
-    return Xch4State(
+    return with_routes(Xch4State(
         n_row=coo.n_row, n_col=coo.n_col, nnz=nnz_all, m1=m1, m2=m2, t1=t1,
         t2=t2, kblk=kblk, p_oh=p_oh, gb=gb, n_chunks=n_chunks, p1=p1,
         cb_pad=cb_tot + m1, n_slots1=h1 * LANES, n_slots2=h2 * LANES,
@@ -739,13 +755,13 @@ def _convert_v4(coo: COOMatrix, cfg: Config, p: dict) -> Xch4State:
         win2=tuple(w_t), lane2=tuple(la_t), sub2=tuple(su_t),
         hm2=tuple(hm_t), sig2=tuple(sg_t), idx2=tuple(ix_t),
         vis_gids=_t(u_gids.astype(np.int32)),
-        long=long_state, long_rows=long_rows_dev, dia_vals=dia_vals_dev)
+        long=long_state, long_rows=long_rows_dev, dia_vals=dia_vals_dev))
 
 
 def _empty_state4(coo, cfg):
     dtype = cfg.np_dtype
     z8 = lambda *s: _t(hm.zeros(s, np.int8))
-    return Xch4State(
+    return with_routes(Xch4State(
         n_row=coo.n_row, n_col=coo.n_col, nnz=0, m1=1, m2=1, t1=8, t2=8,
         kblk=1, p_oh=8, gb=8, n_chunks=1, p1=8, cb_pad=1,
         n_slots1=0, n_slots2=0, chunk_ngrp=(0,), long_n=0,
@@ -759,7 +775,7 @@ def _empty_state4(coo, cfg):
         lane2=(z8(0, LANES),), sub2=(z8(0, LANES),), hm2=(z8(0, LANES),),
         sig2=(z8(0, LANES),),
         idx2=(_t(hm.full((1, 0, LANES), -1, np.int8)),),
-        vis_gids=_t(hm.zeros(0, np.int32)))
+        vis_gids=_t(hm.zeros(0, np.int32))))
 
 
 def estimate_v4(coo: COOMatrix, cfg: Config, no_long: bool = False) -> dict:
@@ -905,6 +921,100 @@ def convert(coo: COOMatrix, cfg: Config, plan: dict = None) -> Xch4State:
     return _convert_v4(coo, cfg, p)
 
 
+ROUTE_FIELDS = ("base2", "dest2", "merge2")
+DEST_NONE = -1
+MERGE_HITS = 4.0     # run ends a y row a block, from which a block merges
+
+
+def _rows_per_block(t2: int) -> int:
+    """The merge kernel's rows a block: the largest power of two up to 32
+    that divides t2 (``csrc/stream_row.cuh:rows_per_block``)."""
+    r = 32
+    while t2 % r:
+        r //= 2
+    return r
+
+
+def route_rows(state) -> dict:
+    """{base2, dest2, merge2}: the run-end destination stream of the spmv
+    route, from the reference's arrays of ``state`` (``gids2``, ``off2``,
+    ``sig2``, ``idx2``, ``vis_gids``, ``chunk_ngrp``, ``gb``, ``p_oh``,
+    ``kblk``, ``t2``, ``n_row``, ``val1``; CPU tensors or numpy arrays).
+    Per pass-2 call, ``base2`` is one int32 a step, the y position of the
+    step's out row 0, (vis_gids[g0 + gids] · gb + off) · 128, and ``dest2``
+    an (H, 128) int16 that holds, at the slot e that ends a run, the run's
+    position relative to its step's base, (sig + j) · 128 + l where
+    idx2[j, r, l] == e, and −1 on every other slot.
+
+    The reference's placement is kept exactly: a position only where
+    0 ≤ sig + j < p_oh (what the TPU's one-hot keeps), none of a step whose
+    call-local base gids · gb + off is negative, none past n_grp · gb rows
+    of its call or past n_row in y.  Raises ValueError on an end lane named
+    twice across a row's planes, and on a position that leaves its step's
+    out group (off + sig + j outside [0, gb)), which the reference's
+    off + p_oh ≤ gb rules out; so a relative position fits int16
+    (p_oh · 128 ≤ 8192).
+
+    ``merge2`` is what the route kernel can observe of the stream: where a
+    block's rows end on average at least ``MERGE_HITS`` runs on each y row
+    of their kblk · 128 (the nested long-row states: many stream rows end
+    runs of the same few rows) and eight (p_oh · 128) spans of the value
+    type fit in the merge kernel's shared memory, the span p_oh · 128,
+    which has a block sum its rows' run totals there before adding into y;
+    else 0, a reduction into y a run end."""
+    vis = np.asarray(state.vis_gids).astype(np.int64)
+    gb, p_oh, t2 = state.gb, state.p_oh, state.t2
+    bases, dests, g0, n_ends = [], [], 0, 0
+    for gids, off, sig, idx, ng in zip(state.gids2, state.off2, state.sig2,
+                                       state.idx2, state.chunk_ngrp):
+        gids = np.asarray(gids).astype(np.int64)
+        off = np.asarray(off).astype(np.int64)
+        sig = np.asarray(sig)[:, 0].astype(np.int64)   # lane-replicated
+        idx = np.asarray(idx)
+        live = (gids >= 0) & (gids < ng) & (gids * gb + off >= 0)
+        vrow = vis[g0 + np.where(live, gids, 0)] * gb + off if ng else off
+        base = np.where(live, vrow, 0) * LANES
+        if base.max(initial=0) >= 2 ** 31 - p_oh * LANES:
+            raise ValueError("xch: a y position past int32")
+        dest = np.full((idx.shape[1], LANES), DEST_NONE, np.int16)
+        n_kept = 0
+        for j in range(idx.shape[0]):
+            rr, ll = np.nonzero(idx[j] >= 0)
+            blk = sig[rr] + j
+            keep = (blk >= 0) & (blk < p_oh)
+            rr, ll, blk = rr[keep], ll[keep], blk[keep]
+            t = rr // t2
+            in_grp = off[t] + blk
+            if ((in_grp < 0) | (in_grp >= gb)).any():
+                raise ValueError("xch: a run's out row leaves its step's "
+                                 "out group (off + sig + j outside [0, gb))")
+            rel = blk * LANES + ll
+            placed = live[t] & (base[t] + rel < state.n_row)
+            dest[rr, idx[j][rr, ll]] = np.where(placed, rel, -2)
+            n_kept += len(rr)
+        if np.count_nonzero(dest != DEST_NONE) != n_kept:
+            raise ValueError("xch: an end lane is named twice in a stream "
+                             "row's idx planes")
+        dest[dest == -2] = DEST_NONE
+        bases.append(_t(base.astype(np.int32)))
+        dests.append(_t(dest))
+        g0 += ng
+        n_ends += n_kept
+    span = p_oh * LANES
+    blocks = sum(d.shape[0] for d in dests) / _rows_per_block(t2)
+    hits = n_ends / max(blocks, 1) / (state.kblk * LANES)
+    vsz = np.asarray(state.val1[0]).dtype.itemsize
+    merge = hits >= MERGE_HITS and 8 * span * vsz <= MERGE_SMEM
+    return dict(base2=tuple(bases), dest2=tuple(dests),
+                merge2=span if merge else 0)
+
+
+def with_routes(state: Xch4State) -> Xch4State:
+    """``state`` with its ``base2``, ``dest2`` and ``merge2`` from
+    ``route_rows``."""
+    return dataclasses.replace(state, **route_rows(state))
+
+
 _ARRAY_FIELDS = ("win1", "lane1", "sub1", "val1", "gids2", "off2", "cs2",
                  "win2", "lane2", "sub2", "hm2", "sig2", "idx2", "vis_gids",
                  "long_rows", "dia_vals")
@@ -928,6 +1038,8 @@ def state_from_reference(arrays: dict) -> Xch4State:
                               + np.asarray(arrays["dia_lo"], np.float64))
     kw = {}
     for f in dataclasses.fields(Xch4State):
+        if f.name in ROUTE_FIELDS:     # derived below, not the reference's
+            continue
         v = arrays.get(f.name)
         if f.name == "long" and v is not None:
             v = state_from_reference(v)
@@ -939,7 +1051,7 @@ def state_from_reference(arrays: dict) -> Xch4State:
     state = Xch4State(**kw)
     for v in state.val1:
         check_dtype("xch", v.dtype)
-    return state
+    return with_routes(state)
 
 
 # -------------------------------------------------------------------- spmv ---
@@ -955,11 +1067,18 @@ def x_table(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
 
 
 def products(state: Xch4State, xp: torch.Tensor) -> torch.Tensor:
-    """Pass 1: one ``xch_mul`` per call, viewed as (n_chunks, p1, 128)."""
-    prods = [xch_mul(w, la, su, va, xp, state.m1, state.t1)
-             for w, la, su, va in zip(state.win1, state.lane1, state.sub1,
-                                      state.val1)]
-    prod = prods[0] if len(prods) == 1 else torch.cat(prods, 0)
+    """Pass 1: one ``xch_mul`` per call, each writing its rows of one
+    (n_chunks, p1, 128) product grid."""
+    rows = sum(w.shape[0] for w in state.win1)
+    if rows != state.n_chunks * state.p1:
+        raise ValueError(f"xch: {rows} pass-1 rows do not fill "
+                         f"{state.n_chunks} chunks of {state.p1}")
+    prod = torch.empty(rows, LANES, dtype=xp.dtype, device=xp.device)
+    r0 = 0
+    for w, la, su, va in zip(state.win1, state.lane1, state.sub1, state.val1):
+        r1 = r0 + w.shape[0]
+        xch_mul(w, la, su, va, xp, state.m1, state.t1, out=prod[r0:r1])
+        r0 = r1
     return prod.view(state.n_chunks, state.p1, LANES)
 
 
@@ -967,23 +1086,14 @@ def spmv(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
     if x.dtype != state.val1[0].dtype:
         raise TypeError(f"xch: x is {x.dtype}, the state holds "
                         f"{state.val1[0].dtype} values")
-    n = state.n_row
+    y = torch.zeros(state.n_row, dtype=x.dtype, device=x.device)
     if state.n_slots1:
         prod3 = products(state, x_table(state, x))
-        outs = [xch_route4(g, o, c, w, la, su, h2, sg, ix, prod3, ng,
-                           state.gb, state.m2, state.t2, state.p_oh)
-                for g, o, c, w, la, su, h2, sg, ix, ng in zip(
-                    state.gids2, state.off2, state.cs2, state.win2,
-                    state.lane2, state.sub2, state.hm2, state.sig2,
-                    state.idx2, state.chunk_ngrp)]
-        out = outs[0] if len(outs) == 1 else torch.cat(outs, 0)
-        n_grp_tot = cdiv(cdiv(max(n, 1), LANES), state.gb)
-        yg = torch.zeros(n_grp_tot, state.gb * LANES, dtype=x.dtype,
-                         device=x.device)
-        yg[state.vis_gids.long()] = out.view(-1, state.gb * LANES)
-        y = yg.view(-1)[:n]
-    else:
-        y = torch.zeros(n, dtype=x.dtype, device=x.device)
+        for b, c, w, la, su, h2, d in zip(
+                state.base2, state.cs2, state.win2, state.lane2, state.sub2,
+                state.hm2, state.dest2):
+            xch_route4_rows(b, c, w, la, su, h2, d, prod3, y, state.m2,
+                            state.t2, state.merge2)
     if state.long is not None:
         # long_rows are distinct, so the add is a plain scatter-add
         y.index_add_(0, state.long_rows.long(), spmv(state.long, x))

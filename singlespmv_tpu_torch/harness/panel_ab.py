@@ -80,9 +80,11 @@ KERNELS = ("slab_spmm_kernel", "xch_mul_panel_kernel",
            "xch_route4_panel_kernel")
 
 
-def build_variant(name: str, subs: dict) -> tuple:
-    """Compiles the variant's slab.cu and xch.cu into a shared library;
-    returns (library, {kernel: registers}, {kernel: ATOMS.CAST count})."""
+def build_variant(name: str, subs: dict, sources=("slab.cu", "xch.cu"),
+                  kernels=KERNELS) -> tuple:
+    """Compiles the variant's ``sources`` into a shared library; returns
+    (library, {kernel: registers}, {kernel: ATOMS.CAST count}) over the
+    kernels whose names hold one of ``kernels``."""
     work = tempfile.mkdtemp(prefix="panel_ab_")
     shutil.copytree(_build.CSRC_DIR, work, dirs_exist_ok=True)
     hits = dict.fromkeys(subs, 0)
@@ -99,7 +101,7 @@ def build_variant(name: str, subs: dict) -> tuple:
     if missing:
         raise ValueError(f"{name}: no {missing[0]!r} in csrc/")
     nvcc = _build.nvcc()
-    objs = [os.path.join(work, f + ".o") for f in ("slab.cu", "xch.cu")]
+    objs = [os.path.join(work, f + ".o") for f in sources]
     procs = [subprocess.Popen([nvcc, *_build.FLAGS, "-c", "-o", o,
                                o[:-2]], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
@@ -107,7 +109,7 @@ def build_variant(name: str, subs: dict) -> tuple:
     log = "".join(p.communicate()[0] for p in procs)
     if any(p.returncode for p in procs):
         raise _build.KernelError(f"{name}: nvcc failed\n{log}")
-    lib_path = os.path.join(work, "panels.so")
+    lib_path = os.path.join(work, "variant.so")
     subprocess.run([nvcc, *_build.FLAGS[:2], "-shared", "-o", lib_path,
                     *objs], check=True)
     lib = ctypes.CDLL(lib_path)
@@ -118,17 +120,17 @@ def build_variant(name: str, subs: dict) -> tuple:
     regs, current = {}, None
     for line in log.splitlines():
         if "Compiling entry" in line:
-            current = next((k for k in KERNELS if k in line), None)
+            current = next((k for k in kernels if k in line), None)
         elif current and "registers" in line:
             regs[current] = int(re.search(r"(\d+) registers", line).group(1))
             current = None
     sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"),
                            "-sass", lib_path], capture_output=True,
                           text=True).stdout
-    cas, current = dict.fromkeys(KERNELS, 0), None
+    cas, current = dict.fromkeys(kernels, 0), None
     for line in sass.splitlines():
         if "Function :" in line:
-            current = next((k for k in KERNELS if k in line), None)
+            current = next((k for k in kernels if k in line), None)
         elif current and "ATOMS.CAST" in line:
             cas[current] += 1
     return lib, regs, cas

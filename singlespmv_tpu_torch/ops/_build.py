@@ -57,6 +57,9 @@ SIGNATURES = {
     # | H T m kblk p_oh n_grp gb p1 | stream
     "xch_route4_f32": [_P] * 11 + [_I] * 8 + [_P],
     "xch_route4_f64": [_P] * 11 + [_I] * 8 + [_P],
+    # base cs win lane sub hm1 dest prod y | H T m p1 n_y span | stream
+    "xch_route4_rows_f32": [_P] * 9 + [_I] * 6 + [_P],
+    "xch_route4_rows_f64": [_P] * 9 + [_I] * 6 + [_P],
     # win lane sub val x out | H T m B | stream
     "xch_mul_panel_f32": [_P] * 6 + [_I] * 4 + [_P],
     # gids off cs win lane sub hm1 sig idx prod out

@@ -5,23 +5,33 @@ versions.
 columns ``xch_mul_panel`` and ``xch_route4_panel``, and the v3 σ-plane route
 ``xch_route`` take the arguments of their Pallas counterparts in
 ``singlespmv_tpu/ops/pallas/xch.py`` (:48, :151, :338, :424 and :259) and
-return the same arrays, but for the panels' layout: ``xch_mul_panel`` takes
-the interleaved (CB, 128, B) x panel and returns the (H, 128, B) products,
-and ``xch_route4_panel`` takes them as (n_chunks, P1, 128, B) and returns
-(n_grp·gb, 128, B), where the reference keeps one (…, 128) array per
-column in front.  ``xch_route`` has one caller in the port, the
-calibration's ``route_slot_s`` fit (``harness/calibrate.py``): the v3 format
-path that the reference reaches through ``plan={'route_v': 3}`` is not
-ported.  On a CUDA tensor a wrapper
-launches its kernel, or raises; on a CPU tensor it runs the plain version
-(``<wrapper>_ref``), which the tests hold against the Pallas kernels and
-``chip_smoke.py`` holds against the kernels on the card.
+return the same arrays, but for ``xch_mul``'s optional ``out`` (a row slice
+of the caller's product grid, which the call fills) and the panels' layout:
+``xch_mul_panel`` takes the interleaved (CB, 128, B) x panel and returns the
+(H, 128, B) products, and ``xch_route4_panel`` takes them as
+(n_chunks, P1, 128, B) and returns (n_grp·gb, 128, B), where the reference
+keeps one (…, 128) array per column in front.  ``xch_route`` has one
+caller in the port, the calibration's ``route_slot_s`` fit
+(``harness/calibrate.py``): the v3 format path that the reference reaches
+through ``plan={'route_v': 3}`` is not ported.
+
+``xch_route4_rows`` is pass 2 of the spmv path: the function of
+``xch_route4``, routed by a run-end destination stream (``base``, ``dest``)
+that ``formats/xch.py:route_rows`` derives from the reference's ``gids``,
+``off``, ``sig`` and ``idx`` planes, adding into the caller's y where
+``xch_route4`` returns out groups.  ``xch_route4`` keeps the idx-plane
+contract: its plain version is the bridge that the CPU tests hold against
+the Pallas kernel, and its kernel, the first port, runs on no path (it is
+the "as before" variant of ``harness/xch_ab.py``).  On a CUDA tensor a
+wrapper launches its kernel, or raises; on a CPU tensor it runs the plain
+version (``<wrapper>_ref``), which the tests hold against the Pallas kernels
+and ``chip_smoke.py`` holds against the kernels on the card.
 
 The value type is float32 or float64, the same for val, the x table, the
-products and the out rows.  At float64 the wrappers launch the native-fp64
-builds of the kernels, which stand for the df64 kernels ``xch_mul_df`` (:495)
-and ``xch_route4_df`` (:594) of the reference.  The panels and ``xch_route``
-are float32 only, as the TPU ran them.
+products and the out rows or y.  At float64 the wrappers launch the
+native-fp64 builds of the kernels, which stand for the df64 kernels
+``xch_mul_df`` (:495) and ``xch_route4_df`` (:594) of the reference.  The
+panels and ``xch_route`` are float32 only, as the TPU ran them.
 
 Each wrapper counts the launches of its float32 kernel in
 ``<wrapper>.launches`` and of its float64 kernel in
@@ -44,6 +54,8 @@ from .slab import (LANES, PANEL_TYPES, VALUE_TYPES, _check, _check_table,
 M_MAX = 120        # window blocks: int8 sub headroom (formats/xch.M_MAX)
 P_OH_MAX = 64      # one-hot rows per step: the kernel's shared accumulator
 ROUTE_PLANES_MAX = 64   # xch_route's σ planes: its shared accumulator
+MERGE_SMEM = 96 * 1024  # the merge kernel's 8 spans of shared memory
+MERGE_SPAN_MAX = P_OH_MAX * LANES
 
 
 def _device(t):
@@ -107,6 +119,34 @@ def _check_route(gids, off, cs, win, lane, sub, hm1, sig, idx, prod, gb,
     return h, dev, vt, kblk
 
 
+def _check_rows_route(base, cs, win, lane, sub, hm1, dest, prod, y, m, T,
+                      span):
+    """Checks of the spmv route.  Returns (H, device, value type)."""
+    dev = _device(prod)
+    h = lane.shape[0]
+    _check_rows(h, T, m, dev, win, lane, sub)
+    if span < 0 or span % LANES or span > MERGE_SPAN_MAX:
+        raise ValueError(f"merge span {span} is not a multiple of 128 in "
+                         f"[0, {MERGE_SPAN_MAX}]")
+    _check("hm1", hm1, torch.int8, (h, LANES), dev)
+    _check("dest", dest, torch.int16, (h, LANES), dev)
+    for name, t in (("base", base), ("cs", cs)):
+        _check(name, t, torch.int32, (h // T,), dev)
+    if prod.dim() != 3 or prod.shape[2] != LANES or not all(prod.shape):
+        raise ValueError(f"prod3 has shape {tuple(prod.shape)}, expected "
+                         "(n_chunks, P1, 128)")
+    vt = value_type(prod, VALUE_TYPES)
+    _check("prod3", prod, vt, prod.shape, dev)
+    if y.dim() != 1 or y.numel() >= 2 ** 31:
+        raise ValueError(f"y has shape {tuple(y.shape)}, expected (n,) with "
+                         "n < 2**31")
+    _check("y", y, vt, y.shape, dev)
+    if span * vt.itemsize * 8 > MERGE_SMEM:
+        raise ValueError(f"merge span {span} of {vt} passes the merge "
+                         f"kernel's {MERGE_SMEM} bytes of shared memory")
+    return h, dev, vt
+
+
 # ----------------------------------------------------- plain PyTorch versions
 
 def xch_mul_ref(win, lane, sub, val, x_table, m: int, T: int = 64):
@@ -130,6 +170,21 @@ def xch_route4_ref(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
         out.index_add_(0, (base + j).clamp(0, max(n_out - 1, 0)),
                        torch.where(keep, _picked(w, idx[j]), 0.0))
     return out
+
+
+def xch_route4_rows_ref(base, cs, win, lane, sub, hm1, dest, prod3, y,
+                        m: int, T: int = 64, span: int = 0):
+    """Plain version of ``xch_route4_rows``: ``index_add_`` of the run
+    totals at their destinations (``span`` picks a kernel, not a
+    function)."""
+    h = lane.shape[0]
+    step = torch.arange(h, device=lane.device) // T
+    rows = cs.long()[step] * prod3.shape[1] + win.long()   # product rows
+    w = _totals(_gather(rows, lane, sub, prod3, m), hm1)
+    d = dest.long()
+    pos = base.long()[step][:, None] + d
+    keep = (d >= 0) & (pos < y.numel())
+    return y.index_add_(0, pos[keep], w[keep])
 
 
 def _active_planes(sg0, sg1, planes, pg):
@@ -180,19 +235,25 @@ def xch_route4_panel_ref(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
 
 # --------------------------------------------------------------- wrappers ---
 
-def xch_mul(win, lane, sub, val, x_table, m: int, T: int = 64):
+def xch_mul(win, lane, sub, val, x_table, m: int, T: int = 64, out=None):
     """Pass 1 over one call chunk: products (H, 128) = val · x[window
     gather], written linearly.
 
     win:      (H,) int32 — x window base col-block per stream row.
     lane/sub: (H, 128) int8; val: (H, 128) float32 or float64.
     x_table:  (CB, 128) of val's type.
-    Returns (H, 128) of val's type."""
+    out:      None, or the contiguous (H, 128) of val's type to write: a row
+              slice of the caller's product grid.
+    Returns the (H, 128) products of val's type (``out`` where given)."""
     h, dev, vt = _check_mul(win, lane, sub, val, x_table, m, T, VALUE_TYPES,
                             2)
+    if out is not None:
+        _check("out", out, vt, (h, LANES), dev)
     if dev.type == "cpu":
-        return xch_mul_ref(win, lane, sub, val, x_table, m, T)
-    out = torch.empty(h, LANES, dtype=vt, device=dev)  # all written
+        prod = xch_mul_ref(win, lane, sub, val, x_table, m, T)
+        return prod if out is None else out.copy_(prod)
+    if out is None:
+        out = torch.empty(h, LANES, dtype=vt, device=dev)  # all written
     if h:
         rc = _entry("xch_mul", vt)(
             *map(_ptr, (win, lane, sub, val, x_table, out)), h, T, m,
@@ -232,6 +293,39 @@ def xch_route4(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
         _raise_on(rc, "xch_route4")
         _count(xch_route4, vt)
     return out
+
+
+def xch_route4_rows(base, cs, win, lane, sub, hm1, dest, prod3, y,
+                    m: int, T: int = 64, span: int = 0):
+    """Pass 2 of the spmv over one call chunk: adds each run total of the
+    stream into ``y`` at its destination; returns ``y``.
+
+    base: (n_steps,) int32 — y position of the step's out row 0.
+    cs:   (n_steps,) int32 — source chunk per step.
+    win:  (H,) int32 — chunk-local product-row window base.
+    lane/sub/hm1: (H, 128) int8.
+    dest: (H, 128) int16 — at a run's end slot, its y position less
+          base[step]; −1 on every other slot.
+    prod3: (n_chunks, P1, 128) float32 or float64 pass-1 products.
+    y:    (n,) of prod3's type, zeroed by the caller before its first call;
+          positions at or past n are dropped.
+    span: 0, each run end adds into y; or p_oh·128, every dest below it,
+          where the stream's run ends pile onto few y rows
+          (``formats/xch.py:route_rows``): the merge kernel sums a block's
+          rows in shared memory first.  The function is the same.
+    The sums of a y position add in run-dependent order on the card."""
+    h, dev, vt = _check_rows_route(base, cs, win, lane, sub, hm1, dest,
+                                   prod3, y, m, T, span)
+    if dev.type == "cpu":
+        return xch_route4_rows_ref(base, cs, win, lane, sub, hm1, dest, prod3,
+                                   y, m, T, span)
+    if h:
+        rc = _entry("xch_route4_rows", vt)(
+            *map(_ptr, (base, cs, win, lane, sub, hm1, dest, prod3, y)),
+            h, T, m, prod3.shape[1], y.numel(), span, _stream(dev))
+        _raise_on(rc, "xch_route4_rows")
+        _count(xch_route4_rows, vt)
+    return y
 
 
 def xch_mul_panel(win, lane, sub, val, x_panel, m: int, T: int = 64):
@@ -340,6 +434,7 @@ def xch_route(uids, gids, cs, sg0, sg1, win, lane, sub, hm1, idx, prod3,
 
 xch_mul.launches = xch_mul.launches_f64 = 0
 xch_route4.launches = xch_route4.launches_f64 = 0
+xch_route4_rows.launches = xch_route4_rows.launches_f64 = 0
 xch_mul_panel.launches = 0
 xch_route4_panel.launches = 0
 xch_route.launches = 0

@@ -1,6 +1,8 @@
 """Port CUDA kernels at float64 on the card: the native-fp64 builds of the
-slab unit kernel and of both xch kernels against their plain versions, the
-route kernel at p_oh 64 (its dynamic shared memory), and the slab, xch, dia
+slab unit kernel and of the xch kernels (``xch_mul``, the spmv route
+``xch_route4_rows`` and the first port's ``xch_route4``) against their plain
+versions, the first port's route at p_oh 64 (its dynamic shared memory), and
+the slab, xch, dia
 and hyb spmv against the float64 oracle; the float32 builds of the templated
 kernels against their plain versions beside them.
 
@@ -131,6 +133,15 @@ def _xch_kernels_vs_plain(st, xd):
         got = xch_ops.xch_route4(*a, *g)
         _launched(xch_ops.xch_route4, before, vt)
         _close(got, xch_ops.xch_route4_ref(*a, *g))
+    for a in zip(st.base2, st.cs2, st.win2, st.lane2, st.sub2, st.hm2,
+                 st.dest2):
+        y = lambda: torch.zeros(st.n_row, dtype=vt, device=xd.device)
+        before = _counts(xch_ops.xch_route4_rows)
+        got = xch_ops.xch_route4_rows(*a, prod3, y(), st.m2, st.t2,
+                                      st.merge2)
+        _launched(xch_ops.xch_route4_rows, before, vt)
+        _close(got, xch_ops.xch_route4_rows_ref(*a, prod3, y(), st.m2,
+                                                st.t2))
     if st.long is not None:
         _xch_kernels_vs_plain(st.long, xd)
 
@@ -152,6 +163,27 @@ def test_xch_kernels(cuda, dtype, kblk, m2, t2, p_oh):
     if dtype == "float64":
         y = xch.spmv(st, xd).cpu().numpy()
         assert _oracle_rel(coo, x, y) <= 1e-12
+
+
+def test_xch_f64_merge_kernel(cuda):
+    """The float64 merge kernel (64 KB of spans at p_oh 8) on the nested
+    state of 128 rows of degree 2,000, against its plain version and the
+    oracle."""
+    cfg = F64.replace(format="xch")
+    rng = np.random.default_rng(12)
+    n = 40000
+    rows = np.concatenate([rng.integers(0, n, 120000),
+                           np.repeat(rng.choice(n, 128, replace=False), 2000)])
+    coo = COOMatrix.from_triplets(n, n, rows, rng.integers(0, n, len(rows)),
+                                  rng.uniform(0.1, 1.0, len(rows)),
+                                  sort=True, sum_duplicates=True)
+    st = xch.convert(coo, cfg)
+    assert st.long.merge2 == st.long.p_oh * 128
+    st = st.to(cuda)
+    x = _x(coo)
+    xd = torch.from_numpy(x).to(cuda)
+    _xch_kernels_vs_plain(st, xd)
+    assert _oracle_rel(coo, x, xch.spmv(st, xd).cpu().numpy()) <= 1e-12
 
 
 def test_xch_f64_peel_and_nested_state(cuda):

@@ -1,5 +1,7 @@
-"""Port xch CUDA kernels on the card: ``xch_mul`` and ``xch_route4`` against
-their plain versions, and the xch spmv against the float64 oracle, over
+"""Port xch CUDA kernels on the card: ``xch_mul``, the spmv route
+``xch_route4_rows`` and the first port's route ``xch_route4`` (on no path)
+against their plain versions, and the xch spmv against the float64 oracle
+through ``xch_mul`` and ``xch_route4_rows`` alone, over
 kblk 1/8/16/32, m2 1/8/24, t2 32 to 256, several kernel calls per pass, and
 a nested long-row state.
 
@@ -12,6 +14,8 @@ Kernel and plain version agree to 1e-5·max|out|: the route kernel sums row
 prefixes by warp shuffles and accumulates with atomics in run-dependent
 order.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -81,8 +85,20 @@ def _kernels_vs_plain(st, x):
         got = ops.xch_route4(*a, *g)
         assert ops.xch_route4.launches == before + 1
         _close(got, ops.xch_route4_ref(*a, *g))
+    for a in zip(st.base2, st.cs2, st.win2, st.lane2, st.sub2, st.hm2,
+                 st.dest2):
+        y = lambda: torch.zeros(st.n_row, device=x.device)
+        before = ops.xch_route4_rows.launches
+        got = ops.xch_route4_rows(*a, prod3, y(), st.m2, st.t2, st.merge2)
+        assert ops.xch_route4_rows.launches == before + 1
+        _close(got, ops.xch_route4_rows_ref(*a, prod3, y(), st.m2, st.t2))
     if st.long is not None:
         _kernels_vs_plain(st.long, x)
+
+
+def _calls(st):
+    """Pass-2 calls of the state and its nested states."""
+    return len(st.base2) + (_calls(st.long) if st.long is not None else 0)
 
 
 def _verify(coo, st, device, seed=3):
@@ -90,7 +106,10 @@ def _verify(coo, st, device, seed=3):
         np.float32)
     xd = torch.from_numpy(x).to(device)
     _kernels_vs_plain(st, xd)
+    before = ops.xch_route4.launches, ops.xch_route4_rows.launches
     y = xch.spmv(st, xd).cpu().numpy()
+    assert (ops.xch_route4.launches, ops.xch_route4_rows.launches) == (
+        before[0], before[1] + _calls(st))      # the spmv's route is the new
     ok, det = verify_result(coo, x, y, dtype=np.float32)
     assert ok, det
 
@@ -149,6 +168,36 @@ def test_default_plan_and_empty(cuda):
     assert y.is_cuda and not y.any()
 
 
+def _hub_rows(n=40000, seed=12):
+    """128 rows of degree 2,000 over a scatter: the nested state's stream
+    rows pile run ends onto the same rows, so its route merges."""
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([rng.integers(0, n, 120000),
+                           np.repeat(rng.choice(n, 128, replace=False), 2000)])
+    return COOMatrix.from_triplets(n, n, rows, rng.integers(0, n, len(rows)),
+                                   rng.uniform(0.1, 1.0, len(rows)),
+                                   sort=True, sum_duplicates=True)
+
+
+def test_merge_kernel_on_piled_up_run_ends(cuda):
+    coo = _hub_rows()
+    st = xch.convert(coo, F32)
+    assert st.merge2 == 0 and st.long.merge2 == st.long.p_oh * 128
+    _verify(coo, st.to(cuda), cuda)
+
+
+@pytest.mark.parametrize("kblk,m2,t2,p_oh", [r for r in ROUTES
+                                             if r[3] <= 24])
+def test_merge_kernel_forced(cuda, kblk, m2, t2, p_oh):
+    """The merge kernel computes the route's function on any stream whose
+    spans fit, scattered ones too."""
+    coo = _scatter(40000, 200000, seed=kblk)
+    st = _state(coo, kblk=kblk, kblk_fix=True, m2_fix=m2, t2_fix=t2,
+                p_oh_fix=p_oh)
+    st = dataclasses.replace(st, merge2=p_oh * 128)
+    _verify(coo, st.to(cuda), cuda)
+
+
 def test_launchers_refuse_bad_ranges(cuda):
     lib = _build.load()
     null = [None] * 11
@@ -162,3 +211,16 @@ def test_launchers_refuse_bad_ranges(cuda):
                               stream) != 0            # window past int8
     assert lib.xch_mul_f32(*null[:6], 96, 64, 8, stream) != 0   # H % T
     assert lib.xch_mul_f32(*null[:6], 0, 64, 8, stream) == 0    # nothing
+    # base cs win lane sub hm1 dest prod y | H T m p1 n_y span
+    for f in (lib.xch_route4_rows_f32, lib.xch_route4_rows_f64):
+        assert f(*null[:9], 64, 64, 121, 64, 100, 0, stream) != 0  # window
+        assert f(*null[:9], 96, 64, 8, 64, 100, 0, stream) != 0    # H % T
+        assert f(*null[:9], 64, 64, 8, 0, 100, 0, stream) != 0     # p1 0
+        assert f(*null[:9], 64, 64, 8, 64, -1, 0, stream) != 0     # n_y < 0
+        assert f(*null[:9], 64, 0, 8, 64, 100, 0, stream) != 0     # T 0
+        assert f(*null[:9], 64, 64, 8, 64, 100, 100, stream) != 0  # span
+        assert f(*null[:9], 64, 64, 8, 64, 100, -128, stream) != 0
+        assert f(*null[:9], 0, 64, 8, 64, 100, 0, stream) == 0     # nothing
+    # 8 spans of 64 · 128 floats (256 KB) pass the merge kernel's 96 KB
+    assert lib.xch_route4_rows_f32(*null[:9], 64, 64, 8, 64, 100, 64 * 128,
+                                   stream) != 0

@@ -98,9 +98,14 @@ def _assert_values(port_vals, hi, lo):
 
 def _assert_same_state(ref, port, lo_fields, path=""):
     """Every field equal, but the value fields, which must equal the
-    reference's hi + lo (``lo_fields``: port field → reference lo field)."""
+    reference's hi + lo (``lo_fields``: port field → reference lo field),
+    and xch's spmv route stream, which must equal ``route_rows`` of the
+    reference's arrays."""
+    routes = xch.route_rows(ref) \
+        if isinstance(port, xch.Xch4State) else {}
     for f in dataclasses.fields(port):
-        a, b = getattr(ref, f.name), getattr(port, f.name)
+        a = routes[f.name] if f.name in routes else getattr(ref, f.name)
+        b = getattr(port, f.name)
         name = path + f.name
         if isinstance(b, xch.Xch4State):
             _assert_same_state(a, b, lo_fields, name + ".")

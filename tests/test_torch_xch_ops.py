@@ -202,7 +202,8 @@ def test_sources_digest_covers_headers(tmp_path):
     assert set(_build.SIGNATURES) == {
         "slab_spmv_f32", "slab_spmv_f64", "slab_spmv_blk_f32", "slab_spmm_f32",
         "xch_mul_f32", "xch_mul_f64", "xch_route4_f32", "xch_route4_f64",
-        "xch_mul_panel_f32", "xch_route4_panel_f32",
+        "xch_route4_rows_f32", "xch_route4_rows_f64", "xch_mul_panel_f32",
+        "xch_route4_panel_f32",
         "block_gather_mul_f32", "bucket_reduce_f32",
         "bucket_reduce_grouped_f32", "lane_unpermute_f32",
         "segmented_scan_tiles_f32", "segmented_scan_tiles_f64",
