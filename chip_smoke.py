@@ -11,11 +11,15 @@ Its phases, in the order they run:
 2. holds each kernel against its plain PyTorch version on the card, at the
    stream shapes of the states below (every call of a state, and of its
    nested long-row state), and times kernel, plain version and the whole
-   spmv call: in float32, and in float64 the native-fp64 builds of the slab
-   unit kernel (torso1 and g7jac200sc, the float64 planner's unit-only
-   plans) and of both xch kernels (webbase-1M and ASIC_680ks): ``xch_mul``
-   and the spmv route ``xch_route4_rows``, the latter with the bound of the
-   idx-plane layout it replaced beside its own; the four
+   spmv call: the slab spmv route ``slab_spmv_rows`` (its direct kernel, or
+   its merge kernel where ``route_rows`` set a merge span) on every chunk of
+   raefsky3 and torso1 (blk) and g7jac200sc (unit) in float32 and of torso1
+   and g7jac200sc (the float64 planner's unit-only plans) in float64, with
+   the bound of the idx-plane layout it replaced beside its own and the
+   time ``route_rows`` took at convert; both xch kernels in float32 and, in
+   float64, their native-fp64 builds (webbase-1M and ASIC_680ks):
+   ``xch_mul`` and the spmv route ``xch_route4_rows``, the latter with the
+   bound of the idx-plane layout it replaced beside its own; the four
    bucket kernels on the full-size bkt_g states (1024-row buckets) of
    g7jac200sc, lhr34, twotone, raefsky3 and thermomech_dK and the bkt state
    (128-row buckets) of raefsky3, with ``torch.gather``'s time beside
@@ -47,7 +51,8 @@ Its phases, in the order they run:
    residual) and webbase-1M (whose hyper-sparse residual rides xch); then,
    on the first two in float32 and on Chebyshev4 in float64, times
    a hyb spmv, its dia part and its residual, and holds the residual's
-   kernels against their plain versions at the residual's shapes;
+   kernels (the slab route on all three) against their plain versions at
+   the residual's shapes;
 7. drives the bkt path: ``run_benchmark`` with format="bkt" on raefsky3
    (128-row buckets) and g7jac200sc (1024-row buckets);
 8. drives the scan formats: ``run_benchmark`` in float32 with format="css"
@@ -83,9 +88,10 @@ Its phases, in the order they run:
    plain versions on every call, then its spmv against the float64 COO
    oracle;
 13. checks that each path launched each of its kernels: the launch counts
-   are set to 0 just before a path and read just after it; and that no
-   path launched ``xch_route4``, the first port's route, which left the
-   spmv path.
+   are set to 0 just before a path and read just after it; the slab, hyb,
+   auto and float64 paths the slab route ``slab_spmv_rows``; and that no
+   path launched the first port's kernels that left the spmv path:
+   ``xch_route4`` and ``slab_spmv`` / ``slab_spmv_blk``.
 
 Each phase prints its seconds.
 
@@ -95,7 +101,9 @@ the product kernels torch's CSR product ``A_csr @ x`` (cuSPARSE's kernels)
 on the same matrix, dtype and B, the whole product where an xch kernel is
 one of two passes; the launches on the main paths; the bound: the larger
 of the bytes the call must move at 3.35 TB/s and its operations at the
-card's peak; for ``xch_route4_rows`` also ``bound_ms_idx_layout``, the bound
+card's peak; for ``xch_route4_rows`` and the slab route's three rows
+(``slab_spmv``, ``slab_spmv_blk`` and ``slab_spmv_f64``: one kernel, whose
+f32 launches the first two share) also ``bound_ms_idx_layout``, the bound
 of the same work on the idx-plane layout it replaced), and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
 no CUDA device is present or any phase fails.
@@ -296,55 +304,44 @@ class StandIns(dict):
         self.pool.join()
 
 
-def _chunk_calls(state, x_table, ops, plain):
-    """One function per chunk that runs the state's kernel (or its plain
-    version) over the chunk, as formats/slab.spmv calls it."""
-    if state.mode == "blk":
-        fn = ops.slab_spmv_blk_ref if plain else ops.slab_spmv_blk
-        return [lambda a=a, nu=nu: fn(*a, x_table, nu, state.m,
-                                      state.planes, state.t_step)
-                for *a, nu in zip(state.uids, state.win, state.lane,
-                                  state.sub, state.val, state.hm1, state.idx,
-                                  state.sig, state.chunk_nu)]
-    fn = ops.slab_spmv_ref if plain else ops.slab_spmv
-    return [lambda a=a, nu=nu: fn(*a, x_table, nu, state.m, state.t_step)
-            for *a, nu in zip(state.uids, state.sg0, state.sg1, state.win,
-                              state.lane, state.sub, state.val, state.hm1,
-                              state.idx, state.chunk_nu)]
+def _rows_calls(state, x_table, ops, plain):
+    """One function per chunk that runs the slab spmv route (or its plain
+    version) over the chunk, as formats/slab.spmv calls it, adding into a
+    zeroed y of its own."""
+    fn = ops.slab_spmv_rows_ref if plain else ops.slab_spmv_rows
+    return [lambda a=a: fn(*a, x_table, torch.zeros(
+        state.n_row, dtype=x_table.dtype, device=x_table.device), state.m,
+        state.t_step, state.merge)
+        for a in zip(state.ybase, state.win, state.lane, state.sub,
+                     state.val, state.hm1, state.dest)]
 
 
 def compare_kernel(label, state, slab, ops, x, tol=TOL, a_csr=None):
-    """Phase 2 for one state: kernel vs plain version on every chunk;
-    ``a_csr``, torch's CSR tensor of the state's matrix, times the library
-    product beside it."""
+    """Phase 2 for one slab state: the spmv route vs its plain version on
+    every chunk; ``a_csr``, torch's CSR tensor of the state's matrix, times
+    the library product beside it."""
     xt = slab.x_table(state, x)
-    kern = _chunk_calls(state, xt, ops, plain=False)
-    ref = _chunk_calls(state, xt, ops, plain=True)
-    err = scale = 0.0
-    for k, r in zip(kern, ref):
-        got, want = k(), r()
-        torch.cuda.synchronize()
-        err = max(err, float((got - want).abs().max()))
-        scale = max(scale, float(want.abs().max()))
-    rel = err / max(scale, 1e-30)
-    kernel_name = "slab_blk_kernel" if state.mode == "blk" \
-        else "slab_unit_kernel"
-    # bytes each call must move: its streams (sub only when m > 1; sig one
-    # byte a row), the x table once, its out blocks once
-    vsz, nbytes = x.element_size(), 0
+    kern = _rows_calls(state, xt, ops, plain=False)
+    ref = _rows_calls(state, xt, ops, plain=True)
+    err, rel = _check_calls(label, "slab_spmv_rows", kern, ref, tol)
+    # bytes the route must move: its streams (sub only when m > 1; two
+    # bytes of dest a slot, win a row, ybase a step), the x table once, y
+    # once; operations: a multiply, a prefix add and a run-total difference
+    # per slot, an add per run end.  Beside it the bound of the idx-plane
+    # layout of the first port (sig one byte a row, the idx planes, the
+    # out blocks once)
+    vsz, idx_bytes = x.element_size(), 0
+    nbytes = state.n_row * vsz
     for i, lane in enumerate(state.lane):
         h = lane.shape[0]
-        nbytes += _nbytes(state.uids[i], state.win[i], lane, state.val[i],
-                          state.hm1[i], state.idx[i], xt)
-        nbytes += _nbytes(state.sub[i]) if state.m > 1 else 0
-        if state.mode == "blk":
-            nbytes += h
-        else:
-            nbytes += _nbytes(state.sg0[i], state.sg1[i])
-        nbytes += state.chunk_nu[i] * state.planes * 128 * vsz
-    # multiply, prefix add and run-total difference per slot, one add per
-    # routed run end
-    ops = 3 * state.n_slots + _routed(*state.idx)
+        streams = _nbytes(state.win[i], lane, state.val[i], state.hm1[i]) \
+            + (_nbytes(state.sub[i]) if state.m > 1 else 0)
+        nbytes += streams + _nbytes(state.dest[i], state.ybase[i], xt)
+        idx_bytes += streams + _nbytes(state.uids[i], state.idx[i], xt) \
+            + state.chunk_nu[i] * state.planes * 128 * vsz
+        idx_bytes += h if state.mode == "blk" else _nbytes(state.sg0[i],
+                                                           state.sg1[i])
+    run_ends = sum(int((d >= 0).sum()) for d in state.dest)
     res = {
         "label": label, "dtype": str(x.dtype), "mode": state.mode,
         "kernel": ("slab_spmv_blk" if state.mode == "blk" else "slab_spmv")
@@ -352,22 +349,37 @@ def compare_kernel(label, state, slab, ops, x, tol=TOL, a_csr=None):
         "planes": state.planes,
         "kblk": state.idx[0].shape[0] if state.mode == "blk" else None,
         "m": state.m, "T": state.t_step, "stream_rows": state.n_slots // 128,
-        "max_abs_err": err, "rel_err": rel,
-        # device busy time: the kernel alone, the plain version's kernels
-        "ms": _busy_ms(lambda: [f() for f in kern], kernel_name),
+        "chunks": len(state.dest), "run_ends": run_ends,
+        "merge": state.merge, "max_abs_err": err, "rel_err": rel,
+        # device busy time: the route's kernels (direct and merge), the
+        # plain version's kernels
+        "ms": _busy_ms(lambda: [f() for f in kern], "slab_rows"),
         "plain_ms": _busy_ms(lambda: [f() for f in ref]),
         # per call on the device's clock, host gaps included
         "call_ms": _cuda_ms(lambda: [f() for f in kern]),
-        "plain_call_ms": _cuda_ms(lambda: [f() for f in ref]),
         "spmv_ms": _cuda_ms(lambda: slab.spmv(state, x)),
         "spmv_busy_ms": _busy_ms(lambda: slab.spmv(state, x)),
         "library_ms": None if a_csr is None else _library_ms(a_csr, x),
-    } | _bound(nbytes, ops, x.dtype)
-    print(f"kernel {label}: {res}", flush=True)
-    if not rel <= tol:
-        raise SystemExit(f"{label}: kernel disagrees with its plain version "
-                         f"(max |diff| / max |out| = {rel:.3g} > {tol})")
+        "bound_ms_idx_layout": _bound(
+            idx_bytes, 3 * state.n_slots + _routed(*state.idx),
+            x.dtype)["bound_ms"],
+    } | _bound(nbytes, 3 * state.n_slots + run_ends, x.dtype)
+    print(f"kernel {label}: {json.dumps(res)}", flush=True)
     return res
+
+
+def _slab_convert(mats, name, slab, cfg, plan=None):
+    """The slab state of stand-in ``name``, printing the host convert's
+    seconds and the share of them ``route_rows`` takes (OptimizeTime)."""
+    t0 = time.perf_counter()
+    st = slab.convert(mats[name], cfg, plan=plan)
+    t1 = time.perf_counter()
+    slab.route_rows(st)
+    routes = time.perf_counter() - t1
+    print(f"slab {cfg.dtype} convert {name}: host {t1 - t0:.2f} s, of which "
+          f"route_rows {routes:.3f} s; {st.mode}, planes {st.planes}, "
+          f"m {st.m}, merge {st.merge}", flush=True)
+    return st
 
 
 def _states(state):
@@ -1180,7 +1192,7 @@ def main() -> int:
 
     with Phase("slab kernels float32"):
         for name in SLAB_MATS:
-            st = slab.convert(mats[name], cfg, plan=plans[name]).to(dev)
+            st = _slab_convert(mats, name, slab, cfg, plans[name]).to(dev)
             compared.append(compare_kernel(name, st, slab, ops,
                                            x_of(mats[name]),
                                            a_csr=csr_of(name)))
@@ -1205,10 +1217,7 @@ def main() -> int:
             del st
     with Phase("slab kernels float64"):
         for name in SLAB64_MATS:
-            t0 = time.perf_counter()
-            st = slab.convert(mats[name], cfg64).to(dev)
-            print(f"slab float64 convert {name}: "
-                  f"{time.perf_counter() - t0:.1f} s")
+            st = _slab_convert(mats, name, slab, cfg64).to(dev)
             if not (st.mode == "unit" and st.val[0].dtype == torch.float64):
                 raise SystemExit(f"{name}: float64 slab plan is not unit "
                                  "mode over float64 values")
@@ -1261,13 +1270,15 @@ def main() -> int:
                                          x_of(g7, np.float64), F64_TOL))
             del st
 
-    slab_k, xch_k = (ops.slab_spmv, ops.slab_spmv_blk), (
-        xops.xch_mul, xops.xch_route4_rows)
+    slab_k, xch_k = (ops.slab_spmv_rows,), (xops.xch_mul,
+                                             xops.xch_route4_rows)
+    # the first port's kernels that left the spmv path: no path may run them
+    first_port = (xops.xch_route4, ops.slab_spmv, ops.slab_spmv_blk)
     bkt_k = tuple(getattr(bops, k) for k in BUCKET_KERNELS)
     scan_k = (sops.segmented_scan_tiles, gops.block_gather_scan)
     panel_k = (ops.slab_spmm, xops.xch_mul_panel, xops.xch_route4_panel)
     all_k = slab_k + xch_k + bkt_k + scan_k + panel_k
-    f32_kernels = (("slab_spmv", "slab_spmv_blk", "xch_mul",
+    f32_kernels = (("slab_spmv_rows", "xch_mul",
                     "xch_route4_rows", "segmented_scan_tiles",
                     "block_gather_scan")
                    + BUCKET_KERNELS + PANEL_KERNELS)
@@ -1275,16 +1286,17 @@ def main() -> int:
 
     def count_path(path, wrappers, need):
         """Adds the path's launch counts; fails if a kernel in ``need`` was
-        not launched, or if the first port's route ever was (nothing here
-        calls it, so its counts stay 0 unless a path does)."""
+        not launched, or if a kernel of the first port that left the spmv
+        path ever was (nothing here calls them, so their counts stay 0
+        unless a path does)."""
         got = _counts(*wrappers)
         print(f"launches in the {path} path: {got}", flush=True)
         for k in need:
             if got[k] < 1:
                 raise SystemExit(f"{path}: kernel {k} was never launched")
-        if any(_counts(xops.xch_route4).values()):
-            raise SystemExit(f"{path}: the first port's route xch_route4 "
-                             f"ran: {_counts(xops.xch_route4)}")
+        if any(_counts(*first_port).values()):
+            raise SystemExit(f"{path}: a first-port kernel ran: "
+                             f"{_counts(*first_port)}")
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         return got
@@ -1412,7 +1424,7 @@ def main() -> int:
               f"max_abs_err {det['max_abs_err']}")
         if not (ok and state.mode == "unit" and np.isfinite(y).all()):
             raise SystemExit("g7jac200sc unit mode: spmv output is wrong")
-        count_path("slab float32", slab_k, ("slab_spmv", "slab_spmv_blk"))
+        count_path("slab float32", slab_k, ("slab_spmv_rows",))
         del state
 
     # --- 5. the xch main path; count the launches it makes ---
@@ -1434,7 +1446,8 @@ def main() -> int:
                         rest=("SLAB", "XCH", "BKT", "BKT_G", "CSS"))
         if reps["webbase-1M"]["RestFormat"] != "XCH":
             raise SystemExit("webbase-1M: the hyb residual left xch")
-        count_path("hyb float32", all_k, ("xch_mul", "xch_route4_rows"))
+        count_path("hyb float32", all_k, ("xch_mul", "xch_route4_rows",
+                                          "slab_spmv_rows"))
 
     # --- 6b. where a hyb spmv's time goes, and the residual's kernels
     #     against their plain versions at the residual's shapes ---
@@ -1493,7 +1506,7 @@ def main() -> int:
         print_scan_estimates(reps)
         count_path("auto float32", all_k,
                    ("block_gather_mul", "bucket_reduce_grouped",
-                    "lane_unpermute"))
+                    "lane_unpermute", "slab_spmv_rows"))
 
     # --- 10. the float64 paths, held to the oracle at F64_TOL ---
     oracle = {"x": lambda coo: create_random_vector(coo.n_col),
@@ -1501,11 +1514,11 @@ def main() -> int:
     run64 = run_cfg.replace(dtype="float64")
     for fmt, name, keys, need in (
             ("slab", "torso1", ("PadFactor", "RoutePlanes"),
-             ("slab_spmv_f64",)),
+             ("slab_spmv_rows_f64",)),
             ("xch", "webbase-1M", ("KBlk", "POh", "PeelOffs", "LongRows"),
              ("xch_mul_f64", "xch_route4_rows_f64")),
-            ("hyb", "Chebyshev4", hyb_keys, ()),
-            ("auto", "g7jac200sc", auto_keys, ()),
+            ("hyb", "Chebyshev4", hyb_keys, ("slab_spmv_rows_f64",)),
+            ("auto", "g7jac200sc", auto_keys, ("slab_spmv_rows_f64",)),
             ("css", "g7jac200sc", scan_keys["css"],
              ("block_gather_scan_f64",)),
             ("ss", "g7jac200sc", scan_keys["ss"],
@@ -1568,9 +1581,10 @@ def main() -> int:
     mats.close()
 
     # --- 13. every kernel of each path ran in that path, and the first
-    #     port's route in none ---
+    #     port's route kernels in none ---
     print(f"launches in the main paths: {launches}; the first port's "
-          f"route (count_path fails on any): {_counts(xops.xch_route4)}")
+          f"kernels off the spmv path (count_path fails on any): "
+          f"{_counts(*first_port)}")
 
     kernels = []
     slab_src = "singlespmv_tpu_torch/csrc/slab.cu"
@@ -1581,7 +1595,12 @@ def main() -> int:
     checks = by_kernel(compared)
     print("kernel checks: " + json.dumps(
         {k: [r["label"] for r in rs] for k, rs in checks.items()}))
-    # max_abs_err over every state checked; ms and plain_ms of one of them
+    # max_abs_err over every state checked; ms and plain_ms of one of them.
+    # The slab route's three rows are one kernel: launches are its f32
+    # (unit and blk alike) and f64 counts
+    launch_key = {"slab_spmv": "slab_spmv_rows",
+                  "slab_spmv_blk": "slab_spmv_rows",
+                  "slab_spmv_f64": "slab_spmv_rows_f64"}
     for kname, src, line, timed in (
             ("slab_spmv", slab_src, "slab.py:263", "g7jac200sc"),
             ("slab_spmv_blk", slab_src, "slab.py:310", "torso1"),
@@ -1615,7 +1634,7 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": f"singlespmv_tpu/ops/pallas/{line}",
-            "launches": launches[kname],
+            "launches": launches[launch_key.get(kname, kname)],
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": t[0]["ms"], "plain_ms": t[0]["plain_ms"],
             "bound_ms": t[0]["bound_ms"], "bound_by": t[0]["bound_by"],

@@ -14,8 +14,9 @@
 //            shuffle scan, in place of the TPU's triangle matmul;
 //   route    an end-lane e of plane j adds W[e] into a shared accumulator row
 //            (route4), which a block then adds into global memory (flush);
-//            or, in the spmv route of xch.cu, the lane holding end slot e adds
-//            W[e] straight into y at its destination (lane_totals).
+//            or, in the spmv routes of xch.cu and slab.cu, the lane holding
+//            end slot e adds W[e] straight into y at its destination
+//            (lane_totals, load_dest4).
 // At double the same code runs on native fp64: fp64 shuffles and atomicAdd
 // on double in shared and global memory, where the TPU needed (hi, lo) float
 // planes and compensated sums.
@@ -155,6 +156,17 @@ __device__ __forceinline__ void run_totals(int r, V4<V> a,
                                            V* w) {
   run_totals(a, load_c4(hm1 + (size_t)r * kLanes + 4 * (threadIdx.x & 31)),
              w);
+}
+
+// The four dests of the calling lane's slots: int16 in the spmv routes'
+// streams, int32 in a variant of the A/B harnesses.
+__device__ __forceinline__ int4 load_dest4(const int16_t* p) {
+  const short4 d = *reinterpret_cast<const short4*>(p);
+  return make_int4(d.x, d.y, d.z, d.w);
+}
+
+__device__ __forceinline__ int4 load_dest4(const int32_t* p) {
+  return *reinterpret_cast<const int4*>(p);
 }
 
 // acc[4k + i] += w[e_i] for the four end-lanes e of lane k (e < 0: none).

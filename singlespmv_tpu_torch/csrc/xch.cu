@@ -233,17 +233,6 @@ __global__ void __launch_bounds__(kThreads) xch_route4_kernel(
   if (base >= 0 && last >= lo) flush(acc, lo, last, out + base * kLanes);
 }
 
-// The four dests of the calling lane's slots: int16 in the route's stream,
-// int32 in a variant of the A/B harness.
-__device__ __forceinline__ int4 load_dest4(const int16_t* p) {
-  const short4 d = *reinterpret_cast<const short4*>(p);
-  return make_int4(d.x, d.y, d.z, d.w);
-}
-
-__device__ __forceinline__ int4 load_dest4(const int32_t* p) {
-  return *reinterpret_cast<const int4*>(p);
-}
-
 // y[pos] += v for a run end (d >= 0) inside y.
 template <typename V>
 __device__ __forceinline__ void add_run(V* __restrict__ y, int b, int d, V v,

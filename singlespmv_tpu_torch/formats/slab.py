@@ -15,12 +15,21 @@ planner is refit for the H100).  ``M_CANDS``, ``X_TABLE_CAP`` and
 ``CHUNK_ROWS``/``_chunk_cuts`` size TPU memories; they stay until the port
 sheds them (ROADMAP A.7b).
 
-Device half (``spmv``): pads x and appends the hub columns, runs one kernel
-per stream chunk (``ops/slab.py``), then assembles y — blk mode shift-adds
-the plane diagonals, unit mode overlap-adds the halves of pair blocks — and
-scatters by unit id.  ``spmm`` does the same for a panel of columns with one
-``slab_spmm`` per stream chunk in unit mode, on the interleaved panel (each
-x row's B values contiguous), under the reference's gates.
+``convert`` and ``state_from_reference`` also derive, with ``route_rows``,
+the spmv route's stream from the reference's arrays (``uids``, ``idx``,
+``sig``/``sg0``/``sg1``, ``unit_ids``), which stay (``spmm``'s panel and
+``to_coo`` read them): ``ybase``, the y position of row 0 of each 128-row
+block of a step's out block, ``dest``, each run's position in that block
+at the run's end slot, and ``merge``, the span of the route's merge kernel
+where a stream's run ends pile onto few y rows (0 elsewhere).
+
+Device half (``spmv``): pads x and appends the hub columns, zeroes one y
+and runs one ``slab_spmv_rows`` per stream chunk (``ops/slab.py``), each
+adding its run totals into y, in unit and blk mode alike.  ``spmm`` runs
+one ``slab_spmm`` per stream chunk in unit mode, on the interleaved panel
+(each x row's B values contiguous), under the reference's gates, then
+overlap-adds the halves of pair blocks and scatters by unit id; elsewhere
+it loops ``spmv`` over the columns.
 
 Values are float32 or float64; bfloat16 raises ``NotImplementedError``
 (ROADMAP A.10).  At float64 the planner takes the reference's float64
@@ -42,7 +51,8 @@ from ..core import chipconst as _cc
 from ..core import hostmem as hm
 from ..core.types import COOMatrix, cdiv
 
-from ..ops.slab import PANEL_TYPES, slab_spmm, slab_spmv, slab_spmv_blk
+from ..ops.slab import (MERGE_SMEM, MERGE_WARPS, PANEL_TYPES, slab_spmm,
+                        slab_spmv_rows)
 from .base import TensorState, check_dtype, column_loop
 
 LANES = 128
@@ -96,6 +106,12 @@ class SlabState(TensorState):
     sig: Optional[tuple] = None   # blk: (H_c, 128) int8 block offset per row
     sg0: Optional[tuple] = None   # unit: (n_steps_c,) int32 first active plane
     sg1: Optional[tuple] = None   # unit: (n_steps_c,) int32 last active plane
+    # the spmv route's stream, derived by route_rows (per-chunk tuples)
+    ybase: tuple = ()      # (n_steps_c, planes) int32 — y position of row 0
+    #                        of each 128-row block of the step's out block
+    dest: tuple = ()       # (H_c, 128) int16 — run-end position in the
+    #                        step's out block, −1 off run ends
+    merge: int = 0         # the route's merge span (0: none)
 
 
 # ----------------------------------------------------------------- packing ---
@@ -613,7 +629,7 @@ def convert(coo: COOMatrix, cfg: Config, plan: dict = None) -> SlabState:
             s0_t.append(_t(sg0_s[s0:s1]))
             s1_t.append(_t(sg1_s[s0:s1]))
 
-    return SlabState(
+    return with_routes(SlabState(
         n_row=coo.n_row, n_col=coo.n_col, nnz=coo.nnz, m=m, t_step=t_step,
         planes=planes, mode=mode, n_units=n_units, cb_pad=cb_pad,
         n_slots=h * LANES,
@@ -626,7 +642,7 @@ def convert(coo: COOMatrix, cfg: Config, plan: dict = None) -> SlabState:
         hub_cols=_t(hub_cols) if hub_cols is not None else None,
         sig=tuple(sg_t) if sig is not None else None,
         sg0=tuple(s0_t) if sg0_s is not None else None,
-        sg1=tuple(s1_t) if sg0_s is not None else None)
+        sg1=tuple(s1_t) if sg0_s is not None else None))
 
 
 def _empty_state(coo, cfg):
@@ -643,7 +659,110 @@ def _empty_state(coo, cfg):
         hm1=(z8,),
         idx=(torch.full((8, 0, LANES), -1, dtype=torch.int8),),
         unit_ids=torch.zeros(0, dtype=torch.int32),
-        lo_mask=torch.zeros((0, 1), dtype=vt))
+        lo_mask=torch.zeros((0, 1), dtype=vt),
+        ybase=(torch.zeros((0, 8), dtype=torch.int32),),
+        dest=(torch.zeros((0, LANES), dtype=torch.int16),))
+
+
+ROUTE_FIELDS = ("ybase", "dest", "merge")
+DEST_NONE = -1
+MERGE_ENDS = 32      # run ends a stream row, from which the route merges
+
+
+def route_rows(state) -> dict:
+    """{ybase, dest, merge}: the run-end destination stream of the spmv
+    route, from the reference's arrays of ``state`` (``uids``, ``idx``,
+    ``sg0``/``sg1`` in unit mode, ``sig`` in blk mode, ``unit_ids``,
+    ``chunk_nu``, ``planes``, ``mode``, ``t_step``, ``n_units``, ``n_row``,
+    ``val``; CPU tensors or numpy arrays).
+
+    A step's runs end inside one out block of planes · 128 positions.  Per
+    chunk, ``ybase`` is an (n_steps, planes) int32: entry (t, p) is the y
+    position of row 0 of the block's p-th 128 rows, from the step's global
+    compact id u = chunk offset (the sum of the earlier ``chunk_nu``) +
+    uids[t]: in unit mode unit_ids[u + p // 8] · 1024 + (p % 8) · 128 (a
+    16-plane pair block's half p ≥ 8 belongs to the next compact unit), in
+    blk mode unit_ids[u + p] · 128; and −1 where the reference drops the
+    block: a compact id at or past ``n_units`` (what the pair overlap-add and
+    the shift-add's ``[:nu]`` drop) or a row 0 at or past ``n_row``.  A pair
+    half or a blk group may reach into the next chunk's blocks, as the
+    ``cat`` before the reference's assembly lets it.  ``dest`` is an
+    (H, 128) int16 that holds, at the slot e that ends a run, the run's
+    position p · 128 + l, where idx[p, r, l] == e in unit mode (for planes p
+    in [sg0[t], sg1[t]], every plane where the state has no sg0) and
+    idx[j, r, l] == e with p = sig[r] + j in blk mode (for p in
+    [0, planes), the one-hot's range), and −1 on every other slot and on a
+    run whose block is dropped or whose y row is at or past ``n_row``.
+    Raises ValueError on an end lane named twice across a row's planes.
+
+    ``merge`` is what the route kernel can observe of the stream: where its
+    stream rows end on average at least ``MERGE_ENDS`` runs each (runs of
+    four slots or fewer) and ``MERGE_WARPS`` spans of planes · 128 values
+    fit in the merge kernel's shared memory, the span planes · 128, which
+    has a block sum its rows' run totals there and add each position into
+    y once, 32 consecutive rows a warp instruction; else 0, a reduction
+    into y a run end, at scattered rows."""
+    planes, T, unit = state.planes, state.t_step, state.mode == "unit"
+    n_units, n_row = state.n_units, state.n_row
+    unit_ids = np.asarray(state.unit_ids).astype(np.int64)
+    p = np.arange(planes, dtype=np.int64)
+    if unit:
+        step_of, row0, scope_rows = p // 8, (p % 8) * LANES, UNIT_ROWS
+    else:
+        step_of, row0, scope_rows = p, 0, LANES
+    span = planes * LANES
+    ybases, dests, u0, n_ends, n_rows = [], [], 0, 0, 0
+    for c, (uids, idx, nu_c) in enumerate(zip(state.uids, state.idx,
+                                              state.chunk_nu)):
+        cu = np.asarray(uids).astype(np.int64)[:, None] + u0 + step_of
+        inside = cu < n_units
+        yrow = unit_ids[np.where(inside, cu, 0)] * scope_rows + row0
+        ybase = np.where(inside & (yrow < n_row), yrow, -1)
+        idx = np.asarray(idx)
+        h = idx.shape[1]
+        if unit and state.sg0 is None:   # every plane, as the reference
+            lo, hi = np.zeros(len(cu), np.int64), np.full(len(cu), planes)
+        elif unit:
+            lo = np.asarray(state.sg0[c]).astype(np.int64)
+            hi = np.asarray(state.sg1[c]).astype(np.int64)
+        else:
+            sig = np.asarray(state.sig[c])[:, 0].astype(np.int64)
+        dest = np.full((h, LANES), DEST_NONE, np.int16)
+        n_kept = 0
+        for j in range(idx.shape[0]):
+            rr, ll = np.nonzero(idx[j] >= 0)
+            t = rr // T
+            if unit:
+                pj = np.full(len(rr), j, np.int64)
+                keep = (lo[t] <= j) & (j <= hi[t])
+            else:
+                pj = sig[rr] + j
+                keep = (pj >= 0) & (pj < planes)      # the one-hot's range
+            rr, ll, pj, t = rr[keep], ll[keep], pj[keep], t[keep]
+            b = ybase[t, pj]
+            placed = (b >= 0) & (b + ll < n_row)
+            dest[rr, idx[j][rr, ll]] = np.where(placed, pj * LANES + ll, -2)
+            n_kept += len(rr)
+        if np.count_nonzero(dest != DEST_NONE) != n_kept:
+            raise ValueError("slab: an end lane is named twice in a stream "
+                             "row's idx planes")
+        dest[dest == -2] = DEST_NONE
+        n_ends += int(np.count_nonzero(dest >= 0))
+        n_rows += h
+        ybases.append(_t(ybase.astype(np.int32)))
+        dests.append(_t(dest))
+        u0 += nu_c
+    vsz = np.asarray(state.val[0]).dtype.itemsize
+    merge = (n_ends >= MERGE_ENDS * max(n_rows, 1)
+             and MERGE_WARPS * span * vsz <= MERGE_SMEM)
+    return dict(ybase=tuple(ybases), dest=tuple(dests),
+                merge=span if merge else 0)
+
+
+def with_routes(state: SlabState) -> SlabState:
+    """``state`` with its ``ybase``, ``dest`` and ``merge`` from
+    ``route_rows``."""
+    return dataclasses.replace(state, **route_rows(state))
 
 
 _ARRAY_FIELDS = ("uids", "win", "lane", "sub", "val", "hm1", "idx", "sig",
@@ -664,6 +783,8 @@ def state_from_reference(arrays: dict) -> SlabState:
             for hi, lo in zip(arrays["val"], arrays["val_lo"]))
     kw = {}
     for f in dataclasses.fields(SlabState):
+        if f.name in ROUTE_FIELDS:     # derived below, not the reference's
+            continue
         v = arrays.get(f.name)
         if f.name in _ARRAY_FIELDS and v is not None:
             v = tuple(torch.from_numpy(np.array(a)) for a in v) \
@@ -673,7 +794,7 @@ def state_from_reference(arrays: dict) -> SlabState:
     state = SlabState(**kw)
     for v in state.val:
         check_dtype("slab", v.dtype)
-    return state
+    return with_routes(state)
 
 
 # -------------------------------------------------------------------- spmv ---
@@ -697,53 +818,16 @@ def spmv(state: SlabState, x: torch.Tensor) -> torch.Tensor:
     if x.dtype != state.val[0].dtype:
         raise TypeError(f"slab: x is {x.dtype}, the state holds "
                         f"{state.val[0].dtype} values")
-    n = state.n_row
-    dev = x.device
+    y = torch.zeros(state.n_row, dtype=x.dtype, device=x.device)
     if state.nnz == 0 or state.n_units == 0:
-        return torch.zeros(n, dtype=x.dtype, device=dev)
+        return y
     xp = x_table(state, x)
-    nu, planes = state.n_units, state.planes
-    # out blocks that no step owns (lo_mask 0) come back zero from the
-    # kernels, where the TPU's are unwritten: the reference's masking of
-    # them has nothing to do here
-    if state.mode == "blk":
-        outs = [
-            slab_spmv_blk(u, w, la, su, va, h1, ix, sg, xp,
-                          nu_c, state.m, planes, state.t_step)
-            for u, w, la, su, va, h1, ix, sg, nu_c in zip(
-                state.uids, state.win, state.lane, state.sub, state.val,
-                state.hm1, state.idx, state.sig, state.chunk_nu)]
-        out = outs[0] if len(outs) == 1 else torch.cat(outs, 0)
-        # diagonal shift-add: out block f plane j → compact block f + j
-        dst = (torch.arange(nu, device=dev)[:, None]
-               + torch.arange(planes, device=dev)[None, :]).view(-1)
-        yb = torch.zeros(nu + planes, LANES, dtype=x.dtype, device=dev)
-        yb.index_add_(0, dst, out)
-        yu, rows_per_unit = yb[:nu], LANES
-        # a kblk group may reach past the last block of y: scatter into
-        # whole groups (the reference drops those block ids instead)
-        kblk = state.idx[0].shape[0]
-        n_blocks = cdiv(cdiv(max(n, 1), LANES), kblk) * kblk
-    else:
-        outs = [
-            slab_spmv(u, s0, s1, w, la, su, va, h1, ix, xp, nu_c, state.m,
-                      state.t_step)
-            for u, s0, s1, w, la, su, va, h1, ix, nu_c in zip(
-                state.uids, state.sg0, state.sg1, state.win, state.lane,
-                state.sub, state.val, state.hm1, state.idx, state.chunk_nu)]
-        out = outs[0] if len(outs) == 1 else torch.cat(outs, 0)
-        if planes == 8:
-            yu = out.view(nu, UNIT_ROWS)
-        else:
-            # pair-block overlap-add: block u rows 0-7 → unit u, 8-15 → u+1
-            out3 = out.view(nu, 2, UNIT_ROWS)
-            yu = out3[:, 0].clone()
-            yu[1:] += out3[:-1, 1]
-        rows_per_unit = UNIT_ROWS
-        n_blocks = cdiv(max(n, 1), UNIT_ROWS)
-    y2 = torch.zeros(n_blocks, rows_per_unit, dtype=x.dtype, device=dev)
-    y2[state.unit_ids.long()] = yu
-    return y2.view(-1)[:n]
+    for yb, w, la, su, va, h1, d in zip(state.ybase, state.win, state.lane,
+                                        state.sub, state.val, state.hm1,
+                                        state.dest):
+        slab_spmv_rows(yb, w, la, su, va, h1, d, xp, y, state.m,
+                       state.t_step, state.merge)
+    return y
 
 
 PANEL_B_MAX = 32           # the reference's panel kernel unrolls B in-kernel

@@ -48,6 +48,9 @@ SIGNATURES = {
     "slab_spmv_f64": [_P] * 11 + [_I] * 4 + [_P],
     # uids win lane sub val hm1 idx sig x out | H T m planes kblk | stream
     "slab_spmv_blk_f32": [_P] * 10 + [_I] * 5 + [_P],
+    # ybase win lane sub val hm1 dest x y | H T m planes n_y span | stream
+    "slab_spmv_rows_f32": [_P] * 9 + [_I] * 6 + [_P],
+    "slab_spmv_rows_f64": [_P] * 9 + [_I] * 6 + [_P],
     # uids sg0 sg1 win lane sub val hm1 idx x out | H T m planes B | stream
     "slab_spmm_f32": [_P] * 11 + [_I] * 5 + [_P],
     # win lane sub val x out | H T m | stream

@@ -1,26 +1,37 @@
 """Slab SpMV kernels: the wrappers of ``csrc/slab.cu`` and their plain
 PyTorch versions.
 
+``slab_spmv_rows`` is the spmv path, for the unit and the block route
+alike: the function of the Pallas ``slab_spmv``, ``slab_spmv_blk`` and
+``slab_spmv_df`` (``singlespmv_tpu/ops/pallas/slab.py`` :263, :310 and
+:463), routed by a run-end destination stream (``ybase``, ``dest``) that
+``formats/slab.py:route_rows`` derives from the reference's ``uids``,
+``idx``, ``sig``/``sg0``/``sg1`` and ``unit_ids``, adding into the
+caller's y where the Pallas functions return out blocks.
+
 ``slab_spmv`` (unit route), ``slab_spmv_blk`` (block route) and
 ``slab_spmm`` (unit route over a panel of columns) take the arguments of their
-Pallas counterparts in ``singlespmv_tpu/ops/pallas/slab.py`` (:263, :310 and
-:228) and return the same out blocks, but for the panel's layouts:
+Pallas counterparts (:263, :310 and :228) and return the same out blocks,
+but for the panel's layouts:
 ``slab_spmm`` takes the interleaved (CB, 128, B) panel, whose slot column
 holds its B values contiguously, where the reference takes B (CB, 128)
 tables, returns its out blocks as (nu·planes, 128, B), each row's B
 columns contiguous, where the reference returns (nu·B·planes, 128), and it
 takes the steps' sg0/sg1, as ``slab_spmv`` does, to route only their
-planes.  On a CUDA tensor a wrapper launches its
-kernel, or raises; on a CPU tensor it runs the plain version
-(``slab_spmv_ref``, ``slab_spmv_blk_ref``, ``slab_spmm_ref``), which the tests
-hold against the Pallas kernels and ``chip_smoke.py`` holds against the
-kernels on the card.
+planes.  The kernels of ``slab_spmv`` and ``slab_spmv_blk``, the first
+port, run on no path: they stay for ``harness/slab_ab.py`` and the parity
+tests, whose plain versions hold them against the Pallas kernels.  On a
+CUDA tensor a wrapper launches its kernel, or raises; on a CPU tensor it
+runs the plain version (``<wrapper>_ref``), which the tests hold against
+the Pallas kernels and ``chip_smoke.py`` holds against the kernels on the
+card.
 
 The value type is float32 or float64, the same for val, the x table and the
-out blocks.  At float64 ``slab_spmv`` launches the native-fp64 build of the
-unit kernel, which stands for the df64 kernel ``slab_spmv_df`` (:463) of the
-reference; the block route is float32 only, as the reference's float64
-plans are unit mode only, and so is the panel, as the TPU ran it.
+out blocks or y.  At float64 ``slab_spmv_rows`` and ``slab_spmv`` launch
+the native-fp64 builds of their kernels, which stand for the df64 kernel
+``slab_spmv_df`` of the reference; ``slab_spmv_blk`` is float32 only, as
+the reference's float64 plans are unit mode only, and so is the panel, as
+the TPU ran it.
 
 Each wrapper counts the launches of its float32 kernel in
 ``<wrapper>.launches`` and of its float64 kernel in
@@ -43,6 +54,9 @@ PANEL_TYPES = (torch.float32,)   # the SpMM panel kernels', as on the TPU
 UNIT_PLANES = (8, 16)
 BLK_PLANES = (8, 16, 32)
 BLK_KBLK = (1, 2, 4)
+ROWS_PLANES_MAX = 32      # ybase entries a step: one lane of a warp each
+MERGE_SMEM = 128 * 1024   # the merge kernel's 8 spans of shared memory
+MERGE_WARPS = 8
 
 
 def _check(name, t, dtype, shape, device):
@@ -175,6 +189,20 @@ def slab_spmv_blk_ref(uids, win, lane, sub, val, hm1, idx, sig, x_table,
     return out
 
 
+def slab_spmv_rows_ref(ybase, win, lane, sub, val, hm1, dest, x_table, y,
+                       m: int, T: int = 64, span: int = 0):
+    """Plain version of ``slab_spmv_rows``: ``index_add_`` of the run totals
+    at their destinations (``span`` picks a kernel, not a function)."""
+    h = lane.shape[0]
+    w = _totals(val * _gather(win, lane, sub, x_table, m), hm1)
+    step = torch.arange(h, device=w.device) // T
+    d = dest.long()
+    base = ybase.long()[step[:, None], d.clamp(min=0) >> 7]
+    pos = base + (d & (LANES - 1))
+    keep = (d >= 0) & (base >= 0) & (pos < y.numel())
+    return y.index_add_(0, pos[keep], w[keep])
+
+
 def slab_spmm_ref(uids, sg0, sg1, win, lane, sub, val, hm1, idx, x_panel,
                   nu: int, m: int, T: int = 64):
     """Plain version of ``slab_spmm``: ``slab_spmv_ref`` of each column over
@@ -191,6 +219,58 @@ def slab_spmm_ref(uids, sg0, sg1, win, lane, sub, val, hm1, idx, x_panel,
 
 
 # --------------------------------------------------------------- wrappers ---
+
+def slab_spmv_rows(ybase, win, lane, sub, val, hm1, dest, x_table, y,
+                   m: int, T: int = 64, span: int = 0):
+    """Slab SpMV over one stream chunk, unit or block route: adds each run
+    total of the stream into ``y`` at its destination; returns ``y``.
+
+    ybase:   (n_steps, planes) int32 — y position of row 0 of each 128-row
+             block p of the step's out block (planes ≤ 32), −1 where the
+             block is dropped.
+    win:     (H,) int32 — window base col-block per stream row.
+    lane, sub, hm1: (H, 128) int8; val: (H, 128) float32 or float64.
+    dest:    (H, 128) int16 — at a run's end slot, its position p·128 + l
+             in the step's out block; −1 on every other slot.
+    x_table: (CB, 128) of val's type.
+    y:       (n,) of val's type, zeroed by the caller before its first call;
+             positions at or past n are dropped.
+    span:    0, each run end adds into y; or planes·128, where the stream's
+             run ends pile onto few y rows (``formats/slab.py:route_rows``):
+             the merge kernel sums a block's rows in shared memory first.
+             The function is the same.
+    The sums of a y position add in run-dependent order on the card."""
+    h, n_steps, dev, vt = _check_stream(lane, val, hm1, sub, win, x_table,
+                                        T)
+    planes = ybase.shape[1] if ybase.dim() == 2 else 0
+    if not 1 <= planes <= ROWS_PLANES_MAX:
+        raise ValueError(f"ybase has shape {tuple(ybase.shape)}, expected "
+                         f"(n_steps, planes) with planes in [1, "
+                         f"{ROWS_PLANES_MAX}]")
+    _check("ybase", ybase, torch.int32, (n_steps, planes), dev)
+    _check("dest", dest, torch.int16, (h, LANES), dev)
+    if span not in (0, planes * LANES):
+        raise ValueError(f"merge span {span} is neither 0 nor planes·128 = "
+                         f"{planes * LANES}")
+    if MERGE_WARPS * span * vt.itemsize > MERGE_SMEM:
+        raise ValueError(f"merge span {span} of {vt} passes the merge "
+                         f"kernel's {MERGE_SMEM} bytes of shared memory")
+    if y.dim() != 1 or y.numel() >= 2 ** 31:
+        raise ValueError(f"y has shape {tuple(y.shape)}, expected (n,) with "
+                         "n < 2**31")
+    _check("y", y, vt, y.shape, dev)
+    if dev.type == "cpu":
+        return slab_spmv_rows_ref(ybase, win, lane, sub, val, hm1, dest,
+                                  x_table, y, m, T, span)
+    if h:
+        rc = _entry("slab_spmv_rows", vt)(
+            *map(_ptr, (ybase, win, lane, sub, val, hm1, dest, x_table, y)),
+            h, T, m, planes, y.numel(), span,
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        _raise_on(rc, "slab_spmv_rows")
+        _count(slab_spmv_rows, vt)
+    return y
+
 
 def slab_spmv(uids, sg0, sg1, win, lane, sub, val, hm1, idx, x_table,
               nu: int, m: int, T: int = 64):
@@ -303,6 +383,7 @@ def slab_spmm(uids, sg0, sg1, win, lane, sub, val, hm1, idx, x_panel,
     return out
 
 
+slab_spmv_rows.launches = slab_spmv_rows.launches_f64 = 0
 slab_spmv.launches = slab_spmv.launches_f64 = 0
 slab_spmv_blk.launches = 0
 slab_spmm.launches = 0

@@ -99,10 +99,10 @@ def _assert_values(port_vals, hi, lo):
 def _assert_same_state(ref, port, lo_fields, path=""):
     """Every field equal, but the value fields, which must equal the
     reference's hi + lo (``lo_fields``: port field → reference lo field),
-    and xch's spmv route stream, which must equal ``route_rows`` of the
-    reference's arrays."""
-    routes = xch.route_rows(ref) \
-        if isinstance(port, xch.Xch4State) else {}
+    and the spmv route streams of xch and slab, which must equal
+    ``route_rows`` of the reference's arrays."""
+    routes = xch.route_rows(ref) if isinstance(port, xch.Xch4State) \
+        else slab.route_rows(ref) if isinstance(port, slab.SlabState) else {}
     for f in dataclasses.fields(port):
         a = routes[f.name] if f.name in routes else getattr(ref, f.name)
         b = getattr(port, f.name)

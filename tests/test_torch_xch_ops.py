@@ -201,6 +201,7 @@ def test_sources_digest_covers_headers(tmp_path):
     assert _build.sources_digest(str(csrc)) == with_extra
     assert set(_build.SIGNATURES) == {
         "slab_spmv_f32", "slab_spmv_f64", "slab_spmv_blk_f32", "slab_spmm_f32",
+        "slab_spmv_rows_f32", "slab_spmv_rows_f64",
         "xch_mul_f32", "xch_mul_f64", "xch_route4_f32", "xch_route4_f64",
         "xch_route4_rows_f32", "xch_route4_rows_f64", "xch_mul_panel_f32",
         "xch_route4_panel_f32",
