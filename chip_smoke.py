@@ -75,14 +75,18 @@ Its phases, in the order they run:
    every probe that times it (``microbench.KERNEL_CASES``: each kernel
    configuration of ``PROBES``, ``probe_pal2step``'s and the bfloat16 lane
    gather among them) with a PyTorch call beside the transpose, the bin
-   sums and the accumulate, and ``probe_slab``'s kernel at every
+   sums and the accumulate, the transpose at ``ODD_TRANSPOSES`` (shapes
+   the TPU could not take, inputs one float past 16 bytes) and the bin sums
+   with bins outside [0, 128), and ``probe_slab``'s kernel at every
    (T, S8, stage) of its nine rows and at stage "route", each kernel timed
    at its first shape; then drives ``calibrate.measure`` (printing the six
    fitted keys, each flagged as left out by ``calibrate.screen``, taken
    or left to the default by ``chipconst.load``, what is kept saved only
    to a temporary file), ``microbench.run`` over the 35 ``PROBES`` and
-   ``probe_pal2step`` (printing the TSV), and ``probe_slab.main``'s nine
-   rows, each probe's loop at ``CAL_TARGET_S``;
+   ``probe_pal2step`` (printing the TSV and ``PROBE_PAIRS``: each
+   hand-written probe's G elem/s beside the probe of the same motion that
+   the reference left to XLA), and ``probe_slab.main``'s nine rows, each
+   probe's loop at ``CAL_TARGET_S``;
 12. the xch path on circuit5M (several kernel calls per pass, a nested
    long-row state): the time ``route_rows`` takes, kernels against their
    plain versions on every call, then its spmv against the float64 COO
@@ -94,6 +98,14 @@ Its phases, in the order they run:
    ``xch_route4`` and ``slab_spmv`` / ``slab_spmv_blk``.
 
 Each phase prints its seconds.
+
+A busy time is read from a torch.profiler trace only when the trace is
+complete: each of its ``REPS`` calls, delimited by spin kernels, holds the
+same number of matched device events, for the port's own kernels as many
+as their wrappers' launch counters rose by (``harness/driver.py:
+busy_seconds``).  After three incomplete traces the time is taken on the
+device's clock instead, an upper bound, and the result that holds it is
+marked ``"busy_from": "events"`` (``events_ms`` names its keys).
 
 Prints a JSON line of per-kernel results (kernel, plain-version and, where
 one PyTorch call computes the same function, that call's device time: for
@@ -179,29 +191,54 @@ def _cuda_ms(fn, reps=REPS):
     return start.elapsed_time(end) / reps
 
 
-def _busy_ms(fn, match="", reps=REPS):
-    """Milliseconds per call that the device spends in kernels, memsets and
-    copies whose name contains ``match`` (torch.profiler, CUDA activity).
-    Where three traces in a row see none, the time per call on the device's
-    clock (``_cuda_ms``), which is an upper bound."""
-    from torch.profiler import ProfilerActivity, profile
+class EventsMs(float):
+    """A time per call on the device's clock (``_cuda_ms``, host gaps
+    included), taken where no profiler trace was complete: an upper bound
+    of the busy time, never a busy time.  ``_marked`` tags each result that
+    holds one with ``"busy_from": "events"``."""
 
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(3):   # a trace now and then comes back empty
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if match in e.key)
-        if us > 0:
-            return us / reps / 1e3
-        print(f"torch.profiler saw no device time for {match!r} "
-              f"(trace {attempt + 1} of 3)", flush=True)
+
+def _busy_ms(fn, match="", reps=REPS, launches=None):
+    """Milliseconds per call that the device spends in kernels, memsets and
+    copies whose name contains ``match`` (torch.profiler), from a trace
+    that holds every matched event of its ``reps`` calls: each call the
+    same number, which for the port's own kernels must equal what their
+    wrappers' launch counters rose by (``launches``;
+    ``driver.busy_seconds``).  Where three traces in a row are incomplete,
+    the time per call on the device's clock as an ``EventsMs``.  Fails
+    where the match disagrees with the counters and where a complete trace
+    holds no device time."""
+    from singlespmv_tpu_torch.harness.driver import TraceError, busy_seconds
+
+    try:
+        sec = busy_seconds(fn, match, reps, launches,
+                           log=lambda m: print(m, flush=True))
+    except TraceError as e:
+        raise SystemExit(f"busy time: {e}")
+    if sec is not None:
+        return sec * 1e3
     print(f"busy time for {match!r} taken on the device's clock instead "
-          "(host gaps included)", flush=True)
-    return _cuda_ms(fn, reps)
+          "(host gaps included; \"busy_from\": \"events\")", flush=True)
+    return EventsMs(_cuda_ms(fn, reps))
+
+
+def _launched(*wrappers):
+    """A function of no argument: the wrappers' launches so far, their f32
+    and f64 builds together."""
+    return lambda: sum(_counts(*wrappers).values())
+
+
+def _marked(res):
+    """``res`` (and the results nested in it) with ``"busy_from":
+    "events"`` and ``"events_ms"``, the keys concerned, where a time in it
+    is an ``EventsMs``."""
+    keys = [k for k, v in res.items() if isinstance(v, EventsMs)]
+    for v in res.values():
+        if isinstance(v, dict):
+            _marked(v)
+    if keys:
+        res |= {"busy_from": "events", "events_ms": keys}
+    return res
 
 
 LIBRARY_MATCH = "cusparse"   # torch's CSR products run cuSPARSE's kernels
@@ -212,16 +249,21 @@ def _library_ms(a_csr, x):
     for torch's CSR product ``a_csr @ x`` (torch.profiler): one PyTorch
     call computing the function of a product kernel, on no path of the
     port.  Prints the kernels of one trace, so that the match is seen."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn = lambda: a_csr @ x
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    names = {e.key[:80]: e.self_device_time_total for e in prof.key_averages()
-             if e.self_device_time_total > 0}
+    names = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            names[e.name[:80]] = (names.get(e.name[:80], 0)
+                                  + e.self_device_time_total)
     print(f"library kernels of A_csr @ x {tuple(x.shape)} {x.dtype}: {names}",
           flush=True)
     return _busy_ms(fn, LIBRARY_MATCH)
@@ -353,7 +395,8 @@ def compare_kernel(label, state, slab, ops, x, tol=TOL, a_csr=None):
         "merge": state.merge, "max_abs_err": err, "rel_err": rel,
         # device busy time: the route's kernels (direct and merge), the
         # plain version's kernels
-        "ms": _busy_ms(lambda: [f() for f in kern], "slab_rows"),
+        "ms": _busy_ms(lambda: [f() for f in kern], "slab_rows",
+                       launches=_launched(ops.slab_spmv_rows)),
         "plain_ms": _busy_ms(lambda: [f() for f in ref]),
         # per call on the device's clock, host gaps included
         "call_ms": _cuda_ms(lambda: [f() for f in kern]),
@@ -364,7 +407,7 @@ def compare_kernel(label, state, slab, ops, x, tol=TOL, a_csr=None):
             idx_bytes, 3 * state.n_slots + _routed(*state.idx),
             x.dtype)["bound_ms"],
     } | _bound(nbytes, 3 * state.n_slots + run_ends, x.dtype)
-    print(f"kernel {label}: {json.dumps(res)}", flush=True)
+    print(f"kernel {label}: {json.dumps(_marked(res))}", flush=True)
     return res
 
 
@@ -479,7 +522,8 @@ def compare_xch(label, state, xch, ops, x, tol=TOL, a_csr=None):
             # (the route's two kernels: the direct and the merge one)
             "ms": _busy_ms(lambda ks=ks: [f() for f in ks],
                            name if name == "xch_route4_rows"
-                           else f"{name}_kernel"),
+                           else f"{name}_kernel",
+                           launches=_launched(getattr(ops, name))),
             "plain_ms": _busy_ms(lambda rs=rs: [f() for f in rs]),
             # the calls on the device's clock, host gaps included
             "call_ms": _cuda_ms(lambda ks=ks: [f() for f in ks]),
@@ -489,7 +533,7 @@ def compare_xch(label, state, xch, ops, x, tol=TOL, a_csr=None):
         *idx_layout, x.dtype)["bound_ms"]
     res["spmv_ms"] = _cuda_ms(lambda: xch.spmv(state, x))
     res["spmv_busy_ms"] = _busy_ms(lambda: xch.spmv(state, x))
-    print(f"kernel {label}: {json.dumps(res)}", flush=True)
+    print(f"kernel {label}: {json.dumps(_marked(res))}", flush=True)
     return res
 
 
@@ -578,7 +622,8 @@ def compare_bucket(label, state, bkt, bops, x, tol=TOL):
                              "another function")
         res[name] = {
             "max_abs_err": err, "rel_err": rel,
-            "ms": _busy_ms(lambda: fn(*args), f"{name}_kernel"),
+            "ms": _busy_ms(lambda: fn(*args), f"{name}_kernel",
+                           launches=_launched(fn)),
             "plain_ms": _busy_ms(lambda: ref(*args)),
             "call_ms": _cuda_ms(lambda: fn(*args)),
             "library_ms": _busy_ms(lib) if lib is not None else None,
@@ -589,7 +634,7 @@ def compare_bucket(label, state, bkt, bops, x, tol=TOL):
                              f"{rel:.3g} > {tol})")
     res["spmv_ms"] = _cuda_ms(lambda: bkt.spmv(state, x))
     res["spmv_busy_ms"] = _busy_ms(lambda: bkt.spmv(state, x))
-    print(f"kernel {label}: {json.dumps(res)}", flush=True)
+    print(f"kernel {label}: {json.dumps(_marked(res))}", flush=True)
     return res
 
 
@@ -629,14 +674,14 @@ def compare_scan(label, state, mod, x, tol=TOL):
         "stream": [h, w], "nnz": state.nnz,
         "pad": round(h * w / max(state.nnz, 1), 3),
         "max_abs_err": err, "rel_err": rel,
-        "ms": _busy_ms(lambda: fn(*args), match),
+        "ms": _busy_ms(lambda: fn(*args), match, launches=_launched(fn)),
         "plain_ms": _busy_ms(lambda: ref(*args)),
         "call_ms": _cuda_ms(lambda: fn(*args)),
         "spmv_ms": _cuda_ms(lambda: mod.spmv(state, x)),
         "spmv_busy_ms": _busy_ms(lambda: mod.spmv(state, x)),
         "library_ms": None,
     } | _bound(nbytes, ops_per * h * w, x.dtype)
-    print(f"kernel {label}: {json.dumps(res)}", flush=True)
+    print(f"kernel {label}: {json.dumps(_marked(res))}", flush=True)
     if not rel <= tol:
         raise SystemExit(f"{label} {kernel}: kernel disagrees with its plain "
                          f"version (max |diff| / max |out| = {rel:.3g} > "
@@ -676,7 +721,8 @@ def compare_slab_spmm(label, state, slab, ops, X, a_csr, tol=TOL):
         "B": n_cols, "planes": state.planes, "m": state.m, "T": state.t_step,
         "stream_rows": state.n_slots // 128, "chunks": len(args),
         "max_abs_err": err, "rel_err": rel,
-        "ms": _busy_ms(lambda: [f() for f in kern], "slab_spmm_kernel"),
+        "ms": _busy_ms(lambda: [f() for f in kern], "slab_spmm_kernel",
+                       launches=_launched(ops.slab_spmm)),
         "plain_ms": _busy_ms(lambda: [f() for f in ref], reps=PLAIN_REPS),
         "call_ms": _cuda_ms(lambda: [f() for f in kern]),
         "spmm_ms": _cuda_ms(lambda: slab.spmm(state, X)),
@@ -684,7 +730,7 @@ def compare_slab_spmm(label, state, slab, ops, X, a_csr, tol=TOL):
         "library_ms": _library_ms(a_csr, X),
     } | _bound(nbytes, n_cols * (3 * state.n_slots + _routed(*state.idx)),
                X.dtype)
-    print(f"kernel {label}: {json.dumps(res)}", flush=True)
+    print(f"kernel {label}: {json.dumps(_marked(res))}", flush=True)
     return res
 
 
@@ -740,7 +786,8 @@ def compare_xch_panels(label, state, xch, ops, X, a_csr, tol=TOL):
         err, rel = _check_calls(label, name, ks, rs, tol)
         res[name] = {
             "max_abs_err": err, "rel_err": rel,
-            "ms": _busy_ms(lambda ks=ks: [f() for f in ks], f"{name}_kernel"),
+            "ms": _busy_ms(lambda ks=ks: [f() for f in ks], f"{name}_kernel",
+                           launches=_launched(getattr(ops, name))),
             "plain_ms": _busy_ms(lambda rs=rs: [f() for f in rs],
                                  reps=PLAIN_REPS),
             "call_ms": _cuda_ms(lambda ks=ks: [f() for f in ks]),
@@ -748,7 +795,7 @@ def compare_xch_panels(label, state, xch, ops, X, a_csr, tol=TOL):
         } | _bound(*cost[name], X.dtype)
     res["spmm_ms"] = _cuda_ms(lambda: xch.spmm(state, X))
     res["spmm_busy_ms"] = _busy_ms(lambda: xch.spmm(state, X))
-    print(f"kernel {label}: {json.dumps(res)}", flush=True)
+    print(f"kernel {label}: {json.dumps(_marked(res))}", flush=True)
     return res
 
 
@@ -888,6 +935,14 @@ CAL_KERNELS = {
                    "scripts/probe_slab.py:28"),
 }
 CAL_TARGET_S = 0.03     # the probes' loop length (the reference's: 0.25 s)
+# (CB, NU, S, offset in floats) of the transposes held beside the probe's
+ODD_TRANSPOSES = ((13, 11, 3, 0), (40, 24, 1, 0), (17, 9, 8, 1),
+                  (24, 40, 128, 1), (9, 300, 12, 0))
+ODD_ONEHOT_G = (8, 8192)  # the bin sums with bins outside [0, 128)
+# each hand-written probe beside the probe of the same motion that the
+# reference left to XLA, printed after microbench.run
+PROBE_PAIRS = (("pallas_tile_transpose", "xla_transpose_s128"),
+               ("onehot_inkernel_route", "onehot_mxu_route"))
 
 
 def _check_one(label, fn, args, kw, ref, bound, match, library=None,
@@ -909,10 +964,11 @@ def _check_one(label, fn, args, kw, ref, bound, match, library=None,
                 raise SystemExit(f"{label}: the library call computes "
                                  "another function")
             res["library_ms"] = _busy_ms(call)
-        res |= {"ms": _busy_ms(lambda: fn(*args, **kw), match),
+        res |= {"ms": _busy_ms(lambda: fn(*args, **kw), match,
+                               launches=_launched(fn)),
                 "plain_ms": _busy_ms(lambda: ref(*args, **kw)),
                 "call_ms": _cuda_ms(lambda: fn(*args, **kw))}
-    print(f"kernel {label}: {json.dumps(res)}", flush=True)
+    print(f"kernel {label}: {json.dumps(_marked(res))}", flush=True)
     if not rel <= tol:
         raise SystemExit(f"{label}: kernel disagrees with its plain version "
                          f"(max |diff| / max |out| = {rel:.3g} > {tol})")
@@ -1014,6 +1070,28 @@ def compare_calibration(dev):
             _bound(nbytes, ops, torch.float32), CAL_MATCH[fn.__name__],
             library, timed=first))
         del fn, args, res, library
+    # the transpose at shapes the TPU could not take (S 3 and 1, CB and NU
+    # not multiples of 8; offsets of one float, which take the scalar path)
+    # and the bin sums with bins outside [0, 128), which add nowhere
+    for cb, nu, s, off in ODD_TRANSPOSES:
+        a = torch.from_numpy(rng.standard_normal(cb * nu * s + off).astype(
+            np.float32)).to(dev)[off:].view(cb, nu * s)
+        out["probe_pallas_tile_transpose"].append(_check_one(
+            f"probe_pallas_tile_transpose CB {cb} NU {nu} S {s} offset {off}",
+            probes.tile_transpose, (a,), {"nu": nu, "s": s},
+            probes.tile_transpose_ref,
+            _bound(2 * _nbytes(a), 0, torch.float32),
+            CAL_MATCH["tile_transpose"], timed=False))
+    for g in ODD_ONEHOT_G:
+        bins = torch.from_numpy(rng.integers(-8, 200, (g, 128)).astype(
+            np.int32)).to(dev)
+        val = torch.from_numpy(rng.standard_normal((g, 128)).astype(
+            np.float32)).to(dev)
+        out["probe_onehot_inkernel"].append(_check_one(
+            f"probe_onehot_inkernel G {g} bins in [-8, 200)",
+            probes.onehot_bins, (bins, val), {}, probes.onehot_bins_ref,
+            _bound(3 * _nbytes(val), val.numel(), torch.float32),
+            CAL_MATCH["onehot_bins"], timed=False))
     # slab_step at every row of probe_slab.main and at stage "route", timed
     # at T 32, S8 8, "all": bytes the streams its stage reads, x once and
     # the out blocks; operations a multiply (gather stages), a prefix add
@@ -1089,6 +1167,10 @@ def run_calibration_path(dev):
     if len(rows) != 35 or not all(np.isfinite(r[2]) and r[2] > 0
                                   for r in rows):
         raise SystemExit(f"microbench: expected 35 timed probes, got {rows}")
+    rate = {r[0]: r[3] for r in rows}
+    for mine, xla in PROBE_PAIRS:
+        print(f"probe pair: {mine} {rate[mine]:.2f} G elem/s, {xla} "
+              f"{rate[xla]:.2f} G elem/s", flush=True)
     elems, sec = microbench.probe_pal2step(device=dev, target_s=CAL_TARGET_S)
     print(f"probe pal2step_w1024_k1 {elems / sec / 1e9:10.2f} G elem/s   "
           f"({sec * 1e6:9.1f} us)", flush=True)
@@ -1458,14 +1540,14 @@ def main() -> int:
                 format="hyb", dtype=dtype)).to(dev)
             x = x_of(mats[name], np.dtype(dtype))
             rest = hyb.REST_MODULES[st.rest_fmt]
-            print(f"hyb {name} {dtype}: " + json.dumps({
+            print(f"hyb {name} {dtype}: " + json.dumps(_marked({
                 "rest_fmt": st.rest_fmt,
                 "spmv_ms": _cuda_ms(lambda: hyb.spmv(st, x)),
                 "spmv_busy_ms": _busy_ms(lambda: hyb.spmv(st, x)),
                 "dia_ms": _cuda_ms(lambda: dia.spmv(st.dia_state, x)),
                 "dia_busy_ms": _busy_ms(lambda: dia.spmv(st.dia_state, x)),
                 "rest_busy_ms": _busy_ms(
-                    lambda: rest.spmv(st.rest_state, x))}), flush=True)
+                    lambda: rest.spmv(st.rest_state, x))})), flush=True)
             compared.append(compare_rest(
                 f"{name} hyb residual", st, slab, xch, ops, xops, x,
                 F64_TOL if dtype == "float64" else TOL))
@@ -1631,7 +1713,7 @@ def main() -> int:
         t = [r for r in rs if r["label"] == timed]
         if not t:
             raise SystemExit(f"{kname}: not checked on {timed}")
-        kernels.append({
+        kernels.append(_marked({
             "name": kname, "route": "cuda", "source": src,
             "replaces": f"singlespmv_tpu/ops/pallas/{line}",
             "launches": launches[launch_key.get(kname, kname)],
@@ -1639,7 +1721,7 @@ def main() -> int:
             "ms": t[0]["ms"], "plain_ms": t[0]["plain_ms"],
             "bound_ms": t[0]["bound_ms"], "bound_by": t[0]["bound_by"],
             "library_ms": t[0]["library_ms"]}
-            | {k: t[0][k] for k in ("bound_ms_idx_layout",) if k in t[0]})
+            | {k: t[0][k] for k in ("bound_ms_idx_layout",) if k in t[0]}))
     # the calibration path's: max_abs_err over every check, times of the
     # first (xch_route at 16 planes, each probe at its defaults, probe_slab
     # at T 32, S8 8, stage all)
@@ -1647,14 +1729,14 @@ def main() -> int:
         rs = cal_checks[kname]
         if rs[0]["ms"] is None:
             raise SystemExit(f"{kname}: its first check was not timed")
-        kernels.append({
+        kernels.append(_marked({
             "name": kname, "route": "cuda",
             "source": f"singlespmv_tpu_torch/{src}", "replaces": replaces,
             "launches": launches[wname],
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": rs[0]["ms"], "plain_ms": rs[0]["plain_ms"],
             "bound_ms": rs[0]["bound_ms"], "bound_by": rs[0]["bound_by"],
-            "library_ms": rs[0]["library_ms"]})
+            "library_ms": rs[0]["library_ms"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,6 +47,12 @@ from .roofline import detect_chip, roofline
 
 AUTO_ATTEMPTS = 4      # plans of format=auto, each excluding the last refusal
 
+
+class TraceError(RuntimeError):
+    """A profiler trace that no busy time can be read from: its match is
+    wrong, or it is complete and holds no device time."""
+
+
 @dataclasses.dataclass
 class BenchResult:
     report: Dict[str, object]      # ordered report block (reference key schema)
@@ -151,6 +157,99 @@ def best_marginal_seconds(run_n, carry, consts=(), *, target_s,
             else (t_full + t_half) / (n + n // 2)
         best = min(best, per)
     return best
+
+
+SPIN = "spin_kernel"        # torch.cuda._sleep's kernel
+SPIN_LEAD = 256             # spin kernels that lead a trace
+SPIN_MARK_CYCLES = 2_000    # ~1 µs of the card's clock
+
+
+def device_trace(fn, match: str = "", reps: int = 1) -> tuple:
+    """([events of each call], µs) of a torch.profiler trace (host and card
+    activity) of ``reps`` calls of ``fn``: the device events (each kernel,
+    memset and copy is one) whose name holds ``match``, counted call by
+    call, and their device time.  A ~1 µs spin kernel (``torch.cuda.
+    _sleep``, never counted) marks the start of each call and the end of
+    the last, so the events of a call are those between two marks.  A trace
+    drops its first device events, more of them the longer the process has
+    run (``harness/trace_check.py``), so ``SPIN_LEAD`` spins lead it; a
+    call whose marks were lost is missing from the list."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(SPIN_LEAD):
+            torch.cuda._sleep(SPIN_MARK_CYCLES)
+        for _ in range(reps):
+            torch.cuda._sleep(SPIN_MARK_CYCLES)
+            fn()
+        torch.cuda._sleep(SPIN_MARK_CYCLES)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(events) if SPIN in e.name][-reps - 1:]
+    counts, us = [], 0.0
+    for a, b in zip(marks, marks[1:]):
+        call = [e for e in events[a + 1:b] if match in e.name]
+        counts.append(len(call))
+        us += sum(e.self_device_time_total for e in call)
+    return counts, us
+
+
+def trace_refusal(counts: list, reps: int,
+                  launched: Optional[int] = None) -> Optional[str]:
+    """Why a trace of ``reps`` calls is incomplete, or None when it is
+    complete.  ``counts`` holds the matched device events of each call the
+    trace delimits; ``launched``, where the calls run the port's own
+    kernels, is what their wrappers' launch counters rose by a call.  A
+    trace counts only when it delimits all ``reps`` calls and each holds
+    the same n₁ > 0 events, n₁ = ``launched`` where given: ``reps · n₁`` in
+    all.  A trace that lost events would read the time low."""
+    if len(counts) != reps:
+        return f"{len(counts)} of {reps} calls delimited"
+    if len(set(counts)) > 1:
+        return f"calls hold {min(counts)} to {max(counts)} events"
+    if not counts[0]:
+        return "no call holds a matched event"
+    if launched is not None and counts[0] != launched:
+        return (f"each call matched {counts[0]} events where the wrappers "
+                f"launched {launched} kernels")
+    return None
+
+
+def busy_seconds(fn, match: str = "", reps: int = 20, launches=None,
+                 attempts: int = 3, log=print) -> Optional[float]:
+    """Seconds per call that the device spends in the events ``match``
+    selects (``device_trace``), from the first complete trace of ``reps``
+    calls (``trace_refusal``) in ``attempts``; None when none was complete.
+    ``launches``, a function of no argument, gives the launch count of the
+    wrappers whose kernels ``match`` names.  Raises ``TraceError`` where
+    every call of a trace holds the same events but not as many as the
+    wrappers launched (the match is wrong), and where a complete trace
+    holds no device time."""
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(attempts):
+        before = launches() if launches is not None else None
+        counts, us = device_trace(fn, match, reps)
+        launched = None
+        if launches is not None:
+            delta = launches() - before
+            launched = delta // reps if delta % reps == 0 else delta / reps
+        why = trace_refusal(counts, reps, launched)
+        if why is None:
+            if us <= 0:
+                raise TraceError(f"a complete trace of {reps} calls "
+                                 f"matching {match!r} holds no device time")
+            return us / reps / 1e6
+        if launched is not None and len(counts) == reps \
+                and len(set(counts)) == 1 and 0 < counts[0] != launched:
+            raise TraceError(f"{match!r}: {why}")
+        log(f"trace {attempt + 1} of {attempts} for {match!r} refused: "
+            f"{why}")
+    return None
 
 
 def run_benchmark(

@@ -138,12 +138,17 @@ def sublane_gather_ref(idx, val, x):
 
 
 def onehot_bins_ref(bins, val):
-    """Plain version of ``onehot_bins``."""
+    """Plain version of ``onehot_bins``, in the kernel's order: each row of
+    a tile (a warp's) sums its 128 values by bin, then the tile's 8 row sums
+    add in row order.  A bin outside [0, 128) adds nowhere."""
     tiles = bins.shape[0] // 8
     hit = (bins >= 0) & (bins < LANES)
-    sums = torch.zeros(tiles, LANES, dtype=val.dtype, device=val.device)
-    sums.scatter_add_(1, bins.clamp(0, LANES - 1).long().view(tiles, -1),
-                      torch.where(hit, val, 0.0).view(tiles, -1))
+    rows = torch.zeros(tiles, 8, LANES, dtype=val.dtype, device=val.device)
+    rows.scatter_add_(2, bins.clamp(0, LANES - 1).long().view(tiles, 8, -1),
+                      torch.where(hit, val, 0.0).view(tiles, 8, -1))
+    sums = rows[:, 0]
+    for r in range(1, 8):
+        sums = sums + rows[:, r]
     return sums.repeat_interleave(8, dim=0)
 
 
@@ -174,13 +179,14 @@ seg_scan_roll_ref = seg_scan_ref
 
 
 def tile_transpose_ref(a, nu: int, s: int):
-    """Plain version of ``tile_transpose``: the kernel's index arithmetic,
-    out[nu, cb·S + s] = a[cb, nu·S + s]."""
-    cb = a.shape[0]
-    o = torch.arange(a.numel(), device=a.device)
-    u, rem = o // (cb * s), o % (cb * s)
-    src = (rem // s * nu + u) * s + rem % s
-    return a.reshape(-1)[src].view(nu, cb * s)
+    """Plain version of ``tile_transpose``, as the kernel copies: run
+    (cb, u) of S floats goes from a's flat offset (cb·NU + u)·S to out's
+    (u·CB + cb)·S, so out[u, cb·S + s] = a[cb, u·S + s]."""
+    cb, dev = a.shape[0], a.device
+    runs = (torch.arange(cb, device=dev)[None, :] * nu
+            + torch.arange(nu, device=dev)[:, None]) * s  # (NU, CB): out order
+    src = runs[:, :, None] + torch.arange(s, device=dev)
+    return a.reshape(-1)[src.reshape(-1)].view(nu, cb * s)
 
 
 def slab_step_ref(uids, base, lane, sub, val, hm1, idx, x, nu: int, T: int,
@@ -393,12 +399,13 @@ def seg_scan_roll(heads, val, steps: int = 7):
 
 def tile_transpose(a, nu: int, s: int):
     """out (NU, CB·S) with out[nu, cb·S + s] = a[cb, nu·S + s]; a
-    (CB, NU·S) float32."""
+    (CB, NU·S) float32, any CB, NU ≥ 1 and S ≥ 1 (the kernel copies float4s
+    where S % 4 == 0 and a starts on 16 bytes, floats elsewhere)."""
     dev = _device(a)
     if a.dim() != 2 or nu < 1 or s < 1 or a.shape[1] != nu * s:
         raise ValueError(f"a has shape {tuple(a.shape)}, expected "
                          f"(CB, {nu}·{s})")
-    _check("a", a, F32, a.shape, dev)
+    _check("a", a, F32, a.shape, dev, aligned=False)
     if dev.type == "cpu":
         return tile_transpose_ref(a, nu, s)
     cb = a.shape[0]

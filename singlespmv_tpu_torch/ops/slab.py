@@ -59,7 +59,9 @@ MERGE_SMEM = 128 * 1024   # the merge kernel's 8 spans of shared memory
 MERGE_WARPS = 8
 
 
-def _check(name, t, dtype, shape, device):
+def _check(name, t, dtype, shape, device, aligned=True):
+    """Raises unless ``t`` is a contiguous tensor of ``dtype`` and ``shape``
+    on ``device``, on a card starting on 16 bytes unless not ``aligned``."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, the call on {device}")
     if t.dtype != dtype:
@@ -69,7 +71,7 @@ def _check(name, t, dtype, shape, device):
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous (copy with .contiguous())")
-    if t.device.type == "cuda" and t.data_ptr() % 16:
+    if aligned and t.device.type == "cuda" and t.data_ptr() % 16:
         raise ValueError(f"{name} is not 16-byte aligned")
 
 

@@ -83,6 +83,46 @@ def test_probe_kernel_at_its_probes_shapes(cuda, name):
     _close(got, want, exact=not sums)
 
 
+@pytest.mark.parametrize("cb,nu,s,offset", [
+    (13, 11, 3, 0), (40, 24, 1, 0), (9, 300, 12, 0), (3, 5, 4, 0),
+    (17, 9, 8, 1), (24, 40, 128, 1), (256, 256, 128, 0)])
+def test_transpose_at_any_shape(cuda, cb, nu, s, offset):
+    """S not a multiple of 4, CB and NU not multiples of 8 (partial
+    bricks), and inputs one float past 16 bytes: the kernel's scalar path;
+    a copy, so exact."""
+    a = torch.from_numpy(np.random.default_rng(cb).standard_normal(
+        cb * nu * s + offset).astype(np.float32)).to(cuda)[offset:]
+    a = a.view(cb, nu * s)
+    assert a.data_ptr() % 16 == 4 * offset
+    got = _launched(probes.tile_transpose, a, nu, s)
+    _close(got, probes.tile_transpose_ref(a, nu, s), exact=True)
+    _close(got, a.view(cb, nu, s).transpose(0, 1).reshape(nu, cb * s),
+           exact=True)
+
+
+@pytest.mark.parametrize("G,lo,hi", [(8, 0, 128), (8, -8, 200),
+                                     (8192, -8, 200), (64, 0, 3),
+                                     (8192, 0, 16)])
+def test_onehot_bins_any_bins(cuda, G, lo, hi):
+    """One tile, bins outside [0, 128) (which add nowhere), and bins that
+    pile onto 16 or 3 (the lanes left after the bidding rounds summed by the
+    shuffle tree)."""
+    rng = np.random.default_rng(G + hi)
+    bins = torch.from_numpy(rng.integers(lo, hi, (G, 128)).astype(
+        np.int32)).to(cuda)
+    val = torch.from_numpy(rng.standard_normal((G, 128)).astype(
+        np.float32)).to(cuda)
+    _close(_launched(probes.onehot_bins, bins, val),
+           probes.onehot_bins_ref(bins, val))
+
+
+def test_onehot_bins_refuses_misaligned_inputs(cuda):
+    bins = torch.zeros(8 * 128 + 1, dtype=torch.int32, device=cuda)[1:]
+    val = torch.zeros(8, 128, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        probes.onehot_bins(bins.view(8, 128), val)
+
+
 def test_pal2step_three_planes(cuda):
     fn, args, _ = microbench.pal2step_case(w=512, K=3, device=cuda)
     _close(_launched(fn, *args), probes.pal2step_ref(*args), exact=True)
@@ -127,4 +167,7 @@ def test_launchers_refuse_bad_ranges(cuda):
     assert lib.probe_gather_f32(*[None] * 7, 1024, 100, 0, 1, 0,
                                 stream) != 0            # w not 128·k
     assert lib.probe_onehot_f32(None, None, None, 12, stream) != 0
+    assert lib.probe_onehot_f32(4, 16, 32, 8, stream) != 0   # not on 16 B
     assert lib.probe_transpose_f32(None, None, 0, 4, 4, stream) == 0
+    assert lib.probe_transpose_f32(None, None, 4, -1, 4, stream) != 0
+    assert lib.probe_transpose_f32(None, None, 4, 4, -2, stream) != 0

@@ -84,3 +84,58 @@ def test_roofline_table():
     r = roofline(1000, 10, 1e-3, host)
     assert r["RooflinePct"] is None and r["Chip"] == "host cpu"
     assert "RooflinePct\tNone" in format_block(r)
+
+
+@pytest.mark.parametrize("counts,launched,taken", [
+    ([3] * 20, 3, True),          # complete: 20 calls of 3 events
+    ([3] * 20, None, True),       # complete, no launch counter (a library)
+    ([3] * 19, 3, False),         # short: the marks of a call were lost
+    ([3] * 19 + [2], 3, False),   # short: a call lost an event
+    ([0] * 20, None, False),      # empty
+    ([], None, False),            # no call delimited
+    ([2] * 20, 3, False),         # the match misses a kernel launched
+    ([4] * 20, 3, False),         # the match takes an event not launched
+])
+def test_busy_reader_takes_only_complete_traces(counts, launched, taken):
+    from singlespmv_tpu_torch.harness.driver import trace_refusal
+
+    why = trace_refusal(counts, 20, launched)
+    assert (why is None) == taken
+    if not taken:
+        assert isinstance(why, str) and why
+
+
+@pytest.mark.parametrize("traces,launches,want", [
+    ([([1] * 20, 100.0)], 1, 5e-6),                       # taken at once
+    ([([1] * 19, 95.0)] * 2 + [([1] * 20, 100.0)], 1, 5e-6),
+    ([([1] * 19, 95.0)] * 3, 1, None),                    # three short traces
+    ([([1] * 10 + [0] * 10, 50.0)] * 3, 1, None),         # calls lost events
+    ([([2] * 20, 100.0)], 1, "TraceError"),               # the match is wrong
+    ([([1] * 20, 0.0)], None, "TraceError"),              # complete, no time
+])
+def test_busy_reader_retries_and_refuses(monkeypatch, traces, launches,
+                                         want):
+    """``busy_seconds`` over scripted traces of 20 calls: (events of each
+    call, µs), attempt by attempt; the wrappers launch one kernel a call."""
+    from singlespmv_tpu_torch.harness import driver
+
+    script = iter(traces)
+    count = [0]
+
+    def calls(fn, match="", reps=1):
+        for _ in range(reps):
+            fn()
+        return next(script)
+
+    def call():
+        count[0] += 1
+
+    monkeypatch.setattr(driver, "device_trace", calls)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    counter = None if launches is None else (lambda: count[0])
+    if want == "TraceError":
+        with pytest.raises(driver.TraceError):
+            driver.busy_seconds(call, "k", 20, counter, log=_quiet)
+        return
+    got = driver.busy_seconds(call, "k", 20, counter, log=_quiet)
+    assert got == pytest.approx(want) if want is not None else got is None

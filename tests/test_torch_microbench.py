@@ -146,6 +146,10 @@ CASES = {
                     lambda a: probes.pal2step_ref(*a)),
     "onehot_inkernel": (ref_mb.probe_onehot_inkernel, dict(G=32),
                         lambda a: probes.onehot_bins_ref(*a)),
+    "onehot_inkernel_g8": (ref_mb.probe_onehot_inkernel, dict(G=8),
+                           lambda a: probes.onehot_bins_ref(*a)),
+    "onehot_inkernel_g64": (ref_mb.probe_onehot_inkernel, dict(G=64),
+                            lambda a: probes.onehot_bins_ref(*a)),
     "dynslice_accum": (ref_mb.probe_dynslice_accum, dict(T=64),
                        lambda a: probes.dynslice_accum_ref(*a)),
     "seg_scan": (ref_mb.probe_seg_scan, dict(G=32),
@@ -159,6 +163,15 @@ CASES = {
     "tile_transpose": (ref_mb.probe_pallas_tile_transpose,
                        dict(CB=16, NU=24, S=128),
                        lambda a: probes.tile_transpose_ref(*a, 24, 128)),
+    "tile_transpose_s4": (ref_mb.probe_pallas_tile_transpose,
+                          dict(CB=8, NU=16, S=4),
+                          lambda a: probes.tile_transpose_ref(*a, 16, 4)),
+    "tile_transpose_s8": (ref_mb.probe_pallas_tile_transpose,
+                          dict(CB=24, NU=8, S=8),
+                          lambda a: probes.tile_transpose_ref(*a, 8, 8)),
+    "tile_transpose_s32": (ref_mb.probe_pallas_tile_transpose,
+                           dict(CB=16, NU=16, S=32),
+                           lambda a: probes.tile_transpose_ref(*a, 16, 32)),
 }
 
 
@@ -170,6 +183,41 @@ def test_probe_plain_version_matches_pallas(capture, case):
     assert len(calls) == 1
     got = plain([_t(a) for a in calls[0]["args"]])
     _same(got, calls[0]["out"])
+
+
+@pytest.mark.parametrize("cb,nu,s", [(5, 7, 1), (9, 3, 3), (1, 13, 3),
+                                     (11, 16, 2)])
+def test_transpose_plain_version_at_shapes_the_tpu_could_not_take(cb, nu, s):
+    """S 1, 2 and 3, CB or NU not a multiple of 8: the plain version copies
+    runs, which a strided view of the input checks."""
+    a = torch.from_numpy(np.random.default_rng(cb).standard_normal(
+        (cb, nu * s)).astype(np.float32))
+    want = a.view(cb, nu, s).transpose(0, 1).reshape(nu, cb * s)
+    assert torch.equal(probes.tile_transpose_ref(a, nu, s), want)
+    assert torch.equal(probes.tile_transpose(a, nu, s), want)
+
+
+@pytest.mark.parametrize("G", [8, 40])
+def test_onehot_plain_version_matches_the_iota_compare(G):
+    """A numpy copy of the TPU kernel's arithmetic: per (8, 128) tile the
+    (8, 128, 128) one-hot of an iota compare, contracted with the tile's
+    values; bins -1, 128 and 200 match no iota and add nowhere."""
+    rng = np.random.default_rng(G)
+    bins = rng.integers(0, 128, (G, 128)).astype(np.int32)
+    bins.flat[rng.choice(G * 128, 3 * G, replace=False)] = np.repeat(
+        [-1, 128, 200], G)
+    val = rng.standard_normal((G, 128)).astype(np.float32)
+    iota = np.arange(128)[None, None, :]
+    want = np.empty((G, 128))
+    for t in range(G // 8):
+        oh = (bins[8 * t:8 * t + 8].reshape(8, 128, 1) == iota)
+        r = val[8 * t:8 * t + 8].reshape(1, 1024).astype(np.float64) \
+            @ oh.reshape(1024, 128)
+        want[8 * t:8 * t + 8] = r
+    got = probes.onehot_bins_ref(torch.from_numpy(bins),
+                                 torch.from_numpy(val)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=TOL * np.abs(want).max())
 
 
 def test_probe_wrappers_on_the_cpu_run_the_plain_versions(capture):
