@@ -19,10 +19,14 @@ Its phases, in the order they run:
    time ``route_rows`` took at convert; both xch kernels in float32 and, in
    float64, their native-fp64 builds (webbase-1M and ASIC_680ks):
    ``xch_mul`` and the spmv route ``xch_route4_rows``, the latter with the
-   bound of the idx-plane layout it replaced beside its own; the four
-   bucket kernels on the full-size bkt_g states (1024-row buckets) of
-   g7jac200sc, lhr34, twotone, raefsky3 and thermomech_dK and the bkt state
-   (128-row buckets) of raefsky3, with ``torch.gather``'s time beside
+   bound of the idx-plane layout it replaced beside its own; the bucket
+   kernels on the full-size bkt_g states (1024-row buckets) of g7jac200sc,
+   lhr34, twotone, raefsky3 and thermomech_dK and the bkt state (128-row
+   buckets) of raefsky3: stage A ``block_gather_mul``, stage B
+   ``bucket_rows`` on the run-end stream with the bound of the idx-plane
+   layout beside its own and torch's ``A_csr @ x`` beside it, and the first
+   port's stage B (``bucket_reduce``, ``bucket_reduce_grouped``,
+   ``lane_unpermute``, on no path) with ``torch.gather``'s time beside
    ``lane_unpermute``'s; and the scan kernels: ``segmented_scan_tiles`` on
    torso1's ss stream and webbase-1M's csr5 normal track,
    ``block_gather_scan`` on the css streams of thermomech_dK and raefsky3,
@@ -54,7 +58,8 @@ Its phases, in the order they run:
    kernels (the slab route on all three) against their plain versions at
    the residual's shapes;
 7. drives the bkt path: ``run_benchmark`` with format="bkt" on raefsky3
-   (128-row buckets) and g7jac200sc (1024-row buckets);
+   (128-row buckets) and g7jac200sc (1024-row buckets), and fails if the
+   first port's stage B ran;
 8. drives the scan formats: ``run_benchmark`` in float32 with format="css"
    on thermomech_dK and webbase-1M, "ss" on torso1 and "csr5" on torso1 and
    webbase-1M;
@@ -537,8 +542,10 @@ def compare_xch(label, state, xch, ops, x, tol=TOL, a_csr=None):
     return res
 
 
-BUCKET_KERNELS = ("block_gather_mul", "bucket_reduce",
-                  "bucket_reduce_grouped", "lane_unpermute")
+BUCKET_KERNELS = ("block_gather_mul", "bucket_rows")
+# the first port's stage B: checked in phase 2, on no path
+BUCKET_FIRST_PORT = ("bucket_reduce", "bucket_reduce_grouped",
+                     "lane_unpermute")
 
 
 def by_kernel(compared):
@@ -550,7 +557,7 @@ def by_kernel(compared):
             continue
         sfx = "_f64" if res["dtype"] == str(torch.float64) else ""
         for k in ("xch_mul", "xch_route4_rows") + BUCKET_KERNELS \
-                + PANEL_KERNELS:
+                + BUCKET_FIRST_PORT + PANEL_KERNELS:
             if k in res:
                 out.setdefault(k + sfx, []).append(
                     res[k] | {"label": res["label"]})
@@ -573,32 +580,46 @@ def compare_rest(label, state, slab, xch, ops, xops, x, tol):
     return compare_xch(label, state.rest_state, xch, xops, x, tol)
 
 
-def compare_bucket(label, state, bkt, bops, x, tol=TOL):
+def compare_bucket(label, state, bkt, bops, x, tol=TOL, a_csr=None):
     """Phase 2 for one bkt state: each of its kernels against its plain
     version on the inputs the spmv gives it, kernel and plain times, the
-    bound, and torch.gather's time beside lane_unpermute's."""
+    bound; beside stage B ``bucket_rows`` the bound of the idx-plane layout
+    and ``a_csr``'s product (torch's CSR tensor of the state's matrix:
+    cuSPARSE); and the first port's stage B on the same products, with
+    torch.gather's time beside lane_unpermute's.  The first port's launches
+    here are not counted: its counters are as they were after."""
     grouped = state.row_group == 1024
-    nu_pad = state.rb_pad // (state.row_group // 128)
+    nu_pad, sh, _, h = bkt._unit_rows(state)
     xt = bkt.x_table(state, x)
     a = (state.members, state.lane, state.src, state.val, xt, state.m)
     prod = bops.block_gather_mul(*a)
+    y = torch.zeros(state.n_row, dtype=torch.float32, device=x.device)
+    rows = (prod.view(h, 128), state.hm1r, state.dest, state.yrow, y, sh,
+            nu_pad, state.parts)
     b = (bkt.stage_b_input(state, prod), state.hm1, state.idx, nu_pad) + (
         (state.n_chunks,) if grouped else ())
     stage_b = "bucket_reduce_grouped" if grouped else "bucket_reduce"
+    first = [getattr(bops, k) for k in BUCKET_FIRST_PORT]
+    counted = [w.launches for w in first]
     y_tab = getattr(bops, stage_b)(*b)
-    slots, rows = state.n_slots, y_tab.numel() * 4
+    slots, run_ends = state.n_slots, int((state.dest >= 0).sum())
     # bytes: each stream once (src only when m > 1), the x table, the out;
     # operations: a multiply per slot (A), a prefix add and a difference
-    # per slot and an add per routed run end (B)
+    # per slot and an add per run end (B).  bucket_rows streams the
+    # products, hm1r and dest, yrow once, y once; the idx-plane layout the
+    # products, hm1 and K idx planes, and its row table once
     calls = {
         "block_gather_mul": (a, _bound(
             _nbytes(state.members, state.lane, state.val, xt) + 4 * slots
             + (_nbytes(state.src) if state.m > 1 else 0), slots,
             torch.float32)),
-        stage_b: (b, _bound(_nbytes(*b[:3]) + rows,
+        "bucket_rows": (rows, _bound(_nbytes(*rows[:5]),
+                                     2 * slots + run_ends, torch.float32)),
+        stage_b: (b, _bound(_nbytes(*b[:3], y_tab),
                             2 * slots + _routed(state.idx), torch.float32)),
     }
-    library = {}
+    library = {"bucket_rows": None if a_csr is None
+               else lambda: a_csr @ x}
     if state.balanced:
         u = (bkt.y_table_t(state, y_tab), state.src_lane, state.src_chunk)
         calls["lane_unpermute"] = (u, _bound(_nbytes(*u, u[0]), 0,
@@ -608,30 +629,42 @@ def compare_bucket(label, state, bkt, bops, x, tol=TOL):
     res = {"label": label, "dtype": str(x.dtype), "row_group":
            state.row_group, "m": state.m, "K": state.k, "S": state.s,
            "G": state.g, "col_groups": state.g_tot, "rb_pad": state.rb_pad,
+           "units": nu_pad, "stream_rows": h, "run_ends": run_ends,
+           "parts": state.parts,
            "slots": slots, "pad": round(slots / max(state.nnz, 1), 3),
            "balanced": state.balanced}
     for name, (args, bound) in calls.items():
         fn, ref = getattr(bops, name), getattr(bops, name + "_ref")
-        got, want = fn(*args), ref(*args)
+        if name == "bucket_rows":     # adds into y: a zeroed y each call
+            run = lambda f: f(*args[:4], y.zero_(), *args[5:])  # noqa: E731
+        else:
+            run = lambda f: f(*args)                            # noqa: E731
+        got = run(fn).clone()
+        want = run(ref)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         rel = err / max(float(want.abs().max()), 1e-30)
         lib = library.get(name)
-        if lib is not None and not torch.equal(lib(), want):
+        if name == "lane_unpermute" and not torch.equal(lib(), want):
             raise SystemExit(f"{label} {name}: torch.gather computes "
                              "another function")
         res[name] = {
             "max_abs_err": err, "rel_err": rel,
-            "ms": _busy_ms(lambda: fn(*args), f"{name}_kernel",
+            "ms": _busy_ms(lambda: run(fn), f"{name}_",
                            launches=_launched(fn)),
-            "plain_ms": _busy_ms(lambda: ref(*args)),
-            "call_ms": _cuda_ms(lambda: fn(*args)),
-            "library_ms": _busy_ms(lib) if lib is not None else None,
+            "plain_ms": _busy_ms(lambda: run(ref)),
+            "call_ms": _cuda_ms(lambda: run(fn)),
+            "library_ms": None if lib is None
+            else _library_ms(a_csr, x) if name == "bucket_rows"
+            else _busy_ms(lib),
         } | bound
         if not rel <= tol:
             raise SystemExit(f"{label} {name}: kernel disagrees with its "
                              f"plain version (max |diff| / max |out| = "
                              f"{rel:.3g} > {tol})")
+    res["bucket_rows"]["bound_ms_idx_layout"] = res[stage_b]["bound_ms"]
+    for w, n in zip(first, counted):
+        w.launches = n
     res["spmv_ms"] = _cuda_ms(lambda: bkt.spmv(state, x))
     res["spmv_busy_ms"] = _busy_ms(lambda: bkt.spmv(state, x))
     print(f"kernel {label}: {json.dumps(_marked(res))}", flush=True)
@@ -1323,12 +1356,19 @@ def main() -> int:
         for name, rg in BKT_MATS:
             t0 = time.perf_counter()
             st = bkt.convert(mats[name], cfg.replace(
-                format="bkt", bkt_row_group=rg)).to(dev)
+                format="bkt", bkt_row_group=rg))
+            t1 = time.perf_counter()
+            bkt.route_rows(st)
+            routes = time.perf_counter() - t1
+            st = st.to(dev)
             torch.cuda.synchronize()
             label = f"{name} {'bkt_g' if rg == 1024 else 'bkt'}"
-            print(f"bkt convert {label}: {time.perf_counter() - t0:.1f} s")
+            print(f"bkt convert {label}: host {t1 - t0:.2f} s, of which "
+                  f"route_rows {routes:.3f} s; merge parts {st.parts}",
+                  flush=True)
             compared.append(compare_bucket(label, st, bkt, bops,
-                                           x_of(mats[name])))
+                                           x_of(mats[name]),
+                                           a_csr=csr_of(name)))
             del st
     with Phase("scan kernels float32"):
         for name, mod in (("torso1", ss), ("webbase-1M", csr5),
@@ -1355,7 +1395,8 @@ def main() -> int:
     slab_k, xch_k = (ops.slab_spmv_rows,), (xops.xch_mul,
                                              xops.xch_route4_rows)
     # the first port's kernels that left the spmv path: no path may run them
-    first_port = (xops.xch_route4, ops.slab_spmv, ops.slab_spmv_blk)
+    first_port = (xops.xch_route4, ops.slab_spmv, ops.slab_spmv_blk) + tuple(
+        getattr(bops, k) for k in BUCKET_FIRST_PORT)
     bkt_k = tuple(getattr(bops, k) for k in BUCKET_KERNELS)
     scan_k = (sops.segmented_scan_tiles, gops.block_gather_scan)
     panel_k = (ops.slab_spmm, xops.xch_mul_panel, xops.xch_route4_panel)
@@ -1587,8 +1628,7 @@ def main() -> int:
         check_auto(reps)
         print_scan_estimates(reps)
         count_path("auto float32", all_k,
-                   ("block_gather_mul", "bucket_reduce_grouped",
-                    "lane_unpermute", "slab_spmv_rows"))
+                   ("block_gather_mul", "bucket_rows", "slab_spmv_rows"))
 
     # --- 10. the float64 paths, held to the oracle at F64_TOL ---
     oracle = {"x": lambda coo: create_random_vector(coo.n_col),
@@ -1679,10 +1719,14 @@ def main() -> int:
         {k: [r["label"] for r in rs] for k, rs in checks.items()}))
     # max_abs_err over every state checked; ms and plain_ms of one of them.
     # The slab route's three rows are one kernel: launches are its f32
-    # (unit and blk alike) and f64 counts
+    # (unit and blk alike) and f64 counts.  The rows of the first port's
+    # stage B (bucket_reduce, bucket_reduce_grouped, lane_unpermute) are
+    # bucket_rows, which computes their functions on the path, with the
+    # first port's own time beside it ("first_port_ms")
     launch_key = {"slab_spmv": "slab_spmv_rows",
                   "slab_spmv_blk": "slab_spmv_rows",
-                  "slab_spmv_f64": "slab_spmv_rows_f64"}
+                  "slab_spmv_f64": "slab_spmv_rows_f64"} | dict.fromkeys(
+                      BUCKET_FIRST_PORT, "bucket_rows")
     for kname, src, line, timed in (
             ("slab_spmv", slab_src, "slab.py:263", "g7jac200sc"),
             ("slab_spmv_blk", slab_src, "slab.py:310", "torso1"),
@@ -1692,6 +1736,8 @@ def main() -> int:
             ("xch_mul_f64", xch_src, "xch.py:495", "webbase-1M"),
             ("xch_route4_rows_f64", xch_src, "xch.py:594", "webbase-1M"),
             ("block_gather_mul", bkt_src, "bucket.py:91",
+             "thermomech_dK bkt_g"),
+            ("bucket_rows", bkt_src, "bucket.py:264",
              "thermomech_dK bkt_g"),
             ("bucket_reduce", bkt_src, "bucket.py:198", "raefsky3 bkt"),
             ("bucket_reduce_grouped", bkt_src, "bucket.py:264",
@@ -1709,10 +1755,15 @@ def main() -> int:
             ("slab_spmm", slab_src, "slab.py:228", "g7jac200sc B32"),
             ("xch_mul_panel", xch_src, "xch.py:338", "webbase-1M B16"),
             ("xch_route4_panel", xch_src, "xch.py:424", "webbase-1M B16")):
-        rs = checks.get(kname, [])
+        rs = checks.get("bucket_rows" if kname in BUCKET_FIRST_PORT
+                        else kname, [])
         t = [r for r in rs if r["label"] == timed]
         if not t:
             raise SystemExit(f"{kname}: not checked on {timed}")
+        first_port_ms = {}
+        if kname in BUCKET_FIRST_PORT:
+            first_port_ms = {"first_port_ms": next(
+                r["ms"] for r in checks[kname] if r["label"] == timed)}
         kernels.append(_marked({
             "name": kname, "route": "cuda", "source": src,
             "replaces": f"singlespmv_tpu/ops/pallas/{line}",
@@ -1721,7 +1772,8 @@ def main() -> int:
             "ms": t[0]["ms"], "plain_ms": t[0]["plain_ms"],
             "bound_ms": t[0]["bound_ms"], "bound_by": t[0]["bound_by"],
             "library_ms": t[0]["library_ms"]}
-            | {k: t[0][k] for k in ("bound_ms_idx_layout",) if k in t[0]}))
+            | {k: t[0][k] for k in ("bound_ms_idx_layout",) if k in t[0]}
+            | first_port_ms))
     # the calibration path's: max_abs_err over every check, times of the
     # first (xch_route at 16 planes, each probe at its defaults, probe_slab
     # at T 32, S8 8, stage all)

@@ -159,7 +159,13 @@ __device__ __forceinline__ void run_totals(int r, V4<V> a,
 }
 
 // The four dests of the calling lane's slots: int16 in the spmv routes'
-// streams, int32 in a variant of the A/B harnesses.
+// streams, int8 in bkt's (a bin lane), int32 in a variant of the A/B
+// harnesses.
+__device__ __forceinline__ int4 load_dest4(const int8_t* p) {
+  const char4 d = load_c4(p);
+  return make_int4(d.x, d.y, d.z, d.w);
+}
+
 __device__ __forceinline__ int4 load_dest4(const int16_t* p) {
   const short4 d = *reinterpret_cast<const short4*>(p);
   return make_int4(d.x, d.y, d.z, d.w);

@@ -1,11 +1,15 @@
 """BKT — the two-phase bucketed format of ``singlespmv_tpu/formats/bkt.py``.
 
 Stage A writes val·x products in (column group, row unit)-bucket order
-(``block_gather_mul``); stage B reduces each row unit's stream rows by their
-run totals into row sums (``bucket_reduce`` for 128-row buckets,
-``bucket_reduce_grouped`` for the 1024-row buckets of ``bkt_g``); where the
-layout balanced rows across row blocks, ``lane_unpermute`` undoes that.
-The four are CUDA kernels (``csrc/bucket.cu`` behind ``ops/bucket.py``).
+(``block_gather_mul``); stage B (``bucket_rows``) reads them in that order
+and adds each run total straight into y, at the row that a run-end
+destination stream names (``route_rows``: ``hm1r``, ``dest``, ``yrow``),
+for 128-row buckets and the 1024-row buckets of ``bkt_g`` alike, the
+inverse of the balance permutation folded into ``yrow``.  Both are CUDA
+kernels (``csrc/bucket.cu`` behind ``ops/bucket.py``).  The reference's
+stage B (``bucket_reduce``, ``bucket_reduce_grouped``, then
+``lane_unpermute``) reads the idx planes, which the state keeps for the
+first port's kernels and their checks.
 
 ``estimate`` and ``convert`` are copies of the reference's, array for array:
 one COO gives the same plan and the same arrays in both packages (the tests
@@ -28,8 +32,7 @@ import torch
 from ..config import Config
 from ..core import hostmem as hm
 from ..core.types import COOMatrix, cdiv, round_up
-from ..ops.bucket import (block_gather_mul, bucket_reduce,
-                          bucket_reduce_grouped, lane_unpermute)
+from ..ops.bucket import block_gather_mul, bucket_rows
 from .base import TensorState
 from .slab import _t
 
@@ -209,6 +212,11 @@ class BKTState(TensorState):
     src_chunk: torch.Tensor = None
     row_group: int = 128    # rows per bucket unit (128 or 1024)
     n_chunks: int = 1       # the reference's grouped stage-B chunking
+    # stage B's run-end stream (route_rows), in stage A's row order
+    hm1r: torch.Tensor = None   # (H, 128) int8 — hm1
+    dest: torch.Tensor = None   # (H, 128) int8 / int16 — run's unit row
+    yrow: torch.Tensor = None   # (rb_pad·128,) int32 — y row of a unit row
+    parts: int = 0              # bucket_rows' blocks a unit (0: a warp a row)
 
 
 def convert(coo: COOMatrix, cfg: Config) -> BKTState:
@@ -488,7 +496,7 @@ def convert(coo: COOMatrix, cfg: Config) -> BKTState:
         idx_full[(slab_i * K + chain) * G + row_in, r_bin % LANES] = \
             (r_bin // LANES) * LANES + r_el
 
-    return BKTState(
+    return with_routes(BKTState(
         n_row=n_row, n_col=n_col, nnz=nnz, rb_pad=RB_pad, cb=CB,
         g_tot=G_tot, s=S, g=G, k=K, m=m, n_slots=N, n_ghost=n_ghost,
         members=_t(members_flat),
@@ -502,7 +510,108 @@ def convert(coo: COOMatrix, cfg: Config) -> BKTState:
         lo_a=_t(hm.astype(rl_slot.reshape(N // W_A, W_A), np.int32)),
         balanced=balanced, src_lane=src_lane, src_chunk=src_chunk,
         row_group=RL, n_chunks=n_chunks,
-    )
+    ))
+
+
+ROUTE_FIELDS = ("hm1r", "dest", "yrow", "parts")
+DEST_NONE = -1
+MERGE_ENDS = 8       # run ends a stream row, from which stage B merges
+MERGE_ROWS = 4       # stream rows a warp of the merge kernel
+
+
+def _unit_rows(state):
+    """(nu_pad, sh, G, H): row units, stream rows a bucket, stream rows a
+    unit and stream rows in all."""
+    ru = state.row_group // LANES
+    nu_pad = state.rb_pad // ru
+    sh = state.s // LANES
+    return nu_pad, sh, state.g_tot * sh, state.n_slots // LANES
+
+
+def route_rows(state) -> dict:
+    """{hm1r, dest, yrow, parts}: stage B's run-end destination
+    stream, from the reference's arrays of ``state`` (``hm1``, ``idx``,
+    ``src_lane``/``src_chunk``, the geometry; CPU tensors or numpy arrays).
+
+    ``hm1r`` and ``dest`` are (H, 128), in stage A's own row order: row
+    r = (c·nu_pad + n)·sh + j holds the j-th 128 slots of the bucket of
+    col-group c and row unit n (sh = S / 128), so ``bucket_rows`` reads the
+    products where stage A wrote them.  ``hm1r`` is ``hm1`` moved there
+    from stage B's order (bkt_g: (NU_pad, G, 128) unit-major; bkt: the
+    j-interleaved blocks of 8 units).  ``dest`` holds, at the slot e that
+    ends a run, the run's row in its unit: for bkt_g the int16 σ·128 + l
+    of the idx entry idx[n, k, c, l] = σ·128 + e (entries at or past 1024
+    route nothing, as the TPU's eight σ masks); for bkt the int8 bin lane l
+    of idx[(n // 8)·K·8G + k·8G + prow·8 + n % 8, l] = e (a row of unit n
+    ends its runs in row-block n); −1 on every other slot.  ``yrow``
+    ((rb_pad·128,) int32) maps unit row n·row_group + d to the row of y: the
+    inverse of the balance permutation (identity when unbalanced), −1 at or
+    past ``n_row``.  Raises ValueError on an end lane that the idx planes
+    name twice.
+
+    ``parts`` is what stage B can observe of the stream: where its rows end
+    on average at least ``MERGE_ENDS`` runs and no row names a unit row
+    twice, the blocks a unit (``MERGE_ROWS`` rows a warp) of the merge
+    kernel, which sums a block's rows in shared memory and adds each y row
+    once; else 0, a reduction into y a run end."""
+    nu_pad, sh, g, h = _unit_rows(state)
+    idx = np.asarray(state.idx)
+    hm1 = np.asarray(state.hm1)
+    it = np.int32 if h * state.row_group < 2 ** 31 else np.int64
+    q = np.flatnonzero(idx.reshape(-1) >= 0)    # the routed entries
+    e = idx.reshape(-1)[q].astype(it)
+    lane = (q & (LANES - 1)).astype(it)         # the entry's bin lane
+    q = (q >> 7).astype(it)                     # its row of the planes
+    if state.row_group == 8 * LANES:
+        k = idx.shape[1]                        # (NU_pad, K, G, 128)
+        if (e >= 8 * LANES).any():
+            keep = e < 8 * LANES
+            q, e, lane = q[keep], e[keep], lane[keep]
+        row = (q % g) * nu_pad + q // (k * g)
+        end, d = e & (LANES - 1), (e & ~(LANES - 1)) + lane
+        dest = np.full((h, LANES), DEST_NONE, np.int16)
+        hm1r = hm1.reshape(nu_pad, g, LANES).transpose(1, 0, 2)
+    else:
+        k = idx.shape[0] // (nu_pad * g)        # (NU_pad / 8 · K · 8G, 128)
+        blk = 8 * g
+        row_in = q % blk
+        n, prow = (q // (k * blk)) * 8 + row_in % 8, row_in // 8
+        row = ((prow // sh) * nu_pad + n) * sh + prow % sh
+        end, d = e, lane
+        dest = np.full((h, LANES), DEST_NONE, np.int8)
+        # stage B's row (n // 8)·8G + prow·8 + n % 8, prow = c·sh + j →
+        # stage A's (c·nu_pad + n)·sh + j
+        hm1r = (hm1.reshape(nu_pad // 8, state.g_tot, sh, 8, LANES)
+                .transpose(1, 0, 3, 2, 4))
+    flat = row * LANES + end
+    dest.reshape(-1)[flat] = d
+    if np.count_nonzero(dest != DEST_NONE) != len(flat):
+        raise ValueError("bkt: an end lane is named twice in a stream row's "
+                         "idx planes")
+    parts = 0
+    if len(flat) >= MERGE_ENDS * max(h, 1):
+        # one plane names each unit row of a row at most once
+        key = np.sort(row * state.row_group + d) if k > 1 else None
+        if key is None or not (key[1:] == key[:-1]).any():
+            parts = -(-g // (8 * MERGE_ROWS))
+    n_rows = state.rb_pad * LANES
+    if state.balanced:
+        # inverse of the per-lane balance permutation, as to_coo builds it:
+        # unit row new_rb·128 + lo is y row inv[lo, new_rb]·128 + lo
+        src_col = (np.asarray(state.src_chunk).astype(np.int64) * LANES
+                   + np.asarray(state.src_lane))
+        inv = np.argsort(src_col, axis=1, kind="stable")[:, : state.rb_pad]
+        yrow = (inv.T * LANES + np.arange(LANES)).reshape(-1)
+    else:
+        yrow = np.arange(n_rows, dtype=np.int64)
+    yrow = np.where(yrow < state.n_row, yrow, -1).astype(np.int32)
+    return dict(hm1r=_t(np.ascontiguousarray(hm1r).reshape(h, LANES)),
+                dest=_t(dest), yrow=_t(yrow), parts=parts)
+
+
+def with_routes(state: BKTState) -> BKTState:
+    """``state`` with its stage-B stream from ``route_rows``."""
+    return dataclasses.replace(state, **route_rows(state))
 
 
 _ARRAY_FIELDS = ("members", "mem_tab", "lane", "src", "val", "hm1", "idx",
@@ -513,13 +622,14 @@ def state_from_reference(arrays: dict) -> BKTState:
     """The port's state from the fields of a reference ``BKTState``, as
     numpy arrays and scalars (``dataclasses.asdict`` of a reference state
     moved to the host)."""
-    kw = {f.name: arrays.get(f.name) for f in dataclasses.fields(BKTState)}
+    kw = {f.name: arrays.get(f.name) for f in dataclasses.fields(BKTState)
+          if f.name not in ROUTE_FIELDS}     # derived below
     for name in _ARRAY_FIELDS:
         if kw[name] is not None:
             kw[name] = torch.from_numpy(np.array(kw[name]))
     state = BKTState(**kw)
     _check_dtype(state.val.dtype)
-    return state
+    return with_routes(state)
 
 
 # -------------------------------------------------------------------- spmv ---
@@ -556,20 +666,12 @@ def y_table_t(state: BKTState, y_tab: torch.Tensor) -> torch.Tensor:
 
 def spmv(state: BKTState, x: torch.Tensor) -> torch.Tensor:
     _check_dtype(x.dtype)
-    ru = state.row_group // LANES
-    nu_pad = state.rb_pad // ru
+    nu_pad, sh, _, h = _unit_rows(state)
     prod = block_gather_mul(state.members, state.lane, state.src, state.val,
                             x_table(state, x), state.m)
-    if ru == 8:
-        y_tab = bucket_reduce_grouped(stage_b_input(state, prod), state.hm1,
-                                      state.idx, nu_pad, state.n_chunks)
-    else:
-        y_tab = bucket_reduce(stage_b_input(state, prod), state.hm1,
-                              state.idx, nu_pad)
-    if state.balanced:
-        y_tab = lane_unpermute(y_table_t(state, y_tab), state.src_lane,
-                               state.src_chunk)[:, : state.rb_pad].T
-    return y_tab.reshape(-1)[: state.n_row]
+    y = torch.zeros(state.n_row, dtype=x.dtype, device=x.device)
+    return bucket_rows(prod.view(h, LANES), state.hm1r, state.dest,
+                       state.yrow, y, sh, nu_pad, state.parts)
 
 
 # ----------------------------------------------------------------- reports ---

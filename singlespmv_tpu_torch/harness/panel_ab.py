@@ -84,7 +84,8 @@ def build_variant(name: str, subs: dict, sources=("slab.cu", "xch.cu"),
                   kernels=KERNELS) -> tuple:
     """Compiles the variant's ``sources`` into a shared library; returns
     (library, {kernel: registers}, {kernel: ATOMS.CAST count}) over the
-    kernels whose names hold one of ``kernels``."""
+    kernels whose names hold one of ``kernels``.  The library keeps nvcc's
+    output (ptxas) as ``ptxas_log``."""
     work = tempfile.mkdtemp(prefix="panel_ab_")
     shutil.copytree(_build.CSRC_DIR, work, dirs_exist_ok=True)
     hits = dict.fromkeys(subs, 0)
@@ -113,6 +114,7 @@ def build_variant(name: str, subs: dict, sources=("slab.cu", "xch.cu"),
     subprocess.run([nvcc, *_build.FLAGS[:2], "-shared", "-o", lib_path,
                     *objs], check=True)
     lib = ctypes.CDLL(lib_path)
+    lib.ptxas_log = log
     for entry, argtypes in _build.SIGNATURES.items():
         if hasattr(lib, entry):
             getattr(lib, entry).argtypes = argtypes

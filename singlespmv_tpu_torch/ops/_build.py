@@ -77,6 +77,8 @@ SIGNATURES = {
     "bucket_reduce_f32": [_P] * 4 + [_I] * 3 + [_P],
     # prod hm1 idx out | CB nu_pad K | stream
     "bucket_reduce_grouped_f32": [_P] * 4 + [_I] * 3 + [_P],
+    # prod hm1r dest yrow y | H sh nu_pad rg n_y parts | stream
+    "bucket_rows_f32": [_P] * 5 + [_I] * 6 + [_P],
     # yt src_lane src_chunk out | rows cols | stream
     "lane_unpermute_f32": [_P] * 4 + [_I] * 2 + [_P],
     # prod heads out | H W | stream

@@ -1,15 +1,21 @@
 """Bucket kernels of bkt and bkt_g: the wrappers of ``csrc/bucket.cu`` and
 their plain PyTorch versions.
 
-``block_gather_mul`` (stage A), ``bucket_reduce`` (stage B, 128-row
-buckets), ``bucket_reduce_grouped`` (stage B, 1024-row buckets) and
-``lane_unpermute`` (the inverse of the balance permutation) take the
-arguments of their Pallas counterparts in
-``singlespmv_tpu/ops/pallas/bucket.py`` (:91, :198, :264 and :313) and return
-the same arrays.  On a CUDA tensor a wrapper launches its kernel, or raises;
-on a CPU tensor it runs the plain version (``*_ref``), which the tests hold
-against the Pallas kernels and ``chip_smoke.py`` holds against the kernels on
-the card.
+The spmv path is ``block_gather_mul`` (stage A), then ``bucket_rows``
+(stage B of 128-row and 1024-row buckets alike): the function of the Pallas
+``bucket_reduce`` or ``bucket_reduce_grouped`` followed by
+``lane_unpermute`` (``singlespmv_tpu/ops/pallas/bucket.py`` :198, :264 and
+:313), routed by a run-end destination stream that
+``formats/bkt.py:route_rows`` derives from the reference's idx planes,
+adding into the caller's y where the Pallas functions return row tables.
+
+``block_gather_mul`` (:91), ``bucket_reduce``, ``bucket_reduce_grouped``
+and ``lane_unpermute`` take the arguments of their Pallas counterparts and
+return the same arrays.  The last three, the first port of stage B, run on
+no path: they stay for ``harness/bucket_ab.py`` and the parity tests.  On a
+CUDA tensor a wrapper launches its kernel, or raises; on a CPU tensor it
+runs the plain version (``*_ref``), which the tests hold against the Pallas
+kernels and ``chip_smoke.py`` holds against the kernels on the card.
 
 Values are float32 only: the reference's bkt refuses float64 on its chip, and
 every wrapper raises ``TypeError`` on another value type.  Each wrapper
@@ -24,6 +30,7 @@ from .slab import LANES, _check, _picked, _ptr, _raise_on, _totals
 from .xch import _device, _stream
 
 SIGMAS = 8          # 128-row blocks of a 1024-row unit
+ROW_GROUPS = {128: torch.int8, 1024: torch.int16}   # rg → dest type
 
 
 # ----------------------------------------------------- plain PyTorch versions
@@ -71,6 +78,21 @@ def bucket_reduce_grouped_ref(prod_grid, hm1, idx, nu_pad: int,
         out.scatter_add_(1, torch.where(ok, e >> 7, 0),
                          torch.where(ok, picked, 0.0))
     return out.view(nu_pad * SIGMAS, LANES)
+
+
+def bucket_rows_ref(prod, hm1r, dest, yrow, y, sh: int, nu_pad: int,
+                    parts: int = 0):
+    """Plain version of ``bucket_rows``: ``index_add_`` of the run totals
+    at their y rows (``parts`` picks a kernel, not a function)."""
+    h = prod.shape[0]
+    rg = yrow.numel() // nu_pad
+    w = _totals(prod, hm1r)
+    unit = (torch.arange(h, device=prod.device) // sh) % nu_pad
+    d = dest.long()
+    inside = (d >= 0) & (d < rg)
+    pos = yrow.long()[unit[:, None] * rg + torch.where(inside, d, 0)]
+    keep = inside & (pos >= 0) & (pos < y.numel())
+    return y.index_add_(0, pos[keep], w[keep])
 
 
 def lane_unpermute_ref(y_t, src_lane, src_chunk):
@@ -196,6 +218,57 @@ def bucket_reduce_grouped(prod_grid, hm1, idx, nu_pad: int,
     return out
 
 
+def bucket_rows(prod, hm1r, dest, yrow, y, sh: int, nu_pad: int,
+                parts: int = 0):
+    """Stage B on the run-end stream: adds each run total of the product
+    stream into ``y`` at its row; returns ``y``.
+
+    prod:  (H, 128) float32 — stage A's products in their own order, stream
+           row r = (c·nu_pad + n)·sh + j of unit n (H a multiple of
+           nu_pad·sh).
+    hm1r:  (H, 128) int8 — lane of the run head − 1, in the same order.
+    dest:  (H, 128) int8 (rg = 128) or int16 (rg = 1024) — at a run's end
+           slot, its row in unit n's rg rows; −1 on every other slot.
+    yrow:  (nu_pad·rg,) int32 — y row of unit row n·rg + d; −1 dropped.
+    y:     (n,) float32, zeroed by the caller; rows at or past n are dropped.
+    parts: 0, a warp a stream row with a reduction a run end; else the
+           merge kernel, ``parts`` blocks a unit summing their warps' rows
+           in shared memory before a reduction a y row
+           (``formats/bkt.py:route_rows`` picks it where rows end many
+           runs; a row's dests must then be distinct).  The function is
+           the same.
+    The sums of a y row add in run-dependent order on the card."""
+    dev = _device(prod)
+    h = prod.shape[0] if prod.dim() == 2 else -1
+    if sh < 1 or nu_pad < 1 or h < 0 or h % (sh * nu_pad):
+        raise ValueError(f"prod has shape {tuple(prod.shape)}, expected "
+                         f"(H, {LANES}) with H a multiple of nu_pad·sh = "
+                         f"{nu_pad}·{sh}")
+    rg = yrow.numel() // nu_pad if yrow.dim() == 1 else 0
+    if rg not in ROW_GROUPS:
+        raise ValueError(f"yrow has shape {tuple(yrow.shape)}, expected "
+                         f"(nu_pad·rg,) with rg in {tuple(ROW_GROUPS)}")
+    if parts < 0:
+        raise ValueError(f"{parts} parts a unit")
+    _check("prod", prod, torch.float32, (h, LANES), dev)
+    _check("hm1r", hm1r, torch.int8, (h, LANES), dev)
+    _check("dest", dest, ROW_GROUPS[rg], (h, LANES), dev)
+    _check("yrow", yrow, torch.int32, (nu_pad * rg,), dev)
+    if y.dim() != 1 or y.numel() >= 2 ** 31:
+        raise ValueError(f"y has shape {tuple(y.shape)}, expected (n,) with "
+                         "n < 2**31")
+    _check("y", y, torch.float32, y.shape, dev)
+    if dev.type == "cpu":
+        return bucket_rows_ref(prod, hm1r, dest, yrow, y, sh, nu_pad, parts)
+    if h:
+        rc = _build.load().bucket_rows_f32(
+            *map(_ptr, (prod, hm1r, dest, yrow, y)), h, sh, nu_pad, rg,
+            y.numel(), parts, _stream(dev))
+        _raise_on(rc, "bucket_rows")
+        bucket_rows.launches += 1
+    return y
+
+
 def lane_unpermute(y_t, src_lane, src_chunk):
     """out[r, j] = y_t[r, src_chunk[r, j]·128 + src_lane[r, j]] (0 where
     that lies outside the row): the static inverse of the balance
@@ -224,4 +297,5 @@ def lane_unpermute(y_t, src_lane, src_chunk):
 block_gather_mul.launches = 0
 bucket_reduce.launches = 0
 bucket_reduce_grouped.launches = 0
+bucket_rows.launches = 0
 lane_unpermute.launches = 0

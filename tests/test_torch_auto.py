@@ -100,6 +100,18 @@ def _raises(exc):
     return fn
 
 
+def _raises_on_grouped(exc):
+    """A stage B (``bucket_rows``) that raises ``exc`` on bkt_g's stream
+    (int16 dests) and runs bkt's."""
+    real = bkt.bucket_rows
+
+    def fn(prod, hm1r, dest, *a, **k):
+        if dest.dtype == torch.int16:
+            raise exc
+        return real(prod, hm1r, dest, *a, **k)
+    return fn
+
+
 def test_driver_retry_excludes_guard_errors_only(monkeypatch):
     coo = port_coo(powerlaw(3000, 30000, seed=2))
     cfg = port_cfg(_only("bkt_g", "csr"))
@@ -134,14 +146,14 @@ def test_auto_trials_skip_guard_errors_only(monkeypatch):
     st = auto.convert(coo, cfg, device="cpu")
     assert len(st.trials) == 3 and st.chosen == st.trials[0][0]
     assert not st.failed
-    monkeypatch.setattr(bkt, "bucket_reduce_grouped", _raises(
+    monkeypatch.setattr(bkt, "bucket_rows", _raises_on_grouped(
         TypeError("stage B refused")))
     st = auto.convert(coo, cfg, device="cpu")
     assert [f for f, _ in st.failed] == ["bkt_g"]
     assert "bkt_g" not in dict(st.trials) and len(st.trials) == 2
     assert "bkt_g: TypeError" in auto.report_fields(st, cfg)["AutoFailed"]
-    monkeypatch.setattr(bkt, "bucket_reduce_grouped", _raises(
-        KernelError("bucket_reduce_grouped: CUDA kernel launch failed")))
+    monkeypatch.setattr(bkt, "bucket_rows", _raises_on_grouped(
+        KernelError("bucket_rows: CUDA kernel launch failed")))
     with pytest.raises(KernelError):
         auto.convert(coo, cfg, device="cpu")
 

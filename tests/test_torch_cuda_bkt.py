@@ -1,8 +1,10 @@
-"""Port bucket CUDA kernels on the card: ``block_gather_mul``,
+"""Port bucket CUDA kernels on the card: ``block_gather_mul``, stage B
+``bucket_rows`` in each of its designs (a warp a row; blocks of a unit
+merged in shared memory, one a unit and several), and the first port's
 ``bucket_reduce``, ``bucket_reduce_grouped`` and ``lane_unpermute`` against
-their plain versions, bkt and bkt_g spmv against the float64 oracle, and
-``run_benchmark(format="auto")`` with measured trials that run the bucket
-kernels.
+their plain versions, bkt and bkt_g spmv against the float64 oracle
+through ``bucket_rows`` alone, and ``run_benchmark(format="auto")`` with
+measured trials that run the bucket kernels.
 
 Needs an NVIDIA GPU and skips without one.  This file imports no jax, so it
 runs where only the port is installed:
@@ -10,7 +12,8 @@ runs where only the port is installed:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda_bkt.py
 
 Kernel and plain version agree to 1e-5·max|out|: the stage-B kernels sum
-row prefixes by warp shuffles in another order than ``torch.cumsum``.
+row prefixes by warp shuffles in another order than ``torch.cumsum``, and
+``bucket_rows`` adds run totals in another order than ``index_add_``.
 """
 import numpy as np
 import pytest
@@ -53,6 +56,13 @@ CASES = [
 ]
 
 
+def _parts(g):
+    """``parts`` of each design of ``bucket_rows`` for units of ``g``
+    stream rows: direct, and the merge kernel at 4 rows a warp and at one
+    block a unit."""
+    return 0, -(-g // (8 * bkt.MERGE_ROWS)), 1
+
+
 def _close(got, want):
     assert got.shape == want.shape and got.dtype == want.dtype
     err = float((got - want).abs().max())
@@ -90,8 +100,25 @@ def test_kernels_match_plain_versions(cuda, label, make, rg, bal):
         got = ops.lane_unpermute(*u)
         assert ops.lane_unpermute.launches == n0 + 1
         assert torch.equal(got, ops.lane_unpermute_ref(*u))
-    y = bkt.spmv(st, x).cpu().numpy()
-    ok, det = verify_result(coo, x.cpu().numpy(), y, dtype=np.float32)
+    nu, sh, g, h = bkt._unit_rows(st)
+    r = (prod.view(h, 128), st.hm1r, st.dest, st.yrow)
+    want = ops.bucket_rows_ref(*r, torch.zeros(st.n_row, device=cuda), sh,
+                               nu)
+    for parts in _parts(g):
+        n0 = ops.bucket_rows.launches
+        got = ops.bucket_rows(*r, torch.zeros(st.n_row, device=cuda), sh,
+                              nu, parts)
+        assert ops.bucket_rows.launches == n0 + 1
+        _close(got, want)
+    first = (ops.bucket_reduce, ops.bucket_reduce_grouped,
+             ops.lane_unpermute)
+    before = [w.launches for w in first] + [ops.bucket_rows.launches]
+    y = bkt.spmv(st, x)
+    assert [w.launches for w in first] + [ops.bucket_rows.launches] \
+        == before[:3] + [before[3] + 1]       # stage B is bucket_rows alone
+    _close(y, want)      # stage A's products are the same
+    ok, det = verify_result(coo, x.cpu().numpy(), y.cpu().numpy(),
+                            dtype=np.float32)
     assert ok, det
 
 
@@ -103,15 +130,19 @@ def test_launch_failure_raises_kernel_error(cuda):
     assert rc != 0
     with pytest.raises(_build.KernelError):
         ops._raise_on(rc, "bucket_reduce")
+    for rg, parts in ((512, 0), (128, -1)):                # refused
+        rc = _build.load().bucket_rows_f32(
+            *(ops._ptr(out),) * 5, 8, 1, 8, rg, 8, parts, ops._stream(cuda))
+        assert rc != 0
 
 
 def test_auto_trials_run_the_bucket_kernels(cuda):
     coo = _scattered(9000, 18000, 5)
     cfg = Config(format="auto", calibrate_seconds=0.05, n_trials=2)
-    before = ops.bucket_reduce_grouped.launches
+    before = ops.bucket_rows.launches
     res = run_benchmark(coo, cfg, device=cuda, log=lambda m: None)
     rep = res.report
     assert res.verify_ok and rep["Verify"] == "PASS"
     assert "bkt_g" in rep["AutoTrials(us)"]
     assert rep["AutoFailed"] == "none" and rep["AutoExcluded"] == "none"
-    assert ops.bucket_reduce_grouped.launches > before
+    assert ops.bucket_rows.launches > before

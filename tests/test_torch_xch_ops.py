@@ -205,7 +205,7 @@ def test_sources_digest_covers_headers(tmp_path):
         "xch_mul_f32", "xch_mul_f64", "xch_route4_f32", "xch_route4_f64",
         "xch_route4_rows_f32", "xch_route4_rows_f64", "xch_mul_panel_f32",
         "xch_route4_panel_f32",
-        "block_gather_mul_f32", "bucket_reduce_f32",
+        "block_gather_mul_f32", "bucket_reduce_f32", "bucket_rows_f32",
         "bucket_reduce_grouped_f32", "lane_unpermute_f32",
         "segmented_scan_tiles_f32", "segmented_scan_tiles_f64",
         "block_gather_scan_f32", "block_gather_scan_f64", "xch_route_f32",
