@@ -80,9 +80,13 @@ Its phases, in the order they run:
    every probe that times it (``microbench.KERNEL_CASES``: each kernel
    configuration of ``PROBES``, ``probe_pal2step``'s and the bfloat16 lane
    gather among them) with a PyTorch call beside the transpose, the bin
-   sums and the accumulate, the transpose at ``ODD_TRANSPOSES`` (shapes
-   the TPU could not take, inputs one float past 16 bytes) and the bin sums
-   with bins outside [0, 128), and ``probe_slab``'s kernel at every
+   sums and the accumulate (the gathers held exactly), the transpose at
+   ``ODD_TRANSPOSES`` (shapes the TPU could not take, inputs one float past
+   16 bytes), the bin sums with bins outside [0, 128), the accumulate at
+   ``microbench.dynslice_odd_offs`` (unsorted, equal, negative and past
+   y's end, T 1 and 3), the sublane gather at ``ODD_SUBLANE`` (its table
+   as slices of lanes, and past shared memory; the probes' 64 and 8 rows
+   stage it whole), and ``probe_slab``'s kernel at every
    (T, S8, stage) of its nine rows and at stage "route", each kernel timed
    at its first shape; then drives ``calibrate.measure`` (printing the six
    fitted keys, each flagged as left out by ``calibrate.screen``, taken
@@ -934,7 +938,7 @@ def check_auto(reports):
 CAL_MATCH = {       # wrapper → its kernel's name in a torch.profiler trace
     "xch_route": "xch_route_kernel", "lane_gather": "gather_mul_kernel",
     "gather1024": "gather_mul_kernel", "palette_gather": "gather_mul_kernel",
-    "pal2step": "gather_mul_kernel", "sublane_gather": "gather_mul_kernel",
+    "pal2step": "gather_mul_kernel", "sublane_gather": "gather_mul_",
     "onehot_bins": "onehot_bins_kernel",
     "dynslice_accum": "dynslice_accum_kernel",
     "seg_scan": "segscan_steps_kernel", "seg_scan_roll": "segscan_steps_kernel",
@@ -972,6 +976,10 @@ CAL_TARGET_S = 0.03     # the probes' loop length (the reference's: 0.25 s)
 ODD_TRANSPOSES = ((13, 11, 3, 0), (40, 24, 1, 0), (17, 9, 8, 1),
                   (24, 40, 128, 1), (9, 300, 12, 0))
 ODD_ONEHOT_G = (8, 8192)  # the bin sums with bins outside [0, 128)
+# (x rows, G) of the sublane gather beside the probes' 1,024, 64 and 8 rows:
+# a table staged as slices of lanes at a small size, and one past shared
+# memory, which the kernel reads from device memory
+ODD_SUBLANE = ((129, 296), (3000, 8192))
 # each hand-written probe beside the probe of the same motion that the
 # reference left to XLA, printed after microbench.run
 PROBE_PAIRS = (("pallas_tile_transpose", "xla_transpose_s128"),
@@ -1013,8 +1021,9 @@ def compare_calibration(dev):
     shape the path gives them: ``xch_route`` on calibrate's own inputs (H
     16,384 at planes 8 and 16, and a case whose sg0/sg1 prune, pg 4 <
     planes), each probe kernel on the inputs of every probe of ``PROBES``
-    that times it and ``probe_pal2step``'s, ``slab_step`` at every
-    (T, S8, stage) of ``probe_slab.ROWS`` and at stage "route".  Only the
+    that times it and ``probe_pal2step``'s (the gathers exactly), the odd
+    transposes, bin sums, accumulates and sublane tables, ``slab_step`` at
+    every (T, S8, stage) of ``probe_slab.ROWS`` and at stage "route".  Only the
     first check of each kernel (and dtype) is timed.  Returns {kernel line
     name: [results]}, the timed one first."""
     from singlespmv_tpu_torch.harness import calibrate, microbench
@@ -1101,7 +1110,8 @@ def compare_calibration(dev):
         out.setdefault(kname, []).append(_check_one(
             f"{kname} {name}", fn, args, kw, ref,
             _bound(nbytes, ops, torch.float32), CAL_MATCH[fn.__name__],
-            library, timed=first))
+            library, tol=0 if fn in probes.GATHERS else TOL,
+            timed=first))
         del fn, args, res, library
     # the transpose at shapes the TPU could not take (S 3 and 1, CB and NU
     # not multiples of 8; offsets of one float, which take the scalar path)
@@ -1125,6 +1135,31 @@ def compare_calibration(dev):
             probes.onehot_bins, (bins, val), {}, probes.onehot_bins_ref,
             _bound(3 * _nbytes(val), val.numel(), torch.float32),
             CAL_MATCH["onehot_bins"], timed=False))
+    # the accumulate at offs the probe never draws (unsorted, equal, past
+    # both ends of y, T 1 and 3), and the sublane gather at a table staged
+    # as slices and at one read from device memory
+    v = torch.from_numpy(rng.standard_normal((8 * 4096, 128)).astype(
+        np.float32)).to(dev)
+    for label, o in microbench.dynslice_odd_offs().items():
+        offs, vt = torch.from_numpy(o).to(dev), v[:8 * len(o)]
+        out["probe_dynslice_accum"].append(_check_one(
+            f"probe_dynslice_accum {label}", probes.dynslice_accum,
+            (offs, vt), {}, probes.dynslice_accum_ref,
+            _bound(_nbytes(offs, vt) + 1024 * 512, vt.numel(),
+                   torch.float32),
+            CAL_MATCH["dynslice_accum"], timed=False))
+    for rows, g in ODD_SUBLANE:
+        idx = torch.from_numpy(rng.integers(0, rows, (g, 128)).astype(
+            np.int32)).to(dev)
+        val = torch.from_numpy(rng.standard_normal((g, 128)).astype(
+            np.float32)).to(dev)
+        x = torch.from_numpy(rng.standard_normal((rows, 128)).astype(
+            np.float32)).to(dev)
+        out["probe_sublane_gather"].append(_check_one(
+            f"probe_sublane_gather rows {rows} G {g}", probes.sublane_gather,
+            (idx, val, x), {}, probes.sublane_gather_ref,
+            _bound(_nbytes(idx, val, x, val), val.numel(), torch.float32),
+            CAL_MATCH["sublane_gather"], tol=0, timed=False))
     # slab_step at every row of probe_slab.main and at stage "route", timed
     # at T 32, S8 8, "all": bytes the streams its stage reads, x once and
     # the out blocks; operations a multiply (gather stages), a prefix add

@@ -153,6 +153,22 @@ def dynslice_accum_case(T=4096, dtype=F32, device="cuda"):
     return probes.dynslice_accum, (offs, v), {}
 
 
+def dynslice_odd_offs(T=4096, seed=9) -> dict:
+    """label → offs (int32 numpy) of inputs the accumulate's probe never
+    draws, for the checks of its kernel: the probe's T sorted offs
+    permuted, every off equal, offs over [−64, 1,100) (a negative off
+    counts from y's end; both clamps act), and T 1 and 3.  y has the
+    probe's 1,024 rows."""
+    rng = np.random.default_rng(seed)
+    probe = np.sort(np.random.default_rng(6).integers(0, 1016, T))
+    out = {f"T {T} permuted": rng.permutation(probe),
+           f"T {T} every off equal": np.full(T, 500),
+           f"T {T} over [-64, 1100)": rng.integers(-64, 1100, T),
+           "T 1": rng.integers(-64, 1100, 1),
+           "T 3": rng.integers(-64, 1100, 3)}
+    return {k: v.astype(np.int32) for k, v in out.items()}
+
+
 def seg_scan_case(G=8192, dtype=F32, device="cuda"):
     dev = device_of(device)
     rng = np.random.default_rng(7)

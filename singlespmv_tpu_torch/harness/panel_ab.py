@@ -85,7 +85,7 @@ def build_variant(name: str, subs: dict, sources=("slab.cu", "xch.cu"),
     """Compiles the variant's ``sources`` into a shared library; returns
     (library, {kernel: registers}, {kernel: ATOMS.CAST count}) over the
     kernels whose names hold one of ``kernels``.  The library keeps nvcc's
-    output (ptxas) as ``ptxas_log``."""
+    output (ptxas) as ``ptxas_log`` and its SASS (cuobjdump) as ``sass``."""
     work = tempfile.mkdtemp(prefix="panel_ab_")
     shutil.copytree(_build.CSRC_DIR, work, dirs_exist_ok=True)
     hits = dict.fromkeys(subs, 0)
@@ -129,6 +129,7 @@ def build_variant(name: str, subs: dict, sources=("slab.cu", "xch.cu"),
     sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"),
                            "-sass", lib_path], capture_output=True,
                           text=True).stdout
+    lib.sass = sass
     cas, current = dict.fromkeys(kernels, 0), None
     for line in sass.splitlines():
         if "Function :" in line:

@@ -44,6 +44,7 @@ MULTIPLY_STAGES = STAGES[:4]           # gather from x and multiply
 TOTALS_STAGES = ("all", "prefix", "route")
 ROUTE_STAGES = ("all", "route", "routeonly")
 MAX_S8 = 8                             # σ planes of one (8, 128) unit block
+DYN_CHUNK = 16                         # csrc kDynChunk: steps a block
 _LANE, _LEVELS, _PALETTE, _PAL2STEP, _SUBLANE = range(5)   # csrc kinds
 F32 = torch.float32
 
@@ -152,12 +153,55 @@ def onehot_bins_ref(bins, val):
     return sums.repeat_interleave(8, dim=0)
 
 
+def dynslice_starts(offs, rows: int = 1024):
+    """(T,) int64: the first y row of each step's window, as the
+    reference's dynamic slice takes it: offs[t], plus ``rows`` where
+    negative (a negative index counts from the end), clamped to
+    [0, rows − 8]."""
+    off = offs.long()
+    return torch.where(off < 0, off + rows, off).clamp(0, rows - 8)
+
+
 def dynslice_accum_ref(offs, v, rows: int = 1024):
     """Plain version of ``dynslice_accum``."""
-    off = offs.long().clamp(0, rows - 8)
+    off = dynslice_starts(offs, rows)
     dst = (off[:, None] + torch.arange(8, device=v.device)).reshape(-1)
     out = torch.zeros(rows, LANES, dtype=v.dtype, device=v.device)
     return out.index_add_(0, dst, v)
+
+
+def dynslice_accum_chunks_ref(offs, v, rows: int = 1024,
+                              chunk: int = DYN_CHUNK):
+    """A model of the kernel's sums, used by no path: each run of ``chunk``
+    steps sums its steps in order into a window of 8 rows [cur, cur + 8);
+    a step at cur < off < cur + 8 adds rows cur … off − 1 into out and
+    slides the window there, a step elsewhere adds the whole window and
+    starts an empty one at off, and the run's end adds the rest.  Returns
+    out and the rows added into it (the kernel's float4 REDs, 32 a row)."""
+    off = dynslice_starts(offs, rows).tolist()
+    out = torch.zeros(rows, LANES, dtype=v.dtype, device=v.device)
+    steps = v.view(-1, 8, LANES)
+    added = 0
+    for t0 in range(0, len(off), chunk):
+        cur, acc = None, None
+        for t in range(t0, min(t0 + chunk, len(off))):
+            o = off[t]
+            if cur is not None and cur < o < cur + 8:
+                out[cur:o] += acc[:o - cur]
+                acc = torch.cat([acc[o - cur:],
+                                 torch.zeros_like(acc[:o - cur])])
+                added += o - cur
+            elif o != cur:
+                if cur is not None:
+                    out[cur:cur + 8] += acc
+                    added += 8
+                acc = torch.zeros_like(steps[t])
+            cur = o
+            acc = acc + steps[t]
+        if cur is not None:
+            out[cur:cur + 8] += acc
+            added += 8
+    return out, added
 
 
 def seg_scan_ref(heads, val, steps: int = 7):
@@ -311,8 +355,10 @@ def pal2step(blk, col, val, sub, sel, x):
 
 
 def sublane_gather(idx, val, x):
-    """out (G, 128) = val · x[idx, lane]; idx (G, 128) int32, x
-    (rows, 128)."""
+    """out (G, 128) = val · x[idx, lane]; idx (G, 128) int32 in [0, rows),
+    x (rows, 128).  The kernel stages 32 lanes of every row of x in
+    shared memory a block (up to 1,816 rows), else it gathers from device
+    memory."""
     dev = _device(val)
     shape = _tile_shape("val", val, dev, F32)
     if shape[1] != LANES:
@@ -321,7 +367,7 @@ def sublane_gather(idx, val, x):
     _table("x", x, dev, F32)
     if dev.type == "cpu":
         return sublane_gather_ref(idx, val, x)
-    return _gather(sublane_gather, idx, val, x, _SUBLANE)
+    return _gather(sublane_gather, idx, val, x, _SUBLANE, x.shape[0])
 
 
 def onehot_bins(bins, val):
@@ -345,8 +391,8 @@ def onehot_bins(bins, val):
 
 def dynslice_accum(offs, v, rows: int = 1024):
     """out (rows, 128) = Σ_t v[8t : 8t+8] added at rows off_t … off_t + 7,
-    off_t = offs[t] clamped to [0, rows − 8]; offs (T,) int32, v
-    (8T, 128)."""
+    off_t = ``dynslice_starts``: offs[t], plus rows where negative, clamped
+    to [0, rows − 8]; offs (T,) int32, v (8T, 128)."""
     dev = _device(v)
     if offs.dim() != 1 or rows < 8:
         raise ValueError(f"dynslice_accum takes offs (T,) and rows ≥ 8, not "
@@ -466,5 +512,7 @@ def slab_step(uids, base, lane, sub, val, hm1, idx, x, nu: int, T: int,
 WRAPPERS = (lane_gather, gather1024, palette_gather, pal2step, onehot_bins,
             sublane_gather, dynslice_accum, seg_scan, seg_scan_roll,
             tile_transpose, slab_step)
+# the gather-multiply kernel's wrappers: one product an element, so exact
+GATHERS = (lane_gather, gather1024, palette_gather, pal2step, sublane_gather)
 for _w in WRAPPERS:
     _w.launches = 0

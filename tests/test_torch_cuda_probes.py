@@ -10,13 +10,17 @@ runs where only the port is installed:
 
 float32 kernels agree with their plain versions to 1e-5·max|out| (prefix
 sums by warp shuffles, accumulation with atomics in run-dependent order);
-the bfloat16 lane gather and the gathers without sums agree exactly.
+the bfloat16 lane gather and the gathers without sums agree exactly, on
+the probes' inputs and on odd ones (sublane tables of every size, inputs
+off 16 bytes through the C entry, the accumulate's offs in any order and
+past both ends of y).
 """
 import numpy as np
 import pytest
 import torch
 
-from singlespmv_tpu_torch.harness import calibrate, microbench, probe_slab
+from singlespmv_tpu_torch.harness import calibrate, driver, microbench
+from singlespmv_tpu_torch.harness import probe_slab
 from singlespmv_tpu_torch.ops import _build, probes
 from singlespmv_tpu_torch.ops import xch as ops
 
@@ -123,6 +127,134 @@ def test_onehot_bins_refuses_misaligned_inputs(cuda):
         probes.onehot_bins(bins.view(8, 128), val)
 
 
+def _events_a_call(fn, match=""):
+    """Device events (kernels, memsets, copies) whose name holds ``match``
+    in one call of ``fn``, from a complete trace of three calls."""
+    for _ in range(3):
+        counts, _ = driver.device_trace(fn, match, 3)
+        if driver.trace_refusal(counts, 3) is None:
+            return counts[0]
+    pytest.fail("no complete trace in three")
+
+
+def _dyn_case(cuda, kind, rows, T):
+    rng = np.random.default_rng(rows + T)
+    sorted_ = np.sort(rng.integers(0, rows - 7, T))
+    offs = {"sorted": sorted_, "permuted": rng.permutation(sorted_),
+            "equal": np.full(T, (rows - 8) // 2),
+            "clamped": rng.integers(-64, rows + 76, T),
+            "negative": rng.integers(-2 * rows, 0, T)}[kind]
+    v = rng.standard_normal((8 * T, 128)).astype(np.float32)
+    return (torch.from_numpy(offs.astype(np.int32)).to(cuda),
+            torch.from_numpy(v).to(cuda))
+
+
+@pytest.mark.parametrize("T", [1, 3, 300, 4096])
+@pytest.mark.parametrize("rows", [16, 1024])
+@pytest.mark.parametrize("kind", ["sorted", "permuted", "equal", "clamped",
+                                  "negative"])
+def test_dynslice_any_offs(cuda, kind, rows, T):
+    """Offs sorted (the probe's), permuted, all equal, past both ends of y
+    and negative (counted from y's end, then clamped); T 1 and 3, and T 300
+    (a last run of 12 steps: a bulk copy of 8 and one of 4).  Held to the
+    plain version and to the model of the kernel's sums, whose order it
+    shares but for the adds into y."""
+    offs, v = _dyn_case(cuda, kind, rows, T)
+    got = _launched(probes.dynslice_accum, offs, v, rows)
+    _close(got, probes.dynslice_accum_ref(offs, v, rows))
+    model, _ = probes.dynslice_accum_chunks_ref(offs.cpu(), v.cpu(), rows)
+    _close(got, model.to(cuda))
+
+
+def test_dynslice_one_kernel_a_call(cuda):
+    """y's zeroing and one kernel; v off 16 bytes is refused."""
+    offs, v = _dyn_case(cuda, "sorted", 1024, 4096)
+    call = lambda: probes.dynslice_accum(offs, v)  # noqa: E731
+    assert _events_a_call(call) == 2
+    assert _events_a_call(call, "dynslice") == 1
+    bad = torch.zeros(8 * 128 + 1, device=cuda)[1:].view(8, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        probes.dynslice_accum(offs[:1], bad)
+
+
+# (x rows, G): the whole table (rows ≤ 128), slices of every row (rows ≤
+# 1,816), device memory past that; G not a multiple of the blocks' rows
+SUBLANE_SHAPES = [(8, 8192), (64, 8192), (128, 296), (129, 296),
+                  (1000, 296), (1024, 8192), (1816, 296), (1817, 296),
+                  (3000, 8)]
+
+
+@pytest.mark.parametrize("rows,G", SUBLANE_SHAPES)
+def test_sublane_gather_any_table(cuda, rows, G):
+    """idx on x's first and last rows in the first tile, at random
+    elsewhere; exact (one product an element)."""
+    rng = np.random.default_rng(rows + G)
+    idx = rng.integers(0, rows, (G, 128)).astype(np.int32)
+    idx[:8] = np.resize([0, rows - 1], (8, 128))
+    val = rng.standard_normal((G, 128)).astype(np.float32)
+    x = rng.standard_normal((rows, 128)).astype(np.float32)
+    idx, val, x = (torch.from_numpy(a).to(cuda) for a in (idx, val, x))
+    got = _launched(probes.sublane_gather, idx, val, x)
+    _close(got, probes.sublane_gather_ref(idx, val, x), exact=True)
+
+
+@pytest.mark.parametrize("name", [
+    "lane_gather_w128", "lane_gather_w512_bf16", "gather8way_w1024",
+    "palette_w1024_per8", "pal2step_w1024_k1", "sublane_gather_1024",
+    "sublane_gather_64", "sublane_gather_8"])
+def test_gather_one_kernel_a_call(cuda, name):
+    case, kw = microbench.KERNEL_CASES[name]
+    fn, args, fkw = case(**kw, device=cuda)
+    assert _events_a_call(lambda: fn(*args, **fkw)) == 1
+
+
+def _off_by_one(t):
+    """A copy of ``t`` one element past 16 bytes."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    flat.copy_(t.reshape(-1))
+    return flat.view(t.shape)
+
+
+@pytest.mark.parametrize("name", [
+    "lane_gather_w128", "lane_gather_w512_bf16", "lane_gather_w1024_tab0",
+    "gather8way_w1024", "palette_w1024_per8", "pal2step_w1024_k1",
+    "sublane_gather_1024", "sublane_gather_64"])
+def test_gather_scalar_path_off_16_bytes(cuda, name):
+    """The wrappers refuse col, val or x off 16 bytes; the C entry takes
+    them, one element a thread (the sublane table staged by elements)."""
+    case, kw = microbench.KERNEL_CASES[name]
+    fn, args, fkw = case(**kw, device=cuda)
+    want = getattr(probes, fn.__name__ + "_ref")(*args, **fkw)
+    at = {"palette_gather": 1, "pal2step": 1}.get(fn.__name__, 0)
+    odd = list(args)
+    odd[at] = _off_by_one(args[at])          # col (idx)
+    odd[at + 1] = _off_by_one(args[at + 1])  # val
+    odd[-1] = _off_by_one(args[-1])          # x
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fn(*odd, **fkw)
+    col, val, x = odd[at], odd[at + 1], odd[-1]
+    out = _off_by_one(torch.zeros_like(want))
+    blk = sub = sel = None
+    kind, a, b = {"lane_gather": (0, int(fkw.get("table_rows", 1) == 1), 0),
+                  "gather1024": (1, fkw.get("levels", 8), 0),
+                  "sublane_gather": (4, x.shape[0], 0)}.get(fn.__name__,
+                                                           (None, 0, 0))
+    if fn is probes.palette_gather:
+        blk, per = args[0], fkw.get("per", 1)
+        kind, a, b = 2, 8 * col.shape[1] // 128 // per, per
+    elif fn is probes.pal2step:
+        blk, sub, sel = args[0], args[3], _off_by_one(args[4])
+        kind, a, b = 3, 8 * col.shape[1] // 128, sub.shape[0]
+    entry = "probe_gather_bf16" if val.dtype == torch.bfloat16 \
+        else "probe_gather_f32"
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = getattr(_build.load(), entry)(
+        *map(ptr, (col, val, x, blk, sub, sel, out)), out.numel(),
+        col.shape[1], kind, a, b, torch.cuda.current_stream(cuda).cuda_stream)
+    assert rc == 0
+    _close(out, want, exact=True)
+
+
 def test_pal2step_three_planes(cuda):
     fn, args, _ = microbench.pal2step_case(w=512, K=3, device=cuda)
     _close(_launched(fn, *args), probes.pal2step_ref(*args), exact=True)
@@ -166,6 +298,10 @@ def test_launchers_refuse_bad_ranges(cuda):
     # col .. out | n w kind a b
     assert lib.probe_gather_f32(*[None] * 7, 1024, 100, 0, 1, 0,
                                 stream) != 0            # w not 128·k
+    assert lib.probe_gather_f32(*[None] * 7, 1024, 128, 4, 0, 0,
+                                stream) != 0            # sublane, no rows
+    assert lib.probe_dynslice_f32(None, 4, None, 1, 16,
+                                  stream) != 0          # v off 16 bytes
     assert lib.probe_onehot_f32(None, None, None, 12, stream) != 0
     assert lib.probe_onehot_f32(4, 16, 32, 8, stream) != 0   # not on 16 B
     assert lib.probe_transpose_f32(None, None, 0, 4, 4, stream) == 0
