@@ -88,8 +88,9 @@ Its phases, in the order they run:
    as slices of lanes, and past shared memory; the probes' 64 and 8 rows
    stage it whole), and ``probe_slab``'s kernel at every
    (T, S8, stage) of its nine rows and at stage "route", each kernel timed
-   at its first shape; then drives ``calibrate.measure`` (printing the six
-   fitted keys, each flagged as left out by ``calibrate.screen``, taken
+   at its first shape and ``xch_route`` at both of calibrate's; then
+   drives ``calibrate.measure`` (printing the six fitted keys, its
+   ``route_slot_s`` beside the first port's ``ROUTE_SLOT_S_FIRST_PORT``, each flagged as left out by ``calibrate.screen``, taken
    or left to the default by ``chipconst.load``, what is kept saved only
    to a temporary file), ``microbench.run`` over the 35 ``PROBES`` and
    ``probe_pal2step`` (printing the TSV and ``PROBE_PAIRS``: each
@@ -972,6 +973,10 @@ CAL_KERNELS = {
                    "scripts/probe_slab.py:28"),
 }
 CAL_TARGET_S = 0.03     # the probes' loop length (the reference's: 0.25 s)
+# calibrate's route_slot_s on the first port's xch_route kernel (a shared
+# accumulator of float atomics a block of 32 rows): this script's fit on
+# an NVIDIA H100 80GB HBM3 at 700 W
+ROUTE_SLOT_S_FIRST_PORT = 5.555160775827517e-13
 # (CB, NU, S, offset in floats) of the transposes held beside the probe's
 ODD_TRANSPOSES = ((13, 11, 3, 0), (40, 24, 1, 0), (17, 9, 8, 1),
                   (24, 40, 128, 1), (9, 300, 12, 0))
@@ -1059,11 +1064,12 @@ def compare_calibration(dev):
                   + int(act.sum()) * T * 128 + ngb * g_grp * planes * 512
                   + (_nbytes(sub) if m > 1 else 0))
         ops = 2 * lane.numel() + int(((idx >= 0) & rows).sum())
-        first = "xch_route" not in out
+        # both of calibrate's cases are timed: route_slot_s fits their
+        # difference
         out.setdefault("xch_route", []).append(_check_one(
             label, xops.xch_route, (*a, ngb, m, planes, T, g_grp, pg), {},
             xops.xch_route_ref, _bound(nbytes, ops, torch.float32),
-            CAL_MATCH["xch_route"], timed=first))
+            CAL_MATCH["xch_route"], timed="pruned" not in label))
         del a
     # the probe kernels on every probe's inputs, each kernel (and dtype)
     # timed on the first: its probe's defaults, and bfloat16's w 512
@@ -1210,6 +1216,11 @@ def run_calibration_path(dev):
 
     vals = calibrate.measure(dev, log=lambda m: print(f"calibrate: {m}",
                                                       flush=True))
+    print(f"calibrated route_slot_s = {vals['route_slot_s']!r} s a plane "
+          f"slot, beside {ROUTE_SLOT_S_FIRST_PORT!r} with the first port's "
+          "xch_route kernel; the planner prices with neither yet (no "
+          "chip_constants.json is committed, and the fit reads the "
+          "wrapper's host time: ROADMAP A.7b)", flush=True)
     if set(vals) != {"hbm_bps", "step_fixed_s", "base_slot_s", "sel_slot_s",
                      "route_slot_s", "scatter_rate"} or not all(
                          np.isfinite(v) and v >= 0 for v in vals.values()):
@@ -1811,12 +1822,19 @@ def main() -> int:
             | first_port_ms))
     # the calibration path's: max_abs_err over every check, times of the
     # first (xch_route at 16 planes, each probe at its defaults, probe_slab
-    # at T 32, S8 8, stage all)
+    # at T 32, S8 8, stage all); xch_route's at 8 planes beside them
     for kname, (wname, src, replaces) in CAL_KERNELS.items():
         rs = cal_checks[kname]
         if rs[0]["ms"] is None:
             raise SystemExit(f"{kname}: its first check was not timed")
-        kernels.append(_marked({
+        more = {}
+        if kname == "xch_route":
+            r8 = next(r for r in rs if r["label"] == "xch_route planes 8")
+            if r8["ms"] is None:
+                raise SystemExit("xch_route at 8 planes was not timed")
+            more = {"ms_8_planes": r8["ms"], "bound_ms_8_planes":
+                    r8["bound_ms"], "plain_ms_8_planes": r8["plain_ms"]}
+        kernels.append(_marked(more | {
             "name": kname, "route": "cuda",
             "source": f"singlespmv_tpu_torch/{src}", "replaces": replaces,
             "launches": launches[wname],

@@ -23,10 +23,11 @@
 //     xch_mul_panel and xch_route4_panel (singlespmv_tpu/ops/pallas/xch.py:313,
 //     :338 and :364, :424): both passes over a panel of B columns, float only,
 //     as the TPU ran them;
-//   xch_route_kernel replaces _xch_route_kernel, the kernel of xch_route
-//     (singlespmv_tpu/ops/pallas/xch.py:197 and :259): the v3 sigma-plane
-//     route, float only (the calibration's route_slot_s fit runs it; the TPU
-//     had no df64 build of it).
+//   xch_route_kernel<8> and <16> replace _xch_route_kernel, the kernel of
+//     xch_route (singlespmv_tpu/ops/pallas/xch.py:197 and :259): the v3
+//     sigma-plane route, float only (the calibration's route_slot_s fit runs
+//     it; the TPU had no df64 build of it), redesigned for Hopper on the
+//     lane-owned register accumulators of unit_acc.cuh (below).
 //
 // Pass 1, per stream row r of 128 slots l:
 //   out[r,l] = val[r,l] * x[(win[r] + sub[r,l]) * 128 + lane[r,l]]
@@ -130,12 +131,23 @@
 // named the TPU's out block and the kernel never reads it.  A group of pg
 // planes [g0, g0 + n_p) is routed when sg0[t] < g0 + n_p and sg1[t] >= g0,
 // the TPU kernel's pl.when, so a step routes every plane of a group that
-// meets its range and none when no group does.  It is slab_unit_kernel
-// without the multiply: a block of 8 warps takes rpb rows of one step, the
-// planes of the active groups collect in a (planes, 128) accumulator of
-// dynamic shared memory (planes <= 64: 32 KB) and go to out with one global
-// atomicAdd per nonzero entry; the wrapper zeroes out, which stands in for
-// the TPU's zeroed block on a new gids, and rows past its end are dropped.
+// meets its range and none when no group does; the groups that do are
+// contiguous, planes [lo, hi] (active_planes).  The wrapper zeroes out,
+// which stands in for the TPU's zeroed block on a new gids, and rows past
+// its end are dropped.
+//
+// Design of the v3 route (redesigned for Hopper): the lane-owned unit
+// accumulators of unit_acc.cuh.  A block takes a chunk of R rows and walks
+// it a segment (one unit's steps) at a time, a warp a row; each row's
+// active planes come from its own step's sg0/sg1.  Lane k keeps columns
+// 4k..4k+3 of G planes in registers (G = 8 for up to 8 planes, else 16;
+// past 16 planes the block walks the segment's rows once a group of 16),
+// the block sums its warps' partials in shared memory (64 KB at G 16) and
+// adds each float4 of the planes that the segment's steps route into out
+// once, by one reduction.  The first port (a block rpb <= 32 rows of one
+// step, a (planes, 128) accumulator of shared float atomics, a global
+// atomic an entry a block) is the "first port" variant of
+// harness/route_ab.py.
 //
 // Bound.  Pass 1 streams 4 B of val (8 B at double) and 1 B of lane per slot
 // (2 B when m > 1) and writes 4 B (8 B) of product; x is gathered from L2.
@@ -152,6 +164,7 @@
 // pipelining.
 
 #include "panel_row.cuh"
+#include "unit_acc.cuh"
 
 namespace {
 
@@ -381,47 +394,105 @@ __global__ void __launch_bounds__(kThreads) xch_route4_panel_kernel(
   route_row<false>(st, lg, prod, out, B);
 }
 
+// The planes [lo, hi] of the pg-groups that a step with sg0 = s0 and
+// sg1 = s1 routes, lo > hi for none: group g0 = j * pg of n_p planes routes
+// when s0 < g0 + n_p and s1 >= g0, so j runs from s0 / pg to
+// min(s1, planes - 1) / pg (ops/xch.py:active_plane_range).
+__device__ __forceinline__ int2 active_planes(int s0, int s1, int planes,
+                                              int pg) {
+  if (s1 < 0 || s0 >= planes) return make_int2(0, -1);
+  const int jlo = s0 < 0 ? 0 : s0 / pg, jhi = min(s1, planes - 1) / pg;
+  if (jlo > jhi) return make_int2(0, -1);
+  return make_int2(jlo * pg, min((jhi + 1) * pg, planes) - 1);
+}
+
+__device__ __forceinline__ unsigned long long plane_bits(int2 p) {
+  if (p.x > p.y) return 0ull;
+  const int n = p.y - p.x + 1;
+  return (n == 64 ? ~0ull : (1ull << n) - 1) << p.x;
+}
+
+template <int G>
 __global__ void __launch_bounds__(kThreads) xch_route_kernel(
     const int32_t* __restrict__ uids, const int32_t* __restrict__ cs,
     const int32_t* __restrict__ sg0, const int32_t* __restrict__ sg1,
     const int32_t* __restrict__ win, const int8_t* __restrict__ lane,
     const int8_t* __restrict__ sub, const int8_t* __restrict__ hm1,
     const int8_t* __restrict__ idx, const float* __restrict__ prod,
-    float* __restrict__ out, int H, int T, int rpb, int m, int planes,
+    float* __restrict__ out, int H, int T, int R, int m, int planes,
     int pg, int p1, long long n_out) {
-  extern __shared__ float acc[];  // (planes, 128)
+  extern __shared__ float4 part4[];  // (kWarps, G, 128) partials
+  float* part = reinterpret_cast<float*>(part4);
   __shared__ __align__(16) float wbuf[kWarps][kLanes];
   const int warp = threadIdx.x >> 5, k = threadIdx.x & 31;
-  const int r0 = blockIdx.x * rpb;
-  const int t = r0 / T;
-  // the planes of the active groups: a contiguous range, since a group is
-  // active when it starts at or before sg1 and ends after sg0
-  int lo = planes, hi = -1;
-  for (int g0 = 0; g0 < planes; g0 += pg) {
-    const int n_p = min(pg, planes - g0);
-    if (sg0[t] < g0 + n_p && sg1[t] >= g0) {
-      lo = min(lo, g0);
-      hi = g0 + n_p - 1;
+  const int r0 = blockIdx.x * R;
+  const int t1 = min(r0 + R, H) / T;
+  LaneAcc<G> acc;
+  acc.init(part);
+  for (int t = r0 / T; t < t1;) {
+    const int e = segment_end(uids, t, t1);
+    const int u = __ldg(uids + t);
+    const long long base = (long long)u * planes;  // out row of plane 0
+    // the planes that the segment's steps route, below out's end
+    unsigned long long routed = 0;
+    if (base >= 0 && base < n_out) {
+      for (int s = t; s < e; ++s)
+        routed |= plane_bits(
+            active_planes(__ldg(sg0 + s), __ldg(sg1 + s), planes, pg));
+      if (n_out - base < 64) routed &= (1ull << (n_out - base)) - 1;
     }
+    for (int p0 = 0; routed >> p0; p0 += G) {  // uniform over the block
+      if (!((routed >> p0) & ((1ull << G) - 1))) continue;
+      for (int r = t * T + warp; r < e * T; r += kWarps) {
+        const int st = r / T;
+        const int2 act = active_planes(__ldg(sg0 + st), __ldg(sg1 + st),
+                                       planes, pg);
+        if (act.y < p0 || act.x >= p0 + G) continue;  // uniform over the warp
+        // every active plane's end lanes first: their loads overlap the
+        // gather
+        uint32_t ends[G];
+#pragma unroll
+        for (int s = 0; s < G; ++s)
+          ends[s] = p0 + s >= act.x && p0 + s <= act.y
+                        ? load_ends(idx + ((size_t)(p0 + s) * H + r) * kLanes +
+                                    4 * k)
+                        : kNoEnds;
+        const float* x = prod + (size_t)__ldg(cs + st) * p1 * kLanes;
+        run_totals<float>(r, gather4<float>(r, m, win, lane, sub, x), hm1,
+                          wbuf[warp]);
+#pragma unroll
+        for (int s = 0; s < G; ++s) acc.route(s, ends[s], wbuf[warp]);
+      }
+      acc.stage(G);
+      float* ob = out + (base + p0) * kLanes;
+      const unsigned long long group = routed >> p0;
+      reduce_unit<G>(part, G * kLanes / 4, [&](int i, float4 s) {
+        if ((group >> (i >> 5)) & 1) red4(ob + 4 * i, s);
+      });
+      if (p0 + G >= 64) break;
+    }
+    t = e;
   }
-  const long long base = (long long)uids[t] * planes;  // out row of plane 0
-  const long long room = n_out - 1 - base;
-  const int last = room < hi ? (int)room : hi;
-  if (lo > hi || base < 0 || last < lo) return;  // uniform over the block
-  for (int i = lo * kLanes + threadIdx.x; i < (hi + 1) * kLanes;
-       i += kThreads)
-    acc[i] = 0.f;
-  __syncthreads();
-  const float* x = prod + (size_t)cs[t] * p1 * kLanes;
-  for (int r = r0 + warp; r < r0 + rpb; r += kWarps) {
-    run_totals<float>(r, gather4<float>(r, m, win, lane, sub, x), hm1,
-                      wbuf[warp]);
-    for (int s = lo; s <= hi; ++s)
-      route4(idx + ((size_t)s * H + r) * kLanes + 4 * k, wbuf[warp],
-             acc + s * kLanes + 4 * k);
-  }
-  __syncthreads();
-  flush(acc, lo, last, out + base * kLanes);
+}
+
+template <int G>
+int launch_route(const void* uids, const void* cs, const void* sg0,
+                 const void* sg1, const void* win, const void* lane,
+                 const void* sub, const void* hm1, const void* idx,
+                 const void* prod, void* out, int H, int T, int R, int m,
+                 int planes, int pg, int p1, int n_out, cudaStream_t stream) {
+  static int allowed[kMaxUnitDevices] = {};
+  const int smem = kWarps * G * kLanes * 4;
+  const cudaError_t err =
+      allow_unit_smem((const void*)xch_route_kernel<G>, smem, allowed);
+  if (err != cudaSuccess) return (int)err;
+  xch_route_kernel<G><<<(H + R - 1) / R, kThreads, smem, stream>>>(
+      (const int32_t*)uids, (const int32_t*)cs, (const int32_t*)sg0,
+      (const int32_t*)sg1, (const int32_t*)win, (const int8_t*)lane,
+      (const int8_t*)sub, (const int8_t*)hm1, (const int8_t*)idx,
+      (const float*)prod, (float*)out, H, T, R, m, planes, pg, p1,
+      (long long)n_out);
+  return (int)cudaGetLastError();
 }
 
 // Lets the route kernel take the dynamic shared memory of the largest p_oh
@@ -607,27 +678,26 @@ extern "C" int xch_mul_panel_f32(const void* win, const void* lane,
 
 // `out` must be zeroed, of (n_out, 128) floats (ngb * g_grp * planes rows);
 // `prod` is the (n_chunks, p1, 128) product grid of pass 1, `idx` the
-// (planes, H, 128) sigma-plane end lanes.
+// (planes, H, 128) sigma-plane end lanes, `uids` non-decreasing.  R is the
+// chunk of rows a block takes, a multiple of T.
 extern "C" int xch_route_f32(const void* uids, const void* cs,
                              const void* sg0, const void* sg1,
                              const void* win, const void* lane,
                              const void* sub, const void* hm1,
                              const void* idx, const void* prod, void* out,
                              int H, int T, int m, int planes, int pg, int p1,
-                             int n_out, void* stream) {
+                             int n_out, int R, void* stream) {
   if (m < 1 || m > kMaxWindow || planes < 1 || planes > kMaxRoutePlanes ||
-      pg < 1 || T < 1 || H < 0 || H % T || p1 < 1 || n_out < 0)
+      pg < 1 || T < 1 || H < 0 || H % T || p1 < 1 || n_out < 0 || R < T ||
+      R % T)
     return (int)cudaErrorInvalidValue;
   if (H == 0) return 0;
-  const int rpb = rows_per_block(T);
-  xch_route_kernel<<<H / rpb, kThreads, (size_t)planes * kLanes * 4,
-                     (cudaStream_t)stream>>>(
-      (const int32_t*)uids, (const int32_t*)cs, (const int32_t*)sg0,
-      (const int32_t*)sg1, (const int32_t*)win, (const int8_t*)lane,
-      (const int8_t*)sub, (const int8_t*)hm1, (const int8_t*)idx,
-      (const float*)prod, (float*)out, H, T, rpb, m, planes, pg, p1,
-      (long long)n_out);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (planes <= 8)
+    return launch_route<8>(uids, cs, sg0, sg1, win, lane, sub, hm1, idx, prod,
+                           out, H, T, R, m, planes, pg, p1, n_out, st);
+  return launch_route<16>(uids, cs, sg0, sg1, win, lane, sub, hm1, idx, prod,
+                          out, H, T, R, m, planes, pg, p1, n_out, st);
 }
 
 // `out` must be zeroed, of (n_grp * gb, 128, B) floats; `prod` is the

@@ -69,8 +69,8 @@ SIGNATURES = {
     # | H T m kblk p_oh n_grp gb p1 B n_chunks | stream
     "xch_route4_panel_f32": [_P] * 11 + [_I] * 10 + [_P],
     # uids cs sg0 sg1 win lane sub hm1 idx prod out
-    # | H T m planes pg p1 n_out | stream
-    "xch_route_f32": [_P] * 11 + [_I] * 7 + [_P],
+    # | H T m planes pg p1 n_out R | stream
+    "xch_route_f32": [_P] * 11 + [_I] * 8 + [_P],
     # members lane src val x out | H W gran m | stream
     "block_gather_mul_f32": [_P] * 6 + [_I] * 4 + [_P],
     # prod hm1 idx out | rb_pad G K | stream
@@ -98,8 +98,8 @@ SIGNATURES = {
     "probe_segscan_f32": [_P] * 3 + [_I] * 3 + [_P],
     # in out | CB NU S | stream
     "probe_transpose_f32": [_P] * 2 + [_I] * 3 + [_P],
-    # uids base lane sub val hm1 idx x out | H T S8 NU stage | stream
-    "probe_slab_f32": [_P] * 9 + [_I] * 5 + [_P],
+    # uids base lane sub val hm1 idx x out | H T S8 NU stage R | stream
+    "probe_slab_f32": [_P] * 9 + [_I] * 6 + [_P],
 }
 
 

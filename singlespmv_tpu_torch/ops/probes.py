@@ -32,6 +32,7 @@ launches of its kernel in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -45,6 +46,7 @@ TOTALS_STAGES = ("all", "prefix", "route")
 ROUTE_STAGES = ("all", "route", "routeonly")
 MAX_S8 = 8                             # σ planes of one (8, 128) unit block
 DYN_CHUNK = 16                         # csrc kDynChunk: steps a block
+UNIT_BLOCKS_PER_SM = 6   # chunks a multiprocessor of the unit kernels
 _LANE, _LEVELS, _PALETTE, _PAL2STEP, _SUBLANE = range(5)   # csrc kinds
 F32 = torch.float32
 
@@ -266,6 +268,30 @@ def slab_step_ref(uids, base, lane, sub, val, hm1, idx, x, nu: int, T: int,
 
 
 # --------------------------------------------------------------- wrappers ---
+
+def unit_chunk_rows(h: int, T: int, sms: int,
+                    per_sm: int = UNIT_BLOCKS_PER_SM) -> int:
+    """R, the stream rows a block of the lane-owned unit kernels takes
+    (``csrc/unit_acc.cuh``: ``slab_step`` and ``xch.xch_route``): the
+    multiple of T nearest h / (per_sm · sms), at least T, so that the
+    chunks fill the card's ``sms`` multiprocessors ``per_sm`` deep."""
+    if T < 1 or h < 0 or sms < 1 or per_sm < 1:
+        raise ValueError(f"no chunk for h={h}, T={T}, sms={sms}, "
+                         f"per_sm={per_sm}")
+    return T * max(1, round(h / (T * per_sm * sms)))
+
+
+def unit_rows(h: int, T: int, dev) -> int:
+    """R of a unit kernel's launch over h rows on ``dev``."""
+    sms = _sms(dev.index if dev.index is not None
+               else torch.cuda.current_device())
+    return unit_chunk_rows(h, T, sms, UNIT_BLOCKS_PER_SM)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 def _gather(wrapper, col, val, x, kind, a=0, b=0, blk=None, sub=None,
             sel=None):
@@ -503,7 +529,8 @@ def slab_step(uids, base, lane, sub, val, hm1, idx, x, nu: int, T: int,
     if h and nu:
         rc = _build.load().probe_slab_f32(
             *map(_ptr, (uids, base, lane, sub, val, hm1, idx, x, out)),
-            h, T, s8, nu, STAGES.index(stage), _stream(dev))
+            h, T, s8, nu, STAGES.index(stage), unit_rows(h, T, dev),
+            _stream(dev))
         _raise_on(rc, "slab_step")
         slab_step.launches += 1
     return out

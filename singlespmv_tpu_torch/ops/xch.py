@@ -46,7 +46,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, probes
 from .slab import (LANES, PANEL_TYPES, VALUE_TYPES, _check, _check_table,
                    _count, _entry, _gather, _picked, _ptr, _raise_on,
                    _totals, value_type)
@@ -193,6 +193,18 @@ def _active_planes(sg0, sg1, planes, pg):
     g0 = torch.arange(planes, device=sg0.device) // pg * pg
     end = torch.clamp(g0 + pg, max=planes)
     return (sg0[:, None] < end) & (sg1[:, None] >= g0)
+
+
+def active_plane_range(s0: int, s1: int, planes: int, pg: int) -> tuple:
+    """(lo, hi): the planes of the pg-groups that a step with sg0 = s0 and
+    sg1 = s1 routes, contiguous (lo > hi: none), as ``xch_route``'s kernel
+    computes them (``csrc/xch.cu:active_planes``)."""
+    if s1 < 0 or s0 >= planes:
+        return 0, -1
+    jlo, jhi = max(s0, 0) // pg, min(s1, planes - 1) // pg
+    if jlo > jhi:
+        return 0, -1
+    return jlo * pg, min((jhi + 1) * pg, planes) - 1
 
 
 def xch_route_ref(uids, gids, cs, sg0, sg1, win, lane, sub, hm1, idx, prod3,
@@ -426,7 +438,8 @@ def xch_route(uids, gids, cs, sg0, sg1, win, lane, sub, hm1, idx, prod3,
         rc = _build.load().xch_route_f32(
             *map(_ptr, (uids, cs, sg0, sg1, win, lane, sub, hm1, idx, prod3,
                         out)),
-            h, T, m, planes, pg, prod3.shape[1], n_out, _stream(dev))
+            h, T, m, planes, pg, prod3.shape[1], n_out,
+            probes.unit_rows(h, T, dev), _stream(dev))
         _raise_on(rc, "xch_route")
         xch_route.launches += 1
     return out

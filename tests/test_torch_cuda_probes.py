@@ -10,6 +10,9 @@ runs where only the port is installed:
 
 float32 kernels agree with their plain versions to 1e-5·max|out| (prefix
 sums by warp shuffles, accumulation with atomics in run-dependent order);
+``slab_step`` and ``xch_route`` also at chunks of rows that split units
+over blocks (``probes.unit_rows`` forced), at units that the wrappers'
+sizes never give;
 the bfloat16 lane gather and the gathers without sums agree exactly, on
 the probes' inputs and on odd ones (sublane tables of every size, inputs
 off 16 bytes through the C entry, the accumulate's offs in any order and
@@ -285,16 +288,20 @@ def test_probe_slab_rows(cuda, T, s8, stage):
 def test_launchers_refuse_bad_ranges(cuda):
     lib = _build.load()
     stream = torch.cuda.current_stream(cuda).cuda_stream
-    # uids .. out | H T m planes pg p1 n_out
-    assert lib.xch_route_f32(*[None] * 11, 64, 64, 1, 65, 8, 64, 1,
+    # uids .. out | H T m planes pg p1 n_out R
+    assert lib.xch_route_f32(*[None] * 11, 64, 64, 1, 65, 8, 64, 1, 64,
                              stream) != 0               # planes past 64
-    assert lib.xch_route_f32(*[None] * 11, 96, 64, 1, 8, 8, 64, 1,
+    assert lib.xch_route_f32(*[None] * 11, 96, 64, 1, 8, 8, 64, 1, 64,
                              stream) != 0               # H % T
-    # uids .. out | H T S8 NU stage
-    assert lib.probe_slab_f32(*[None] * 9, 64, 32, 9, 1, 0,
+    assert lib.xch_route_f32(*[None] * 11, 128, 64, 1, 8, 8, 64, 1, 96,
+                             stream) != 0               # R % T
+    # uids .. out | H T S8 NU stage R
+    assert lib.probe_slab_f32(*[None] * 9, 64, 32, 9, 1, 0, 32,
                               stream) != 0              # S8 past 8
-    assert lib.probe_slab_f32(*[None] * 9, 64, 32, 8, 1, 7,
+    assert lib.probe_slab_f32(*[None] * 9, 64, 32, 8, 1, 7, 32,
                               stream) != 0              # no such stage
+    assert lib.probe_slab_f32(*[None] * 9, 64, 32, 8, 1, 0, 16,
+                              stream) != 0              # R below T
     # col .. out | n w kind a b
     assert lib.probe_gather_f32(*[None] * 7, 1024, 100, 0, 1, 0,
                                 stream) != 0            # w not 128·k
@@ -307,3 +314,134 @@ def test_launchers_refuse_bad_ranges(cuda):
     assert lib.probe_transpose_f32(None, None, 0, 4, 4, stream) == 0
     assert lib.probe_transpose_f32(None, None, 4, -1, 4, stream) != 0
     assert lib.probe_transpose_f32(None, None, 4, 4, -2, stream) != 0
+
+
+# ------------------------------------- the lane-owned unit kernels' schedule --
+# R, the rows a block takes (rounded up to a multiple of T); None: the
+# wrapper's own
+SCHEDULES = [None, 8, 32, 64, 96, 512]
+
+
+def _schedule(monkeypatch, R, T):
+    """Forces ``probes.unit_rows`` to R rounded up to a multiple of T."""
+    if R is not None:
+        R = -(-R // T) * T
+        monkeypatch.setattr(probes, "unit_rows", lambda h, t, dev: R)
+
+
+def _slab_inputs(cuda, T, s8, uids=None, n_steps=None, seed=7):
+    n_steps = n_steps or 3200 // (T // 8)
+    arrs = list(probe_slab.make_inputs(np.random.default_rng(seed), n_steps,
+                                       T, s8, probe_slab.CB, probe_slab.NU))
+    if uids is not None:
+        arrs[0] = np.asarray(uids, np.int32)
+    return [torch.from_numpy(a).to(cuda) for a in arrs]
+
+
+def _slab_check(tens, T, stage):
+    got = _launched(probes.slab_step, *tens, probe_slab.NU, T, stage)
+    _close(got, probes.slab_step_ref(*tens, probe_slab.NU, T, stage))
+
+
+@pytest.mark.parametrize("sched", SCHEDULES)
+@pytest.mark.parametrize("stage", ["all", "prefix"])
+def test_probe_slab_tail_unit_over_chunks(cuda, monkeypatch, sched, stage):
+    """make_inputs gives unit 207 179 of the 800 steps at T 32: it spans
+    many chunks, and the chunks of 64 and 32 rows split units of 3 steps
+    (96 rows) at a chunk boundary."""
+    _schedule(monkeypatch, sched, 32)
+    _slab_check(_slab_inputs(cuda, 32, 8), 32, stage)
+
+
+@pytest.mark.parametrize("sched", SCHEDULES)
+@pytest.mark.parametrize("s8", [2, 8])
+@pytest.mark.parametrize("stage", probes.STAGES)
+def test_probe_slab_stages_gaps_and_dropped_units(cuda, monkeypatch, sched,
+                                                  s8, stage):
+    """uids with gaps, below 0 and at or above NU (dropped), units of 1 to
+    40 steps, T 16."""
+    T, n_steps = 16, 480
+    rng = np.random.default_rng(s8)
+    uids = np.sort(rng.choice(np.arange(-3, probe_slab.NU + 3), n_steps))
+    uids[:5], uids[-7:] = -1, probe_slab.NU   # dropped at both ends
+    uids[200:240] = uids[200]                  # one long unit
+    uids = np.sort(uids)
+    assert len(np.unique(uids)) < probe_slab.NU      # gaps
+    _schedule(monkeypatch, sched, T)
+    _slab_check(_slab_inputs(cuda, T, s8, uids, n_steps), T, stage)
+
+
+@pytest.mark.parametrize("sched", [None, 64, 256])
+def test_probe_slab_one_step_units_and_one_unit(cuda, monkeypatch, sched):
+    """T 64: every step its own unit, then every step in unit 5."""
+    T, n_steps = 64, 64
+    _schedule(monkeypatch, sched, T)
+    for uids in (np.arange(n_steps) * 3 % probe_slab.NU,
+                 np.full(n_steps, 5)):
+        _slab_check(_slab_inputs(cuda, T, 8, np.sort(uids), n_steps), T,
+                    "all")
+
+
+def _route_inputs(cuda, planes, m=1, T=64, H=4096, seed=0, uid0=0,
+                  g_grp=16):
+    """calibrate's _route_args at ``planes``, uids shifted by ``uid0``,
+    gids for ``g_grp``."""
+    a, _ = calibrate._route_args(np.random.default_rng(seed), H, planes, m,
+                                 T, device=cuda)
+    a[0] = a[0] + uid0
+    a[1] = (a[0] // g_grp).contiguous()
+    return a, int(a[1][-1]) + 1
+
+
+def _route_check(a, ngb, m, planes, T, g_grp=16, pg=8):
+    got = _launched(ops.xch_route, *a, ngb, m, planes, T, g_grp, pg)
+    _close(got, ops.xch_route_ref(*a, ngb, m, planes, T, g_grp, pg))
+
+
+@pytest.mark.parametrize("sched", SCHEDULES)
+@pytest.mark.parametrize("planes", [1, 5, 8, 16, 17, 64])
+def test_xch_route_planes(cuda, monkeypatch, planes, sched):
+    """Every plane count class: the 8-plane accumulators (1, 5, 8), the
+    16-plane ones (16) and their groups past 16 (17, 64)."""
+    _schedule(monkeypatch, sched, 64)
+    a, ngb = _route_inputs(cuda, planes, uid0=3)
+    _route_check(a, ngb, 1, planes, 64, pg=4 if planes == 5 else 8)
+
+
+@pytest.mark.parametrize("sched", SCHEDULES)
+@pytest.mark.parametrize("planes,pg", [(16, 4), (64, 8), (8, 3)])
+def test_xch_route_planes_change_within_a_unit(cuda, monkeypatch, planes, pg,
+                                               sched):
+    """sg0/sg1 drawn per step, so the active groups change between the 8
+    steps of a unit (empty, sg1 < sg0 and all-plane steps among them)."""
+    T = 32
+    _schedule(monkeypatch, sched, T)
+    a, ngb = _route_inputs(cuda, planes, m=4, T=T, seed=4)
+    rng = np.random.default_rng(planes)
+    n_steps = a[0].shape[0]
+    a[3] = torch.from_numpy(rng.integers(-3, planes + 3, n_steps).astype(
+        np.int32)).to(cuda)
+    a[4] = torch.from_numpy(rng.integers(-3, planes + 3, n_steps).astype(
+        np.int32)).to(cuda)
+    _route_check(a, ngb, 4, planes, T, pg=pg)
+
+
+@pytest.mark.parametrize("sched", [None, 64, 512])
+def test_xch_route_ngb_cuts_units(cuda, monkeypatch, sched):
+    """An ngb that drops the last units, and, through the C entry, an out
+    of n_out rows that cuts a unit's planes."""
+    planes, T = 16, 64
+    _schedule(monkeypatch, sched, T)
+    a, ngb = _route_inputs(cuda, planes, uid0=5, g_grp=2)
+    _route_check(a, ngb - 1, 1, planes, T, g_grp=2)
+    want = ops.xch_route_ref(*a, ngb, 1, planes, T, 2)
+    R = probes.unit_rows(a[6].shape[0], T, cuda)
+    for n_out in (want.shape[0] - 3, want.shape[0] - 19):
+        out = torch.zeros(n_out, 128, device=cuda)
+        rc = _build.load().xch_route_f32(
+            *(ops._ptr(t) for t in (a[0], a[2], a[3], a[4], a[5], a[6],
+                                    a[7], a[8], a[9], a[10], out)),
+            a[6].shape[0], T, 1, planes, 8, a[10].shape[1], n_out, R,
+            torch.cuda.current_stream(cuda).cuda_stream)
+        assert rc == 0
+        _close(out, want[:n_out])
