@@ -49,7 +49,8 @@ Its phases, in the order they run:
    the full-size g7jac200sc stand-in's spmv with the planner's unit-only plan
    against the float64 COO oracle;
 5. drives the xch main path: ``run_benchmark`` with format="xch" in float32
-   on the full-size webbase-1M and ASIC_680ks stand-ins;
+   on the full-size webbase-1M and ASIC_680ks stand-ins, with its phases
+   profiled;
 6. drives the hyb main path: ``run_benchmark`` with format="hyb" in float32
    on the full-size Chebyshev4 and PR02R stand-ins (a band peel plus a slab
    residual) and webbase-1M (whose hyper-sparse residual rides xch); then,
@@ -62,7 +63,8 @@ Its phases, in the order they run:
    first port's stage B ran;
 8. drives the scan formats: ``run_benchmark`` in float32 with format="css"
    on thermomech_dK and webbase-1M, "ss" on torso1 and "csr5" on torso1 and
-   webbase-1M;
+   webbase-1M (css and ss with their phases profiled, ss its scan steps
+   too);
 9. drives the auto path: ``run_benchmark`` with format="auto" in float32 on
    g7jac200sc, lhr34, twotone, mac_econ_fwd500, raefsky3 and thermomech_dK
    (bkt_g among the measured candidates), webbase-1M (the hyper-sparse
@@ -97,11 +99,29 @@ Its phases, in the order they run:
    hand-written probe's G elem/s beside the probe of the same motion that
    the reference left to XLA), and ``probe_slab.main``'s nine rows, each
    probe's loop at ``CAL_TARGET_S``;
-12. the xch path on circuit5M (several kernel calls per pass, a nested
+12. driver timing: every ``run_benchmark`` times a spmv as the
+   reference's driver does, by the median of marginals over chained runs
+   (CUDA-graph replays of ``harness/driver.py:CHAIN`` calls).  The runs of
+   ``DRIVER_RUNS`` in the paths above (raefsky3 and torso1 slab, webbase-1M
+   and ASIC_680ks xch, Chebyshev4 hyb, g7jac200sc auto, float32) go through
+   a state cache, and each prints its chained Time(s) beside the eager wall
+   of 20 calls and the busy time of one call of the cached state.  This
+   phase fails where a Time(s) is under 0.8 of its busy time (read from a
+   complete trace) and where a graph replay's y is off the eager y by more
+   than C.7's drift bound; prints the A/B of the chain's length (1, 8 and
+   64 calls) on raefsky3 and torso1; checks the phases of the profiled runs
+   above (xch on ASIC_680ks, ss on torso1 with its step times, css on
+   thermomech_dK) and of a csr run on raefsky3, failing where a phase is
+   missing or, on a state without a peel, the phases sum to under 0.8 of
+   Time(s); runs torso1 (slab) and g7jac200sc (auto) again from the cache
+   (their OptimizeTime then the load; the file untouched, the same engine,
+   y within the drift bound); and writes one ``trace_dir`` trace, which
+   must hold device events;
+13. the xch path on circuit5M (several kernel calls per pass, a nested
    long-row state): the time ``route_rows`` takes, kernels against their
    plain versions on every call, then its spmv against the float64 COO
    oracle;
-13. checks that each path launched each of its kernels: the launch counts
+14. checks that each path launched each of its kernels: the launch counts
    are set to 0 just before a path and read just after it; the slab, hyb,
    auto and float64 paths the slab route ``slab_spmv_rows``; and that no
    path launched the first port's kernels that left the spmv path:
@@ -165,7 +185,7 @@ XCH_PANEL_B = (8, 16)    # the xch panel kernels' checks (their gate: B <= 16)
 SPMM_MATS = (("webbase-1M", "xch"), ("ASIC_680ks", "xch"),
              ("unbalance-16384", "bsr"), ("g7jac200sc", "slab"),
              ("torso1", "slab"))
-SPMM_WINDOW_S = 0.1      # each timed loop of the SpMM table lasts this
+SPMM_WINDOW_S = 0.05     # each timed run of the SpMM table lasts this
 PANEL_KERNELS = ("slab_spmm", "xch_mul_panel", "xch_route4_panel")
 HBM_BPS = 3.35e12   # H100 SXM device memory, NVIDIA's data sheet
 PEAK_OPS = {torch.float32: 67e12,   # float32 outside the tensor cores
@@ -884,15 +904,19 @@ def print_scan_estimates(reports):
 
 
 def run_path(mats, cfg, run_benchmark, keys, dev, oracle=None,
-             rest=("SLAB", "XCH")):
+             rest=("SLAB", "XCH"), driver=None):
     """run_benchmark on each stand-in; fails unless Verify passes, unless a
     hyb residual rides an engine in ``rest`` and, with ``oracle`` (the COO
     float64 product), unless y agrees with the oracle to
-    F64_TOL·max|y_oracle|.  Returns {name: report}."""
+    F64_TOL·max|y_oracle|.  Time(s) is the driver's chained time.  The runs
+    of ``DRIVER_RUNS`` go through ``driver``'s state cache, and
+    ``driver.measure`` puts the eager wall and the busy time of a call
+    beside them.  Returns {name: report}."""
     reports = {}
     for name in mats:
+        cache_dir = driver.cache_dir(name, cfg) if driver else None
         r = run_benchmark(mats[name], cfg, name=name, device=dev,
-                          log=lambda m: None)
+                          cache_dir=cache_dir, log=lambda m: None)
         rep = r.report
         extra = " ".join(f"{k}: {rep.get(k)}" for k in keys)
         rel = None
@@ -903,10 +927,12 @@ def run_path(mats, cfg, run_benchmark, keys, dev, oracle=None,
                         / max(np.abs(want).max(), 1e-300))
         print(f"run_benchmark {name}: Verify: {rep['Verify']} "
               f"Dtype: {rep['Dtype']} GFLOPS: {r.gflops} "
-              f"Time(s): {r.seconds} {extra} "
+              f"Time(s): {r.seconds} (chained) {extra} "
               f"Chip: {rep['Chip']} MaxAbsErr: {rep.get('MaxAbsErr')} "
               f"oracle_rel_err: {rel} "
-              f"OptimizeTime(s): {rep['OptimizeTime(s)']}", flush=True)
+              f"OptimizeTime(s): {rep['OptimizeTime(s)']}"
+              + (" (convert and the cache's save)" if cache_dir else ""),
+              flush=True)
         if not (r.verify_ok and r.y.shape == (mats[name].n_row,)
                 and np.isfinite(r.y).all()
                 and rep["Dtype"] == cfg.dtype
@@ -917,8 +943,87 @@ def run_path(mats, cfg, run_benchmark, keys, dev, oracle=None,
                              f"{rel:.3g} > {F64_TOL} of max|y|")
         if "RestFormat" in keys and rep["RestFormat"] not in rest:
             raise SystemExit(f"{name}: hyb residual {rep['RestFormat']}")
+        if cache_dir:
+            driver.measure(name, cfg, r, mats[name], dev)
         reports[name] = rep
     return reports
+
+
+DRIVER_RUNS = (("raefsky3", "slab"), ("torso1", "slab"),
+               ("webbase-1M", "xch"), ("ASIC_680ks", "xch"),
+               ("Chebyshev4", "hyb"), ("g7jac200sc", "auto"))
+DRIVER_KEEP = (("raefsky3", "slab"), ("torso1", "slab"),
+               ("g7jac200sc", "auto"))   # states the driver phase reads
+CHAIN_AB = (1, 8, 64)    # calls a graph chains, in the A/B of CHAIN
+DRIFT = 1e-6             # C.7: y of two calls of a float32 spmv, of max|y|
+BUSY_SHARE = 0.8         # Time(s) below this share of the busy time fails
+PHASE_SHARE = 0.8        # the phases' times below this share of Time(s)
+
+
+class DriverRuns:
+    """The float32 runs of ``DRIVER_RUNS``: each goes through a state cache
+    (``run_benchmark(cache_dir=...)``), so that ``measure`` reads the very
+    state the driver timed, and puts beside its chained Time(s) the eager
+    wall (``_cuda_ms``, 20 calls) and the busy time of one call
+    (``_busy_ms``), and the y of a graph replay beside the eager y."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="state_cache_")
+        weakref.finalize(self, shutil.rmtree, self.dir, ignore_errors=True)
+        self.rows = {}
+        self.results = {}
+
+    def cache_dir(self, name, cfg):
+        if cfg.dtype == "float32" and (name, cfg.format) in DRIVER_RUNS:
+            return self.dir
+        return None
+
+    def path(self, name, fmt):
+        return os.path.join(self.dir, f"{name}-{fmt}")
+
+    def load(self, name, cfg, coo, dev):
+        from singlespmv_tpu_torch.formats import cache
+
+        st = cache.load_state(self.path(name, cfg.format), coo, cfg, dev)
+        if st is None:
+            raise SystemExit(f"{name}: the driver's cached {cfg.format} "
+                             "state did not load")
+        return st
+
+    def measure(self, name, cfg, res, coo, dev):
+        from singlespmv_tpu_torch.core import create_random_vector
+        from singlespmv_tpu_torch.formats import spmv_fn
+        from singlespmv_tpu_torch.harness.driver import (CHAIN,
+                                                         make_chained_runner)
+
+        st = self.load(name, cfg, coo, dev)
+        spmv = spmv_fn(cfg)
+        x = torch.from_numpy(create_random_vector(coo.n_col).astype(
+            cfg.np_dtype)).to(dev)            # the driver's x
+        eager = spmv(st, x)
+        graph = make_chained_runner(spmv, st, x, name=f"{name} {cfg.format}")
+        y = graph(2 * CHAIN)            # the output of the chain's graph
+        torch.cuda.synchronize()
+        scale = float(eager.abs().max())
+        drift = float((y - eager).abs().max())
+        del graph, y
+        busy = _busy_ms(lambda: spmv(st, x))
+        row = {"matrix": name, "format": cfg.format,
+               "chosen": res.report.get("ChosenFormat"),
+               "time_us": res.seconds * 1e6, "busy_us": busy * 1e3,
+               "busy_complete": not isinstance(busy, EventsMs),
+               "eager_wall_us": _cuda_ms(lambda: spmv(st, x)) * 1e3,
+               "graph_drift": drift, "max_y": scale,
+               "optimize_s": res.report["OptimizeTime(s)"]}
+        self.rows[name] = row
+        self.results[name] = res
+        print(f"driver timing {name} {cfg.format}: Time(s) chained "
+              f"{row['time_us']:.2f} us, busy {row['busy_us']:.2f} us, eager "
+              f"wall {row['eager_wall_us']:.2f} us; graph vs eager y drift "
+              f"{drift:.3g} of max|y| {scale:.3g}", flush=True)
+        if (name, cfg.format) not in DRIVER_KEEP:
+            for suffix in (".npz", ".json"):
+                os.remove(self.path(name, cfg.format) + suffix)
 
 
 def check_auto(reports):
@@ -1497,9 +1602,10 @@ def main() -> int:
     with Phase("spmm path float32"):
         _zero(*all_k)
         print(f"SpMM Y = A @ X, f32, {card.splitlines()[0]} (flops = "
-              "2*nnz*B); median of 3 marginal differences of CUDA-event "
-              f"loops of at least {SPMM_WINDOW_S} s; torch_csr_us: torch's "
-              "A_csr @ X at the same B (a yardstick, on no path)")
+              "2*nnz*B); median of 3 marginal differences of chained runs "
+              "(CUDA-graph replays, CUDA events) of at least "
+              f"{SPMM_WINDOW_S} s; torch_csr_us: torch's A_csr @ X at the "
+              "same B, timed the same way (a yardstick, on no path)")
         print(f"{'matrix':<18} {'plan':<14} {'B':>4} {'us/iter':>9} "
               f"{'GFLOPS':>8} {'vs spmv x':>9} {'torch_csr_us':>12}")
         for name, fmt in SPMM_MATS:
@@ -1579,10 +1685,12 @@ def main() -> int:
 
     # --- 4. the slab main path; count the launches it makes ---
     run_cfg = Config(**CFG_KW, calibrate_seconds=0.2, n_trials=3)
+    drv = DriverRuns()
     with Phase("slab path float32"):
         _zero(*slab_k)
         run_path({n: mats[n] for n in ("raefsky3", "torso1")}, run_cfg,
-                 run_benchmark, ("PadFactor", "RoutePlanes"), dev)
+                 run_benchmark, ("PadFactor", "RoutePlanes"), dev,
+                 driver=drv)
         state = slab.convert(g7, cfg, plan=unit_plan).to(dev)
         x_host = create_random_vector(g7.n_col, dtype=np.float32)
         y = slab.spmv(state, torch.from_numpy(x_host).to(dev)).cpu().numpy()
@@ -1599,9 +1707,11 @@ def main() -> int:
     # --- 5. the xch main path; count the launches it makes ---
     with Phase("xch path float32"):
         _zero(*xch_k)
-        run_path({n: mats[n] for n in ("webbase-1M", "ASIC_680ks")},
-                 run_cfg.replace(format="xch"), run_benchmark,
-                 ("PadFactor", "KBlk", "POh", "PeelOffs", "LongRows"), dev)
+        profiled = run_path(
+            {n: mats[n] for n in ("webbase-1M", "ASIC_680ks")},
+            run_cfg.replace(format="xch", profiling=True), run_benchmark,
+            ("PadFactor", "KBlk", "POh", "PeelOffs", "LongRows"), dev,
+            driver=drv)
         count_path("xch float32", xch_k, ("xch_mul", "xch_route4_rows"))
 
     # --- 6. the hyb main path: band peel plus a residual ---
@@ -1612,7 +1722,8 @@ def main() -> int:
         reps = run_path({n: mats[n] for n in HYB_MATS + ("webbase-1M",)},
                         run_cfg.replace(format="hyb"), run_benchmark,
                         hyb_keys, dev,
-                        rest=("SLAB", "XCH", "BKT", "BKT_G", "CSS"))
+                        rest=("SLAB", "XCH", "BKT", "BKT_G", "CSS"),
+                        driver=drv)
         if reps["webbase-1M"]["RestFormat"] != "XCH":
             raise SystemExit("webbase-1M: the hyb residual left xch")
         count_path("hyb float32", all_k, ("xch_mul", "xch_route4_rows",
@@ -1653,24 +1764,29 @@ def main() -> int:
     scan_keys = {"css": ("N_BLOCK", "SEGMENT_WIDTH(byte)", "R_max"),
                  "ss": ("SEGMENT_WIDTH(byte)", "R_max", "nStep"),
                  "csr5": ("Sigma", "nFastTile", "nNormalTile", "R_max")}
+    scan_reps = {}
     for fmt, names, need in (
             ("css", ("thermomech_dK", "webbase-1M"), "block_gather_scan"),
             ("ss", ("torso1",), "segmented_scan_tiles"),
             ("csr5", ("torso1", "webbase-1M"), "segmented_scan_tiles")):
         with Phase(f"{fmt} path float32"):
             _zero(*scan_k)
-            run_path({n: mats[n] for n in names}, run_cfg.replace(format=fmt),
-                     run_benchmark, scan_keys[fmt], dev)
+            # ss and css profile their phases, ss its scan steps too
+            scan_reps[fmt] = run_path(
+                {n: mats[n] for n in names}, run_cfg.replace(
+                    format=fmt, profiling=fmt != "csr5",
+                    measure_step_time=fmt == "ss"),
+                run_benchmark, scan_keys[fmt], dev)
             count_path(f"{fmt} float32", scan_k, (need,))
 
     # --- 9. the auto path, with bkt_g among the measured candidates ---
     auto_keys = ("ChosenFormat", "AutoEstimates(us)", "AutoTrials(us)",
                  "AutoFailed", "AutoExcluded")
-    auto_cfg = Config(format="auto", calibrate_seconds=0.4, n_trials=5)
+    auto_cfg = Config(format="auto", calibrate_seconds=0.2, n_trials=3)
     with Phase("auto path float32"):
         _zero(*all_k)
         reps = run_path({n: mats[n] for n in AUTO_MATS}, auto_cfg,
-                        run_benchmark, auto_keys, dev)
+                        run_benchmark, auto_keys, dev, driver=drv)
         check_auto(reps)
         print_scan_estimates(reps)
         count_path("auto float32", all_k,
@@ -1716,7 +1832,124 @@ def main() -> int:
         count_path("calibration", cal_k, ("xch_route", "xch_mul") + tuple(
             w.__name__ for w in pops.WRAPPERS))
 
-    # --- 12. the xch path on circuit5M, last because its stand-in takes
+    # --- 12. driver timing: the chained Time(s) beside the eager wall and
+    #     the busy time, the A/B of the chain's length, the phases and
+    #     steps, the state cache and a trace ---
+    from singlespmv_tpu_torch.harness import driver as hdriver
+
+    with Phase("driver timing"):
+        _zero(*all_k)
+        print(f"driver timing, f32, {card.splitlines()[0]}: Time(s) the "
+              "median of the driver's marginals over CUDA-graph replays of "
+              f"{hdriver.CHAIN} chained calls; busy: one eager call's device "
+              "events (torch.profiler); eager wall: 20 eager calls between "
+              "CUDA events", flush=True)
+        if sorted(drv.rows) != sorted(n for n, _ in DRIVER_RUNS):
+            raise SystemExit(f"driver timing: measured {sorted(drv.rows)}")
+        for name, row in drv.rows.items():
+            print(f"driver_row {json.dumps(row)}", flush=True)
+            if not row["graph_drift"] <= DRIFT * row["max_y"]:
+                raise SystemExit(
+                    f"{name}: the graph's y is {row['graph_drift']:.3g} off "
+                    f"the eager y, past {DRIFT} of max|y| {row['max_y']:.3g}")
+            if not row["busy_complete"]:
+                print(f"{name}: no complete trace, so Time(s) is not held to "
+                      "the busy time", flush=True)
+            elif row["time_us"] < BUSY_SHARE * row["busy_us"]:
+                raise SystemExit(
+                    f"{name}: Time(s) {row['time_us']:.2f} us is under "
+                    f"{BUSY_SHARE} of the busy {row['busy_us']:.2f} us: the "
+                    "timed window leaves out work")
+        for name in ("raefsky3", "torso1"):
+            coo = mats[name]
+            st = drv.load(name, run_cfg, coo, dev)
+            x = torch.from_numpy(create_random_vector(
+                coo.n_col, dtype=np.float32)).to(dev)
+            ab = {}
+            for k in CHAIN_AB:
+                timed = hdriver.runner_clock(hdriver.make_chained_runner(
+                    slab.spmv, st, x, name=f"{name} slab", chain=k), dev)
+                loop = hdriver.calibrate_loop(
+                    timed, run_cfg.calibrate_seconds, run_cfg.max_loop)
+                ab[k] = {"loop": loop, "us": [
+                    hdriver.median_seconds(timed, loop, run_cfg.n_trials)
+                    * 1e6 for _ in range(2)]}
+                del timed
+            print(f"chain A/B {name} slab (us a call, two medians of "
+                  f"{run_cfg.n_trials} marginals each): {json.dumps(ab)}",
+                  flush=True)
+            del st
+        csr_rep = run_benchmark(
+            mats["raefsky3"], run_cfg.replace(format="csr", profiling=True),
+            name="raefsky3", device=dev, log=lambda m: None).report
+        for label, rep, names in (
+                ("ASIC_680ks xch", profiled["ASIC_680ks"], ("Mul", "Sum")),
+                ("torso1 ss", scan_reps["ss"]["torso1"],
+                 ("Mul", "Sum1", "Sum2")),
+                ("thermomech_dK css", scan_reps["css"]["thermomech_dK"],
+                 ("MulScan", "Sum2")),
+                ("raefsky3 csr", csr_rep, ("Mul", "Sum"))):
+            ph = {n: rep.get(f"PhaseTime-{n}(s)") for n in names}
+            print(f"phases {label}: Time(s) {rep['Time(s)']} "
+                  + " ".join(f"{n} {v}" for n, v in ph.items())
+                  + f" MulPerf {rep.get('MulPerf')} SumPerf "
+                  f"{rep.get('SumPerf')} peel {rep.get('PeelOffs')}",
+                  flush=True)
+            if not all(v and v > 0 for v in ph.values()):
+                raise SystemExit(f"{label}: a phase was not timed: {ph}")
+            if rep.get("PeelOffs") is None \
+                    and sum(ph.values()) < PHASE_SHARE * rep["Time(s)"]:
+                raise SystemExit(f"{label}: the phases sum to "
+                                 f"{sum(ph.values())} s, under {PHASE_SHARE}"
+                                 f" of Time(s) {rep['Time(s)']}")
+        ss_rep = scan_reps["ss"]["torso1"]
+        steps = {k: v for k, v in ss_rep.items() if k.startswith("StepTime-")}
+        print(f"steps torso1 ss: {json.dumps(steps)}", flush=True)
+        if len(steps) != ss_rep["nStep"] or min(steps.values()) <= 0:
+            raise SystemExit(f"torso1 ss: {len(steps)} step times for "
+                             f"{ss_rep['nStep']} steps")
+        for name, rcfg in (("torso1", run_cfg), ("g7jac200sc", auto_cfg)):
+            first = drv.results[name]
+            npz = drv.path(name, rcfg.format) + ".npz"
+            stamp = os.path.getmtime(npz)
+            again = run_benchmark(mats[name], rcfg, name=name, device=dev,
+                                  cache_dir=drv.dir, log=lambda m: None)
+            drift = float(np.abs(again.y - first.y).max())
+            scale = float(np.abs(first.y).max())
+            print(f"cache {name} {rcfg.format}: OptimizeTime(s) "
+                  f"{first.report['OptimizeTime(s)']} (convert and save) -> "
+                  f"{again.report['OptimizeTime(s)']} (load); ChosenFormat "
+                  f"{first.report.get('ChosenFormat')} -> "
+                  f"{again.report.get('ChosenFormat')}; Time(s) "
+                  f"{first.seconds} -> {again.seconds}; y drift {drift:.3g} "
+                  f"of max|y| {scale:.3g}", flush=True)
+            if not (again.verify_ok and os.path.getmtime(npz) == stamp
+                    and drift <= DRIFT * scale
+                    and again.report.get("ChosenFormat")
+                    == first.report.get("ChosenFormat")):
+                raise SystemExit(f"{name}: the cached state's run differs "
+                                 "or did not load")
+        trace_dir = tempfile.mkdtemp(prefix="trace_")
+        run_benchmark(mats["raefsky3"], run_cfg.replace(
+            calibrate_seconds=0.002, n_trials=2), name="raefsky3",
+            device=dev, cache_dir=drv.dir, trace_dir=trace_dir,
+            log=lambda m: None)
+        files = os.listdir(trace_dir)
+        with open(os.path.join(trace_dir, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+        on_card = [e for e in events if e.get("cat") in (
+            "kernel", "gpu_memcpy", "gpu_memset")]
+        kinds = {}
+        for e in on_card:
+            kinds[e["name"][:40]] = kinds.get(e["name"][:40], 0) + 1
+        print(f"trace {files}: {len(events)} events, {len(on_card)} on the "
+              f"card: {json.dumps(kinds)}", flush=True)
+        shutil.rmtree(trace_dir)
+        if len(files) != 1 or not on_card:
+            raise SystemExit("trace_dir: no trace with device events")
+        count_path("driver timing", all_k, ("slab_spmv_rows",))
+
+    # --- 13. the xch path on circuit5M, last because its stand-in takes
     #     longest to build: kernels vs plain versions on every call, then
     #     its spmv against the oracle ---
     with Phase("xch circuit5M float32"):
@@ -1748,7 +1981,7 @@ def main() -> int:
         del state
     mats.close()
 
-    # --- 13. every kernel of each path ran in that path, and the first
+    # --- 14. every kernel of each path ran in that path, and the first
     #     port's route kernels in none ---
     print(f"launches in the main paths: {launches}; the first port's "
           f"kernels off the spmv path (count_path fails on any): "

@@ -24,7 +24,9 @@ column loop of its ``spmv``.
 ``convert`` ranks by the model and, as the reference does on its chip, then
 converts and times every candidate within ``TRIAL_SPREAD`` of the cheapest
 (at most ``TRIAL_MAX``, up to ``TRIAL_NNZ_CAP`` nonzeros) and keeps the
-fastest.  The trials run only on a CUDA device; on the CPU, as the
+fastest, timing each by the driver's chained runner (CUDA graphs, the
+median of marginals, ``_quick_bench``).  The trials run only on a CUDA
+device; on the CPU, as the
 reference off its chip, the model alone decides, so the tests are
 deterministic.  A candidate that refuses with a guard error (``ValueError``,
 ``TypeError``, ``MemoryError``, a CUDA out-of-memory error) is skipped and
@@ -54,6 +56,8 @@ from . import ss as ss_mod
 from . import xch as xch_mod
 from .base import TensorState, module_spmm
 
+STATE_REV = 1   # bump with a change of AutoState; cache.py folds in
+#                 every engine's rev
 HBM_BPS = _cc.get("hbm_bps")               # streamed bytes/s achieved
 SCATTER_RATE = _cc.get("scatter_rate")     # XLA gather/scatter elements/s
 LANE_GATHER_RATE = _cc.get("lane_gather_rate")   # fused css stream elem/s
@@ -280,14 +284,18 @@ def _measures(device) -> bool:
 
 
 def _quick_bench(mod, state, n_col: int, dtype, device) -> float:
-    """Seconds per spmv: ``harness.driver.marginal_seconds`` (the median of
-    3 CUDA-event marginals) at a ``TRIAL_WINDOW_S`` window."""
+    """Seconds per spmv: ``harness.driver.marginal_seconds``, the median of
+    3 marginals of chained CUDA-graph runs timed with CUDA events, at a
+    ``TRIAL_WINDOW_S`` window (the reference's ``_quick_bench``).  A capture
+    that fails raises ``CaptureError``, which is no guard error."""
     from ..harness.driver import marginal_seconds
 
     device = torch.device(device)
     x = torch.from_numpy(np.linspace(-1.0, 1.0, max(n_col, 1),
                                      dtype=dtype)).to(device)
-    return marginal_seconds(mod.spmv, state, x, device, TRIAL_WINDOW_S)
+    fmt = mod.__name__.rsplit(".", 1)[-1]
+    return marginal_seconds(mod.spmv, state, x, device, TRIAL_WINDOW_S,
+                            name=f"auto trial {fmt}")
 
 
 def convert(coo: COOMatrix, cfg: Config, log=None, device=None) -> AutoState:

@@ -6,6 +6,8 @@ Every format is a module registered by name that exposes
     convert(coo: COOMatrix, cfg: Config) -> state     # host layout, CPU tensors
     spmv(state, x: torch.Tensor) -> torch.Tensor      # on the state's device
     spmm(state, X: torch.Tensor) -> torch.Tensor      # optional: Y = A @ X
+    phases(state) -> dict[str, fn] | None             # optional: the split
+                                                      # the driver profiles
     report_fields(state, cfg) -> dict                 # format-specific report keys
     traffic_bytes(state, cfg) -> int                  # roofline traffic model
     to_coo(state) -> COOMatrix                        # inverse conversion
@@ -21,7 +23,7 @@ float32 or float64 (``check_dtype``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -108,6 +110,12 @@ def convert(coo: COOMatrix, cfg: Config):
 
 def spmv_fn(cfg: Config) -> Callable:
     return get_format(cfg.format).spmv
+
+
+def phases_fn(cfg: Config) -> Optional[Callable]:
+    """The format's ``phases`` (name → fn(state, input), each phase's input
+    the previous one's output), or None where it has none."""
+    return getattr(get_format(cfg.format), "phases", None)
 
 
 def column_loop(spmv: Callable, state, X: torch.Tensor) -> torch.Tensor:

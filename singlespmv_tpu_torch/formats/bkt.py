@@ -36,6 +36,7 @@ from ..ops.bucket import block_gather_mul, bucket_rows
 from .base import TensorState
 from .slab import _t
 
+STATE_REV = 1   # bump with a change of the layout (formats/cache.py)
 LANES = 128
 W_A = 1024             # stage-A stream row width (slots)
 PAD_LIMIT = 16.0       # max padded-slots / nnz before refusing

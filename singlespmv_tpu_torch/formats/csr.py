@@ -4,9 +4,9 @@ The layout is the reference's: the CSR arrays plus the row-id expansion of
 ``row_ptr`` padded to a multiple of ``PAD_MULTIPLE`` (pads: value 0 on the
 last row).  The reference computes the product in XLA (a gather and a sorted
 segment sum, ``ops/segsum.py``), so the port does too in plain torch:
-``index_select`` of x by column, a multiply, and ``index_add_`` by row, and
-for SpMM the same over the rows of X.  It is auto's fallback that always
-exists, at any value type.
+``index_select`` of x by column and a multiply (phase Mul), then
+``index_add_`` by row (phase Sum), and for SpMM the same over the rows of
+X.  It is auto's fallback that always exists, at any value type.
 """
 from __future__ import annotations
 
@@ -57,12 +57,26 @@ def convert(coo: COOMatrix, cfg: Config) -> CSRState:
         val=_t(val))
 
 
-def spmv(state: CSRState, x: torch.Tensor) -> torch.Tensor:
-    products = state.val * x.index_select(0, state.col)
-    y = torch.zeros(state.n_row, dtype=products.dtype, device=x.device)
+def mul(state: CSRState, x: torch.Tensor) -> torch.Tensor:
+    """Phase Mul: val · x[col] over the padded stream."""
+    return state.val * x.index_select(0, state.col)
+
+
+def reduce(state: CSRState, products: torch.Tensor) -> torch.Tensor:
+    """Phase Sum: the products added into their rows."""
+    y = torch.zeros(state.n_row, dtype=products.dtype,
+                    device=products.device)
     if state.n_row:
         y.index_add_(0, state.rows, products)
     return y
+
+
+def spmv(state: CSRState, x: torch.Tensor) -> torch.Tensor:
+    return reduce(state, mul(state, x))
+
+
+def phases(state: CSRState):
+    return {"Mul": mul, "Sum": reduce}
 
 
 def spmm(state: CSRState, X: torch.Tensor) -> torch.Tensor:

@@ -153,6 +153,8 @@ def phases(state: CSSState):
 
 
 traffic_bytes = ss.traffic_bytes
+step_init = ss.step_init      # the step timing shares ss's scan levels
+step_fns = ss.step_fns
 
 
 def report_fields(state: CSSState, cfg: Config) -> dict:

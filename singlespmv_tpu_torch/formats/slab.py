@@ -55,6 +55,7 @@ from ..ops.slab import (MERGE_SMEM, MERGE_WARPS, PANEL_TYPES, slab_spmm,
                         slab_spmv_rows)
 from .base import TensorState, check_dtype, column_loop
 
+STATE_REV = 1   # bump with a change of the layout (formats/cache.py)
 LANES = 128
 UNIT_ROWS = 1024           # y rows per unit: 8 planes × 128 lanes
 M_CANDS = (1, 8, 16, 32)   # window sizes (TPU sublane-aligned)

@@ -18,9 +18,10 @@ rounded up to the lane width); SpMV runs three phases:
 
 ``build_stream`` is a copy of the reference's, array for array, but for the
 heads, which are stored once as uint8 (the reference keeps bool and casts to
-int32 on every call).  css builds its stream with it too.  ``step_init`` and
-``step_fns``, which serve the reference driver's step timing, are not ported
-(ROADMAP A.2).  Values are float32 or float64 (``base.check_dtype``).
+int32 on every call).  css builds its stream with it too.  ``step_init``
+and ``step_fns`` serve the driver's step timing: the Sum1 scan one tree
+level at a time, in plain torch as the reference computes them.  Values are
+float32 or float64 (``base.check_dtype``).
 """
 from __future__ import annotations
 
@@ -178,6 +179,37 @@ def spmv(state: SSState, x: torch.Tensor) -> torch.Tensor:
 
 def phases(state: SSState):
     return {"Mul": mul, "Sum1": scan, "Sum2": reduce}
+
+
+def step_init(state: SSState, x: torch.Tensor) -> torch.Tensor:
+    """The packed (2, H, W) carry of the step timing: the products and the
+    run heads as values."""
+    prod = mul(state, x)
+    return torch.stack([prod, state.heads.to(prod.dtype)])
+
+
+def step_fns(state: SSState):
+    """[(name, fn)], one fn(state, carry) per level of the scan tree (the
+    reference's ``formats/ss.py:160-182``): step i applies the
+    distance-2^i segmented shift-add to the packed carry of step i − 1, so
+    the last step's values are the Sum1 scan."""
+    def make(d):
+        def step(st, vf):
+            v, f = vf[0], vf[1]
+            vz = torch.cat([torch.zeros_like(v[:, :d]), v[:, :-d]], dim=1)
+            fz = torch.cat([torch.ones_like(f[:, :d]), f[:, :-d]], dim=1)
+            return torch.stack([torch.where(f > 0, v, v + vz),
+                                torch.maximum(f, fz)])
+
+        return step
+
+    steps = []
+    d, i = 1, 0
+    while d < state.w:
+        steps.append((f"{i:02d}", make(d)))
+        d *= 2
+        i += 1
+    return steps
 
 
 def report_fields(state: SSState, cfg: Config) -> dict:

@@ -35,7 +35,9 @@ Device half (``spmv``): pads x into the x table, runs one ``xch_mul`` per
 pass-1 call, each writing its rows of one product grid, and one
 ``xch_route4_rows`` per pass-2 call, each adding its run totals straight
 into one zeroed y (``ops/xch.py``); then adds the nested long-row state's y
-at ``long_rows`` and the peeled bands as shifted slices of x.  ``spmm`` runs
+at ``long_rows`` and the peeled bands as shifted slices of x.  ``phases``
+splits the first two steps into Mul and Sum for the driver's profiling,
+where the state has no long-row state.  ``spmm`` runs
 ``xch_mul_panel`` and ``xch_route4_panel`` on the interleaved panel (each
 row's B values contiguous, the out rows in Y's own layout) and places the
 visited out groups into Y, under the reference's gates.
@@ -65,6 +67,7 @@ from ..ops.xch import MERGE_SMEM, xch_mul, xch_mul_panel, xch_route4_panel, \
 from .base import TensorState, check_dtype, column_loop
 from .slab import _t, _walk
 
+STATE_REV = 1   # bump with a change of the layout (formats/cache.py)
 LANES = 128
 X_TABLE_CAP = 96 << 20      # VMEM-resident x table bound (v5e, as slab)
 P1_CAP_ROWS = 12288         # chunk product block ≤ 6 MB VMEM (12288·128·4B)
@@ -1082,18 +1085,49 @@ def products(state: Xch4State, xp: torch.Tensor) -> torch.Tensor:
     return prod.view(state.n_chunks, state.p1, LANES)
 
 
-def spmv(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
+def _check_x(state: Xch4State, x: torch.Tensor):
     if x.dtype != state.val1[0].dtype:
         raise TypeError(f"xch: x is {x.dtype}, the state holds "
                         f"{state.val1[0].dtype} values")
-    y = torch.zeros(state.n_row, dtype=x.dtype, device=x.device)
+
+
+def _mul_phase4(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
+    """Phase Mul: the x table and pass 1, the (n_chunks, p1, 128) product
+    grid."""
+    _check_x(state, x)
+    return products(state, x_table(state, x))
+
+
+def _route_phase4(state: Xch4State, prod3: torch.Tensor) -> torch.Tensor:
+    """Phase Sum: pass 2, each ``xch_route4_rows`` call adding its run
+    totals into one zeroed y of n_row."""
+    y = torch.zeros(state.n_row, dtype=prod3.dtype, device=prod3.device)
+    for b, c, w, la, su, h2, d in zip(
+            state.base2, state.cs2, state.win2, state.lane2, state.sub2,
+            state.hm2, state.dest2):
+        xch_route4_rows(b, c, w, la, su, h2, d, prod3, y, state.m2,
+                        state.t2, state.merge2)
+    return y
+
+
+def phases(state: Xch4State):
+    """Mul/Sum split for the driver's MulPerf/SumPerf report keys (the
+    reference's ``formats/xch.py:2171-2178``).  None where a nested
+    long-row state holds rows (the Sum phase would need x) or pass 1 has no
+    slot.  As in the reference, the phases leave out the peeled bands
+    (``_dia_part``): on a state with a peel, Sum's time leaves out the
+    peel's (ROADMAP C.10)."""
+    if state.long is not None or state.n_slots1 == 0:
+        return None
+    return {"Mul": _mul_phase4, "Sum": _route_phase4}
+
+
+def spmv(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
+    _check_x(state, x)
     if state.n_slots1:
-        prod3 = products(state, x_table(state, x))
-        for b, c, w, la, su, h2, d in zip(
-                state.base2, state.cs2, state.win2, state.lane2, state.sub2,
-                state.hm2, state.dest2):
-            xch_route4_rows(b, c, w, la, su, h2, d, prod3, y, state.m2,
-                            state.t2, state.merge2)
+        y = _route_phase4(state, _mul_phase4(state, x))
+    else:
+        y = torch.zeros(state.n_row, dtype=x.dtype, device=x.device)
     if state.long is not None:
         # long_rows are distinct, so the add is a plain scatter-add
         y.index_add_(0, state.long_rows.long(), spmv(state.long, x))

@@ -1,35 +1,44 @@
 """Benchmark driver: ``singlespmv_tpu/harness/driver.py``'s ``run_benchmark``
 for PyTorch on one GPU.
 
-    load → convert (OptimizeTime, the move to the device included) → first
-    call (CompileTime) → verify twice against the float64 COO oracle →
-    calibrate the loop count by doubling until a loop takes
-    ``calibrate_seconds`` → median of ``n_trials`` timed loops → report block
-    with the reference key schema.
+    load → convert (OptimizeTime, the move to the device included; with
+    ``cache_dir`` a converted state is loaded instead) → first call
+    (CompileTime) → verify twice against the float64 COO oracle → calibrate
+    the loop count by doubling until a chained run takes
+    ``calibrate_seconds`` → median of ``n_trials`` marginal trials → under
+    ``cfg.profiling`` each phase, under ``cfg.measure_step_time`` each scan
+    step, timed the same way → report block with the reference key schema.
 
-A timed loop is ``loop`` back-to-back spmv calls between two CUDA events, so
-it measures the device's time for the whole call, glue included; on the CPU a
-host clock stands in.  ``device`` defaults to "cuda" and a run with no GPU
-raises; the CPU runs the kernels' plain versions only when asked for by
-``device="cpu"``.
+How a spmv is timed (``make_chained_runner``): the reference chains its
+timed calls on the device in one executable.  Here ``run_n(n)`` replays a
+CUDA graph that holds a chain of ``CHAIN`` calls n // ``CHAIN`` times (and
+a graph of one call for the rest), so a timed run holds no host work
+between calls.  Each trial is the reference's marginal difference
+(t(loop) − t(loop/2)) / (loop − loop/2), which cancels the fixed cost of a
+run; t is taken with CUDA events around ``run_n`` (``device_seconds``).
+``Time(s)`` is the median of the trials.  What a user of eager ``spmv``
+pays per call, host dispatch included, is not ``Time(s)``: ``chip_smoke.py``
+prints it beside it as the eager wall.  On the CPU ``run_n`` is a plain
+host loop and a host clock stands in.  ``device`` defaults to "cuda" and a
+run with no GPU raises; the CPU runs the kernels' plain versions only when
+asked for by ``device="cpu"``.
 
 With ``format="auto"`` the driver retries as the reference's does
 (``singlespmv_tpu/harness/driver.py:168-220``): a chosen engine that refuses
 at its first calls with a guard error (``ValueError``, ``TypeError``,
 ``MemoryError``, a CUDA out-of-memory error) is excluded
 (``cfg.auto_exclude``) and auto plans again; the exclusions are reported as
-``AutoExcluded``.  A ``KernelError`` is never a reason to exclude: it stops
-the run.
-
-Not ported yet (ROADMAP A.2): profiling phases, step timing and the state
-cache.
+``AutoExcluded``.  A ``KernelError`` is never a reason to exclude, nor is a
+``CaptureError``: either stops the run.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import sys
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -42,15 +51,24 @@ from ..core.types import COOMatrix
 
 from .. import formats
 from ..formats.auto import GUARD_ERRORS
+from ..formats.base import phases_fn
 from .report import FORMAT_NAMES, format_block, get_basename
 from .roofline import detect_chip, roofline
 
 AUTO_ATTEMPTS = 4      # plans of format=auto, each excluding the last refusal
+CHAIN = 64             # calls a CUDA graph chains (PERF.md §6: the A/B of k)
+WARMUP_CALLS = 3       # eager calls on a side stream before a capture
 
 
 class TraceError(RuntimeError):
     """A profiler trace that no busy time can be read from: its match is
     wrong, or it is complete and holds no device time."""
+
+
+class CaptureError(RuntimeError):
+    """A CUDA graph capture of chained calls that failed.  It is never one
+    of auto's guard errors: like a ``KernelError`` it stops the run, and no
+    timing falls back to eager calls."""
 
 
 @dataclasses.dataclass
@@ -101,36 +119,132 @@ def device_seconds(fn, device: torch.device) -> float:
     return time.perf_counter() - t0
 
 
-def _time_loop(spmv, state, x, loop: int, device: torch.device) -> float:
-    """Seconds for ``loop`` back-to-back calls."""
-    def calls():
-        for _ in range(loop):
-            spmv(state, x)
+def make_chained_runner(fn: Callable, state, arg: torch.Tensor, *,
+                        name: str = "", chain: int = CHAIN) -> Callable:
+    """``run_n(n)``: runs ``fn(state, arg)`` n times back to back and
+    returns the last call's output (the reference's ``make_chained_runner``,
+    its ``harness/driver.py:75-100``).
 
-    return device_seconds(calls, device)
+    On a CUDA device, ``fn`` first runs ``WARMUP_CALLS`` times eagerly on a
+    side stream, as torch's CUDA graph documentation asks, so that every
+    one-time setup of the kernels (their ``cudaFuncSetAttribute``, module
+    loading) is done before the capture.  Then one ``torch.cuda.CUDAGraph``
+    captures ``chain`` calls in a row and another one call; ``run_n(n)``
+    replays the first n // chain times and the second n % chain times.  A
+    graph captured from one stream runs its calls in order, and a replayed
+    launch is never merged with another, so the port leaves out the
+    reference's perturbation of x by out[0]·tiny, which only stops XLA from
+    merging repeated calls: every replay runs the whole chain on the same
+    ``arg``.  A capture that fails raises ``CaptureError`` naming ``name``
+    (the format); nothing falls back to eager calls.
+
+    The wrappers count a launch when they launch a kernel, so their
+    counters (``launches``, and those ``busy_seconds`` reads) rise by the
+    warm-up and the captured calls, never by a replay.
+
+    On the CPU ``run_n`` is a plain host loop."""
+    device = arg.device
+    if device.type != "cuda":
+        def run_n(n: int):
+            out = None
+            for _ in range(n):
+                out = fn(state, arg)
+            return out
+        return run_n
+
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(WARMUP_CALLS):
+            fn(state, arg)
+    torch.cuda.current_stream(device).wait_stream(side)
+    torch.cuda.synchronize(device)
+    graphs = {}
+    for k in sorted({1, max(int(chain), 1)}):
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                for _ in range(k):
+                    out = fn(state, arg)
+        except Exception as e:
+            raise CaptureError(
+                f"{name or getattr(fn, '__name__', 'fn')}: the CUDA graph "
+                f"capture of {k} chained calls failed: {type(e).__name__}: "
+                f"{e}") from e
+        graphs[k] = (graph, out)
+    k_top = max(graphs)
+
+    def run_n(n: int):
+        out = None
+        q, r = divmod(int(n), k_top)
+        for k, times in ((k_top, q), (1, r)):
+            graph, res = graphs[k]
+            for _ in range(times):
+                graph.replay()
+                out = res
+        return out
+
+    return run_n
 
 
-def marginal_seconds(fn, state, x, device: torch.device,
-                     window: float) -> float:
-    """Seconds per call of ``fn(state, x)``: the median of 3 marginals, each
-    the difference of two timed loops (``loop`` and ``loop // 2`` calls),
-    with ``loop`` doubled until one loop lasts ``window`` seconds (the
-    reference's trial timing, ``singlespmv_tpu/formats/auto.py:345``)."""
-    fn(state, x)
-    loop = 2
-    while loop < (1 << 16):
-        if _time_loop(fn, state, x, loop, device) >= window:
+def runner_clock(run_n: Callable, device: torch.device) -> Callable:
+    """``timed(n)``: seconds of ``run_n(n)`` on ``device``'s clock."""
+    return lambda n: device_seconds(lambda: run_n(n), device)
+
+
+def marginal(timed: Callable, loop: int, half: int) -> float:
+    """Seconds per call from two timed runs, (t(loop) − t(half)) /
+    (loop − half); where the margin is not positive, the average of both
+    runs, (t(loop) + t(half)) / (loop + half) (reference :246-265)."""
+    t_half = timed(half)
+    t_full = timed(loop)
+    margin = t_full - t_half
+    if margin > 0:
+        return margin / (loop - half)
+    return (t_full + t_half) / (loop + half)
+
+
+def trial_seconds(timed: Callable, loop: int) -> float:
+    """One trial of the reference's run loop: the marginal of ``loop`` and
+    ``loop // 2`` calls, or below 8 calls the plain average of one run."""
+    if loop >= 8:
+        return marginal(timed, loop, loop // 2)
+    return timed(loop) / loop
+
+
+def calibrate_loop(timed: Callable, window: float, max_loop: int) -> int:
+    """The loop count, doubled from 1 until a run of it lasts ``window``
+    seconds or reaches ``max_loop`` (reference :222-235)."""
+    loop = 1
+    while loop < max_loop:
+        if timed(loop) >= window:
             break
         loop *= 2
-    pers = []
-    for _ in range(3):
-        half = max(loop // 2, 1)
-        t_half = _time_loop(fn, state, x, half, device)
-        t_full = _time_loop(fn, state, x, loop, device)
-        margin = t_full - t_half
-        pers.append(margin / (loop - half) if margin > 0
-                    else (t_full + t_half) / (loop + half))
-    return float(np.median(pers))
+    return loop
+
+
+def median_seconds(timed: Callable, loop: int, n_trials: int) -> float:
+    """The median of ``n_trials`` trials (reference :271): a hiccup in
+    either run of one trial moves it, not the median."""
+    pers = [trial_seconds(timed, loop) for _ in range(n_trials)]
+    return float(np.median(pers)) if pers else float("inf")
+
+
+def marginal_seconds(fn, state, x, device: torch.device, window: float,
+                     name: str = "") -> float:
+    """Seconds per call of ``fn(state, x)``: the median of 3 marginals of
+    chained runs (``make_chained_runner``) of ``loop`` and ``loop // 2``
+    calls, with ``loop`` doubled from 2 until one run lasts ``window``
+    seconds (the reference's trial timing,
+    ``singlespmv_tpu/formats/auto.py:345-375``)."""
+    timed = runner_clock(make_chained_runner(fn, state, x, name=name), device)
+    loop = 2
+    while loop < (1 << 16):
+        if timed(loop) >= window:
+            break
+        loop *= 2
+    return float(np.median([marginal(timed, loop, max(loop // 2, 1))
+                            for _ in range(3)]))
 
 
 def best_marginal_seconds(run_n, carry, consts=(), *, target_s,
@@ -148,15 +262,7 @@ def best_marginal_seconds(run_n, carry, consts=(), *, target_s,
         if loop(n) >= target_s or n >= (1 << 20):
             break
         n *= 2
-    best = float("inf")
-    for _ in range(trials):
-        t_half = loop(n // 2)
-        t_full = loop(n)
-        margin = t_full - t_half
-        per = margin / (n - n // 2) if margin > 0 \
-            else (t_full + t_half) / (n + n // 2)
-        best = min(best, per)
-    return best
+    return min(marginal(loop, n, n // 2) for _ in range(trials))
 
 
 SPIN = "spin_kernel"        # torch.cuda._sleep's kernel
@@ -252,6 +358,25 @@ def busy_seconds(fn, match: str = "", reps: int = 20, launches=None,
     return None
 
 
+@contextlib.contextmanager
+def profiler_trace(trace_dir: str, device: torch.device, name: str):
+    """A ``torch.profiler`` trace of the block (host activity, and the
+    card's on a CUDA device), exported as a Chrome trace
+    ``<name>.<pid>.<ns>.pt.trace.json`` into ``trace_dir``: the port's
+    ``jax.profiler.trace(trace_dir)`` (reference :242-245)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    safe = "".join(c if c.isalnum() or c in "-_." else "_" for c in name)
+    prof.export_chrome_trace(os.path.join(
+        trace_dir, f"{safe}.{os.getpid()}.{time.time_ns()}.pt.trace.json"))
+
+
 def run_benchmark(
     matrix,                      # path or COOMatrix
     cfg: Config = None,
@@ -259,6 +384,10 @@ def run_benchmark(
     x: Optional[np.ndarray] = None,
     name: Optional[str] = None,
     quick: bool = False,         # skip calibration (tests): 1 trial × 3 calls
+    trace_dir: Optional[str] = None,   # torch.profiler trace of the trials
+    cache_dir: Optional[str] = None,   # converted-state cache
+    #                                    (formats/cache.py): OptimizeTime then
+    #                                    measures the cache load
     device="cuda",
     log=lambda msg: print(msg, file=sys.stderr),
 ) -> BenchResult:
@@ -276,15 +405,20 @@ def run_benchmark(
     x_host = np.asarray(x, dtype=cfg.np_dtype)
     xd = torch.from_numpy(x_host).to(device)
 
-    # --- OptimizeProblem: host convert plus the move to the device; under
-    # format=auto an engine that refuses at its first calls is excluded and
-    # auto plans again ---
+    # --- OptimizeProblem: host convert (or the cache's load) plus the move
+    # to the device; under format=auto an engine that refuses at its first
+    # calls is excluded and auto plans again ---
     spmv = formats.spmv_fn(cfg)
     excluded = []
     for attempt in range(AUTO_ATTEMPTS):
         log(f"{mat_name}: convert (format={cfg.format}) ...")
         t0 = time.perf_counter()
-        if cfg.format == "auto":
+        if cache_dir:
+            from ..formats.cache import convert_cached
+
+            state = convert_cached(coo, cfg, cache_dir, mat_name,
+                                   device=device, log=log)
+        elif cfg.format == "auto":
             state = formats.get_format("auto").convert(
                 coo, cfg, device=device, log=log).to(device)
         else:
@@ -322,23 +456,59 @@ def run_benchmark(
             cfg = cfg.replace(auto_exclude=cfg.auto_exclude + (chosen,))
             del state
 
-    # --- calibration: double the loop until one takes calibrate_seconds ---
+    label = cfg.format + (f"/{state.chosen}" if cfg.format == "auto" else "")
+
+    def clock(fn, arg, what):
+        return runner_clock(make_chained_runner(
+            fn, state, arg, name=f"{mat_name} {label}{what}"), device)
+
+    # --- calibration: double the loop until a chained run takes
+    # calibrate_seconds (the runner's capture is not timed) ---
+    timed = clock(spmv, xd, "")
     if quick:
         loop, n_trials = 3, 1
     else:
-        loop, n_trials = 1, cfg.n_trials
-        while loop < cfg.max_loop:
-            if _time_loop(spmv, state, xd, loop, device) \
-                    >= cfg.calibrate_seconds:
-                break
-            loop *= 2
+        loop = calibrate_loop(timed, cfg.calibrate_seconds, cfg.max_loop)
+        n_trials = cfg.n_trials
 
-    # --- median of n_trials timed loops ---
-    pers = [_time_loop(spmv, state, xd, loop, device) / loop
-            for _ in range(n_trials)]
-    best = float(np.median(pers))
+    # --- median of n_trials marginal trials ---
+    tracer = (profiler_trace(trace_dir, device, f"{mat_name}-{cfg.format}")
+              if trace_dir else contextlib.nullcontext())
+    with tracer:
+        best = median_seconds(timed, loop, n_trials)
+    del timed
     flops = 2.0 * coo.nnz
     gflops = flops / best / 1e9 if best > 0 else 0.0
+
+    # --- per-phase profile: each phase's input is the previous phase's
+    # output, and each phase has a chained runner of its own ---
+    phase_perf: Dict[str, float] = {}
+    phases = phases_fn(cfg)
+    ph = phases(state) if (cfg.profiling and phases) else None
+    if ph:
+        inputs, cur = {}, xd
+        for pname, fn in ph.items():
+            inputs[pname] = cur
+            cur = fn(state, cur)
+        for pname, fn in ph.items():
+            phase_perf[pname] = trial_seconds(
+                clock(fn, inputs[pname], f" phase {pname}"), loop)
+        del inputs, cur
+
+    # --- per-step timing of the scan tree (reference :304-325) ---
+    step_perf = {}
+    if cfg.measure_step_time:
+        mod = formats.get_format(cfg.format)
+        sfns = getattr(mod, "step_fns", None)
+        sinit = getattr(mod, "step_init", None)
+        if sfns and sinit:
+            vf = sinit(state, xd)
+            step_loop = max(loop, 8)
+            for sname, fn in sfns(state):
+                step_perf[sname] = trial_seconds(
+                    clock(fn, vf, f" step {sname}"), step_loop)
+                vf = fn(state, vf)
+            del vf
 
     chip = detect_chip(device)
     traffic = formats.traffic_bytes(state, cfg)
@@ -370,6 +540,18 @@ def run_benchmark(
         "Time(s)": best,
         "Performance(GFLOPS)": gflops,
     })
+    if phase_perf:
+        # MulPerf/SumPerf: Sum is every phase but Mul, one flop a phase
+        mul_s = phase_perf.get("Mul", 0.0)
+        sum_s = sum(v for k, v in phase_perf.items() if k != "Mul")
+        if mul_s > 0:
+            report["MulPerf"] = flops / mul_s / 1e9 / 2
+        if sum_s > 0:
+            report["SumPerf"] = flops / sum_s / 1e9 / 2
+        for pname, sec in phase_perf.items():
+            report[f"PhaseTime-{pname}(s)"] = sec
+    for sname, sec in step_perf.items():
+        report[f"StepTime-{sname}"] = sec
     report.update(roof)
     report.update({
         "OptimizeTime(s)": optimize_s,

@@ -1,13 +1,14 @@
 """Benchmark report block: a copy of ``singlespmv_tpu/harness/report.py``'s
-``format_block``, ``FORMAT_NAMES`` (with ``hyb`` added) and ``get_basename``
-(that package's ``harness/__init__`` imports jax, so it cannot be imported
-here).
+``format_block``, ``to_jsonl``, ``FORMAT_NAMES`` (with ``hyb`` added) and
+``get_basename`` (that package's ``harness/__init__`` imports jax, so it
+cannot be imported here).
 
 The block is ``%25s\\t%s`` key-value rows between a 40×'+' opener and a
 40×'-' closer, the reference benchmark's machine-readable output.
 """
 from __future__ import annotations
 
+import json
 import os
 from typing import Dict
 
@@ -38,3 +39,11 @@ def format_block(data: Dict[str, object]) -> str:
         lines.append(f"{k:>25}\t{v}")
     lines.append(CLOSE)
     return "\n".join(lines)
+
+
+def to_jsonl(data: Dict[str, object]) -> str:
+    """One JSON line of a report (keys sorted), the CLI's ``--jsonl``;
+    numpy scalars become plain numbers."""
+    return json.dumps(data, sort_keys=True,
+                      default=lambda v: v.item() if hasattr(v, "item")
+                      else str(v))
