@@ -117,11 +117,21 @@ Its phases, in the order they run:
    (their OptimizeTime then the load; the file untouched, the same engine,
    y within the drift bound); and writes one ``trace_dir`` trace, which
    must hold device events;
-13. the xch path on circuit5M (several kernel calls per pass, a nested
+13. the campaign layer: ``block_gather_mul`` at ellg's gran 128 against
+   its plain version on every pass of the ellg states of raefsky3 and
+   g7jac200sc (between them one and several members a row; a pass of one
+   member carries no src), each pass timed beside its bound; then drives
+   ``run_benchmark`` with format="ellg" on both, and "coo", "ell", "jds",
+   "bcoo" and "hostlib" on raefsky3 (hostlib on the host, as its
+   ``PREFERRED_DEVICE`` says), each to a Verify PASS; then the headline
+   module ``singlespmv_tpu_torch.bench`` with ``--names`` g7jac200sc lhr34
+   (its JSON line must carry the root bench.py's keys), a two-row sweep
+   (ell, ellg) on lhr34 and ``format-logs`` over the sweep's logs;
+14. the xch path on circuit5M (several kernel calls per pass, a nested
    long-row state): the time ``route_rows`` takes, kernels against their
    plain versions on every call, then its spmv against the float64 COO
    oracle;
-14. checks that each path launched each of its kernels: the launch counts
+15. checks that each path launched each of its kernels: the launch counts
    are set to 0 just before a path and read just after it; the slab, hyb,
    auto and float64 paths the slab route ``slab_spmv_rows``; and that no
    path launched the first port's kernels that left the spmv path:
@@ -151,7 +161,6 @@ of the same work on the idx-plane layout it replaced), and as its last line
 no CUDA device is present or any phase fails.
 """
 import json
-import multiprocessing
 import os
 import shutil
 import subprocess
@@ -315,65 +324,6 @@ def _bound(nbytes, ops, dtype):
 def _routed(*idx):
     """The end-lane entries that route a run total (idx >= 0)."""
     return sum(int((i >= 0).sum()) for i in idx)
-
-
-def _synthesize_to(name, path):
-    """Synthesizes the stand-in ``name`` into the .npz file ``path``."""
-    from singlespmv_tpu_torch.data import synthesize_structured
-
-    coo = synthesize_structured(name)
-    np.savez(path, n_row=coo.n_row, n_col=coo.n_col, row=coo.row,
-             col=coo.col, val=coo.val)
-    return path
-
-
-class StandIns(dict):
-    """The full-size stand-ins, synthesized in spawned processes in the
-    order given: ``mats[name]`` waits for its own, so the card works on the
-    first ones while the last ones are built.  Each worker runs on one
-    thread (the native sort is OpenMP) and one core stays free, so the
-    host-side timings of this process do not compete with the synthesis.
-    A worker hands its matrix over in a file, read when it is asked for:
-    a result sent back through the pool would be received by a thread of
-    this process, which then holds the GIL against the timed loops (a
-    circuit5M-sized one made spmvs 25-180x slower for seconds)."""
-
-    def __init__(self, names):
-        super().__init__()
-        self.dir = tempfile.mkdtemp(prefix="standins_")
-        weakref.finalize(self, shutil.rmtree, self.dir, ignore_errors=True)
-        ctx = multiprocessing.get_context("spawn")
-        workers = max(1, min(len(names), (os.cpu_count() or 2) - 1))
-        saved = os.environ.get("OMP_NUM_THREADS")
-        os.environ["OMP_NUM_THREADS"] = "1"    # read by the workers at start
-        try:
-            self.pool = ctx.Pool(workers)
-        finally:
-            if saved is None:
-                del os.environ["OMP_NUM_THREADS"]
-            else:
-                os.environ["OMP_NUM_THREADS"] = saved
-        self.pending = {n: self.pool.apply_async(_synthesize_to, (
-            n, os.path.join(self.dir, f"{n}.npz"))) for n in names}
-
-    def __missing__(self, name):
-        from singlespmv_tpu_torch.core import COOMatrix
-
-        t0 = time.perf_counter()
-        path = self.pending.pop(name).get()
-        with np.load(path) as z:
-            self[name] = COOMatrix(n_row=int(z["n_row"]),
-                                   n_col=int(z["n_col"]), row=z["row"],
-                                   col=z["col"], val=z["val"])
-        os.remove(path)
-        waited = time.perf_counter() - t0
-        if waited > 1.0:
-            print(f"waited {waited:.1f} s for the {name} stand-in", flush=True)
-        return self[name]
-
-    def close(self):
-        self.pool.terminate()
-        self.pool.join()
 
 
 def _rows_calls(state, x_table, ops, plain):
@@ -1366,6 +1316,185 @@ def run_calibration_path(dev):
     return vals
 
 
+ELLG_MATS = ("raefsky3", "g7jac200sc")   # ellg plans m 1 and m > 1 there
+NEW_FORMATS = ("coo", "ell", "jds", "bcoo", "hostlib")   # run on raefsky3
+HEADLINE_MATS = ("g7jac200sc", "lhr34")   # the two smallest suite stand-ins
+SWEEP_TODO = ("prefix,format,calibrate_seconds,n_trials\n"   # two rows,
+              "ell,ell,0.05,3\nellg,ellg,0.05,3\n")        # on lhr34
+
+
+def compare_ellg(label, state, ellg, bops, x):
+    """The campaign's kernel check for one ellg state: ``block_gather_mul``
+    at gran 128 against its plain version on every pass, at the pass's
+    shapes (its panel of the x table, m members, src None where m is 1),
+    each pass timed with its bound.  Returns a result per pass."""
+    xp = torch.zeros(-(-state.n_col // 128) * 128, dtype=x.dtype,
+                     device=x.device)
+    xp[: state.n_col] = x
+    out = []
+    for i, p in enumerate(state.passes):
+        lo = p.panel_base * 128
+        xpan = xp[lo: lo + p.panel_cb * 128].view(p.panel_cb, 128)
+        args = (p.members, p.lane, p.src, p.val, xpan, p.m)
+        got = bops.block_gather_mul(*args, gran=128).clone()
+        want = bops.block_gather_mul_ref(*args, gran=128)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / max(float(want.abs().max()), 1e-30)
+        if not rel <= TOL:
+            raise SystemExit(f"{label} pass {i}: block_gather_mul at gran 128 "
+                             f"disagrees with its plain version ({rel:.3g} > "
+                             f"{TOL} of max|out|)")
+        slots = p.lane.numel()
+        # bytes: members, lane, val, src where m > 1, the panel once, the
+        # products out; operations: a multiply a slot
+        res = {"label": f"{label} pass {i}", "t": p.t, "m": p.m,
+               "full": p.full, "shape": list(p.lane.shape), "gran": 128,
+               "slots": slots, "panel_cb": p.panel_cb, "max_abs_err": err,
+               "rel_err": rel,
+               "ms": _busy_ms(lambda: bops.block_gather_mul(*args, gran=128),
+                              "block_gather_mul_",
+                              launches=_launched(bops.block_gather_mul)),
+               "plain_ms": _busy_ms(
+                   lambda: bops.block_gather_mul_ref(*args, gran=128)),
+               "call_ms": _cuda_ms(
+                   lambda: bops.block_gather_mul(*args, gran=128)),
+               "library_ms": None} | _bound(
+            _nbytes(p.members, p.lane, p.val, xpan) + 4 * slots
+            + (_nbytes(p.src) if p.m > 1 else 0), slots, torch.float32)
+        print(f"kernel ellg {res['label']}: {json.dumps(_marked(res))}",
+              flush=True)
+        out.append(res)
+    return out
+
+
+def _bench_py_keys():
+    """The keys of the JSON line of the repository's root bench.py."""
+    import ast
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "bench.py")) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and getattr(
+                node.targets[0], "id", None) == "line":
+            return [k.value for k in node.value.keys]
+    raise SystemExit("bench.py: no JSON line found")
+
+
+def run_campaign_tools(mats, dev, card):
+    """The campaign's entry points: the headline module on
+    ``HEADLINE_MATS``, a two-row sweep on lhr34 and ``format-logs`` over
+    its logs.  Fails unless each runs, every row passes Verify and the
+    headline prints bench.py's keys."""
+    import contextlib
+    import io
+
+    from singlespmv_tpu_torch import bench, cli
+    from singlespmv_tpu_torch.core import write_matrix_market
+    from singlespmv_tpu_torch.harness.report import parse_blocks
+    from singlespmv_tpu_torch.harness.suite import read_tsv
+    from singlespmv_tpu_torch.harness.sweep import run_sweep
+
+    work = tempfile.mkdtemp(prefix="campaign_")
+    try:
+        tsv = os.path.join(work, "headline.tsv")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            bench.main(["--names", *HEADLINE_MATS, "--out", tsv,
+                        "--cache-dir", os.path.join(work, "cache"),
+                        "--prefetch", "2"])
+        line = json.loads(out.getvalue().strip().splitlines()[-1])
+        print(f"headline ({card}): {json.dumps(line)}", flush=True)
+        rows = read_tsv(tsv)
+        for r in rows:
+            print(f"headline_row {json.dumps(r)}", flush=True)
+        if list(line) != _bench_py_keys() or sorted(line["detail"]) != \
+                sorted(HEADLINE_MATS) or any(r["Verify"] != "PASS"
+                                             for r in rows):
+            raise SystemExit(f"headline: wrong line or rows: {line}")
+        mtx = os.path.join(work, "lhr34.mtx")
+        write_matrix_market(mtx, mats["lhr34"])
+        logs = os.path.join(work, "log")
+        t0 = time.perf_counter()
+        failures = run_sweep(SWEEP_TODO, [mtx], logs, device=dev,
+                             log=lambda m: None)
+        with open(os.path.join(logs, "manifest.json")) as f:
+            manifest = json.load(f)
+        print(f"sweep: {failures} failures in {time.perf_counter() - t0:.1f}"
+              f" s, manifest {manifest}", flush=True)
+        text = ""
+        for prefix in ("ell", "ellg"):
+            with open(os.path.join(logs, f"{prefix}.log")) as f:
+                text += f.read()
+        with open(os.path.join(logs, "all.log"), "w") as f:
+            f.write(text)
+        table = io.StringIO()
+        with contextlib.redirect_stdout(table):
+            rc = cli.main(["format-logs", os.path.join(logs, "all.log"),
+                           "--keys", "Verify", "Time(s)"])
+        print("format-logs:\n" + table.getvalue().rstrip(), flush=True)
+        got = [ln.split("\t") for ln in table.getvalue().splitlines()]
+        if failures or rc or len(got) != 3 or len(parse_blocks(text)) != 2 \
+                or {r[2] for r in got[1:]} != {"ELL", "ELLG"} \
+                or any(r[7] != "PASS" for r in got[1:]):
+            raise SystemExit("sweep or format-logs: wrong result")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_campaign(mats, dev, card, count_path, wrappers):
+    """Phase "campaign": ``compare_ellg`` on every pass of ``ELLG_MATS``
+    (which must plan m = 1 and m > 1 between them), then the ellg path and
+    ``NEW_FORMATS`` on raefsky3 through ``run_benchmark``, then
+    ``run_campaign_tools``; ``count_path`` reads the launches of
+    ``wrappers`` after each path.  Returns (the per-pass checks, the ellg
+    path's launches of ``block_gather_mul``)."""
+    from singlespmv_tpu_torch import Config
+    from singlespmv_tpu_torch.core import create_random_vector
+    from singlespmv_tpu_torch.formats import ellg
+    from singlespmv_tpu_torch.harness import run_benchmark
+    from singlespmv_tpu_torch.ops import bucket as bops
+
+    cfg = Config(format="ellg")
+    run_cfg = cfg.replace(calibrate_seconds=0.2, n_trials=3)
+    checks, members = [], set()
+    for name in ELLG_MATS:
+        t0 = time.perf_counter()
+        st = ellg.convert(mats[name], cfg)
+        print(f"ellg convert {name}: {time.perf_counter() - t0:.2f} s, "
+              f"{json.dumps(ellg.report_fields(st, cfg))}", flush=True)
+        members |= {p.m for p in st.passes}
+        x = torch.from_numpy(create_random_vector(
+            mats[name].n_col, dtype=np.float32)).to(dev)
+        checks += compare_ellg(f"{name} ellg", st.to(dev), ellg, bops, x)
+        del st
+    if 1 not in members or not members - {1}:
+        raise SystemExit(f"ellg stand-ins {ELLG_MATS} plan m in "
+                         f"{sorted(members)}: not both m = 1 and m > 1")
+    _zero(*wrappers)
+    run_path({n: mats[n] for n in ELLG_MATS}, run_cfg, run_benchmark,
+             ("Levels", "RestFormat", "RestNnz", "PadFactor"), dev,
+             rest=("BKT_G", "CSR", "NONE"))
+    launched = count_path("campaign ellg", wrappers, (
+        "block_gather_mul", "bucket_rows"))["block_gather_mul"]
+    _zero(*wrappers)
+    for fmt in NEW_FORMATS:
+        rep = run_path({"raefsky3": mats["raefsky3"]},
+                       run_cfg.replace(format=fmt), run_benchmark,
+                       ("Architecture", "PreferredDevice", "Library"),
+                       dev)["raefsky3"]
+        on_host = (rep["Architecture"] == "CPU"
+                   and rep.get("PreferredDevice") == "cpu")
+        if on_host != (fmt == "hostlib"):
+            raise SystemExit(f"{fmt}: ran on {rep['Architecture']}")
+    count_path("campaign formats", wrappers, ())
+    _zero(*wrappers)
+    run_campaign_tools(mats, dev, card)
+    count_path("campaign tools", wrappers, ("block_gather_mul",))
+    return checks, launched
+
+
 def _route_seconds(state, xch):
     """Seconds ``route_rows`` takes on a host state and its nested ones."""
     t0 = time.perf_counter()
@@ -1400,7 +1529,7 @@ def main() -> int:
     from singlespmv_tpu_torch.formats import (auto, bkt, bsr, csr5, css, dia,
                                               hyb, slab, spmm_fn, spmv_fn, ss,
                                               xch)
-    from singlespmv_tpu_torch.harness import run_benchmark
+    from singlespmv_tpu_torch.harness import run_benchmark, suite
     from singlespmv_tpu_torch.harness.driver import marginal_seconds
     from singlespmv_tpu_torch.ops import _build
     from singlespmv_tpu_torch.ops import blockgather as gops
@@ -1437,7 +1566,7 @@ def main() -> int:
 
     # --- 2. kernels vs plain versions at the main paths' shapes; circuit5M,
     #     the longest to build, is built while the others run ---
-    mats = StandIns(list(dict.fromkeys(
+    mats = suite.StandIns(list(dict.fromkeys(
         ("circuit5M",) + SLAB_MATS + XCH_MATS + HYB_MATS + AUTO_MATS)))
     g7 = mats["g7jac200sc"]
     unit_plan = slab._estimate_cols(
@@ -1949,7 +2078,15 @@ def main() -> int:
             raise SystemExit("trace_dir: no trace with device events")
         count_path("driver timing", all_k, ("slab_spmv_rows",))
 
-    # --- 13. the xch path on circuit5M, last because its stand-in takes
+    # --- 13. the campaign layer: ellg's stage A at gran 128 against its
+    #     plain version on every pass of two stand-ins, the ellg path, the
+    #     other new formats through run_benchmark, the headline module, a
+    #     sweep and format-logs ---
+    with Phase("campaign"):
+        ellg_checks, ellg_launches = run_campaign(
+            mats, dev, card.splitlines()[0], count_path, all_k)
+
+    # --- 14. the xch path on circuit5M, last because its stand-in takes
     #     longest to build: kernels vs plain versions on every call, then
     #     its spmv against the oracle ---
     with Phase("xch circuit5M float32"):
@@ -1981,7 +2118,7 @@ def main() -> int:
         del state
     mats.close()
 
-    # --- 14. every kernel of each path ran in that path, and the first
+    # --- 15. every kernel of each path ran in that path, and the first
     #     port's route kernels in none ---
     print(f"launches in the main paths: {launches}; the first port's "
           f"kernels off the spmv path (count_path fails on any): "
@@ -2053,6 +2190,18 @@ def main() -> int:
             "library_ms": t[0]["library_ms"]}
             | {k: t[0][k] for k in ("bound_ms_idx_layout",) if k in t[0]}
             | first_port_ms))
+    # block_gather_mul at ellg's gran 128: one entry a pass; launches are
+    # the ellg path's
+    for r in ellg_checks:
+        kernels.append(_marked({
+            "name": f"block_gather_mul[{r['label']} t{r['t']} m{r['m']} "
+                    "gran128]",
+            "route": "cuda", "source": bkt_src,
+            "replaces": "singlespmv_tpu/ops/pallas/bucket.py:91",
+            "launches": ellg_launches, "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]}))
     # the calibration path's: max_abs_err over every check, times of the
     # first (xch_route at 16 planes, each probe at its defaults, probe_slab
     # at T 32, S8 8, stage all); xch_route's at 8 planes beside them

@@ -1,12 +1,15 @@
-"""Native host helpers of the layout builders, bound with ctypes: copies of
-the reference's ``core/native/sort_native.cpp`` (stable LSD radix argsort)
-and ``scatter_native.cpp`` (grid scatter at unique positions).
+"""Native host helpers, bound with ctypes: copies of the reference's
+``core/native/sort_native.cpp`` (stable LSD radix argsort) and
+``scatter_native.cpp`` (grid scatter at unique positions), which the layout
+builders use, and ``logfmt_native.cpp`` (report blocks to TSV), which
+``harness/logfmt.py`` uses.
 
 Each source builds at first use with the host's C++ compiler (``g++ -O3
 -fopenmp``) into the package's git-ignored ``_build/`` directory, under a
 name that carries a hash of the source and the flags.  Where no compiler is
 present, or the build fails, the callers in ``core/hostmem.py`` use numpy,
-which gives the same arrays.
+which gives the same arrays, and ``harness/logfmt.py`` its Python
+formatter, which gives the same table.
 """
 from __future__ import annotations
 
@@ -106,3 +109,24 @@ def grid_scatter(grid: np.ndarray, rows: np.ndarray, lanes: np.ndarray,
                                   grid.dtype)
     fn(grid, grid.shape[1], rows, lanes, vals_a, len(rows))
     return True
+
+
+def format_logs(text: str, extra_keys=None) -> Optional[str]:
+    """The TSV table of the report blocks in ``text`` (``extra_keys``
+    after the default columns), or None when the library is unavailable."""
+    lib = _get_lib("logfmt_native.cpp")
+    if lib is None:
+        return None
+    fn, free = lib.spmv_format_logs, lib.spmv_free_text
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_void_p
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+        free.restype = None
+        free.argtypes = [ctypes.c_void_p]
+    ptr = fn(text.encode(), "\n".join(extra_keys or []).encode())
+    if not ptr:
+        return None
+    try:
+        return ctypes.string_at(ptr).decode()
+    finally:
+        free(ptr)

@@ -1,7 +1,8 @@
-"""Format registry of the port: ``auto``, ``bkt``, ``bsr``, ``csr``,
-``csr5``, ``css``, ``dense``, ``dia``, ``hyb``, ``slab``, ``ss`` and ``xch``
-so far (``bkt_g``, bkt at 1024-row buckets, is ``auto``'s internal name, as
-in the reference)."""
+"""Format registry of the port: every format of the reference's registry
+(``singlespmv_tpu/formats/__init__.py``), with its aliases ``crs`` (csr,
+the reference's spelling) and ``mkl`` (hostlib, the reference's slot
+name).  ``bkt_g``, bkt at 1024-row buckets, is ``auto``'s internal name, as
+in the reference."""
 from __future__ import annotations
 
 from .base import (available_formats, convert, get_format, report_fields,
@@ -15,14 +16,17 @@ def _ensure_loaded():
     if _LOADED:
         return
     _LOADED = True
-    from . import (auto, bkt, bsr, csr, csr5, css, dense, dia, hyb, slab, ss,
-                   xch)
+    from . import (auto, bcoo, bkt, bsr, coo, csr, csr5, css, dense, dia, ell,
+                   ellg, hostlib, hyb, jds, slab, ss, xch)
     from .base import register_format
 
-    for name, mod in (("auto", auto), ("bkt", bkt), ("bsr", bsr),
-                      ("csr", csr), ("csr5", csr5), ("css", css),
-                      ("dense", dense), ("dia", dia), ("hyb", hyb),
-                      ("slab", slab), ("ss", ss), ("xch", xch)):
+    for name, mod in (("auto", auto), ("slab", slab), ("xch", xch),
+                      ("hyb", hyb), ("ellg", ellg), ("bkt", bkt),
+                      ("bsr", bsr), ("coo", coo), ("csr", csr),
+                      ("crs", csr), ("ell", ell), ("jds", jds), ("dia", dia),
+                      ("ss", ss), ("css", css), ("csr5", csr5),
+                      ("dense", dense), ("bcoo", bcoo), ("hostlib", hostlib),
+                      ("mkl", hostlib)):
         register_format(name, mod)
 
 

@@ -67,15 +67,15 @@ def available_formats():
 
 class TensorState:
     """Base of the frozen dataclass states: ``to(device)`` returns a copy
-    whose tensor fields, tuples of tensors and nested states live on
-    ``device``."""
+    whose tensor fields, nested states and tuples of either (ellg's
+    passes) live on ``device``."""
 
     def to(self, device) -> "TensorState":
         def move(v):
             if isinstance(v, (torch.Tensor, TensorState)):
                 return v.to(device)
             if isinstance(v, tuple) and v and all(
-                    isinstance(a, torch.Tensor) for a in v):
+                    isinstance(a, (torch.Tensor, TensorState)) for a in v):
                 return tuple(a.to(device) for a in v)
             return v
 

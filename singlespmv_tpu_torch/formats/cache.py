@@ -6,20 +6,22 @@ microseconds, so the driver can keep a converted state on disk
 (``run_benchmark(cache_dir=...)``).  ``save_state`` writes a state as an
 ``.npz`` of its tensors and a JSON tree beside it that walks the port's
 ``TensorState`` dataclasses: nested states (hyb's dia and residual, xch's
-``long``, auto's ``inner``), tuples of tensors (the per-call streams), and
-tuples of scalars (auto's ``costs``, ``trials`` and ``failed``).  Every
-field is stored, the derived route streams among them (slab's
-``ybase``/``dest``, xch's ``base2``/``dest2``, bkt's ``hm1r``/``dest``/
-``yrow``), so a load derives nothing.  ``load_state`` puts the state on
-the caller's device.
+``long``, auto's ``inner``, ellg's rest), tuples of tensors (the per-call
+streams) and of states (ellg's passes), tuples of scalars (auto's
+``costs``, ``trials`` and ``failed``), and sparse tensors (bcoo's, as its
+coalesced indices and values).  Every field is stored, the derived route
+streams among them (slab's ``ybase``/``dest``, xch's ``base2``/``dest2``,
+bkt's ``hm1r``/``dest``/``yrow``), so a load derives nothing.
+``load_state`` puts the state on the caller's device.
 
 A saved state carries a fingerprint: the matrix's shape, a digest of its
 triplets, the Config fields that convert reads, and the layout revision
 ``STATE_REV`` of the format's module (for auto, of auto and of every engine
-it may choose).  A load whose fingerprint differs returns None, so a stale
-state is never reused; Config fields that convert does not read (timing,
-verify, profiling) do not invalidate.  The revisions are the port's own,
-since its layouts are not the reference's.
+it may choose; for hyb and ellg, of every engine their rest may ride).  A
+load whose fingerprint differs returns None, so a stale state is never
+reused; Config fields that convert does not read (timing, verify,
+profiling) do not invalidate.  The revisions are the port's own, since
+its layouts are not the reference's.
 """
 from __future__ import annotations
 
@@ -53,6 +55,11 @@ def _encode(obj, arrays: Dict[str, np.ndarray], prefix: str):
                 "fields": {f.name: _encode(getattr(obj, f.name), arrays,
                                            f"{prefix}.{f.name}")
                            for f in dataclasses.fields(obj)}}
+    if isinstance(obj, torch.Tensor) and obj.is_sparse:
+        # bcoo's matrix: its coalesced indices and values
+        return {"__sparse_coo__": list(obj.shape),
+                "indices": _encode(obj.indices(), arrays, f"{prefix}.indices"),
+                "values": _encode(obj.values(), arrays, f"{prefix}.values")}
     if isinstance(obj, torch.Tensor):
         key = prefix.lstrip(".")
         arrays[key] = obj.detach().cpu().numpy()
@@ -77,6 +84,12 @@ def _decode(node, arrays, device):
     if isinstance(node, dict):
         if "__array__" in node:
             return torch.from_numpy(arrays[node["__array__"]]).to(device)
+        if "__sparse_coo__" in node:
+            from .bcoo import sparse_coo
+
+            return sparse_coo(_decode(node["indices"], arrays, device),
+                              _decode(node["values"], arrays, device),
+                              node["__sparse_coo__"])
         if "__tuple__" in node:
             return tuple(_decode(v, arrays, device) for v in node["__tuple__"])
         if _SENTINEL in node:
@@ -87,16 +100,22 @@ def _decode(node, arrays, device):
 
 
 def _rev(fmt: str):
-    """The layout revision of format ``fmt``: its module's ``STATE_REV``
-    (0 without one); for auto, auto's and every engine's."""
+    """The layout revision of format ``fmt`` (an alias: of its module):
+    its module's ``STATE_REV`` (0 without one); for auto, auto's and every
+    engine's, and for a format with nested rest states (hyb, ellg), its
+    own and every rest engine's."""
+    from .base import get_format
+
     try:
-        mod = importlib.import_module(f".{fmt}", _PACKAGE)
-    except ImportError:
+        mod = get_format(fmt)
+    except KeyError:
         return 0
     rev = getattr(mod, "STATE_REV", 0)
-    if fmt == "auto":
-        rev = {"auto": rev}
-        for name, m in sorted(mod._MODULES.items()):
+    engines = mod._MODULES if fmt == "auto" else getattr(
+        mod, "REST_MODULES", None)
+    if engines:
+        rev = {fmt: rev}
+        for name, m in sorted(engines.items()):
             rev[name] = getattr(m, "STATE_REV", 0)
     return rev
 

@@ -21,7 +21,10 @@ pays per call, host dispatch included, is not ``Time(s)``: ``chip_smoke.py``
 prints it beside it as the eager wall.  On the CPU ``run_n`` is a plain
 host loop and a host clock stands in.  ``device`` defaults to "cuda" and a
 run with no GPU raises; the CPU runs the kernels' plain versions only when
-asked for by ``device="cpu"``.
+asked for by ``device="cpu"``.  The one format placed on the CPU by itself
+is the host library baseline hostlib, whose ``PREFERRED_DEVICE`` the
+driver honours as the reference's does; its report block says so
+(``PreferredDevice``, ``Architecture`` CPU).
 
 With ``format="auto"`` the driver retries as the reference's does
 (``singlespmv_tpu/harness/driver.py:168-220``): a chosen engine that refuses
@@ -392,7 +395,13 @@ def run_benchmark(
     log=lambda msg: print(msg, file=sys.stderr),
 ) -> BenchResult:
     cfg = cfg or Config()
-    device = device_of(device)
+    # a host library baseline (hostlib) declares the CPU: its state and x
+    # go there and the chained runner is a host loop, whatever ``device``
+    # says, as the reference's driver places it (its :155-164)
+    preferred = getattr(formats.get_format(cfg.format), "PREFERRED_DEVICE",
+                        None)
+    device = device_of(device) if preferred is None \
+        else torch.device(preferred)
     if isinstance(matrix, COOMatrix):
         coo, mat_name = matrix, (name or "in-memory")
     else:
@@ -530,6 +539,8 @@ def run_benchmark(
         "Dtype": cfg.dtype,
     }
     report.update(formats.report_fields(state, cfg))
+    if preferred is not None:
+        report["PreferredDevice"] = preferred
     if cfg.format == "auto":
         report["AutoExcluded"] = "; ".join(excluded) or "none"
     report.update({

@@ -23,6 +23,8 @@ counts the launches of its kernel in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
@@ -115,16 +117,20 @@ def block_gather_mul(members, lane, src, val, x_table, m: int = 1,
     W: one unit per stream row, the bkt layout).
 
     members: (H·W/gran·m,) int32; lane, src: (H, W) int8 (src unread if
-    m == 1); val: (H, W) float32; x_table: (CB, 128) float32.
-    Returns (H, W) float32."""
+    m == 1, and then it may be None: the kernel gets a null pointer, as
+    ellg's passes of one member carry none); val: (H, W) float32;
+    x_table: (CB, 128) float32.  Returns (H, W) float32."""
     dev = _device(x_table)
     h, w = lane.shape
     gran = w if gran is None else gran
     if m < 1 or gran < LANES or gran % LANES or (h * w) % gran:
         raise ValueError(f"stage A takes m ≥ 1 and a gran of whole 128-slot "
                          f"rows dividing the stream; not m={m}, gran={gran}")
-    for name, t in (("lane", lane), ("src", src)):
-        _check(name, t, torch.int8, (h, w), dev)
+    _check("lane", lane, torch.int8, (h, w), dev)
+    if src is None and m > 1:
+        raise ValueError(f"stage A with m={m} needs src")
+    if src is not None:
+        _check("src", src, torch.int8, (h, w), dev)
     _check("val", val, torch.float32, (h, w), dev)
     _check("members", members, torch.int32, (h * w // gran * m,), dev)
     if x_table.dim() != 2 or x_table.shape[1] != LANES:
@@ -135,9 +141,10 @@ def block_gather_mul(members, lane, src, val, x_table, m: int = 1,
         return block_gather_mul_ref(members, lane, src, val, x_table, m, gran)
     out = torch.empty(h, w, dtype=torch.float32, device=dev)  # all written
     if h:
+        src_p = ctypes.c_void_p(None) if src is None else _ptr(src)
         rc = _build.load().block_gather_mul_f32(
-            *map(_ptr, (members, lane, src, val, x_table, out)), h, w, gran,
-            m, _stream(dev))
+            _ptr(members), _ptr(lane), src_p, _ptr(val), _ptr(x_table),
+            _ptr(out), h, w, gran, m, _stream(dev))
         _raise_on(rc, "block_gather_mul")
         block_gather_mul.launches += 1
     return out

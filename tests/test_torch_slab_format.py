@@ -278,17 +278,21 @@ def test_registry():
 
     from singlespmv_tpu_torch.formats import auto, bkt
 
+    from singlespmv_tpu.formats import available_formats as ref_available
+    from singlespmv_tpu_torch.formats import ellg
+
     assert formats.available_formats() == [
-        "auto", "bkt", "bsr", "csr", "csr5", "css", "dense", "dia", "hyb",
-        "slab", "ss", "xch"]
+        "auto", "bcoo", "bkt", "bsr", "coo", "crs", "csr", "csr5", "css",
+        "dense", "dia", "ell", "ellg", "hostlib", "hyb", "jds", "mkl", "slab",
+        "ss", "xch"]
+    assert formats.available_formats() == ref_available()
     assert formats.spmv_fn(F32) is slab.spmv
     assert formats.spmv_fn(F32.replace(format="xch")) is xch.spmv
     assert formats.spmv_fn(F32.replace(format="bkt")) is bkt.spmv
     assert formats.spmv_fn(F32.replace(format="auto")) is auto.spmv
+    assert formats.spmv_fn(F32.replace(format="ellg")) is ellg.spmv
     with pytest.raises(KeyError):        # auto's internal name only
         formats.get_format("bkt_g")
-    with pytest.raises(KeyError):        # not ported
-        formats.get_format("ellg")
 
 
 def test_port_never_imports_jax():
