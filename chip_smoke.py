@@ -127,15 +127,33 @@ Its phases, in the order they run:
    module ``singlespmv_tpu_torch.bench`` with ``--names`` g7jac200sc lhr34
    (its JSON line must carry the root bench.py's keys), a two-row sweep
    (ell, ellg) on lhr34 and ``format-logs`` over the sweep's logs;
-14. the xch path on circuit5M (several kernel calls per pass, a nested
+14. the solver layer (``ops/{solvers,ilu,sptrsv,spgemm}.py``) at the size
+   of a 3D solve, 100³ unknowns: (a) CG in float64 on the 7-point Poisson
+   matrix with format="slab", without a preconditioner and with IC(0)
+   (which must take fewer iterations), (b) BiCGStab with ILU(0) in float32
+   on the 7-point upwind convection–diffusion matrix (cell Péclet 10
+   along x), slab, (c) BiCGStab in float32 under the solvers' default
+   cfg (auto) on the ASIC_680ks stand-in made strictly diagonally
+   dominant, printing auto's choice; each must converge with a true
+   residual ‖b − A x‖ (float64 COO oracle) within 1.001·tol·‖b‖ (float64)
+   or 10·tol·‖b‖ (float32), and prints its iterations, its wall, capture
+   and replay seconds, the CUDA graph's nodes beside the estimate that
+   sized its chunk, one spmv's chained Time(s) on its state, one
+   preconditioner apply on a chained runner, and the same solve run
+   eagerly (the chunk function without capture); (d) SpGEMM g7jac200sc ·
+   g7jac200sc in float64 against scipy's ``A @ A`` (the same pattern,
+   values within 1e-12 of max|C|); (e) SpTRSV on (a)'s IC(0) factor L and
+   Lᵀ against scipy's ``spsolve_triangular`` (1e-10 of max|y|), with a
+   solve's chained time and its time a level;
+15. the xch path on circuit5M (several kernel calls per pass, a nested
    long-row state): the time ``route_rows`` takes, kernels against their
    plain versions on every call, then its spmv against the float64 COO
    oracle;
-15. checks that each path launched each of its kernels: the launch counts
+16. checks that each path launched each of its kernels: the launch counts
    are set to 0 just before a path and read just after it; the slab, hyb,
-   auto and float64 paths the slab route ``slab_spmv_rows``; and that no
-   path launched the first port's kernels that left the spmv path:
-   ``xch_route4`` and ``slab_spmv`` / ``slab_spmv_blk``.
+   auto, float64 and solver paths the slab route ``slab_spmv_rows``; and
+   that no path launched the first port's kernels that left the spmv
+   path: ``xch_route4`` and ``slab_spmv`` / ``slab_spmv_blk``.
 
 Each phase prints its seconds.
 
@@ -1495,6 +1513,243 @@ def run_campaign(mats, dev, card, count_path, wrappers):
     return checks, launched
 
 
+SOLVER_GRID = 100        # the solver phase's grids: 100³ unknowns, 6.94 M
+#                          nonzeros, the size of a 3D solve users run
+SOLVER_PECLET = 10.0     # (b)'s cell Péclet number along x
+SOLVER_WINDOW_S = 0.05   # each timed run of the phase's chained timings
+F32_RESIDUAL = 10        # float32: the true residual within this many
+#                          tol·‖b‖ (recurrence and true residual drift apart
+#                          by rounding)
+SPTRSV_TOL = 1e-10       # (e) against scipy, of max|y|
+SPGEMM_TOL = 1e-12       # (d) against scipy, of max|C|
+
+
+def grid_operator(n, peclet=0.0):
+    """The 7-point operator on an n³ grid with Dirichlet boundaries: −Δ
+    (``peclet`` 0: SPD), or −Δ plus first-order upwind convection along x
+    at cell Péclet number ``peclet`` (nonsymmetric, an M-matrix)."""
+    from singlespmv_tpu_torch.core.types import COOMatrix
+
+    idx = np.arange(n ** 3).reshape(n, n, n)     # x the fastest index
+    rows, cols = [idx.ravel()], [idx.ravel()]
+    vals = [np.full(n ** 3, 6.0 + peclet)]
+    for axis in range(3):
+        lo = np.take(idx, np.arange(n - 1), axis=axis).ravel()
+        hi = np.take(idx, np.arange(1, n), axis=axis).ravel()
+        upwind = peclet if axis == 2 else 0.0
+        rows += [hi, lo]
+        cols += [lo, hi]
+        vals += [np.full(lo.size, -1.0 - upwind), np.full(lo.size, -1.0)]
+    return COOMatrix.from_triplets(n ** 3, n ** 3, np.concatenate(rows),
+                                   np.concatenate(cols), np.concatenate(vals))
+
+
+def dominant(coo):
+    """``coo`` with each row's diagonal set to the sum of |a_ij| over its
+    other entries, plus 1: strictly diagonally dominant."""
+    from singlespmv_tpu_torch.core.types import COOMatrix
+
+    off = coo.row != coo.col
+    r, c, v = coo.row[off], coo.col[off], coo.val[off]
+    d = np.bincount(r, weights=np.abs(v), minlength=coo.n_row) + 1.0
+    i = np.arange(coo.n_row)
+    return COOMatrix.from_triplets(coo.n_row, coo.n_col,
+                                   np.concatenate([r, i]),
+                                   np.concatenate([c, i]),
+                                   np.concatenate([v, d]))
+
+
+def chained_seconds(fn, first, arg, dev, name):
+    """Seconds per call of ``fn(first, arg)``: the driver's trials
+    (``median_seconds`` of 3 marginals) over replays of a CUDA graph of one
+    call, the loop doubled until a run lasts ``SOLVER_WINDOW_S``."""
+    from singlespmv_tpu_torch.harness import driver as hdriver
+
+    timed = hdriver.runner_clock(hdriver.make_chained_runner(
+        fn, first, arg, name=name, chain=1), dev)
+    loop = hdriver.calibrate_loop(timed, SOLVER_WINDOW_S, 1 << 12)
+    return hdriver.median_seconds(timed, loop, 3)
+
+
+def report_solve(label, res, coo, b, tol, bound, make_loop, maxiter, M,
+                 cfg, dev, card):
+    """Holds a solve to its bound and prints its timings: the true residual
+    ‖b − A x‖ from the float64 COO oracle must be within ``bound``·tol·‖b‖;
+    beside the solve's own seconds, one spmv's chained Time(s) on its
+    state, one preconditioner apply on a chained runner, and the same
+    solve run again eagerly (the chunk function without capture).  Returns
+    the printed row."""
+    from singlespmv_tpu_torch.core import reference_spmv
+    from singlespmv_tpu_torch.formats import spmv_fn
+    from singlespmv_tpu_torch.harness.driver import marginal_seconds
+
+    bn = float(np.linalg.norm(b))
+    true = float(np.linalg.norm(
+        b - reference_spmv(coo, res.x.astype(np.float64))))
+    info = res.info
+    print(f"solver {label}: {info['format']} iterations {res.iterations} "
+          f"converged {res.converged} residual {res.residual:.6g} (the "
+          f"recurrence's) true {true:.6g} bound {bound * tol * bn:.6g}",
+          flush=True)
+    if not (res.converged and np.isfinite(res.x).all()
+            and true <= bound * tol * bn):
+        raise SystemExit(f"solver {label}: not converged or the true "
+                         f"residual {true:.3g} is past {bound}·tol·‖b‖")
+    spmv = spmv_fn(cfg)
+    bd = torch.from_numpy(b.astype(cfg.np_dtype)).to(dev)
+    spmv_s = marginal_seconds(spmv, res.state, bd, dev, SOLVER_WINDOW_S,
+                              name=f"{label} spmv")
+    m_s = None if M is None else chained_seconds(
+        lambda m, v: m(v), M, bd, dev, f"{label} M")
+    loop = make_loop(spmv, res.state, bd, tol=tol, maxiter=maxiter, M=M)
+    eager = loop.run_eager(info["chunk"])
+    eager_it = int(loop.carry["it"])
+    run = info["chunks"] * info["chunk"]
+    row = {"solve": label, "card": card, "format": info["format"],
+           "iterations": res.iterations, "residual": res.residual,
+           "true_residual": true, "tol_bnorm": tol * bn,
+           "convert_s": info["convert_s"], "wall_s": info["wall_s"],
+           "capture_s": info.get("capture_s"), "replay_s": info["loop_s"],
+           "replay_s_per_iter": info["loop_s"] / max(res.iterations, 1),
+           "replay_s_per_run_iter": info["loop_s"] / max(run, 1),
+           "chunk": info["chunk"], "replays": info["chunks"],
+           "graph_nodes": info.get("graph_nodes"),
+           "graph_nodes_est": info["chunk"] * info["nodes_per_iter_est"],
+           "spmv_time_s": spmv_s, "m_apply_s": m_s,
+           "eager_s": eager["loop_s"],
+           "eager_s_per_iter": eager["loop_s"] / max(eager_it, 1),
+           "eager_iterations": eager_it,
+           "eager_x_rel_diff": float(np.abs(
+               loop.carry["x"].cpu().numpy() - res.x).max()
+               / max(np.abs(res.x).max(), 1e-300))}
+    print(f"solver {label}: wall {row['wall_s']:.3f} s (capture "
+          f"{row['capture_s']} s), replays {row['replay_s']:.3f} s = "
+          f"{row['replay_s_per_iter'] * 1e3:.4f} ms an iteration, "
+          f"{row['replays']} replays of {row['chunk']} iterations, graph "
+          f"{row['graph_nodes']} nodes (estimate "
+          f"{row['graph_nodes_est']}); spmv Time(s) "
+          f"{spmv_s * 1e6:.2f} us; M apply "
+          f"{'-' if m_s is None else f'{m_s * 1e3:.4f} ms'} (chained); "
+          f"eager {row['eager_s']:.3f} s = "
+          f"{row['eager_s_per_iter'] * 1e3:.4f} ms an iteration, "
+          f"{eager_it} iterations", flush=True)
+    print(f"solver_row {json.dumps(row)}", flush=True)
+    return row
+
+
+def run_solvers(mats, dev, card, count_path, wrappers, n=SOLVER_GRID):
+    """Phase "solvers": (a) CG with and without IC(0) in float64 on the
+    Poisson matrix (slab), (b) BiCGStab with ILU(0) in float32 on the
+    convection–diffusion matrix (slab), (c) BiCGStab in float32 under the
+    solvers' default cfg (auto) on ASIC_680ks made strictly diagonally
+    dominant, (d) SpGEMM g7jac200sc · g7jac200sc in float64 against scipy,
+    (e) SpTRSV with (a)'s IC(0) factor L and Lᵀ against scipy;
+    ``count_path`` reads the launches of ``wrappers`` after each solve."""
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import spsolve_triangular
+
+    from singlespmv_tpu_torch import Config
+    from singlespmv_tpu_torch.ops import ilu, solvers, spgemm, sptrsv
+
+    rng = np.random.default_rng(0)
+    rows = []
+    pois = grid_operator(n)
+    b = rng.uniform(-1.0, 1.0, pois.n_row)
+    cfg64 = Config(format="slab", dtype="float64", verify=False)
+    t0 = time.perf_counter()
+    M = ilu.ic0_preconditioner(pois, cfg64, device=dev)
+    print(f"solver (a): {n}³ Poisson, nnz {pois.nnz}; IC(0) and its plans "
+          f"{time.perf_counter() - t0:.2f} s, levels {M.l_plan.n_levels} / "
+          f"{M.u_plan.n_levels}, rows a level {M.l_plan.rows_per_level}, "
+          f"apply estimate {M.graph_nodes} operations", flush=True)
+    its = {}
+    for label, m in (("(a) cg f64", None), ("(a) cg+ic0 f64", M)):
+        _zero(*wrappers)
+        res = solvers.cg(pois, b, cfg=cfg64, tol=1e-8, maxiter=2000, M=m,
+                         device=dev)
+        count_path(f"solvers {label}", wrappers, ("slab_spmv_rows_f64",))
+        rows.append(report_solve(label, res, pois, b, 1e-8, 1.001,
+                                 solvers.cg_loop, 2000, m, cfg64, dev, card))
+        its[label] = res.iterations
+        del res
+    if not its["(a) cg+ic0 f64"] < its["(a) cg f64"]:
+        raise SystemExit(f"solver (a): IC(0) took no fewer iterations {its}")
+
+    # (e) SpTRSV alone on (a)'s factor, against scipy
+    L = ilu.ic0(pois)
+    Lc = sp.csr_matrix((L.val, (L.row, L.col)), shape=(L.n_row, L.n_col))
+    bt = rng.uniform(-1.0, 1.0, L.n_row)
+    btd = torch.from_numpy(bt).to(dev)
+    for label, plan, mat in (("L", M.l_plan, Lc), ("Lt", M.u_plan,
+                                                    Lc.T.tocsr())):
+        y = sptrsv.solve(plan, btd).cpu().numpy()
+        t0 = time.perf_counter()
+        want = spsolve_triangular(mat, bt, lower=plan.lower)
+        host_s = time.perf_counter() - t0
+        rel = float(np.abs(y - want).max() / np.abs(want).max())
+        sec = chained_seconds(sptrsv.solve, plan, btd, dev, f"sptrsv {label}")
+        print(f"sptrsv (e) {label} lower={plan.lower} ({card}): levels "
+              f"{plan.n_levels}, rows a level {plan.rows_per_level}, k "
+              f"{plan.k}; rel_err {rel:.3g} against scipy (its "
+              f"{host_s:.2f} s on the host); a solve {sec * 1e3:.4f} ms "
+              f"chained, {sec / plan.n_levels * 1e6:.3f} us a level",
+              flush=True)
+        if not rel <= SPTRSV_TOL:
+            raise SystemExit(f"sptrsv {label}: {rel:.3g} off scipy")
+    del M, L, Lc
+
+    conv = grid_operator(n, SOLVER_PECLET)
+    cfg32 = Config(format="slab", dtype="float32", verify=False)
+    t0 = time.perf_counter()
+    M = ilu.ilu0_preconditioner(conv, cfg32, device=dev)
+    print(f"solver (b): {n}³ convection–diffusion, Péclet {SOLVER_PECLET} "
+          f"along x, nnz {conv.nnz}; ILU(0) and its plans "
+          f"{time.perf_counter() - t0:.2f} s, levels {M.l_plan.n_levels} / "
+          f"{M.u_plan.n_levels}", flush=True)
+    _zero(*wrappers)
+    res = solvers.bicgstab(conv, b, cfg=cfg32, tol=1e-5, maxiter=1000, M=M,
+                           device=dev)
+    count_path("solvers (b) bicgstab+ilu0 f32", wrappers,
+               ("slab_spmv_rows",))
+    rows.append(report_solve("(b) bicgstab+ilu0 f32", res, conv, b, 1e-5,
+                             F32_RESIDUAL, solvers.bicgstab_loop, 1000, M,
+                             cfg32, dev, card))
+    del res, M, conv
+
+    asic = dominant(mats["ASIC_680ks"])
+    b3 = rng.uniform(-1.0, 1.0, asic.n_row)
+    _zero(*wrappers)
+    res = solvers.bicgstab(asic, b3, tol=1e-5, device=dev)
+    got = count_path("solvers (c) bicgstab auto f32", wrappers, ())
+    print(f"solver (c): ASIC_680ks, diagonal Σ|a_ij| + 1; ChosenFormat "
+          f"{res.state.chosen}; launches {json.dumps({k: v for k, v in got.items() if v})}",
+          flush=True)
+    rows.append(report_solve(
+        "(c) bicgstab auto f32", res, asic, b3, 1e-5, F32_RESIDUAL,
+        solvers.bicgstab_loop, 1000, None,
+        Config(format="auto", dtype="float32", verify=False), dev, card))
+    del res
+
+    # (d) SpGEMM against scipy: the same pattern, values within SPGEMM_TOL
+    g7 = mats["g7jac200sc"]
+    t0 = time.perf_counter()
+    c = spgemm.spgemm_coo(g7, g7, Config(dtype="float64"), device=dev)
+    sec = time.perf_counter() - t0
+    A = sp.csr_matrix((g7.val, (g7.row, g7.col)), shape=(g7.n_row, g7.n_col))
+    ref = (A @ A).tocoo()
+    order = np.lexsort((ref.col, ref.row))
+    same = (c.nnz == ref.nnz and np.array_equal(c.row, ref.row[order])
+            and np.array_equal(c.col, ref.col[order]))
+    rel = float(np.abs(c.val - ref.data[order]).max()
+                / np.abs(ref.data).max()) if same else float("inf")
+    print(f"spgemm (d) g7jac200sc²: nnz {c.nnz} (scipy {ref.nnz}), pattern "
+          f"{'equal' if same else 'DIFFERS'}, rel_err {rel:.3g}; "
+          f"{sec:.2f} s with the host's grouping", flush=True)
+    if not (same and rel <= SPGEMM_TOL):
+        raise SystemExit("spgemm (d): off scipy's A @ A")
+    return rows
+
+
 def _route_seconds(state, xch):
     """Seconds ``route_rows`` takes on a host state and its nested ones."""
     t0 = time.perf_counter()
@@ -2086,7 +2341,13 @@ def main() -> int:
         ellg_checks, ellg_launches = run_campaign(
             mats, dev, card.splitlines()[0], count_path, all_k)
 
-    # --- 14. the xch path on circuit5M, last because its stand-in takes
+    # --- 14. the solver layer: CG and BiCGStab as replayed CUDA graphs over
+    #     slab and auto, SpTRSV and SpGEMM, while circuit5M's stand-in
+    #     builds ---
+    with Phase("solvers"):
+        run_solvers(mats, dev, card.splitlines()[0], count_path, all_k)
+
+    # --- 15. the xch path on circuit5M, last because its stand-in takes
     #     longest to build: kernels vs plain versions on every call, then
     #     its spmv against the oracle ---
     with Phase("xch circuit5M float32"):
@@ -2118,7 +2379,7 @@ def main() -> int:
         del state
     mats.close()
 
-    # --- 15. every kernel of each path ran in that path, and the first
+    # --- 16. every kernel of each path ran in that path, and the first
     #     port's route kernels in none ---
     print(f"launches in the main paths: {launches}; the first port's "
           f"kernels off the spmv path (count_path fails on any): "

@@ -1,15 +1,18 @@
 """Native host helpers, bound with ctypes: copies of the reference's
 ``core/native/sort_native.cpp`` (stable LSD radix argsort) and
 ``scatter_native.cpp`` (grid scatter at unique positions), which the layout
-builders use, and ``logfmt_native.cpp`` (report blocks to TSV), which
-``harness/logfmt.py`` uses.
+builders use, ``logfmt_native.cpp`` (report blocks to TSV), which
+``harness/logfmt.py`` uses, and ``factor_native.cpp`` (ILU(0), IC(0) and
+the levels of a triangular solve), which ``ops/ilu.py`` and
+``ops/sptrsv.py`` use.
 
 Each source builds at first use with the host's C++ compiler (``g++ -O3
 -fopenmp``) into the package's git-ignored ``_build/`` directory, under a
 name that carries a hash of the source and the flags.  Where no compiler is
-present, or the build fails, the callers in ``core/hostmem.py`` use numpy,
-which gives the same arrays, and ``harness/logfmt.py`` its Python
-formatter, which gives the same table.
+present, or the build fails, the callers in ``core/hostmem.py``,
+``ops/ilu.py`` and ``ops/sptrsv.py`` use numpy, which gives the same
+arrays, and ``harness/logfmt.py`` its Python formatter, which gives the
+same table.
 """
 from __future__ import annotations
 
@@ -130,3 +133,57 @@ def format_logs(text: str, extra_keys=None) -> Optional[str]:
         return ctypes.string_at(ptr).decode()
     finally:
         free(ptr)
+
+
+_I64P = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_F64P = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+
+
+def _factor(name: str):
+    """``name`` of the factor library with its argument types set, or None
+    when the library is unavailable."""
+    lib = _get_lib("factor_native.cpp")
+    if lib is None:
+        return None
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int64
+        fn.argtypes = ([ctypes.c_int64, _I64P, _I64P, ctypes.c_int64, _I64P]
+                       if name == "spmv_tri_levels" else
+                       [ctypes.c_int64, _I64P, _I64P, _F64P])
+    return fn
+
+
+def ilu0_csr(rp: np.ndarray, cols: np.ndarray, vals: np.ndarray):
+    """ILU(0) in place on the float64 ``vals`` of row-sorted CSR arrays:
+    0 on success, the failing row + 1 at a zero or absent pivot, None when
+    the library is unavailable."""
+    fn = _factor("spmv_ilu0")
+    if fn is None:
+        return None
+    return int(fn(len(rp) - 1, np.ascontiguousarray(rp, np.int64),
+                  np.ascontiguousarray(cols, np.int64), vals))
+
+
+def ic0_csr(rp: np.ndarray, cols: np.ndarray, vals: np.ndarray):
+    """IC(0) in place on lower-triangular CSR arrays; returns as
+    ``ilu0_csr`` (the failing row + 1 at a non-positive pivot or a row with
+    no diagonal)."""
+    fn = _factor("spmv_ic0")
+    if fn is None:
+        return None
+    return int(fn(len(rp) - 1, np.ascontiguousarray(rp, np.int64),
+                  np.ascontiguousarray(cols, np.int64), vals))
+
+
+def tri_levels(rp: np.ndarray, cols: np.ndarray, *, lower: bool):
+    """The dependency level of each row of a triangular matrix's
+    off-diagonal CSR pattern (1 + the deepest level it reads, 0 for none),
+    int64; None when the library is unavailable."""
+    fn = _factor("spmv_tri_levels")
+    if fn is None:
+        return None
+    level = np.zeros(len(rp) - 1, dtype=np.int64)
+    fn(len(rp) - 1, np.ascontiguousarray(rp, np.int64),
+       np.ascontiguousarray(cols, np.int64), 1 if lower else 0, level)
+    return level
