@@ -87,7 +87,7 @@ def main(argv=None) -> int:
     ap.add_argument("--names", nargs="+", default=None,
                     help="a subset of the 26 suite names")
     ap.add_argument("--dtype", default="float32",
-                    choices=["float32", "float64"])
+                    choices=["float32", "float64", "bfloat16"])
     ap.add_argument("--out", default=None, help="the campaign's TSV")
     ap.add_argument("--append", action="store_true",
                     help="skip the rows --out holds; report all of them")

@@ -27,6 +27,7 @@ import argparse
 import sys
 
 from .config import Config
+from .core.dtypes import VALUE_TYPES
 
 
 def _add_config_args(p: argparse.ArgumentParser):
@@ -34,8 +35,7 @@ def _add_config_args(p: argparse.ArgumentParser):
                    help="storage format (see `formats`)")
     p.add_argument("--variant", default="optimized",
                    choices=["simple", "optimized"])
-    p.add_argument("--dtype", default="float32",
-                   choices=["float32", "float64"])
+    p.add_argument("--dtype", default="float32", choices=VALUE_TYPES)
     p.add_argument("--segment-width", type=int, default=2048)
     p.add_argument("--n-block", type=int, default=1)
     p.add_argument("--omega", type=int, default=128)
@@ -219,7 +219,7 @@ def cmd_sweep(args) -> int:
 
     return 1 if run_sweep(todo=args.todo, matrices=args.matrices,
                           out_dir=args.out, quick=args.quick,
-                          device=args.device) else 0
+                          device=args.device, dtype=args.dtype) else 0
 
 
 def _add_device(p):
@@ -279,8 +279,7 @@ def main(argv=None) -> int:
                        help="run every format over the fixtures "
                             "(confirm_cpu.sh)")
     p.add_argument("--formats", nargs="*", default=None)
-    p.add_argument("--dtype", default="float32",
-                   choices=["float32", "float64"])
+    p.add_argument("--dtype", default="float32", choices=VALUE_TYPES)
     _add_device(p)
     p.set_defaults(fn=cmd_confirm)
 
@@ -304,6 +303,8 @@ def main(argv=None) -> int:
     p.add_argument("--matrices", nargs="+", required=True)
     p.add_argument("--out", default="log")
     p.add_argument("--quick", action="store_true")
+    p.add_argument("--dtype", default=None, choices=VALUE_TYPES,
+                   help="value type of the rows that name none")
     _add_device(p)
     p.set_defaults(fn=cmd_sweep)
 

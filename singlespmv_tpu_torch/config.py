@@ -7,6 +7,11 @@ SEGMENT_WIDTH / PADDING / N_BLOCK / ALIGNMENT / INDEX_32/64, and instrumentation
 (VERIFY / PROFILING / MEASURE_STEP_TIME).  The same registry is a runtime
 dataclass with identical parameter names: a copy of ``singlespmv_tpu/config.py``,
 so one set of fields configures both packages.
+
+bfloat16 needs no ``ml_dtypes`` here: ``np_dtype`` is the host type of the
+values (float32 for bfloat16, whose values the host carries rounded; see
+``core/dtypes.py``) and ``torch_dtype`` the device's; ``core.dtypes.
+value_size`` gives the bytes of one value there.
 """
 from __future__ import annotations
 
@@ -14,6 +19,8 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+
+from .core import dtypes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,11 +69,11 @@ class Config:
 
     @property
     def np_dtype(self):
-        if self.dtype == "bfloat16":
-            import ml_dtypes
+        return dtypes.host_dtype(self.dtype)
 
-            return np.dtype(ml_dtypes.bfloat16)
-        return np.dtype(self.dtype)
+    @property
+    def torch_dtype(self):
+        return dtypes.torch_dtype(self.dtype)
 
     @property
     def index_dtype(self):

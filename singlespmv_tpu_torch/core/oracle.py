@@ -41,6 +41,63 @@ def tolerance_for(coo: COOMatrix, dtype) -> float:
     return max(DEFAULT_TOL, 16.0 * eps * np.sqrt(max(max_row, 128.0)))
 
 
+_EPS = {"float32": 2.0 ** -23, "float64": 2.0 ** -52, "bfloat16": 2.0 ** -7}
+_MANT = {"float32": 23, "float64": 52, "bfloat16": 7}
+
+
+def _type_name(dtype) -> str:
+    name = str(getattr(dtype, "name", None) or dtype).replace("torch.", "")
+    if name not in _EPS:
+        raise ValueError(f"no rounding model for value type {name}")
+    return name
+
+
+def ulp(dtype, v) -> np.ndarray:
+    """The spacing of value type ``dtype`` at magnitude ``|v|`` (elementwise;
+    at 0 and below the normal range, the spacing of the smallest normal)."""
+    name = _type_name(dtype)
+    tiny = float(np.finfo(np.float64 if name == "float64"
+                          else np.float32).tiny)
+    a = np.maximum(np.abs(np.asarray(v, np.float64)), tiny)
+    return np.exp2(np.floor(np.log2(a)) - _MANT[name])
+
+
+def reorder_bound(coo: COOMatrix, x: np.ndarray, adds, acc_dtype,
+                  out_dtype) -> np.ndarray:
+    """Per row i, how far two runs of one spmv may put y_i apart when they
+    add the same k_i partial totals into y_i in different orders:
+
+        (k_i − 1) · eps(acc) · Σ_j |a_ij x_j|  +  ulp(out, |y_i|)
+
+    ``adds`` holds k_i per row: the totals whose order of addition is not
+    fixed (the run ends that the card's atomics add into y_i; nnz_i for a
+    state without that count), and one more for a part added in a fixed
+    order after such a sum (a peel: y = fl(s + d) moves with s, and its
+    one rounding adds up to eps·|y|).  A sum of k terms in any order is
+    within (k − 1)·u·Σ|t| of the exact sum (u = eps/2), so two orders are
+    within (k − 1)·eps·Σ|t|, and the totals t are partial sums of the row's
+    products.  A row with k_i ≤ 1 gets 0 in its accumulator: a warp's
+    in-row scan has a fixed order.  The last term is one unit in the last
+    place of the output type, at |y_i| widened by the first term and the
+    oracle's backward term (where the computed values lie), for a y
+    accumulated in ``acc_dtype`` and rounded to ``out_dtype`` (two values
+    that far apart may round to neighbours); it is 0 where the two types
+    are the same.  ``coo`` and ``x`` should hold the values the kernel read
+    (a bfloat16 state's ``to_coo``, x rounded)."""
+    acc_name, out_name = _type_name(acc_dtype), _type_name(out_dtype)
+    x64 = np.asarray(x, dtype=np.float64)
+    absref = np.zeros(coo.n_row, dtype=np.float64)
+    np.add.at(absref, coo.row, np.abs(coo.val * x64[coo.col]))
+    k = np.maximum(np.asarray(adds, dtype=np.float64) - 1.0, 0.0)
+    bound = k * _EPS[acc_name] * absref
+    if out_name != acc_name:
+        # the computed values lie within the oracle's backward term of y
+        top = np.abs(reference_spmv(coo, x64)) + bound \
+            + 64.0 * _EPS[acc_name] * absref
+        bound = bound + ulp(out_name, top)
+    return bound
+
+
 def verify_result(
     coo: COOMatrix,
     x: np.ndarray,

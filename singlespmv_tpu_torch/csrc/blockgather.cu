@@ -27,18 +27,21 @@
 
 namespace {
 
-template <typename V>
+// S is the storage type of val and x, V = acc_t<S> that of the products,
+// the scan and `out` (float for bfloat16 values: each product exact).
+template <typename S>
 __global__ void __launch_bounds__(kThreads) block_gather_scan_kernel(
     const int32_t* __restrict__ bids, const int32_t* __restrict__ col,
-    const V* __restrict__ val, const uint8_t* __restrict__ heads,
-    const V* __restrict__ x, V* __restrict__ out, long long n, int W, int R,
-    int B) {
+    const S* __restrict__ val, const uint8_t* __restrict__ heads,
+    const S* __restrict__ x, acc_t<S>* __restrict__ out, long long n, int W,
+    int R, int B) {
+  using V = acc_t<S>;
   __shared__ V xs[kLanes];
   const long long row0 = (long long)blockIdx.x * R;
   const int bid = bids[row0 >> 3];
   const bool inside = bid >= 0 && bid < B;
   for (int i = threadIdx.x; i < kLanes; i += kThreads)
-    xs[i] = inside ? x[(size_t)bid * kLanes + i] : V(0);
+    xs[i] = inside ? to_acc(x[(size_t)bid * kLanes + i]) : V(0);
   __syncthreads();
   const int base = bid * kLanes;
   const V* xb = xs;
@@ -46,7 +49,7 @@ __global__ void __launch_bounds__(kThreads) block_gather_scan_kernel(
   const long long end = min(start + (long long)R * W, n);
   scan_span<V>(start, end, W, heads, out, [=](long long p) {
     const int4 c = *reinterpret_cast<const int4*>(col + p);
-    const V4<V> g = {xb[(c.x - base) & (kLanes - 1)],
+    const V4<S> g = {xb[(c.x - base) & (kLanes - 1)],
                      xb[(c.y - base) & (kLanes - 1)],
                      xb[(c.z - base) & (kLanes - 1)],
                      xb[(c.w - base) & (kLanes - 1)]};
@@ -54,18 +57,18 @@ __global__ void __launch_bounds__(kThreads) block_gather_scan_kernel(
   });
 }
 
-template <typename V>
+template <typename S>
 int launch(const void* bids, const void* col, const void* val,
            const void* heads, const void* x, void* out, int H, int W, int B,
            void* stream) {
   if (H < 0 || W < 4 || W % 4 || B < 0) return (int)cudaErrorInvalidValue;
   if (H == 0) return 0;
   const int R = scan_rows(W);
-  block_gather_scan_kernel<V>
+  block_gather_scan_kernel<S>
       <<<(H + R - 1) / R, kThreads, 0, (cudaStream_t)stream>>>(
-          (const int32_t*)bids, (const int32_t*)col, (const V*)val,
-          (const uint8_t*)heads, (const V*)x, (V*)out, (long long)H * W, W,
-          R, B);
+          (const int32_t*)bids, (const int32_t*)col, (const S*)val,
+          (const uint8_t*)heads, (const S*)x, (acc_t<S>*)out,
+          (long long)H * W, W, R, B);
   return (int)cudaGetLastError();
 }
 
@@ -87,4 +90,12 @@ extern "C" int block_gather_scan_f64(const void* bids, const void* col,
                                      const void* x, void* out, int H, int W,
                                      int B, void* stream) {
   return launch<double>(bids, col, val, heads, x, out, H, W, B, stream);
+}
+
+// bfloat16 val and x (2 bytes a value), float32 `out`.
+extern "C" int block_gather_scan_bf16(const void* bids, const void* col,
+                                      const void* val, const void* heads,
+                                      const void* x, void* out, int H, int W,
+                                      int B, void* stream) {
+  return launch<bf16>(bids, col, val, heads, x, out, H, W, B, stream);
 }

@@ -1,7 +1,11 @@
 // Bucket-engine kernels of bkt and bkt_g for Hopper (sm_90a), bound through
 // a plain C interface (ops/_build.py builds this file with ctypes,
-// ops/bucket.py calls it).  Float only, as the reference's bkt refuses float64
-// on its chip.
+// ops/bucket.py calls it).  Float and bfloat16 (block_gather_mul and
+// bucket_rows), as the reference's bkt refuses float64 on its chip.  At
+// bfloat16 values, x and stage A's products are 2 bytes a slot in device
+// memory (each product, exact in float, rounded once to bfloat16, as the
+// TPU's bfloat16 multiply rounds it), and stage B sums in float into a float
+// y, which the caller rounds once.
 //
 //   block_gather_mul_kernel replaces _mul_kernel and _mul_kernel_m, the
 //     kernels of block_gather_mul (singlespmv_tpu/ops/pallas/bucket.py:62,
@@ -85,10 +89,11 @@ namespace {
 
 constexpr int kSigmas = 8;  // 128-row blocks of a 1024-row unit
 
+template <typename S>
 __global__ void __launch_bounds__(kThreads) block_gather_mul_kernel(
     const int32_t* __restrict__ members, const int8_t* __restrict__ lane,
-    const int8_t* __restrict__ src, const float* __restrict__ val,
-    const float* __restrict__ x, float* __restrict__ out, long long n4,
+    const int8_t* __restrict__ src, const S* __restrict__ val,
+    const S* __restrict__ x, S* __restrict__ out, long long n4,
     int gran, int m) {
   const long long q = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (q >= n4) return;
@@ -97,9 +102,9 @@ __global__ void __launch_bounds__(kThreads) block_gather_mul_kernel(
   const char4 ln = *reinterpret_cast<const char4*>(lane + s);
   float4 g;
   if (m == 1) {
-    const float* xr = x + (size_t)__ldg(mu) * kLanes;
-    g = make_float4(__ldg(xr + (ln.x & 127)), __ldg(xr + (ln.y & 127)),
-                    __ldg(xr + (ln.z & 127)), __ldg(xr + (ln.w & 127)));
+    const S* xr = x + (size_t)__ldg(mu) * kLanes;
+    g = make_float4(ldg_acc(xr + (ln.x & 127)), ldg_acc(xr + (ln.y & 127)),
+                    ldg_acc(xr + (ln.z & 127)), ldg_acc(xr + (ln.w & 127)));
   } else {
     const char4 sb = *reinterpret_cast<const char4*>(src + s);
     const int j[4] = {sb.x, sb.y, sb.z, sb.w};
@@ -108,7 +113,7 @@ __global__ void __launch_bounds__(kThreads) block_gather_mul_kernel(
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       gv[i] = (j[i] >= 0 && j[i] < m)
-                  ? __ldg(x + (size_t)__ldg(mu + j[i]) * kLanes + c[i])
+                  ? ldg_acc(x + (size_t)__ldg(mu + j[i]) * kLanes + c[i])
                   : 0.f;
     g = make_float4(gv[0], gv[1], gv[2], gv[3]);
   }
@@ -216,9 +221,10 @@ __device__ __forceinline__ void add_end(float* __restrict__ y,
   }
 }
 
-template <typename D>
+// S is the storage type of the products (float or bfloat16); y is float.
+template <typename S, typename D>
 __global__ void __launch_bounds__(kThreads) bucket_rows_kernel(
-    const float* __restrict__ prod, const int8_t* __restrict__ hm1r,
+    const S* __restrict__ prod, const int8_t* __restrict__ hm1r,
     const D* __restrict__ dest, const int32_t* __restrict__ yrow,
     float* __restrict__ y, int H, int sh, int nu_pad, int rg, int n_y) {
   __shared__ __align__(16) float wbuf[kWarps][kLanes];
@@ -248,9 +254,9 @@ __global__ void __launch_bounds__(kThreads) bucket_rows_kernel(
   }
 }
 
-template <typename D, int RG>
+template <typename S, typename D, int RG>
 __global__ void __launch_bounds__(kThreads) bucket_rows_merge_kernel(
-    const float* __restrict__ prod, const int8_t* __restrict__ hm1r,
+    const S* __restrict__ prod, const int8_t* __restrict__ hm1r,
     const D* __restrict__ dest, const int32_t* __restrict__ yrow,
     float* __restrict__ y, int G, int sh, int nu_pad, int parts, int n_y) {
   __shared__ __align__(16) float wbuf[kWarps][kLanes];
@@ -287,13 +293,13 @@ __global__ void __launch_bounds__(kThreads) bucket_rows_merge_kernel(
 
 long long blocks_for(long long n) { return (n + kThreads - 1) / kThreads; }
 
-template <typename D, int RG>
+template <typename S, typename D, int RG>
 int launch_merge(const void* prod, const void* hm1r, const void* dest,
                  const void* yrow, void* y, int G, int sh, int nu_pad,
                  int parts, int n_y, cudaStream_t stream) {
-  bucket_rows_merge_kernel<D, RG><<<(unsigned)nu_pad * parts, kThreads, 0,
-                                    stream>>>(
-      (const float*)prod, (const int8_t*)hm1r, (const D*)dest,
+  bucket_rows_merge_kernel<S, D, RG><<<(unsigned)nu_pad * parts, kThreads, 0,
+                                       stream>>>(
+      (const S*)prod, (const int8_t*)hm1r, (const D*)dest,
       (const int32_t*)yrow, (float*)y, G, sh, nu_pad, parts, n_y);
   return (int)cudaGetLastError();
 }
@@ -307,19 +313,70 @@ int launch_merge(const void* prod, const void* hm1r, const void* dest,
 
 // `out` (H, W) is written in full; members holds m ids per unit of gran
 // slots.
-extern "C" int block_gather_mul_f32(const void* members, const void* lane,
-                                    const void* src, const void* val,
-                                    const void* x, void* out, int H, int W,
-                                    int gran, int m, void* stream) {
+namespace {
+
+template <typename S>
+int launch_gather_mul(const void* members, const void* lane, const void* src,
+                      const void* val, const void* x, void* out, int H, int W,
+                      int gran, int m, void* stream) {
   if (H < 0 || W < 1 || W % 4 || gran < kLanes || gran % kLanes || m < 1)
     return (int)cudaErrorInvalidValue;
   const long long n4 = (long long)H * W / 4;
   if (n4 == 0) return 0;
-  block_gather_mul_kernel<<<(unsigned)blocks_for(n4), kThreads, 0,
-                            (cudaStream_t)stream>>>(
+  block_gather_mul_kernel<S><<<(unsigned)blocks_for(n4), kThreads, 0,
+                               (cudaStream_t)stream>>>(
       (const int32_t*)members, (const int8_t*)lane, (const int8_t*)src,
-      (const float*)val, (const float*)x, (float*)out, n4, gran, m);
+      (const S*)val, (const S*)x, (S*)out, n4, gran, m);
   return (int)cudaGetLastError();
+}
+
+template <typename S>
+int launch_rows(const void* prod, const void* hm1r, const void* dest,
+                const void* yrow, void* y, int H, int sh, int nu_pad, int rg,
+                int n_y, int parts, void* stream) {
+  if (H < 0 || sh < 1 || nu_pad < 1 || (rg != 128 && rg != 1024) ||
+      H % (sh * nu_pad) || n_y < 0 || parts < 0)
+    return (int)cudaErrorInvalidValue;
+  if (H == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (parts == 0) {
+    const unsigned blocks =
+        (unsigned)((H + kWarps * kRowsAWarp - 1) / (kWarps * kRowsAWarp));
+    if (rg == 128)
+      bucket_rows_kernel<S, BlockDest><<<blocks, kThreads, 0, s>>>(
+          (const S*)prod, (const int8_t*)hm1r, (const BlockDest*)dest,
+          (const int32_t*)yrow, (float*)y, H, sh, nu_pad, rg, n_y);
+    else
+      bucket_rows_kernel<S, GroupDest><<<blocks, kThreads, 0, s>>>(
+          (const S*)prod, (const int8_t*)hm1r, (const GroupDest*)dest,
+          (const int32_t*)yrow, (float*)y, H, sh, nu_pad, rg, n_y);
+    return (int)cudaGetLastError();
+  }
+  const int G = H / nu_pad;  // stream rows a unit
+  if (rg == 128)
+    return launch_merge<S, BlockDest, 128>(prod, hm1r, dest, yrow, y, G, sh,
+                                           nu_pad, parts, n_y, s);
+  return launch_merge<S, GroupDest, 1024>(prod, hm1r, dest, yrow, y, G, sh,
+                                          nu_pad, parts, n_y, s);
+}
+
+}  // namespace
+
+extern "C" int block_gather_mul_f32(const void* members, const void* lane,
+                                    const void* src, const void* val,
+                                    const void* x, void* out, int H, int W,
+                                    int gran, int m, void* stream) {
+  return launch_gather_mul<float>(members, lane, src, val, x, out, H, W,
+                                  gran, m, stream);
+}
+
+// bfloat16 val, x and `out` (each product rounded once).
+extern "C" int block_gather_mul_bf16(const void* members, const void* lane,
+                                     const void* src, const void* val,
+                                     const void* x, void* out, int H, int W,
+                                     int gran, int m, void* stream) {
+  return launch_gather_mul<bf16>(members, lane, src, val, x, out, H, W, gran,
+                                 m, stream);
 }
 
 // prod/hm1 (rb_pad * G, 128), idx (rb_pad / 8 * K * 8G, 128); `out`
@@ -373,28 +430,15 @@ extern "C" int bucket_rows_f32(const void* prod, const void* hm1r,
                                const void* dest, const void* yrow, void* y,
                                int H, int sh, int nu_pad, int rg, int n_y,
                                int parts, void* stream) {
-  if (H < 0 || sh < 1 || nu_pad < 1 || (rg != 128 && rg != 1024) ||
-      H % (sh * nu_pad) || n_y < 0 || parts < 0)
-    return (int)cudaErrorInvalidValue;
-  if (H == 0) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (parts == 0) {
-    const unsigned blocks =
-        (unsigned)((H + kWarps * kRowsAWarp - 1) / (kWarps * kRowsAWarp));
-    if (rg == 128)
-      bucket_rows_kernel<BlockDest><<<blocks, kThreads, 0, s>>>(
-          (const float*)prod, (const int8_t*)hm1r, (const BlockDest*)dest,
-          (const int32_t*)yrow, (float*)y, H, sh, nu_pad, rg, n_y);
-    else
-      bucket_rows_kernel<GroupDest><<<blocks, kThreads, 0, s>>>(
-          (const float*)prod, (const int8_t*)hm1r, (const GroupDest*)dest,
-          (const int32_t*)yrow, (float*)y, H, sh, nu_pad, rg, n_y);
-    return (int)cudaGetLastError();
-  }
-  const int G = H / nu_pad;  // stream rows a unit
-  if (rg == 128)
-    return launch_merge<BlockDest, 128>(prod, hm1r, dest, yrow, y, G, sh,
-                                        nu_pad, parts, n_y, s);
-  return launch_merge<GroupDest, 1024>(prod, hm1r, dest, yrow, y, G, sh,
-                                       nu_pad, parts, n_y, s);
+  return launch_rows<float>(prod, hm1r, dest, yrow, y, H, sh, nu_pad, rg,
+                            n_y, parts, stream);
+}
+
+// bfloat16 products (2 bytes a slot), float32 y.
+extern "C" int bucket_rows_bf16(const void* prod, const void* hm1r,
+                                const void* dest, const void* yrow, void* y,
+                                int H, int sh, int nu_pad, int rg, int n_y,
+                                int parts, void* stream) {
+  return launch_rows<bf16>(prod, hm1r, dest, yrow, y, H, sh, nu_pad, rg, n_y,
+                           parts, stream);
 }

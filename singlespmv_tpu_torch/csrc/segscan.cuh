@@ -1,6 +1,7 @@
 // Segmented inclusive sum-scan along the rows of an (H, W) stream, shared by
 // segmented_scan_tiles (segscan.cu) and block_gather_scan (blockgather.cu),
-// for value type V = float or double.
+// for accumulator type V = float or double (bfloat16 streams are widened
+// to float as they are read, and scan and write float).
 //
 // A block of kThreads threads owns R whole stream rows (R = scan_rows(W):
 // the largest power of two up to 8 with R * W <= kScanChunk, else 1), that

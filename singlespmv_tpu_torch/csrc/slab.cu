@@ -1,8 +1,10 @@
 // Slab SpMV kernels for Hopper (sm_90a), bound through a plain C interface
 // (ops/_build.py loads this file with ctypes, ops/slab.py calls it).
 //
-//   slab_rows_kernel<V> and slab_rows_merge_kernel<V> replace, on the spmv
-//     path, the kernels of all three Pallas slab spmv functions: at float
+//   slab_rows_kernel<S> and slab_rows_merge_kernel<S> replace, on the spmv
+//     path, the kernels of all three Pallas slab spmv functions (at bfloat16
+//     S = __nv_bfloat16: values and x read as 2 bytes, every sum and y in
+//     float, where the TPU rounded its prefix to bfloat16): at float
 //     _slab_kernel and _slab_blk_kernel, the kernels of slab_spmv and
 //     slab_spmv_blk (singlespmv_tpu/ops/pallas/slab.py:102, :263 and :140,
 //     :310), and at double _slab_df_kernel, the kernel of slab_spmv_df
@@ -214,21 +216,24 @@ __device__ __forceinline__ void add_abs(V* __restrict__ y, int d, V v,
   if (d >= 0 && d < n_y) atomicAdd(y + d, v);
 }
 
-template <typename V, typename D>
+// S is the storage type of val and x, A = acc_t<S> that of y and of every
+// sum (float for bfloat16 values).
+template <typename S, typename D>
 __global__ void __launch_bounds__(kThreads) slab_rows_kernel(
     const int32_t* __restrict__ ybase, const int32_t* __restrict__ win,
     const int8_t* __restrict__ lane, const int8_t* __restrict__ sub,
-    const V* __restrict__ val, const int8_t* __restrict__ hm1,
-    const D* __restrict__ dest, const V* __restrict__ x, V* __restrict__ y,
-    int H, int T, int m, int planes, int n_y) {
-  __shared__ __align__(16) V wbuf[kWarps][kLanes];
+    const S* __restrict__ val, const int8_t* __restrict__ hm1,
+    const D* __restrict__ dest, const S* __restrict__ x,
+    acc_t<S>* __restrict__ y, int H, int T, int m, int planes, int n_y) {
+  using A = acc_t<S>;
+  __shared__ __align__(16) A wbuf[kWarps][kLanes];
   const int warp = threadIdx.x >> 5, k = threadIdx.x & 31;
   const int r = blockIdx.x * kWarps + warp;
   if (r >= H) return;  // uniform over the warp
   const size_t off = (size_t)r * kLanes + 4 * k;
   const int4 d = load_dest4(dest + off);
-  const V4<V> w = lane_totals<V>(
-      mul4(load4(val + off), gather4<V>(r, m, win, lane, sub, x)),
+  const V4<S> w = lane_totals<A>(
+      mul4(load4(val + off), gather4<S>(r, m, win, lane, sub, x)),
       load_c4(hm1 + off), wbuf[warp]);
   if constexpr (sizeof(D) == sizeof(int32_t)) {
     add_abs(y, d.x, w.x, n_y);
@@ -256,13 +261,14 @@ __device__ __forceinline__ void reach(int e, int span, int& lo, int& hi) {
   }
 }
 
-template <typename V>
+template <typename S>
 __global__ void __launch_bounds__(kThreads) slab_rows_merge_kernel(
     const int32_t* __restrict__ ybase, const int32_t* __restrict__ win,
     const int8_t* __restrict__ lane, const int8_t* __restrict__ sub,
-    const V* __restrict__ val, const int8_t* __restrict__ hm1,
-    const int16_t* __restrict__ dest, const V* __restrict__ x,
-    V* __restrict__ y, int T, int rpb, int m, int planes, int n_y) {
+    const S* __restrict__ val, const int8_t* __restrict__ hm1,
+    const int16_t* __restrict__ dest, const S* __restrict__ x,
+    acc_t<S>* __restrict__ y, int T, int rpb, int m, int planes, int n_y) {
+  using V = acc_t<S>;  // the spans, the totals and y
   __shared__ __align__(16) V wbuf[kWarps][kLanes];
   __shared__ int wlo[kWarps], whi[kWarps];
   extern __shared__ __align__(16) unsigned char merge_smem[];
@@ -299,8 +305,8 @@ __global__ void __launch_bounds__(kThreads) slab_rows_merge_kernel(
     const int r = r0 + warp + i * kWarps;
     if (r >= r0 + rpb) break;  // uniform over the warp
     const size_t off = (size_t)r * kLanes + 4 * k;
-    const V4<V> w = lane_totals<V>(
-        mul4(load4(val + off), gather4<V>(r, m, win, lane, sub, x)),
+    const V4<S> w = lane_totals<V>(
+        mul4(load4(val + off), gather4<S>(r, m, win, lane, sub, x)),
         load_c4(hm1 + off), wbuf[warp]);
     if ((unsigned)d[i].x < (unsigned)span) mine[d[i].x] += w.x;
     if ((unsigned)d[i].y < (unsigned)span) mine[d[i].y] += w.y;
@@ -370,12 +376,14 @@ int launch_unit(const void* uids, const void* sg0, const void* sg1,
 }
 
 // span 0: a reduction a run end; else the merge kernel, span planes * 128.
-template <typename V>
+// S is the storage type of val and x; y is of acc_t<S>.
+template <typename S>
 int launch_rows(const void* ybase, const void* win, const void* lane,
                 const void* sub, const void* val, const void* hm1,
                 const void* dest, const void* x, void* y, int H, int T,
                 int m, int planes, int n_y, int span, void* stream) {
-  const size_t smem = (size_t)kWarps * span * sizeof(V);
+  using A = acc_t<S>;
+  const size_t smem = (size_t)kWarps * span * sizeof(A);
   if (m < 1 || planes < 1 || planes > kMaxBlkPlanes || T < 1 || H < 0 ||
       H % T || n_y < 0 || (span != 0 && span != planes * kLanes) ||
       smem > kMergeSmem)
@@ -383,26 +391,26 @@ int launch_rows(const void* ybase, const void* win, const void* lane,
   if (H == 0) return 0;
   if (span == 0) {
     using SlabDest = int16_t;  // the stream's; harness/slab_ab.py times int32
-    slab_rows_kernel<V, SlabDest><<<(H + kWarps - 1) / kWarps, kThreads, 0,
+    slab_rows_kernel<S, SlabDest><<<(H + kWarps - 1) / kWarps, kThreads, 0,
                                     (cudaStream_t)stream>>>(
         (const int32_t*)ybase, (const int32_t*)win, (const int8_t*)lane,
-        (const int8_t*)sub, (const V*)val, (const int8_t*)hm1,
-        (const SlabDest*)dest, (const V*)x, (V*)y, H, T, m, planes, n_y);
+        (const int8_t*)sub, (const S*)val, (const int8_t*)hm1,
+        (const SlabDest*)dest, (const S*)x, (A*)y, H, T, m, planes, n_y);
     return (int)cudaGetLastError();
   }
   static bool raised = false;  // once: the spans may pass 48 KB
   if (!raised) {
-    cudaFuncSetAttribute(slab_rows_merge_kernel<V>,
+    cudaFuncSetAttribute(slab_rows_merge_kernel<S>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          kMergeSmem);
     raised = true;
   }
   const int rpb = rows_per_block(T);
-  slab_rows_merge_kernel<V><<<H / rpb, kThreads, smem,
+  slab_rows_merge_kernel<S><<<H / rpb, kThreads, smem,
                               (cudaStream_t)stream>>>(
       (const int32_t*)ybase, (const int32_t*)win, (const int8_t*)lane,
-      (const int8_t*)sub, (const V*)val, (const int8_t*)hm1,
-      (const int16_t*)dest, (const V*)x, (V*)y, T, rpb, m, planes, n_y);
+      (const int8_t*)sub, (const S*)val, (const int8_t*)hm1,
+      (const int16_t*)dest, (const S*)x, (A*)y, T, rpb, m, planes, n_y);
   return (int)cudaGetLastError();
 }
 
@@ -473,6 +481,18 @@ extern "C" int slab_spmv_rows_f64(const void* ybase, const void* win,
                                   int span, void* stream) {
   return launch_rows<double>(ybase, win, lane, sub, val, hm1, dest, x, y, H,
                              T, m, planes, n_y, span, stream);
+}
+
+// bfloat16 val and x (2 bytes a value in device memory), float32 y: the
+// sums are taken in float and the caller rounds y once.
+extern "C" int slab_spmv_rows_bf16(const void* ybase, const void* win,
+                                   const void* lane, const void* sub,
+                                   const void* val, const void* hm1,
+                                   const void* dest, const void* x, void* y,
+                                   int H, int T, int m, int planes, int n_y,
+                                   int span, void* stream) {
+  return launch_rows<bf16>(ybase, win, lane, sub, val, hm1, dest, x, y, H,
+                           T, m, planes, n_y, span, stream);
 }
 
 // `out` must be zeroed, of (nu * planes * 128, B) floats; `x` is the

@@ -1,5 +1,9 @@
 // Stream-row machinery shared by the slab kernels (slab.cu) and the xch
-// kernels (xch.cu), for value type V = float or double.
+// kernels (xch.cu), for storage type S = float, double or __nv_bfloat16 and
+// its accumulator type A = acc_t<S>: float for bfloat16, S itself otherwise.
+// Values and x are read as S (a bfloat16 stream stays 2 bytes a slot in
+// device memory) and widened on load (load4, gather4 return V4<S>, four
+// values of A); every product, prefix and total is taken in A.
 //
 // A stream row holds 128 slots.  A warp owns a whole row: lane k of the warp
 // holds slots 4k..4k+3, so every stream load is one 4-byte (int8 x4) access
@@ -22,6 +26,7 @@
 // planes and compensated sums.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -37,6 +42,23 @@ struct Double4 {
   double x, y, z, w;
 };
 
+using bf16 = __nv_bfloat16;
+
+// The accumulator type of storage type S.
+template <typename S>
+struct AccOf {
+  using type = S;
+};
+
+template <>
+struct AccOf<bf16> {
+  using type = float;
+};
+
+template <typename S>
+using acc_t = typename AccOf<S>::type;
+
+// Four values of storage type S, widened to its accumulator type.
 template <typename V>
 struct Vec4Of;
 
@@ -50,11 +72,28 @@ struct Vec4Of<double> {
   using type = Double4;
 };
 
+template <>
+struct Vec4Of<bf16> {
+  using type = float4;
+};
+
 template <typename V>
 using V4 = typename Vec4Of<V>::type;
 
+// bfloat16 bits b (in the low 16 of u) as the float they stand for: exact.
+__device__ __forceinline__ float bf16_bits(unsigned u) {
+  return __uint_as_float(u << 16);
+}
+
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
+}
+
+// Four bfloat16 values in one 8-byte load, widened to float.
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(bf16_bits(u.x & 0xffffu), bf16_bits(u.x >> 16),
+                     bf16_bits(u.y & 0xffffu), bf16_bits(u.y >> 16));
 }
 
 __device__ __forceinline__ Double4 load4(const double* p) {
@@ -72,6 +111,32 @@ __device__ __forceinline__ void store4(double* p, Double4 v) {
   reinterpret_cast<double2*>(p)[1] = make_double2(v.z, v.w);
 }
 
+// Four floats rounded to bfloat16 (to nearest, ties to even), one 8-byte
+// store.
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const unsigned*>(&a),
+                 *reinterpret_cast<const unsigned*>(&b));
+}
+
+// One value read through the read-only cache, widened to its accumulator.
+__device__ __forceinline__ float ldg_acc(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ double ldg_acc(const double* p) {
+  return __ldg(p);
+}
+
+__device__ __forceinline__ float ldg_acc(const bf16* p) {
+  return bf16_bits(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+
+// One value widened to its accumulator (a plain load).
+__device__ __forceinline__ float to_acc(float v) { return v; }
+__device__ __forceinline__ double to_acc(double v) { return v; }
+__device__ __forceinline__ float to_acc(bf16 v) { return __bfloat162float(v); }
+
 __device__ __forceinline__ float4 mul4(float4 a, float4 b) {
   return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
 }
@@ -85,9 +150,10 @@ __device__ __forceinline__ char4 load_c4(const int8_t* p) {
 }
 
 // The four values gathered for one lane from window xw = x + win[r] * 128,
-// by the lane's four slot columns ln and, when m > 1, their blocks sb.
-template <typename V>
-__device__ __forceinline__ V4<V> gather4(const V* __restrict__ xw, char4 ln,
+// by the lane's four slot columns ln and, when m > 1, their blocks sb,
+// widened to the accumulator type.
+template <typename S>
+__device__ __forceinline__ V4<S> gather4(const S* __restrict__ xw, char4 ln,
                                          char4 sb, int m) {
   int c0 = ln.x, c1 = ln.y, c2 = ln.z, c3 = ln.w;
   if (m > 1) {
@@ -96,16 +162,17 @@ __device__ __forceinline__ V4<V> gather4(const V* __restrict__ xw, char4 ln,
     c2 += sb.z * kLanes;
     c3 += sb.w * kLanes;
   }
-  return {__ldg(xw + c0), __ldg(xw + c1), __ldg(xw + c2), __ldg(xw + c3)};
+  return {ldg_acc(xw + c0), ldg_acc(xw + c1), ldg_acc(xw + c2),
+          ldg_acc(xw + c3)};
 }
 
 // The four gathered values of stream row r held by the calling lane.
-template <typename V>
-__device__ __forceinline__ V4<V> gather4(int r, int m,
+template <typename S>
+__device__ __forceinline__ V4<S> gather4(int r, int m,
                                          const int32_t* __restrict__ win,
                                          const int8_t* __restrict__ lane,
                                          const int8_t* __restrict__ sub,
-                                         const V* __restrict__ x) {
+                                         const S* __restrict__ x) {
   const size_t off = (size_t)r * kLanes + 4 * (threadIdx.x & 31);
   const char4 sb = m > 1 ? load_c4(sub + off) : make_char4(0, 0, 0, 0);
   return gather4(x + (size_t)win[r] * kLanes, load_c4(lane + off), sb, m);

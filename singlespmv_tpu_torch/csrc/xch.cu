@@ -23,6 +23,9 @@
 //     xch_mul_panel and xch_route4_panel (singlespmv_tpu/ops/pallas/xch.py:313,
 //     :338 and :364, :424): both passes over a panel of B columns, float only,
 //     as the TPU ran them;
+//   xch_mul_kernel<bf16> and the two route kernels at <bf16> run the
+//     same functions on bfloat16 values, x and product grid (2 bytes a
+//     slot in device memory), every sum in float into a float y;
 //   xch_route_kernel<8> and <16> replace _xch_route_kernel, the kernel of
 //     xch_route (singlespmv_tpu/ops/pallas/xch.py:197 and :259): the v3
 //     sigma-plane route, float only (the calibration's route_slot_s fit runs
@@ -172,11 +175,14 @@ constexpr int kMaxWindow = 120;  // the planner's M_MAX: int8 sub headroom
 constexpr int kMaxPoh = 64;      // the planner's largest one-hot width
 constexpr int kMaxRoutePlanes = 64;  // v3: span 2 x 32 planes
 
-template <typename V>
+// S is the storage type of val, x and the products: at bfloat16 the
+// product of two bfloat16 values, exact in float, is rounded once to
+// bfloat16, as the TPU's bfloat16 multiply rounds it.
+template <typename S>
 __global__ void __launch_bounds__(kThreads) xch_mul_kernel(
     const int32_t* __restrict__ win, const int8_t* __restrict__ lane,
-    const int8_t* __restrict__ sub, const V* __restrict__ val,
-    const V* __restrict__ x, V* __restrict__ out, int H, int m) {
+    const int8_t* __restrict__ sub, const S* __restrict__ val,
+    const S* __restrict__ x, S* __restrict__ out, int H, int m) {
   const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (r >= H) return;
   const size_t off = (size_t)r * kLanes + 4 * (threadIdx.x & 31);
@@ -254,13 +260,15 @@ __device__ __forceinline__ void add_run(V* __restrict__ y, int b, int d, V v,
   if (d >= 0 && pos < n_y) atomicAdd(y + pos, v);  // result unused: RED.ADD
 }
 
-template <typename V, typename D>
+// S is the storage type of the products, acc_t<S> that of y and the sums.
+template <typename S, typename D>
 __global__ void __launch_bounds__(kThreads) xch_route4_rows_kernel(
     const int32_t* __restrict__ base, const int32_t* __restrict__ cs,
     const int32_t* __restrict__ win, const int8_t* __restrict__ lane,
     const int8_t* __restrict__ sub, const int8_t* __restrict__ hm1,
-    const D* __restrict__ dest, const V* __restrict__ prod,
-    V* __restrict__ y, int H, int T, int m, int p1, int n_y) {
+    const D* __restrict__ dest, const S* __restrict__ prod,
+    acc_t<S>* __restrict__ y, int H, int T, int m, int p1, int n_y) {
+  using V = acc_t<S>;
   __shared__ __align__(16) V wbuf[kWarps][kLanes];
   const int warp = threadIdx.x >> 5;
   const int r = blockIdx.x * kWarps + warp;
@@ -269,8 +277,8 @@ __global__ void __launch_bounds__(kThreads) xch_route4_rows_kernel(
   const size_t off = (size_t)r * kLanes + 4 * (threadIdx.x & 31);
   const int4 d = load_dest4(dest + off);
   const int b = base[t];
-  const V* x = prod + (size_t)cs[t] * p1 * kLanes;
-  const V4<V> w = lane_totals<V>(gather4<V>(r, m, win, lane, sub, x),
+  const S* x = prod + (size_t)cs[t] * p1 * kLanes;
+  const V4<S> w = lane_totals<V>(gather4<S>(r, m, win, lane, sub, x),
                                  load_c4(hm1 + off), wbuf[warp]);
   add_run(y, b, d.x, w.x, n_y);
   add_run(y, b, d.y, w.y, n_y);
@@ -280,13 +288,15 @@ __global__ void __launch_bounds__(kThreads) xch_route4_rows_kernel(
 
 constexpr int kMergeSmem = 96 * 1024;  // the merge kernel's spans, at most
 
-template <typename V>
+template <typename S>
 __global__ void __launch_bounds__(kThreads) xch_route4_rows_merge_kernel(
     const int32_t* __restrict__ base, const int32_t* __restrict__ cs,
     const int32_t* __restrict__ win, const int8_t* __restrict__ lane,
     const int8_t* __restrict__ sub, const int8_t* __restrict__ hm1,
-    const int16_t* __restrict__ dest, const V* __restrict__ prod,
-    V* __restrict__ y, int T, int rpb, int m, int p1, int n_y, int span) {
+    const int16_t* __restrict__ dest, const S* __restrict__ prod,
+    acc_t<S>* __restrict__ y, int T, int rpb, int m, int p1, int n_y,
+    int span) {
+  using V = acc_t<S>;
   __shared__ __align__(16) V wbuf[kWarps][kLanes];
   extern __shared__ __align__(16) unsigned char merge_smem[];
   V* const spans = reinterpret_cast<V*>(merge_smem);  // (kWarps, span)
@@ -296,11 +306,11 @@ __global__ void __launch_bounds__(kThreads) xch_route4_rows_merge_kernel(
   V* const mine = spans + (size_t)warp * span;
   for (int i = k; i < span; i += 32) mine[i] = V(0);
   __syncwarp();
-  const V* x = prod + (size_t)cs[t] * p1 * kLanes;
+  const S* x = prod + (size_t)cs[t] * p1 * kLanes;
   for (int r = r0 + warp; r < r0 + rpb; r += kWarps) {
     const size_t off = (size_t)r * kLanes + 4 * k;
     const int4 d = load_dest4(dest + off);
-    const V4<V> w = lane_totals<V>(gather4<V>(r, m, win, lane, sub, x),
+    const V4<S> w = lane_totals<V>(gather4<S>(r, m, win, lane, sub, x),
                                    load_c4(hm1 + off), wbuf[warp]);
     if ((unsigned)d.x < (unsigned)span) mine[d.x] += w.x;
     if ((unsigned)d.y < (unsigned)span) mine[d.y] += w.y;
@@ -547,12 +557,14 @@ int launch_route4(const void* gids, const void* off, const void* cs,
 }
 
 // span 0: a reduction a run end; else the merge kernel over `span` dests.
-template <typename V>
+// S is the storage type of the products; y is of acc_t<S>.
+template <typename S>
 int launch_route4_rows(const void* base, const void* cs, const void* win,
                        const void* lane, const void* sub, const void* hm1,
                        const void* dest, const void* prod, void* y, int H,
                        int T, int m, int p1, int n_y, int span,
                        void* stream) {
+  using V = acc_t<S>;
   const size_t smem = (size_t)kWarps * span * sizeof(V);
   if (m < 1 || m > kMaxWindow || T < 1 || H < 0 || H % T || p1 < 1 ||
       n_y < 0 || span < 0 || span % kLanes || smem > kMergeSmem)
@@ -560,26 +572,26 @@ int launch_route4_rows(const void* base, const void* cs, const void* win,
   if (H == 0) return 0;
   if (span == 0) {
     using Dest = int16_t;  // the stream's; harness/xch_ab.py times int32
-    xch_route4_rows_kernel<V, Dest><<<(H + kWarps - 1) / kWarps, kThreads,
+    xch_route4_rows_kernel<S, Dest><<<(H + kWarps - 1) / kWarps, kThreads,
                                       0, (cudaStream_t)stream>>>(
         (const int32_t*)base, (const int32_t*)cs, (const int32_t*)win,
         (const int8_t*)lane, (const int8_t*)sub, (const int8_t*)hm1,
-        (const Dest*)dest, (const V*)prod, (V*)y, H, T, m, p1, n_y);
+        (const Dest*)dest, (const S*)prod, (V*)y, H, T, m, p1, n_y);
     return (int)cudaGetLastError();
   }
   static bool raised = false;  // once: the spans may pass 48 KB
   if (!raised) {
-    cudaFuncSetAttribute(xch_route4_rows_merge_kernel<V>,
+    cudaFuncSetAttribute(xch_route4_rows_merge_kernel<S>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          kMergeSmem);
     raised = true;
   }
   const int rpb = rows_per_block(T);
-  xch_route4_rows_merge_kernel<V><<<H / rpb, kThreads, smem,
+  xch_route4_rows_merge_kernel<S><<<H / rpb, kThreads, smem,
                                (cudaStream_t)stream>>>(
       (const int32_t*)base, (const int32_t*)cs, (const int32_t*)win,
       (const int8_t*)lane, (const int8_t*)sub, (const int8_t*)hm1,
-      (const int16_t*)dest, (const V*)prod, (V*)y, T, rpb, m, p1, n_y, span);
+      (const int16_t*)dest, (const S*)prod, (V*)y, T, rpb, m, p1, n_y, span);
   return (int)cudaGetLastError();
 }
 
@@ -601,6 +613,13 @@ extern "C" int xch_mul_f64(const void* win, const void* lane, const void* sub,
                            const void* val, const void* x, void* out, int H,
                            int T, int m, void* stream) {
   return launch_mul<double>(win, lane, sub, val, x, out, H, T, m, stream);
+}
+
+// bfloat16 val, x and products (each product rounded once).
+extern "C" int xch_mul_bf16(const void* win, const void* lane,
+                            const void* sub, const void* val, const void* x,
+                            void* out, int H, int T, int m, void* stream) {
+  return launch_mul<bf16>(win, lane, sub, val, x, out, H, T, m, stream);
 }
 
 // `out` must be zeroed, of (n_grp * gb, 128); `prod` is the
@@ -652,6 +671,17 @@ extern "C" int xch_route4_rows_f64(const void* base, const void* cs,
                                    int n_y, int span, void* stream) {
   return launch_route4_rows<double>(base, cs, win, lane, sub, hm1, dest,
                                     prod, y, H, T, m, p1, n_y, span, stream);
+}
+
+// bfloat16 products (2 bytes a slot), float32 y: the caller rounds y once.
+extern "C" int xch_route4_rows_bf16(const void* base, const void* cs,
+                                    const void* win, const void* lane,
+                                    const void* sub, const void* hm1,
+                                    const void* dest, const void* prod,
+                                    void* y, int H, int T, int m, int p1,
+                                    int n_y, int span, void* stream) {
+  return launch_route4_rows<bf16>(base, cs, win, lane, sub, hm1, dest, prod,
+                                  y, H, T, m, p1, n_y, span, stream);
 }
 
 // `out` (H, 128, B) is written in full; `x` is the interleaved (cb, 128, B)

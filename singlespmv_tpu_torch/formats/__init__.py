@@ -5,8 +5,8 @@ name).  ``bkt_g``, bkt at 1024-row buckets, is ``auto``'s internal name, as
 in the reference."""
 from __future__ import annotations
 
-from .base import (available_formats, convert, get_format, report_fields,
-                   spmm_fn, spmv_fn, to_coo, traffic_bytes)
+from .base import (adds_per_row, available_formats, convert, get_format,
+                   report_fields, spmm_fn, spmv_fn, to_coo, traffic_bytes)
 
 _LOADED = False
 
@@ -31,6 +31,6 @@ def _ensure_loaded():
 
 
 __all__ = [
-    "available_formats", "convert", "get_format", "report_fields",
-    "spmm_fn", "spmv_fn", "to_coo", "traffic_bytes",
+    "adds_per_row", "available_formats", "convert", "get_format",
+    "report_fields", "spmm_fn", "spmv_fn", "to_coo", "traffic_bytes",
 ]

@@ -7,7 +7,11 @@ csr, ss and hyb.  It prices with the reference's v5e constants
 (``core/chipconst.py``) until the planner is refit for the H100 (ROADMAP
 A.7b), so its ranking is the reference's.  Which engines it offers at a
 value type is the port's own rule (``supports``): bkt and bkt_g at float32
-only, as on the TPU; every other ported engine at float32 and float64.  At
+and bfloat16, as on the TPU; every other ported engine at float32,
+float64 and bfloat16 (the reference's bfloat16 set: its Pallas engines,
+whose kernels take bfloat16, and the closed forms).  At bfloat16 every
+price reads 2-byte values; under bfloat16 an SpMM plan (``spmm_b`` > 0)
+raises ``NotImplementedError`` (ROADMAP A.10b).  At
 float64 css keeps the reference's df64 price (×4 on its kernel term, no
 ×20), though the port runs it on native fp64.  The reference offers xch
 only where its Pallas kernels take the value type, which on the TPU
@@ -23,8 +27,8 @@ column loop of its ``spmv``.
 
 ``convert`` ranks by the model and, as the reference does on its chip, then
 converts and times every candidate within ``TRIAL_SPREAD`` of the cheapest
-(at most ``TRIAL_MAX``, up to ``TRIAL_NNZ_CAP`` nonzeros) and keeps the
-fastest, timing each by the driver's chained runner (CUDA graphs, the
+(at most ``TRIAL_MAX``, up to ``TRIAL_NNZ_CAP`` nonzeros; the conversions
+side by side in threads) and keeps the fastest, timing each by the driver's chained runner (CUDA graphs, the
 median of marginals, ``_quick_bench``).  The trials run only on a CUDA
 device; on the CPU, as the
 reference off its chip, the model alone decides, so the tests are
@@ -37,12 +41,14 @@ build or launch) is never skipped.  ``bkt_g`` is the internal name of bkt at
 from __future__ import annotations
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from ..config import Config
 from ..core import chipconst as _cc
+from ..core.dtypes import value_size, value_tensor
 from ..core.types import COOMatrix
 from . import bkt as bkt_mod
 from . import bsr as bsr_mod
@@ -54,7 +60,7 @@ from . import hyb as hyb_mod
 from . import slab as slab_mod
 from . import ss as ss_mod
 from . import xch as xch_mod
-from .base import TensorState, module_spmm
+from .base import TensorState, check_spmm_dtype, module_spmm
 
 STATE_REV = 1   # bump with a change of AutoState; cache.py folds in
 #                 every engine's rev
@@ -81,13 +87,13 @@ _MODULES = {"dia": dia_mod, "dense": dense_mod, "bsr": bsr_mod,
 def supports(fmt: str, dtype: str) -> bool:
     """Whether the port offers engine ``fmt`` at value type ``dtype``."""
     if fmt in ("bkt", "bkt_g"):
-        return dtype == "float32"
-    return dtype in ("float32", "float64")
+        return dtype in ("float32", "bfloat16")
+    return dtype in ("float32", "float64", "bfloat16")
 
 
 def _stats(coo: COOMatrix, cfg: Config):
     """The reference's structure statistics."""
-    vsz = np.dtype(cfg.dtype).itemsize
+    vsz = value_size(cfg.dtype)
     # past 20 M nnz, a contiguous-slice sample scaled by the sampling factor
     SAMP = 20_000_000
     if coo.nnz > SAMP:
@@ -291,8 +297,7 @@ def _quick_bench(mod, state, n_col: int, dtype, device) -> float:
     from ..harness.driver import marginal_seconds
 
     device = torch.device(device)
-    x = torch.from_numpy(np.linspace(-1.0, 1.0, max(n_col, 1),
-                                     dtype=dtype)).to(device)
+    x = value_tensor(np.linspace(-1.0, 1.0, max(n_col, 1)), dtype).to(device)
     fmt = mod.__name__.rsplit(".", 1)[-1]
     return marginal_seconds(mod.spmv, state, x, device, TRIAL_WINDOW_S,
                             name=f"auto trial {fmt}")
@@ -302,6 +307,8 @@ def convert(coo: COOMatrix, cfg: Config, log=None, device=None) -> AutoState:
     """Rank by the model, time the close candidates on ``device`` when it is
     a CUDA device, and convert the winner.  The state comes back on
     ``device`` when trials ran there, else on the CPU."""
+    if cfg.spmm_b > 0:
+        check_spmm_dtype("auto", cfg.dtype)
     plans = {}
     costs = estimate_costs(coo, cfg, plans=plans)
     for ex in cfg.auto_exclude:
@@ -328,11 +335,15 @@ def convert(coo: COOMatrix, cfg: Config, log=None, device=None) -> AutoState:
     if (_measures(device) and coo.nnz and coo.nnz <= TRIAL_NNZ_CAP
             and len(trial) > 1):
         best, timed = None, []
+        built = _build_side_by_side(_build, trial)
         for chosen in trial:
             try:
-                st = _build(chosen).to(device)
+                got = built.pop(chosen)
+                if isinstance(got, BaseException):
+                    raise got
+                st = got.to(device)
                 sec = _quick_bench(_MODULES[chosen], st, coo.n_col,
-                                   cfg.np_dtype, device)
+                                   cfg.dtype, device)
             except GUARD_ERRORS as e:
                 _refused(chosen, e)
                 continue
@@ -360,12 +371,36 @@ def convert(coo: COOMatrix, cfg: Config, log=None, device=None) -> AutoState:
     raise ValueError(f"auto: no viable format ({failed})")
 
 
+def _build_side_by_side(build, engines) -> dict:
+    """{engine: its host state, or the exception its convert raised}: the
+    trial candidates' conversions, one thread each.  Their sorts and
+    scatters run in numpy and the native helpers, which release the GIL,
+    so the conversions overlap; the trials then time them one by one."""
+    def one(engine):
+        try:
+            return build(engine)
+        except Exception as e:     # re-raised by the trial that needs it
+            return e
+
+    with ThreadPoolExecutor(len(engines)) as pool:
+        return dict(zip(engines, pool.map(one, engines)))
+
+
 def spmv(state: AutoState, x: torch.Tensor) -> torch.Tensor:
     return _MODULES[state.chosen].spmv(state.inner, x)
 
 
 def spmm(state: AutoState, X: torch.Tensor) -> torch.Tensor:
+    check_spmm_dtype("auto", X.dtype)
     return module_spmm(_MODULES[state.chosen])(state.inner, X)
+
+
+def adds_per_row(state: AutoState) -> np.ndarray:
+    """The chosen engine's k_i (``base.adds_per_row``)."""
+    mod = _MODULES[state.chosen]
+    fn = getattr(mod, "adds_per_row", None)
+    return fn(state.inner) if fn is not None \
+        else mod.to_coo(state.inner).row_lengths()
 
 
 def to_coo(state: AutoState) -> COOMatrix:
@@ -396,7 +431,7 @@ def traffic_bytes(state: AutoState, cfg: Config) -> int:
     if fn:
         return int(fn(state.inner, cfg))
     m, nnz = state.n_row, state.nnz
-    vsz = np.dtype(cfg.dtype).itemsize
+    vsz = value_size(cfg.dtype)
     return (m + 1 + nnz) * 4 + (2 * nnz + m) * vsz
 
 

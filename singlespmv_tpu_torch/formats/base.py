@@ -18,7 +18,10 @@ reference's ``jax.vmap``.  X is (n_col, B) and Y (n_row, B).
 
 States are frozen dataclasses of torch tensors (``TensorState``); ``convert``
 returns them on the CPU and ``state.to(device)`` moves them.  Values are
-float32 or float64 (``check_dtype``).
+float32, float64 or bfloat16 (``check_dtype``); bfloat16 states hold
+``torch.bfloat16`` tensors, and their spmv accumulates in float32 and
+rounds y once (``core/dtypes.py``).  Under bfloat16 ``spmm_fn`` raises
+``NotImplementedError``: the SpMM panels are float32 only (ROADMAP A.10b).
 """
 from __future__ import annotations
 
@@ -29,20 +32,30 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..core.dtypes import value_size
+from ..core import dtypes
 from ..core.types import COOMatrix
 
 _REGISTRY: Dict[str, Any] = {}
-VALUE_DTYPES = ("float32", "float64")
+VALUE_DTYPES = dtypes.VALUE_TYPES
 
 
 def check_dtype(fmt: str, dtype) -> None:
     """Refuses a value type the port has no kernels for; ``dtype`` is a
     config string or a torch dtype."""
-    name = str(dtype).replace("torch.", "")
+    name = dtypes.name_of(dtype)
     if name not in VALUE_DTYPES:
         raise NotImplementedError(
-            f"{fmt}: float32 and float64 are ported to the GPU, {name} is "
-            "not (ROADMAP A.10)")
+            f"{fmt}: {', '.join(VALUE_DTYPES)} are ported to the GPU, "
+            f"{name} is not")
+
+
+def check_spmm_dtype(fmt: str, dtype) -> None:
+    """Refuses SpMM at bfloat16: its panels wait for ROADMAP A.10b."""
+    if dtypes.name_of(dtype) == "bfloat16":
+        raise NotImplementedError(
+            f"{fmt}: SpMM at bfloat16 is not ported yet (ROADMAP A.10b: "
+            "A.10 ported bfloat16 SpMV only)")
 
 
 def register_format(name: str, module) -> None:
@@ -87,8 +100,9 @@ class TensorState:
 def state_from_arrays(cls, arrays: dict, fmt: str, values: str = "val"):
     """A state of dataclass ``cls`` from the fields of the reference's state
     of format ``fmt``, given as numpy arrays and scalars: arrays become
-    tensors (bool flags uint8), fields of the reference that ``cls`` lacks
-    are not read, and fields of ``cls`` that the reference lacks keep their
+    tensors (bool flags uint8, the reference's ``ml_dtypes`` bfloat16 as
+    ``torch.bfloat16``), fields of the reference that ``cls`` lacks are not
+    read, and fields of ``cls`` that the reference lacks keep their
     defaults.  Checks the value type of field ``values``."""
     kw = {}
     for f in dataclasses.fields(cls):
@@ -96,7 +110,7 @@ def state_from_arrays(cls, arrays: dict, fmt: str, values: str = "val"):
             continue
         v = arrays[f.name]
         if isinstance(v, np.ndarray) and v.ndim:
-            v = torch.from_numpy(np.array(
+            v = dtypes.from_numpy(np.array(
                 v, dtype=np.uint8 if v.dtype == np.bool_ else v.dtype))
         kw[f.name] = v
     state = cls(**kw)
@@ -118,8 +132,19 @@ def phases_fn(cfg: Config) -> Optional[Callable]:
     return getattr(get_format(cfg.format), "phases", None)
 
 
+def acc_spmv(mod) -> Callable:
+    """The spmv of format module ``mod`` in the accumulator type (float32
+    for bfloat16 values), for a format that adds it to other parts before
+    it rounds y once: the module's ``spmv_acc`` where it has one, else its
+    ``spmv`` widened."""
+    fn = getattr(mod, "spmv_acc", None)
+    return fn if fn is not None else (
+        lambda state, x: dtypes.acc(mod.spmv(state, x)))
+
+
 def column_loop(spmv: Callable, state, X: torch.Tensor) -> torch.Tensor:
     """Y = A @ X by one ``spmv`` per column of X (n_col, B): (n_row, B)."""
+    check_spmm_dtype("column loop", X.dtype)
     return torch.stack([spmv(state, x) for x in X.t().contiguous()], dim=1)
 
 
@@ -135,12 +160,26 @@ def module_spmm(mod) -> Callable:
 def spmm_fn(cfg: Config) -> Callable:
     """SpMM, Y = A @ X with X (n_col, B): the format's ``spmm`` where it has
     one, else the column loop of its ``spmv``
-    (``singlespmv_tpu/formats/base.py:90``)."""
+    (``singlespmv_tpu/formats/base.py:90``).  Raises
+    ``NotImplementedError`` under bfloat16 (``check_spmm_dtype``)."""
+    check_spmm_dtype(cfg.format, cfg.dtype)
     return module_spmm(get_format(cfg.format))
 
 
 def to_coo(state, cfg: Config) -> COOMatrix:
     return get_format(cfg.format).to_coo(state)
+
+
+def adds_per_row(state, cfg: Config) -> np.ndarray:
+    """(n_row,) k_i of ``core/oracle.py:reorder_bound`` for a state of
+    format ``cfg.format``: the totals whose order of addition into y_i is
+    free on the card.  The format's own count where it has one (the run
+    ends of slab's, xch's and bkt's routes, and hyb's and auto's through
+    their engines), else nnz_i."""
+    fn = getattr(get_format(cfg.format), "adds_per_row", None)
+    if fn is not None:
+        return fn(state)
+    return to_coo(state, cfg).row_lengths()
 
 
 def report_fields(state, cfg: Config) -> dict:
@@ -155,5 +194,5 @@ def traffic_bytes(state, cfg: Config) -> int:
     # default CSR-style traffic model, as in the reference
     m, nnz = state.n_row, state.nnz
     isz = 4 if cfg.index_bits == 32 else 8
-    vsz = np.dtype(cfg.dtype).itemsize
+    vsz = value_size(cfg.dtype)
     return (m + 1 + nnz) * isz + (2 * nnz + m) * vsz

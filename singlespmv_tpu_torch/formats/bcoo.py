@@ -7,7 +7,7 @@ library slot that cross-checks the others (singleSpMV calls cuSPARSE's
 coalesced ``torch.sparse_coo_tensor`` multiplied by ``@``, which on the
 card runs cuSPARSE.  It is a library baseline by design, not the port of
 a kernel.  It has no ``spmm``: ``spmm_fn`` loops its spmv over the columns,
-as the reference vmaps it.  Values are float32 or float64.
+as the reference vmaps it.  Values are float32, float64 or bfloat16.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..core.dtypes import acc, to_host, value_tensor
 from ..core.types import COOMatrix
 from .base import TensorState, check_dtype
 
@@ -43,18 +44,21 @@ def convert(coo: COOMatrix, cfg: Config) -> BCOOState:
     """Builds the sparse tensor on the host; it comes back on the CPU."""
     check_dtype("bcoo", cfg.dtype)
     indices = torch.from_numpy(np.stack([coo.row, coo.col]).astype(np.int64))
-    values = torch.from_numpy(coo.val.astype(cfg.np_dtype))
+    values = value_tensor(coo.val, cfg.dtype)
     return BCOOState(n_row=coo.n_row, n_col=coo.n_col, nnz=coo.nnz,
                      mat=sparse_coo(indices, values, (coo.n_row, coo.n_col)))
 
 
 def spmv(state: BCOOState, x: torch.Tensor) -> torch.Tensor:
-    return state.mat @ x
+    """``A @ x`` by the library; bfloat16 values and x widened to float32
+    for it (torch's bfloat16 sparse product sums in bfloat16), y rounded
+    once."""
+    return (acc(state.mat) @ acc(x)).to(x.dtype)
 
 
 def to_coo(state: BCOOState) -> COOMatrix:
     """Inverse conversion."""
     idx = state.mat.indices().cpu().numpy()
-    val = state.mat.values().cpu().numpy()
+    val = to_host(state.mat.values())
     return COOMatrix.from_triplets(state.n_row, state.n_col, idx[0], idx[1],
                                    val, sort=True)

@@ -31,6 +31,8 @@ import torch
 
 from ..config import Config
 from ..core import hostmem as hm
+from ..core.dtypes import (from_numpy, name_of, to_host, value_size,
+                           value_tensor)
 from ..core.types import COOMatrix, cdiv, round_up
 from ..ops.bucket import block_gather_mul, bucket_rows
 from .base import TensorState
@@ -47,11 +49,14 @@ CB_CHUNK_MAX = 384     # the reference's stage-B col-group chunk (VMEM)
 GROUP_FILL_TARGET = 72  # pack col-blocks until expected bucket fill ≥ this
 
 
+VALUE_TYPES = ("float32", "bfloat16")   # the bucket kernels'
+
+
 def _check_dtype(dtype) -> None:
-    name = str(dtype).replace("torch.", "")
-    if name != "float32":
-        raise TypeError(f"bkt runs float32 kernels only, as the reference's "
-                        f"bkt does on its chip; not {name}")
+    name = name_of(dtype)
+    if name not in VALUE_TYPES:
+        raise TypeError(f"bkt runs float32 and bfloat16 kernels only, as the "
+                        f"reference's bkt does on its chip; not {name}")
 
 
 def k_cap(g: int, itemsize: int, floor: int = 4) -> int:
@@ -504,7 +509,7 @@ def convert(coo: COOMatrix, cfg: Config) -> BKTState:
         mem_tab=_t(mem_tab),
         lane=_t(hm.astype(lane_a.reshape(N // W_A, W_A), np.int8)),
         src=_t(src_a.reshape(N // W_A, W_A)),
-        val=_t(val_a.reshape(N // W_A, W_A)),
+        val=value_tensor(val_a.reshape(N // W_A, W_A), cfg.dtype),
         hm1=_t(hm1_b.reshape(NU_pad, G, LANES) if ru == 8 else hm1_b),
         idx=_t(idx_full.reshape(NU_pad, K, G, LANES) if ru == 8
                else idx_full),
@@ -615,6 +620,20 @@ def with_routes(state: BKTState) -> BKTState:
     return dataclasses.replace(state, **route_rows(state))
 
 
+def adds_per_row(state: BKTState) -> np.ndarray:
+    """(n_row,) int64: the run totals ``spmv`` adds into each y row, one a
+    run end of stage B's ``dest`` stream.  On the card their order of
+    addition is free (``core/oracle.py:reorder_bound``)."""
+    nu_pad, sh = _unit_rows(state)[:2]
+    rg = state.row_group
+    d = to_host(state.dest).astype(np.int64)
+    r, lane = np.nonzero((d >= 0) & (d < rg))
+    unit = (r // sh) % nu_pad
+    pos = to_host(state.yrow).astype(np.int64)[unit * rg + d[r, lane]]
+    return np.bincount(pos[(pos >= 0) & (pos < state.n_row)],
+                       minlength=state.n_row).astype(np.int64)
+
+
 _ARRAY_FIELDS = ("members", "mem_tab", "lane", "src", "val", "hm1", "idx",
                  "lo_a", "src_lane", "src_chunk")
 
@@ -627,7 +646,7 @@ def state_from_reference(arrays: dict) -> BKTState:
           if f.name not in ROUTE_FIELDS}     # derived below
     for name in _ARRAY_FIELDS:
         if kw[name] is not None:
-            kw[name] = torch.from_numpy(np.array(kw[name]))
+            kw[name] = from_numpy(np.array(kw[name]))
     state = BKTState(**kw)
     _check_dtype(state.val.dtype)
     return with_routes(state)
@@ -665,14 +684,21 @@ def y_table_t(state: BKTState, y_tab: torch.Tensor) -> torch.Tensor:
     return y_t
 
 
-def spmv(state: BKTState, x: torch.Tensor) -> torch.Tensor:
+def spmv_acc(state: BKTState, x: torch.Tensor) -> torch.Tensor:
+    """Stage A's products (of the value type), then stage B into a float32
+    y."""
     _check_dtype(x.dtype)
     nu_pad, sh, _, h = _unit_rows(state)
     prod = block_gather_mul(state.members, state.lane, state.src, state.val,
                             x_table(state, x), state.m)
-    y = torch.zeros(state.n_row, dtype=x.dtype, device=x.device)
+    y = torch.zeros(state.n_row, dtype=torch.float32, device=x.device)
     return bucket_rows(prod.view(h, LANES), state.hm1r, state.dest,
                        state.yrow, y, sh, nu_pad, state.parts)
+
+
+def spmv(state: BKTState, x: torch.Tensor) -> torch.Tensor:
+    """y = A x, rounded once to x's type."""
+    return spmv_acc(state, x).to(x.dtype)
 
 
 # ----------------------------------------------------------------- reports ---
@@ -685,7 +711,7 @@ def report_fields(state: BKTState, cfg: Config) -> dict:
 
 
 def traffic_bytes(state: BKTState, cfg: Config) -> int:
-    vsz = np.dtype(cfg.dtype).itemsize
+    vsz = value_size(cfg.dtype)
     slots = state.n_slots
     isz = 2 if state.row_group // LANES == 8 else 1
     src = slots if state.m > 1 else 0
@@ -697,7 +723,7 @@ def traffic_bytes(state: BKTState, cfg: Config) -> int:
 def to_coo(state: BKTState) -> COOMatrix:
     """Inverse conversion (explicit zeros dropped — they pad like ghosts)."""
     def host(t):
-        return t.cpu().numpy()
+        return to_host(t)
 
     val = host(state.val).reshape(-1).astype(np.float64)
     rl = host(state.lo_a).reshape(-1)

@@ -24,8 +24,10 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..core.dtypes import acc, to_host, value_size, value_tensor
 from ..core.types import COOMatrix, cdiv
-from .base import TensorState, check_dtype, state_from_arrays
+from .base import (TensorState, check_dtype, check_spmm_dtype,
+                   state_from_arrays)
 from .slab import _t
 
 MAX_GATHERED_ELEMS = 1 << 28    # cap on the gathered (n_blocks, bn, Bc) X
@@ -62,7 +64,7 @@ def convert(coo: COOMatrix, cfg: Config) -> BSRState:
     # scattered inputs make one near-empty block per nonzero: refuse
     dense_elems = n_blocks * bm * bn
     if dense_elems > max(32 * coo.nnz, 1 << 22) or \
-            dense_elems * np.dtype(cfg.np_dtype).itemsize > (2 << 30):
+            dense_elems * value_size(cfg.dtype) > (2 << 30):
         raise ValueError(
             f"bsr: {n_blocks} blocks at fill {coo.nnz / dense_elems:.4f} — "
             "block storage would dwarf the matrix; use ellg/bkt/csr")
@@ -86,7 +88,7 @@ def convert(coo: COOMatrix, cfg: Config) -> BSRState:
         k_max = int(counts.max())
         cb = cdiv(max(coo.n_col, 1), bn)
         if 0 < k_max * n_brow <= 3 * n_blocks and \
-                k_max * n_brow * bm * bn * blocks.itemsize <= (2 << 30):
+                k_max * n_brow * bm * bn * value_size(cfg.dtype) <= (2 << 30):
             ell_bcol = np.full((n_brow, k_max), cb, dtype=np.int32)
             eb = np.zeros((n_brow, k_max, bm, bn), dtype=blocks.dtype)
             pos = np.arange(n_blocks) - np.concatenate(
@@ -98,9 +100,10 @@ def convert(coo: COOMatrix, cfg: Config) -> BSRState:
             ell_k = k_max
     return BSRState(
         n_row=coo.n_row, n_col=coo.n_col, nnz=coo.nnz, bm=bm, bn=bn,
-        n_blocks=n_blocks, n_brow=n_brow, fill=fill, blocks=_t(blocks),
+        n_blocks=n_blocks, n_brow=n_brow, fill=fill,
+        blocks=value_tensor(blocks, cfg.dtype),
         brow=_t(brow), bcol=_t(bcol), ell_k=ell_k,
-        ell_blocks=_t(ell_blocks) if ell_k else None,
+        ell_blocks=value_tensor(ell_blocks, cfg.dtype) if ell_k else None,
         ell_bcol=_t(ell_bcol) if ell_k else None)
 
 
@@ -111,18 +114,25 @@ def state_from_reference(arrays: dict) -> BSRState:
 
 
 def spmv(state: BSRState, x: torch.Tensor) -> torch.Tensor:
+    return spmv_acc(state, x).to(x.dtype)
+
+
+def spmv_acc(state: BSRState, x: torch.Tensor) -> torch.Tensor:
+    """y in the accumulator type (float32 for bfloat16 values)."""
     n_col_pad = cdiv(state.n_col, state.bn) * state.bn
     xp = torch.zeros(n_col_pad, dtype=x.dtype, device=x.device)
     xp[: state.n_col] = x
     xb = xp.view(-1, state.bn).index_select(0, state.bcol)   # (n_blocks, bn)
-    part = torch.bmm(state.blocks, xb.unsqueeze(2)).squeeze(2)
-    yb = torch.zeros(state.n_brow, state.bm, dtype=x.dtype, device=x.device)
+    part = torch.bmm(acc(state.blocks), acc(xb).unsqueeze(2)).squeeze(2)
+    yb = torch.zeros(state.n_brow, state.bm, dtype=part.dtype,
+                     device=x.device)
     yb.index_add_(0, state.brow, part)
     return yb.view(-1)[: state.n_row]
 
 
 def spmm(state: BSRState, X: torch.Tensor) -> torch.Tensor:
     """Y = A @ X, X (n_col, B) (the reference's ``formats/bsr.py:118``)."""
+    check_spmm_dtype("bsr", X.dtype)
     b, bn = X.shape[1], state.bn
     cb = cdiv(state.n_col, bn)
     if state.ell_k:
@@ -159,14 +169,14 @@ def report_fields(state: BSRState, cfg: Config) -> dict:
 
 def traffic_bytes(state: BSRState, cfg: Config) -> int:
     isz = 4 if cfg.index_bits == 32 else 8
-    vsz = np.dtype(cfg.dtype).itemsize
+    vsz = value_size(cfg.dtype)
     return (state.n_blocks * (state.bm * state.bn + state.bn) * vsz
             + state.n_blocks * 2 * isz + state.n_row * vsz)
 
 
 def to_coo(state: BSRState) -> COOMatrix:
     """Inverse conversion (explicit zeros dropped)."""
-    blocks = state.blocks.cpu().numpy()
+    blocks = to_host(state.blocks)
     brow = state.brow.cpu().numpy().astype(np.int64)
     bcol = state.bcol.cpu().numpy().astype(np.int64)
     b, lr, lc = np.nonzero(blocks)

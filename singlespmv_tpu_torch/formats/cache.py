@@ -12,7 +12,9 @@ streams) and of states (ellg's passes), tuples of scalars (auto's
 coalesced indices and values).  Every field is stored, the derived route
 streams among them (slab's ``ybase``/``dest``, xch's ``base2``/``dest2``,
 bkt's ``hm1r``/``dest``/``yrow``), so a load derives nothing.
-``load_state`` puts the state on the caller's device.
+``load_state`` puts the state on the caller's device.  A bfloat16 tensor,
+which numpy cannot hold, is saved as its uint16 bits under a type tag and
+loads back bit for bit.
 
 A saved state carries a fingerprint: the matrix's shape, a digest of its
 triplets, the Config fields that convert reads, and the layout revision
@@ -62,7 +64,11 @@ def _encode(obj, arrays: Dict[str, np.ndarray], prefix: str):
                 "values": _encode(obj.values(), arrays, f"{prefix}.values")}
     if isinstance(obj, torch.Tensor):
         key = prefix.lstrip(".")
-        arrays[key] = obj.detach().cpu().numpy()
+        t = obj.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            arrays[key] = t.view(torch.uint16).numpy()
+            return {"__array__": key, "dtype": "bfloat16"}
+        arrays[key] = t.numpy()
         return {"__array__": key}
     if isinstance(obj, tuple):
         return {"__tuple__": [_encode(v, arrays, f"{prefix}.{i}")
@@ -83,7 +89,10 @@ def _state_class(path: str):
 def _decode(node, arrays, device):
     if isinstance(node, dict):
         if "__array__" in node:
-            return torch.from_numpy(arrays[node["__array__"]]).to(device)
+            t = torch.from_numpy(arrays[node["__array__"]])
+            if node.get("dtype") == "bfloat16":
+                t = t.view(torch.bfloat16)
+            return t.to(device)
         if "__sparse_coo__" in node:
             from .bcoo import sparse_coo
 

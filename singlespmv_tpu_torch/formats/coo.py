@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..core.dtypes import acc, to_host, value_tensor
 from ..core.types import COOMatrix, round_up
 from ..ops.segsum import segment_sum_sorted
 from .base import TensorState, check_dtype
@@ -49,12 +50,13 @@ def convert(coo: COOMatrix, cfg: Config) -> COOState:
     col[: coo.nnz] = coo.col
     val[: coo.nnz] = coo.val.astype(cfg.np_dtype)
     return COOState(n_row=coo.n_row, n_col=coo.n_col, nnz=coo.nnz,
-                    nnz_pad=nnz_pad, row=_t(row), col=_t(col), val=_t(val))
+                    nnz_pad=nnz_pad, row=_t(row), col=_t(col),
+                    val=value_tensor(val, cfg.dtype))
 
 
 def mul(state: COOState, x: torch.Tensor) -> torch.Tensor:
     """Phase Mul: val · x[col] over the padded stream."""
-    return state.val * x.index_select(0, state.col)
+    return acc(state.val) * acc(x.index_select(0, state.col))
 
 
 def reduce(state: COOState, products: torch.Tensor) -> torch.Tensor:
@@ -63,7 +65,7 @@ def reduce(state: COOState, products: torch.Tensor) -> torch.Tensor:
 
 
 def spmv(state: COOState, x: torch.Tensor) -> torch.Tensor:
-    return reduce(state, mul(state, x))
+    return reduce(state, mul(state, x)).to(x.dtype)
 
 
 def phases(state: COOState):
@@ -79,4 +81,4 @@ def to_coo(state: COOState) -> COOMatrix:
     n = state.nnz
     return COOMatrix.from_triplets(
         state.n_row, state.n_col, state.row[:n].cpu().numpy(),
-        state.col[:n].cpu().numpy(), state.val[:n].cpu().numpy(), sort=False)
+        state.col[:n].cpu().numpy(), to_host(state.val[:n]), sort=False)

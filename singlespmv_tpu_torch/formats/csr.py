@@ -16,8 +16,9 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..core.dtypes import acc, to_host, value_tensor
 from ..core.types import COOMatrix, round_up
-from .base import TensorState, check_dtype
+from .base import TensorState, check_dtype, check_spmm_dtype
 from .slab import _t
 
 PAD_MULTIPLE = 1024
@@ -54,12 +55,12 @@ def convert(coo: COOMatrix, cfg: Config) -> CSRState:
         n_row=coo.n_row, n_col=coo.n_col, nnz=coo.nnz, nnz_pad=nnz_pad,
         max_row_nnz=int(coo.row_lengths().max(initial=0)),
         variant=cfg.variant, row_ptr=_t(rp), rows=_t(rows), col=_t(col),
-        val=_t(val))
+        val=value_tensor(val, cfg.dtype))
 
 
 def mul(state: CSRState, x: torch.Tensor) -> torch.Tensor:
     """Phase Mul: val · x[col] over the padded stream."""
-    return state.val * x.index_select(0, state.col)
+    return acc(state.val) * acc(x.index_select(0, state.col))
 
 
 def reduce(state: CSRState, products: torch.Tensor) -> torch.Tensor:
@@ -71,8 +72,13 @@ def reduce(state: CSRState, products: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def spmv(state: CSRState, x: torch.Tensor) -> torch.Tensor:
+def spmv_acc(state: CSRState, x: torch.Tensor) -> torch.Tensor:
+    """y in the accumulator type (float32 for bfloat16 values)."""
     return reduce(state, mul(state, x))
+
+
+def spmv(state: CSRState, x: torch.Tensor) -> torch.Tensor:
+    return spmv_acc(state, x).to(x.dtype)
 
 
 def phases(state: CSRState):
@@ -81,6 +87,7 @@ def phases(state: CSRState):
 
 def spmm(state: CSRState, X: torch.Tensor) -> torch.Tensor:
     """Y = A @ X, X (n_col, B): products of the rows of X, summed by row."""
+    check_spmm_dtype("csr", X.dtype)
     products = state.val[:, None] * X.index_select(0, state.col)
     Y = torch.zeros(state.n_row, X.shape[1], dtype=products.dtype,
                     device=X.device)
@@ -98,4 +105,4 @@ def to_coo(state: CSRState) -> COOMatrix:
     n = state.nnz
     return COOMatrix.from_triplets(
         state.n_row, state.n_col, state.rows[:n].cpu().numpy(),
-        state.col[:n].cpu().numpy(), state.val[:n].cpu().numpy(), sort=False)
+        state.col[:n].cpu().numpy(), to_host(state.val[:n]), sort=False)

@@ -27,6 +27,8 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..core.dtypes import (acc, acc_dtype, to_host, value_size,
+                           value_tensor)
 from ..core.types import COOMatrix, round_up
 from ..ops.segscan import segmented_scan_tiles
 from ..ops.segsum import segmented_scan_inclusive
@@ -142,8 +144,9 @@ def convert(coo: COOMatrix, cfg: Config) -> CSR5State:
     t_desc = time.perf_counter()
 
     arrays = dict(
-        fast_col=_t(col2d[fi]), fast_val=_t(val2d[fi]),
-        fast_rows=_t(fast_rows), col=_t(col2d[ni]), val=_t(val2d[ni]),
+        fast_col=_t(col2d[fi]), fast_val=value_tensor(val2d[fi], cfg.dtype),
+        fast_rows=_t(fast_rows), col=_t(col2d[ni]),
+        val=value_tensor(val2d[ni], cfg.dtype),
         heads=_t(heads.astype(np.uint8)), end_pos=_t(end_pos),
         rank_rows=_t(rank_rows), run_pos=_t(run_pos), run_rows=_t(run_rows))
     t_end = time.perf_counter()
@@ -176,20 +179,22 @@ def spmv(state: CSR5State, x: torch.Tensor) -> torch.Tensor:
     if x.dtype != state.val.dtype:
         raise TypeError(f"csr5: x is {x.dtype}, the state holds "
                         f"{state.val.dtype} values")
-    y = torch.zeros(state.n_row + 1, dtype=x.dtype, device=x.device)
+    # y in the accumulator type (float32 for bfloat16), rounded once
+    y = torch.zeros(state.n_row + 1, dtype=acc_dtype(x.dtype),
+                    device=x.device)
     if state.n_fast:
         # fast track: a dense row sum per tile, added into its row
-        fast = _products(state.fast_val, state.fast_col, x).sum(1)
+        fast = acc(_products(state.fast_val, state.fast_col, x)).sum(1)
         y.index_add_(0, state.fast_rows, fast)
     if state.n_normal:
         # normal track: segmented scan, run ends, added by row
         prod = normal_products(state, x)
         scanned = (segmented_scan_tiles(prod, state.heads)
                    if state.variant == "optimized"
-                   else segmented_scan_inclusive(prod, state.heads))
+                   else segmented_scan_inclusive(acc(prod), state.heads))
         y.index_add_(0, state.run_rows, scanned.view(-1).index_select(
             0, state.run_pos))
-    return y[: state.n_row]
+    return y[: state.n_row].to(x.dtype)
 
 
 def report_fields(state: CSR5State, cfg: Config) -> dict:
@@ -205,7 +210,7 @@ def report_fields(state: CSR5State, cfg: Config) -> dict:
 
 def traffic_bytes(state: CSR5State, cfg: Config) -> int:
     isz = 4 if cfg.index_bits == 32 else 8
-    vsz = np.dtype(cfg.dtype).itemsize
+    vsz = value_size(cfg.dtype)
     stream = state.n_tile * state.w
     combine = state.n_normal * state.r_max + state.n_fast
     return stream * (isz + 2 * vsz) + combine * (isz + vsz) + state.n_row * vsz
@@ -216,11 +221,11 @@ def to_coo(state: CSR5State) -> COOMatrix:
     frows = np.repeat(state.fast_rows.cpu().numpy().astype(np.int64),
                       state.w)
     fcol = state.fast_col.cpu().numpy().reshape(-1)
-    fval = state.fast_val.cpu().numpy().reshape(-1)
+    fval = to_host(state.fast_val).reshape(-1)
     nrows = stream_rows(state.heads.cpu().numpy(),
                         state.rank_rows.cpu().numpy()).reshape(-1)
     ncol = state.col.cpu().numpy().reshape(-1)
-    nval = state.val.cpu().numpy().reshape(-1)
+    nval = to_host(state.val).reshape(-1)
     rows = np.concatenate([frows, nrows.astype(np.int64)])
     cols = np.concatenate([fcol, ncol])
     vals = np.concatenate([fval, nval])

@@ -135,11 +135,16 @@ def spmv_scan_phase(state: CSSState, x: torch.Tensor) -> torch.Tensor:
                              state.heads, x_table(state, x))
 
 
-def spmv(state: CSSState, x: torch.Tensor) -> torch.Tensor:
+def spmv_acc(state: CSSState, x: torch.Tensor) -> torch.Tensor:
+    """y in the accumulator type (float32 for bfloat16 values)."""
     if state.variant != "optimized":
-        return ss.spmv(state, x)
+        return ss.spmv_acc(state, x)
     ss._check_x(state, x)
     return ss.reduce(state, spmv_scan_phase(state, x))
+
+
+def spmv(state: CSSState, x: torch.Tensor) -> torch.Tensor:
+    return spmv_acc(state, x).to(x.dtype)
 
 
 def mul(state: CSSState, x: torch.Tensor) -> torch.Tensor:

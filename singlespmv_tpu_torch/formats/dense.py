@@ -14,9 +14,9 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..core.dtypes import to_host, value_size, value_tensor
 from ..core.types import COOMatrix, round_up
-from .base import TensorState, check_dtype
-from .slab import _t
+from .base import TensorState, check_dtype, check_spmm_dtype
 
 MAX_DENSE_ELEMENTS = 1 << 28  # 1 GiB of f32
 
@@ -41,7 +41,7 @@ def convert(coo: COOMatrix, cfg: Config) -> DenseState:
     mat = np.zeros((rp, cp), dtype=cfg.np_dtype)
     np.add.at(mat, (coo.row, coo.col), coo.val.astype(cfg.np_dtype))
     return DenseState(n_row=coo.n_row, n_col=coo.n_col, nnz=coo.nnz,
-                      mat=_t(mat))
+                      mat=value_tensor(mat, cfg.dtype))
 
 
 def spmv(state: DenseState, x: torch.Tensor) -> torch.Tensor:
@@ -52,6 +52,7 @@ def spmv(state: DenseState, x: torch.Tensor) -> torch.Tensor:
 
 def spmm(state: DenseState, X: torch.Tensor) -> torch.Tensor:
     """Y = A @ X, X (n_col, B): one matrix product."""
+    check_spmm_dtype("dense", X.dtype)
     Xp = torch.zeros(state.mat.shape[1], X.shape[1], dtype=X.dtype,
                      device=X.device)
     Xp[: state.n_col] = X
@@ -59,14 +60,14 @@ def spmm(state: DenseState, X: torch.Tensor) -> torch.Tensor:
 
 
 def traffic_bytes(state: DenseState, cfg: Config) -> int:
-    vsz = np.dtype(cfg.dtype).itemsize
+    vsz = value_size(cfg.dtype)
     return (state.mat.shape[0] * state.mat.shape[1] + state.n_col
             + state.n_row) * vsz
 
 
 def to_coo(state: DenseState) -> COOMatrix:
     """Inverse conversion (explicit zeros dropped)."""
-    mat = state.mat.cpu().numpy()[: state.n_row, : state.n_col]
+    mat = to_host(state.mat)[: state.n_row, : state.n_col]
     r, c = np.nonzero(mat)
     return COOMatrix.from_triplets(state.n_row, state.n_col, r, c, mat[r, c],
                                    sort=True)

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..core.dtypes import (acc, from_numpy, round_values, to_host, value_size,
+                           value_tensor)
 from ..core.types import COOMatrix, round_up
 
 from .base import TensorState, check_dtype
@@ -62,6 +64,7 @@ def convert(coo: COOMatrix, cfg: Config) -> DIAState:
                             - coo.row.astype(np.int64))
         # add.at: duplicate (row, col) triplets must accumulate
         np.add.at(diag, (d, coo.row), coo.val.astype(cfg.np_dtype))
+        diag = round_values(diag, cfg.dtype)
     x_pad_left = int(max(0, -offs.min(initial=0)))
     # row + off ranges over [-x_pad_left, n_row_pad - 1 + max_off]
     x_pad_right = int(max(0, n_row_pad - 1 + offs.max(initial=0)
@@ -71,7 +74,7 @@ def convert(coo: COOMatrix, cfg: Config) -> DIAState:
         n_row_pad=n_row_pad, x_pad_left=x_pad_left,
         x_pad_len=coo.n_col + x_pad_left + x_pad_right,
         offsets=tuple(int(o) for o in offs),
-        diag=torch.from_numpy(diag),
+        diag=value_tensor(diag, cfg.dtype),
         window=torch.from_numpy(offs + x_pad_left))
 
 
@@ -81,7 +84,7 @@ def state_from_reference(arrays: dict) -> DIAState:
     kw = {f.name: arrays[f.name] for f in dataclasses.fields(DIAState)
           if f.name != "window"}
     kw["offsets"] = tuple(int(o) for o in kw["offsets"])
-    kw["diag"] = torch.from_numpy(np.array(kw["diag"]))
+    kw["diag"] = from_numpy(np.array(kw["diag"]))
     check_dtype("dia", kw["diag"].dtype)
     kw["window"] = torch.tensor(kw["offsets"], dtype=torch.int64) \
         + kw["x_pad_left"]
@@ -89,7 +92,13 @@ def state_from_reference(arrays: dict) -> DIAState:
 
 
 def spmv(state: DIAState, x: torch.Tensor) -> torch.Tensor:
-    """y = Σ_d diag[d] · x[row + off_d] over all diagonals at once."""
+    """y = Σ_d diag[d] · x[row + off_d] over all diagonals at once, rounded
+    once to x's type."""
+    return spmv_acc(state, x).to(x.dtype)
+
+
+def spmv_acc(state: DIAState, x: torch.Tensor) -> torch.Tensor:
+    """``spmv`` in the accumulator type (float32 for bfloat16 values)."""
     if x.dtype != state.diag.dtype:
         raise TypeError(f"dia: x is {x.dtype}, the state holds "
                         f"{state.diag.dtype} values")
@@ -97,7 +106,7 @@ def spmv(state: DIAState, x: torch.Tensor) -> torch.Tensor:
                      device=x.device)
     xp[state.x_pad_left: state.x_pad_left + state.n_col] = x
     windows = xp.unfold(0, state.n_row_pad, 1).index_select(0, state.window)
-    return (state.diag * windows).sum(0)[: state.n_row]
+    return (acc(state.diag) * acc(windows)).sum(0)[: state.n_row]
 
 
 def report_fields(state: DIAState, cfg: Config) -> dict:
@@ -105,14 +114,14 @@ def report_fields(state: DIAState, cfg: Config) -> dict:
 
 
 def traffic_bytes(state: DIAState, cfg: Config) -> int:
-    vsz = np.dtype(cfg.dtype).itemsize
+    vsz = value_size(cfg.dtype)
     stored = state.n_diag * state.n_row_pad
     return stored * 2 * vsz + state.n_row * vsz + state.n_diag * 4
 
 
 def to_coo(state: DIAState) -> COOMatrix:
     """Inverse conversion (explicit zeros dropped)."""
-    diag = state.diag.cpu().numpy()
+    diag = to_host(state.diag)
     offs = np.asarray(state.offsets, dtype=np.int64)
     d, r = np.nonzero(diag)
     return COOMatrix.from_triplets(state.n_row, state.n_col, r, r + offs[d],

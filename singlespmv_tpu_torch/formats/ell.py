@@ -18,8 +18,9 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..core.dtypes import acc, to_host, value_size, value_tensor
 from ..core.types import COOMatrix, round_up
-from .base import TensorState, check_dtype
+from .base import TensorState, check_dtype, check_spmm_dtype
 from .slab import _t
 
 STATE_REV = 1   # bump with a change of the layout (formats/cache.py)
@@ -56,13 +57,14 @@ def convert(coo: COOMatrix, cfg: Config) -> ELLState:
     n_row_pad = round_up(max(coo.n_row, 1), cfg.lane_width)
     col, val = _ell_arrays(coo, k, n_row_pad, cfg.index_dtype, cfg.np_dtype)
     return ELLState(n_row=coo.n_row, n_col=coo.n_col, nnz=coo.nnz, k=k,
-                    n_row_pad=n_row_pad, col=_t(col), val=_t(val))
+                    n_row_pad=n_row_pad, col=_t(col),
+                    val=value_tensor(val, cfg.dtype))
 
 
 def mul(state, x: torch.Tensor) -> torch.Tensor:
     """Phase Mul: the (K, n_row_pad) products val · x[col]."""
-    return state.val * x.index_select(0, state.col.reshape(-1)).view(
-        state.col.shape)
+    return acc(state.val) * acc(x.index_select(
+        0, state.col.reshape(-1)).view(state.col.shape))
 
 
 def reduce(state: ELLState, products: torch.Tensor) -> torch.Tensor:
@@ -71,7 +73,7 @@ def reduce(state: ELLState, products: torch.Tensor) -> torch.Tensor:
 
 
 def spmv(state: ELLState, x: torch.Tensor) -> torch.Tensor:
-    return reduce(state, mul(state, x))
+    return reduce(state, mul(state, x)).to(x.dtype)
 
 
 def phases(state: ELLState):
@@ -81,6 +83,7 @@ def phases(state: ELLState):
 def spmm(state: ELLState, X: torch.Tensor) -> torch.Tensor:
     """Y = A @ X, X (n_col, B): one row gather of X a K slot, added into
     an (n_row_pad, B) accumulator."""
+    check_spmm_dtype("ell", X.dtype)
     acc = torch.zeros(state.n_row_pad, X.shape[1], dtype=X.dtype,
                       device=X.device)
     for colk, valk in zip(state.col, state.val):
@@ -95,7 +98,7 @@ def report_fields(state: ELLState, cfg: Config) -> dict:
 
 def traffic_bytes(state: ELLState, cfg: Config) -> int:
     isz = 4 if cfg.index_bits == 32 else 8
-    vsz = np.dtype(cfg.dtype).itemsize
+    vsz = value_size(cfg.dtype)
     stored = state.k * state.n_row_pad
     return stored * (isz + vsz) + (stored + state.n_row) * vsz
 
@@ -104,7 +107,7 @@ def to_coo(state: ELLState) -> COOMatrix:
     """Inverse conversion; explicit stored zeros are dropped (they look
     like ELL padding)."""
     col = state.col.cpu().numpy()
-    val = state.val.cpu().numpy()
+    val = to_host(state.val)
     k, r = np.nonzero(val)
     return COOMatrix.from_triplets(state.n_row, state.n_col, r, col[k, r],
                                    val[k, r], sort=True)

@@ -28,8 +28,10 @@ last.  A pass of one member carries no ``src`` (None, as in the
 reference), and the wrapper hands the kernel a null pointer for it.
 ``spmm`` is the column loop of the spmv, as the reference vmaps it.  The
 reference's ellg refuses every value type its Pallas kernels lack, so the
-port runs float32 only (float64 and bfloat16: ROADMAP A.10).  auto never
-offers ellg, as in the reference.
+port runs float32 and bfloat16 (at bfloat16 stage A writes bfloat16
+products, and the row sums, the y table and the rest's y are float32, y
+rounded once) and refuses float64.  auto never offers ellg, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -41,11 +43,13 @@ import torch
 
 from ..config import Config
 from ..core import hostmem as hm
+from ..core.dtypes import (acc, acc_dtype, from_numpy, name_of, to_host,
+                           value_size, value_tensor)
 from ..core.types import COOMatrix, cdiv
 from ..ops.bucket import block_gather_mul
 from . import bkt as bkt_mod
 from . import csr as csr_mod
-from .base import TensorState, column_loop, state_from_arrays
+from .base import TensorState, acc_spmv, column_loop, state_from_arrays
 from .slab import _t
 
 STATE_REV = 1   # bump with a change of the layout (formats/cache.py)
@@ -64,11 +68,11 @@ REST_MODULES = {"bkt_g": bkt_mod, "csr": csr_mod}   # the rest's engines
 
 
 def _check_dtype(dtype) -> None:
-    name = str(dtype).replace("torch.", "")
-    if name != "float32":
-        raise TypeError(f"ellg runs the float32 stage-A kernel only, as the "
-                        f"reference's ellg runs only where its Pallas kernels "
-                        f"do; not {name} (ROADMAP A.10)")
+    name = name_of(dtype)
+    if name not in bkt_mod.VALUE_TYPES:
+        raise TypeError(f"ellg runs the float32 and bfloat16 stage-A kernels "
+                        f"only, as the reference's ellg runs only where its "
+                        f"Pallas kernels do; not {name}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -331,7 +335,7 @@ def convert(coo: COOMatrix, cfg: Config) -> ELLGState:
         if int(hit.sum()) == 0:
             break
         passes.extend(_build_passes(
-            r_s, c_s, v_s, hit, aux, t, m, CBtot, dtype))
+            r_s, c_s, v_s, hit, aux, t, m, CBtot, dtype, cfg.dtype))
         r_s, c_s, v_s = r_s[~hit], c_s[~hit], v_s[~hit]
     total_slots = sum(p.n_blocks * 128 * p.t for p in passes)
 
@@ -368,8 +372,9 @@ def convert(coo: COOMatrix, cfg: Config) -> ELLGState:
         passes=tuple(passes), rest_state=rest_state)
 
 
-def _build_passes(r_s, c_s, v_s, hit, aux, t, m, CBtot, dtype):
-    """Materialize one level's kept entries into per-panel ELLGPass arrays."""
+def _build_passes(r_s, c_s, v_s, hit, aux, t, m, CBtot, dtype, vtype):
+    """Materialize one level's kept entries into per-panel ELLGPass arrays
+    (host values of ``dtype``, tensors of the value type ``vtype``)."""
     act, bpos, sr = aux["act"], aux["bpos"], aux["sr"]
     within, src, members = aux["within"], aux["src"], aux["members"]
     sr_panel, n_panels = aux["sr_panel"], aux["n_panels"]
@@ -427,7 +432,7 @@ def _build_passes(r_s, c_s, v_s, hit, aux, t, m, CBtot, dtype):
             members=_t(hm.astype(mem_p.reshape(-1), np.int32)),
             lane=_t(lane_a.reshape(H, W_A)),
             src=(_t(src_a.reshape(H, W_A)) if m > 1 else None),
-            val=_t(val_a.reshape(H, W_A)),
+            val=value_tensor(val_a.reshape(H, W_A), vtype),
             blocks=(None if full else _t(
                 hm.astype(np.concatenate([blocks_ids,
                                           np.zeros(n_b_pad - n_b,
@@ -450,7 +455,7 @@ def state_from_reference(arrays: dict) -> ELLGState:
         kw = dict(p)
         for name in _PASS_ARRAYS:
             if kw[name] is not None:
-                kw[name] = torch.from_numpy(np.array(kw[name]))
+                kw[name] = from_numpy(np.array(kw[name]))
         passes.append(ELLGPass(**kw))
     rest = arrays.get("rest_state")
     if arrays["rest_fmt"] == "bkt_g":
@@ -474,13 +479,13 @@ def spmv(state: ELLGState, x: torch.Tensor) -> torch.Tensor:
     RB = cdiv(max(state.n_row, 1), LANES)
     xp = torch.zeros(CBtot * LANES, dtype=x.dtype, device=x.device)
     xp[: state.n_col] = x
-    y2 = torch.zeros(RB, LANES, dtype=x.dtype, device=x.device)
+    y2 = torch.zeros(RB, LANES, dtype=acc_dtype(x.dtype), device=x.device)
     for p in state.passes:
         lo = p.panel_base * LANES
         xpan = xp[lo: lo + p.panel_cb * LANES].view(p.panel_cb, LANES)
         prod = block_gather_mul(p.members, p.lane, p.src, p.val, xpan, p.m,
                                 gran=LANES)
-        part = prod.view(-1, p.t).sum(dim=1).view(p.n_blocks, LANES)
+        part = acc(prod).view(-1, p.t).sum(dim=1).view(p.n_blocks, LANES)
         if p.full:
             k = min(p.n_blocks, RB)
             y2[:k] += part[:k]
@@ -488,8 +493,8 @@ def spmv(state: ELLGState, x: torch.Tensor) -> torch.Tensor:
             y2.index_add_(0, p.blocks, part)
     y = y2.view(-1)[: state.n_row]
     if state.rest_fmt:
-        y = y + REST_MODULES[state.rest_fmt].spmv(state.rest_state, x)
-    return y
+        y = y + acc_spmv(REST_MODULES[state.rest_fmt])(state.rest_state, x)
+    return y.to(x.dtype)
 
 
 def spmm(state: ELLGState, X: torch.Tensor) -> torch.Tensor:
@@ -508,7 +513,7 @@ def report_fields(state: ELLGState, cfg: Config) -> dict:
 
 
 def traffic_bytes(state: ELLGState, cfg: Config) -> int:
-    vsz = np.dtype(cfg.dtype).itemsize
+    vsz = value_size(cfg.dtype)
     main = 0
     for p in state.passes:
         per_slot = vsz + 1 + (1 if p.m > 1 else 0)
@@ -527,7 +532,7 @@ def to_coo(state: ELLGState) -> COOMatrix:
     rows_l, cols_l, vals_l = [], [], []
     for p in state.passes:
         N = p.n_blocks * 128 * p.t
-        val = p.val.cpu().numpy().reshape(-1)
+        val = to_host(p.val).reshape(-1)
         lane = p.lane.cpu().numpy().reshape(-1).astype(np.int64)
         mem = p.members.cpu().numpy().reshape(-1, p.m).astype(np.int64)
         src = (p.src.cpu().numpy().reshape(-1).astype(np.int64)

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..core.dtypes import value_size
 from ..core.types import COOMatrix
 from .base import TensorState, check_dtype
 
@@ -46,6 +47,10 @@ def convert(coo: COOMatrix, cfg: Config) -> HostLibState:
     import scipy.sparse as sp
 
     check_dtype("hostlib", cfg.dtype)
+    if cfg.dtype == "bfloat16":
+        # the reference's scipy path refuses it the same way
+        raise ValueError("hostlib: scipy.sparse does not support dtype "
+                         "bfloat16")
     mat = sp.csr_matrix(
         (coo.val.astype(cfg.np_dtype), (coo.row, coo.col)),
         shape=(max(coo.n_row, 1), max(coo.n_col, 1)))
@@ -99,6 +104,6 @@ def report_fields(state: HostLibState, cfg: Config) -> dict:
 
 def traffic_bytes(state: HostLibState, cfg: Config) -> int:
     # the standard CSR traffic model (CSR5's detail/utils.h:10-14)
-    vsz = np.dtype(cfg.dtype).itemsize
+    vsz = value_size(cfg.dtype)
     return ((state.n_row + 1 + state.nnz) * 4
             + (2 * state.nnz + state.n_row) * vsz)

@@ -19,7 +19,9 @@ passed over for the next.
 reference vmaps it, plus the residual's ``spmm`` where its engine has one,
 else the column loop of the residual's spmv.
 
-Values are float32 or float64 (``base.check_dtype``).
+Values are float32, float64 or bfloat16 (``base.check_dtype``); at
+bfloat16 the peel and the residual are summed in float32 and y is rounded
+once.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..core.dtypes import to_host
 from ..core.types import COOMatrix, round_up
 
 from . import bkt as bkt_mod
@@ -38,7 +41,8 @@ from . import css as css_mod
 from . import dia as dia_mod
 from . import slab as slab_mod
 from . import xch as xch_mod
-from .base import TensorState, check_dtype, column_loop, module_spmm
+from .base import (TensorState, acc_spmv, check_dtype, column_loop,
+                   module_spmm)
 
 # the reference's cost-model constants (TPU v5e, measured there)
 HBM_BPS = 700e9          # streamed bytes/s achieved
@@ -147,10 +151,27 @@ def convert(coo: COOMatrix, cfg: Config) -> HYBState:
 
 
 def spmv(state: HYBState, x: torch.Tensor) -> torch.Tensor:
-    y = dia_mod.spmv(state.dia_state, x)
+    """The peel and the residual summed in the accumulator type, y rounded
+    once to x's type."""
+    y = dia_mod.spmv_acc(state.dia_state, x)
     if state.rest_fmt:
-        y = y + REST_MODULES[state.rest_fmt].spmv(state.rest_state, x)
-    return y
+        y = y + acc_spmv(REST_MODULES[state.rest_fmt])(state.rest_state, x)
+    return y.to(x.dtype)
+
+
+def adds_per_row(state: HYBState) -> np.ndarray:
+    """The residual engine's k_i (``base.adds_per_row``), and one more on
+    each row the peel touches: the peel's sum has a fixed order, but
+    y = fl(d + s) rounds once more, by an amount that moves with the
+    residual's s."""
+    if not state.rest_fmt:
+        return np.zeros(state.n_row, np.int64)
+    mod = REST_MODULES[state.rest_fmt]
+    fn = getattr(mod, "adds_per_row", None)
+    k = fn(state.rest_state) if fn is not None \
+        else mod.to_coo(state.rest_state).row_lengths()
+    peel = (to_host(state.dia_state.diag) != 0).any(axis=0)
+    return k + peel[: state.n_row]
 
 
 def spmm(state: HYBState, X: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..core.dtypes import to_host, value_tensor
 from ..core.types import COOMatrix, round_up
 from .base import TensorState, check_dtype
 from .ell import _ell_arrays, mul
@@ -52,7 +53,8 @@ def convert(coo: COOMatrix, cfg: Config) -> JDSState:
     col, val = _ell_arrays(permuted, k, n_row_pad, cfg.index_dtype,
                            cfg.np_dtype)
     return JDSState(n_row=coo.n_row, n_col=coo.n_col, nnz=coo.nnz, k=k,
-                    n_row_pad=n_row_pad, col=_t(col), val=_t(val),
+                    n_row_pad=n_row_pad, col=_t(col),
+                    val=value_tensor(val, cfg.dtype),
                     inv_perm=_t(inv_perm.astype(cfg.index_dtype)))
 
 
@@ -62,7 +64,7 @@ def reduce(state: JDSState, products: torch.Tensor) -> torch.Tensor:
 
 
 def spmv(state: JDSState, x: torch.Tensor) -> torch.Tensor:
-    return reduce(state, mul(state, x))
+    return reduce(state, mul(state, x)).to(x.dtype)
 
 
 def phases(state: JDSState):
@@ -76,7 +78,7 @@ def report_fields(state: JDSState, cfg: Config) -> dict:
 def to_coo(state: JDSState) -> COOMatrix:
     """Inverse conversion; rows back in place (explicit zeros dropped)."""
     col = state.col.cpu().numpy()
-    val = state.val.cpu().numpy()
+    val = to_host(state.val)
     perm = np.argsort(state.inv_perm.cpu().numpy(), kind="stable")
     k, r = np.nonzero(val)
     return COOMatrix.from_triplets(state.n_row, state.n_col, perm[r],

@@ -31,8 +31,9 @@ one ``slab_spmm`` per stream chunk in unit mode, on the interleaved panel
 overlap-adds the halves of pair blocks and scatters by unit id; elsewhere
 it loops ``spmv`` over the columns.
 
-Values are float32 or float64; bfloat16 raises ``NotImplementedError``
-(ROADMAP A.10).  At float64 the planner takes the reference's float64
+Values are float32, float64 or bfloat16.  At bfloat16 val and the x table
+are ``torch.bfloat16`` (2 bytes a slot), the kernel sums in float32 into a
+float32 y, and ``spmv`` rounds y once to bfloat16.  At float64 the planner takes the reference's float64
 branch, unit mode only and priced ×``DF_COST``, so one COO gives the same
 plan and arrays in both packages; the state holds ``val`` as float64 where
 the reference splits it into (hi, lo) float32 planes, and the unit kernel
@@ -49,11 +50,13 @@ import torch
 from ..config import Config
 from ..core import chipconst as _cc
 from ..core import hostmem as hm
+from ..core.dtypes import (acc_dtype, from_numpy, to_host, value_size,
+                           value_tensor)
 from ..core.types import COOMatrix, cdiv
 
 from ..ops.slab import (MERGE_SMEM, MERGE_WARPS, PANEL_TYPES, slab_spmm,
                         slab_spmv_rows)
-from .base import TensorState, check_dtype, column_loop
+from .base import TensorState, check_dtype, check_spmm_dtype, column_loop
 
 STATE_REV = 1   # bump with a change of the layout (formats/cache.py)
 LANES = 128
@@ -393,8 +396,7 @@ def estimate(coo: COOMatrix, cfg: Config) -> dict:
     if coo.nnz == 0 or coo.n_row == 0:
         return {"feasible": False, "est_s": 0.0, "slots": 0, "m": 1, "t": 32,
                 "hub_cols": None, "cols_eff": None, "hub_off": 0}
-    if cdiv(coo.n_col, LANES) * LANES * np.dtype(cfg.dtype).itemsize \
-            > X_TABLE_CAP:
+    if cdiv(coo.n_col, LANES) * LANES * value_size(cfg.dtype) > X_TABLE_CAP:
         return {"feasible": False, "est_s": float("inf"), "slots": 0,
                 "m": 1, "t": 32, "hub_cols": None, "cols_eff": None,
                 "hub_off": 0}
@@ -621,7 +623,7 @@ def convert(coo: COOMatrix, cfg: Config, plan: dict = None) -> SlabState:
         w_t.append(_t(win_b[r0:r1]))
         la_t.append(_t(lane[r0:r1]))
         su_t.append(_t(sub[r0:r1]))
-        va_t.append(_t(val[r0:r1]))
+        va_t.append(value_tensor(val[r0:r1], cfg.dtype))
         hm_t.append(_t(hm1[r0:r1]))
         ix_t.append(_t(idx[:, r0:r1]))
         if sig is not None:
@@ -639,7 +641,7 @@ def convert(coo: COOMatrix, cfg: Config, plan: dict = None) -> SlabState:
         uids=tuple(u_t), win=tuple(w_t),
         lane=tuple(la_t), sub=tuple(su_t), val=tuple(va_t),
         hm1=tuple(hm_t), idx=tuple(ix_t),
-        unit_ids=_t(unit_ids), lo_mask=_t(lo_mask),
+        unit_ids=_t(unit_ids), lo_mask=value_tensor(lo_mask, cfg.dtype),
         hub_cols=_t(hub_cols) if hub_cols is not None else None,
         sig=tuple(sg_t) if sig is not None else None,
         sg0=tuple(s0_t) if sg0_s is not None else None,
@@ -753,11 +755,29 @@ def route_rows(state) -> dict:
         ybases.append(_t(ybase.astype(np.int32)))
         dests.append(_t(dest))
         u0 += nu_c
-    vsz = np.asarray(state.val[0]).dtype.itemsize
+    vsz = acc_dtype(state.val[0].dtype).itemsize     # the spans' sums
     merge = (n_ends >= MERGE_ENDS * max(n_rows, 1)
              and MERGE_WARPS * span * vsz <= MERGE_SMEM)
     return dict(ybase=tuple(ybases), dest=tuple(dests),
                 merge=span if merge else 0)
+
+
+def adds_per_row(state: SlabState) -> np.ndarray:
+    """(n_row,) int64: the run totals ``spmv`` adds into each y row, one a
+    run end of the ``dest`` streams.  On the card their order of addition
+    is free (``core/oracle.py:reorder_bound``)."""
+    k = np.zeros(state.n_row, np.int64)
+    if state.nnz == 0 or state.n_units == 0:
+        return k
+    for yb, d in zip(state.ybase, state.dest):
+        d, yb = to_host(d).astype(np.int64), to_host(yb).astype(np.int64)
+        r, lane = np.nonzero(d >= 0)
+        e = d[r, lane]
+        base = yb[r // state.t_step, e >> 7]
+        pos = base + (e & (LANES - 1))
+        k += np.bincount(pos[(base >= 0) & (pos < state.n_row)],
+                         minlength=state.n_row)
+    return k
 
 
 def with_routes(state: SlabState) -> SlabState:
@@ -788,9 +808,9 @@ def state_from_reference(arrays: dict) -> SlabState:
             continue
         v = arrays.get(f.name)
         if f.name in _ARRAY_FIELDS and v is not None:
-            v = tuple(torch.from_numpy(np.array(a)) for a in v) \
+            v = tuple(from_numpy(np.array(a)) for a in v) \
                 if isinstance(v, (tuple, list)) \
-                else torch.from_numpy(np.array(v))
+                else from_numpy(np.array(v))
         kw[f.name] = v
     state = SlabState(**kw)
     for v in state.val:
@@ -815,11 +835,13 @@ def x_table(state: SlabState, x: torch.Tensor) -> torch.Tensor:
     return xp.view((state.cb_pad, LANES) + x.shape[1:])
 
 
-def spmv(state: SlabState, x: torch.Tensor) -> torch.Tensor:
+def spmv_acc(state: SlabState, x: torch.Tensor) -> torch.Tensor:
+    """y = A x in the accumulator type (float32 for bfloat16 values): the
+    kernels add into it."""
     if x.dtype != state.val[0].dtype:
         raise TypeError(f"slab: x is {x.dtype}, the state holds "
                         f"{state.val[0].dtype} values")
-    y = torch.zeros(state.n_row, dtype=x.dtype, device=x.device)
+    y = torch.zeros(state.n_row, dtype=acc_dtype(x.dtype), device=x.device)
     if state.nnz == 0 or state.n_units == 0:
         return y
     xp = x_table(state, x)
@@ -829,6 +851,11 @@ def spmv(state: SlabState, x: torch.Tensor) -> torch.Tensor:
         slab_spmv_rows(yb, w, la, su, va, h1, d, xp, y, state.m,
                        state.t_step, state.merge)
     return y
+
+
+def spmv(state: SlabState, x: torch.Tensor) -> torch.Tensor:
+    """y = A x, rounded once to x's type."""
+    return spmv_acc(state, x).to(x.dtype)
 
 
 PANEL_B_MAX = 32           # the reference's panel kernel unrolls B in-kernel
@@ -847,6 +874,7 @@ def spmm(state: SlabState, X: torch.Tensor) -> torch.Tensor:
     if X.dtype != state.val[0].dtype:
         raise TypeError(f"slab: X is {X.dtype}, the state holds "
                         f"{state.val[0].dtype} values")
+    check_spmm_dtype("slab", X.dtype)
     n_cols = X.shape[1]
     table_bytes = state.cb_pad * LANES * X.element_size()
     if (state.mode != "unit" or state.nnz == 0 or state.n_units == 0
@@ -885,7 +913,7 @@ def report_fields(state: SlabState, cfg: Config) -> dict:
 
 
 def traffic_bytes(state: SlabState, cfg: Config) -> int:
-    vsz = np.dtype(cfg.dtype).itemsize
+    vsz = value_size(cfg.dtype)
     if state.mode == "blk":
         per_slot = vsz + 4 + state.idx[0].shape[0]   # lane/sub/hm1/sig + kblk
     else:
@@ -897,7 +925,7 @@ def traffic_bytes(state: SlabState, cfg: Config) -> int:
 def to_coo(state: SlabState) -> COOMatrix:
     """Reassemble the chunked stream on the host (inverse of convert)."""
     def cat(t, ax=0):
-        return np.concatenate([a.cpu().numpy() for a in t], axis=ax)
+        return np.concatenate([to_host(a) for a in t], axis=ax)
 
     lane = cat(state.lane).astype(np.int64)
     sub = cat(state.sub).astype(np.int64)

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..core.dtypes import acc, to_host, value_size, value_tensor
 from ..core.types import COOMatrix, round_up
 from ..ops.segscan import segmented_scan_tiles
 from ..ops.segsum import combine_runs, segmented_scan_inclusive
@@ -134,7 +135,8 @@ def build_stream(coo: COOMatrix, cfg: Config, *, rows=None, cols=None,
         n_row=coo.n_row, n_col=coo.n_col, nnz=nnz, w=w, h=h, r_max=r_max,
         variant=cfg.variant, n_step=n_step,
         step_counts=step_counts, sorted_combine=sorted_combine,
-        col=_t(col_s.reshape(h, w)), val=_t(val_s.reshape(h, w)),
+        col=_t(col_s.reshape(h, w)),
+        val=value_tensor(val_s.reshape(h, w), cfg.dtype),
         heads=_t(heads2d.astype(np.uint8)), end_pos=_t(end_pos),
         rank_rows=_t(rank_rows), run_pos=_t(run_pos), run_rows=_t(run_rows),
         **extra)
@@ -163,18 +165,27 @@ def mul(state: SSState, x: torch.Tensor) -> torch.Tensor:
 
 
 def scan(state: SSState, products: torch.Tensor) -> torch.Tensor:
+    """The scan of the products, in the accumulator type (float32 for
+    bfloat16 products)."""
     if state.variant == "optimized":
         return segmented_scan_tiles(products, state.heads)
-    return segmented_scan_inclusive(products, state.heads)
+    return segmented_scan_inclusive(acc(products), state.heads)
 
 
 def reduce(state: SSState, scanned: torch.Tensor) -> torch.Tensor:
     return combine_runs(scanned, state.run_pos, state.run_rows, state.n_row)
 
 
-def spmv(state: SSState, x: torch.Tensor) -> torch.Tensor:
+def spmv_acc(state: SSState, x: torch.Tensor) -> torch.Tensor:
+    """y in the accumulator type: the products are of the value type (at
+    bfloat16 each rounded once, as the reference's), their scan and sums
+    float32."""
     _check_x(state, x)
     return reduce(state, scan(state, mul(state, x)))
+
+
+def spmv(state: SSState, x: torch.Tensor) -> torch.Tensor:
+    return spmv_acc(state, x).to(x.dtype)
 
 
 def phases(state: SSState):
@@ -184,7 +195,7 @@ def phases(state: SSState):
 def step_init(state: SSState, x: torch.Tensor) -> torch.Tensor:
     """The packed (2, H, W) carry of the step timing: the products and the
     run heads as values."""
-    prod = mul(state, x)
+    prod = acc(mul(state, x))
     return torch.stack([prod, state.heads.to(prod.dtype)])
 
 
@@ -213,7 +224,7 @@ def step_fns(state: SSState):
 
 
 def report_fields(state: SSState, cfg: Config) -> dict:
-    vsz = np.dtype(cfg.dtype).itemsize
+    vsz = value_size(cfg.dtype)
     out = {"nStep": state.n_step, "SEGMENT_WIDTH(byte)": state.w * vsz,
            "R_max": state.r_max}
     for i, c in enumerate(state.step_counts):
@@ -223,7 +234,7 @@ def report_fields(state: SSState, cfg: Config) -> dict:
 
 def traffic_bytes(state: SSState, cfg: Config) -> int:
     isz = 4 if cfg.index_bits == 32 else 8
-    vsz = np.dtype(cfg.dtype).itemsize
+    vsz = value_size(cfg.dtype)
     stream = state.h * state.w
     combine = state.h * state.r_max
     return (stream * (isz + vsz)       # col + val reads
@@ -244,7 +255,7 @@ def to_coo(state: SSState) -> COOMatrix:
     rows = stream_rows(state.heads.cpu().numpy(),
                        state.rank_rows.cpu().numpy())
     col = state.col.cpu().numpy()
-    val = state.val.cpu().numpy()
+    val = to_host(state.val)
     keep = (rows < state.n_row) & (val != 0)
     return COOMatrix.from_triplets(state.n_row, state.n_col, rows[keep],
                                    col[keep], val[keep], sort=True)

@@ -42,8 +42,11 @@ where the state has no long-row state.  ``spmm`` runs
 row's B values contiguous, the out rows in Y's own layout) and places the
 visited out groups into Y, under the reference's gates.
 
-Values are float32 or float64; bfloat16 raises ``NotImplementedError``
-(ROADMAP A.10).  The layout at float64 is the float32 layout, as in the
+Values are float32, float64 or bfloat16.  At bfloat16 ``val1``, the x
+table, the product grid and ``dia_vals`` are ``torch.bfloat16``; pass 2
+and the peeled bands sum in float32 into a float32 y, which ``spmv`` rounds
+once (the grid is bfloat16, as the reference's: half the traffic between
+the passes, each product rounded once).  The layout at float64 is the float32 layout, as in the
 reference; the state holds ``val1`` and ``dia_vals`` as float64 where the
 reference splits them into (hi, lo) float32 planes, and both kernels run at
 native fp64.
@@ -59,12 +62,14 @@ import torch
 from ..config import Config
 from ..core import chipconst as _cc
 from ..core import hostmem as hm
+from ..core.dtypes import (acc, acc_dtype, from_numpy, to_host, value_size,
+                           value_tensor)
 from ..core.types import COOMatrix, cdiv
 
 from ..ops.slab import PANEL_TYPES
 from ..ops.xch import MERGE_SMEM, xch_mul, xch_mul_panel, xch_route4_panel, \
     xch_route4_rows
-from .base import TensorState, check_dtype, column_loop
+from .base import TensorState, check_dtype, check_spmm_dtype, column_loop
 from .slab import _t, _walk
 
 STATE_REV = 1   # bump with a change of the layout (formats/cache.py)
@@ -467,7 +472,7 @@ def _convert_v4(coo: COOMatrix, cfg: Config, p: dict) -> Xch4State:
                 minlength=len(offs) * nr).reshape(len(offs), nr)
             planes = planes.astype(dtype)
             dia_offs = tuple(int(o) for o in offs)
-            dia_vals_dev = _t(planes)
+            dia_vals_dev = value_tensor(planes, cfg.dtype)
             keep = ~mask_d
             rows0, cols0, vals0 = rows0[keep], cols0[keep], vals0[keep]
             if len(rows0) == 0:
@@ -743,7 +748,7 @@ def _convert_v4(coo: COOMatrix, cfg: Config, p: dict) -> Xch4State:
         w1_t.append(_t(l1["win1"][r0:r1]))
         la1_t.append(_t(l1["lane1"][r0:r1]))
         su1_t.append(_t(l1["sub1"][r0:r1]))
-        va1_t.append(_t(l1["val1"][r0:r1]))
+        va1_t.append(value_tensor(l1["val1"][r0:r1], cfg.dtype))
 
     cb_tot = cdiv(max(coo.n_col, 1), LANES)
     return with_routes(Xch4State(
@@ -770,7 +775,7 @@ def _empty_state4(coo, cfg):
         n_slots1=0, n_slots2=0, chunk_ngrp=(0,), long_n=0,
         win1=(_t(hm.zeros(0, np.int32)),),
         lane1=(z8(0, LANES),), sub1=(z8(0, LANES),),
-        val1=(_t(hm.zeros((0, LANES), dtype)),),
+        val1=(value_tensor(hm.zeros((0, LANES), dtype), cfg.dtype),),
         gids2=(_t(hm.zeros(0, np.int32)),),
         off2=(_t(hm.zeros(0, np.int32)),),
         cs2=(_t(hm.zeros(0, np.int32)),),
@@ -787,7 +792,7 @@ def estimate_v4(coo: COOMatrix, cfg: Config, no_long: bool = False) -> dict:
     n_r, n_c, nnz = max(coo.n_row, 1), max(coo.n_col, 1), max(coo.nnz, 1)
     if coo.nnz == 0:
         return {"feasible": False, "est_s": 0.0, "route_v": 4}
-    if cdiv(n_c, LANES) * LANES * np.dtype(cfg.dtype).itemsize > X_TABLE_CAP:
+    if cdiv(n_c, LANES) * LANES * value_size(cfg.dtype) > X_TABLE_CAP:
         return {"feasible": False, "est_s": float("inf"), "route_v": 4}
     # band peel: count the high-fill diagonal mass (cheap bincount) and
     # cost the exchange on the residual only
@@ -1006,10 +1011,32 @@ def route_rows(state) -> dict:
     span = p_oh * LANES
     blocks = sum(d.shape[0] for d in dests) / _rows_per_block(t2)
     hits = n_ends / max(blocks, 1) / (state.kblk * LANES)
-    vsz = np.asarray(state.val1[0]).dtype.itemsize
+    vsz = acc_dtype(state.val1[0].dtype).itemsize    # the spans' sums
     merge = hits >= MERGE_HITS and 8 * span * vsz <= MERGE_SMEM
     return dict(base2=tuple(bases), dest2=tuple(dests),
                 merge2=span if merge else 0)
+
+
+def adds_per_row(state: Xch4State) -> np.ndarray:
+    """(n_row,) int64: the run totals ``spmv`` adds into each y row, one a
+    run end of pass 2's ``dest2`` streams, and the nested long-row state's
+    at its rows.  On the card their order of addition is free
+    (``core/oracle.py:reorder_bound``).  The peeled bands add in a fixed
+    order after them, one more term on each row they touch: y = fl(s + d)
+    rounds once more, by an amount that moves with s."""
+    k = np.zeros(state.n_row, np.int64)
+    if state.dia_vals is not None:
+        k += (to_host(state.dia_vals) != 0).any(axis=0)
+    if state.n_slots1:
+        for b, d in zip(state.base2, state.dest2):
+            d, b = to_host(d).astype(np.int64), to_host(b).astype(np.int64)
+            r, lane = np.nonzero(d >= 0)
+            pos = b[r // state.t2] + d[r, lane]
+            k += np.bincount(pos[pos < state.n_row], minlength=state.n_row)
+    if state.long is not None:
+        k[to_host(state.long_rows).astype(np.int64)] += \
+            adds_per_row(state.long)
+    return k
 
 
 def with_routes(state: Xch4State) -> Xch4State:
@@ -1047,9 +1074,9 @@ def state_from_reference(arrays: dict) -> Xch4State:
         if f.name == "long" and v is not None:
             v = state_from_reference(v)
         elif f.name in _ARRAY_FIELDS and v is not None:
-            v = tuple(torch.from_numpy(np.array(a)) for a in v) \
+            v = tuple(from_numpy(np.array(a)) for a in v) \
                 if isinstance(v, (tuple, list)) \
-                else torch.from_numpy(np.array(v))
+                else from_numpy(np.array(v))
         kw[f.name] = v
     state = Xch4State(**kw)
     for v in state.val1:
@@ -1100,8 +1127,10 @@ def _mul_phase4(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
 
 def _route_phase4(state: Xch4State, prod3: torch.Tensor) -> torch.Tensor:
     """Phase Sum: pass 2, each ``xch_route4_rows`` call adding its run
-    totals into one zeroed y of n_row."""
-    y = torch.zeros(state.n_row, dtype=prod3.dtype, device=prod3.device)
+    totals into one zeroed y of n_row, of the accumulator type (float32
+    for a bfloat16 grid)."""
+    y = torch.zeros(state.n_row, dtype=acc_dtype(prod3.dtype),
+                    device=prod3.device)
     for b, c, w, la, su, h2, d in zip(
             state.base2, state.cs2, state.win2, state.lane2, state.sub2,
             state.hm2, state.dest2):
@@ -1122,18 +1151,28 @@ def phases(state: Xch4State):
     return {"Mul": _mul_phase4, "Sum": _route_phase4}
 
 
-def spmv(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
-    _check_x(state, x)
+def _spmv_acc(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
     if state.n_slots1:
         y = _route_phase4(state, _mul_phase4(state, x))
     else:
-        y = torch.zeros(state.n_row, dtype=x.dtype, device=x.device)
+        y = torch.zeros(state.n_row, dtype=acc_dtype(x.dtype), device=x.device)
     if state.long is not None:
         # long_rows are distinct, so the add is a plain scatter-add
-        y.index_add_(0, state.long_rows.long(), spmv(state.long, x))
+        y.index_add_(0, state.long_rows.long(), _spmv_acc(state.long, x))
     if state.dia_vals is not None:
         y = y + _dia_part(state, x)
     return y
+
+
+def spmv_acc(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
+    """y = A x in the accumulator type (float32 for bfloat16 values)."""
+    _check_x(state, x)
+    return _spmv_acc(state, x)
+
+
+def spmv(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
+    """y = A x, rounded once to x's type."""
+    return spmv_acc(state, x).to(x.dtype)
 
 
 def _dia_part(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
@@ -1146,11 +1185,14 @@ def _dia_part(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
     xp = torch.zeros((max(n, state.n_col) + 2 * mmax,) + x.shape[1:],
                      dtype=x.dtype, device=x.device)
     xp[mmax: mmax + state.n_col] = x
-    acc = torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device)
-    vals = state.dia_vals.view(state.dia_vals.shape + (1,) * (x.dim() - 1))
+    out = torch.zeros((n,) + x.shape[1:], dtype=acc_dtype(x.dtype),
+                      device=x.device)
+    vals = acc(state.dia_vals).view(state.dia_vals.shape
+                                    + (1,) * (x.dim() - 1))
+    xp = acc(xp)
     for k, d in enumerate(offs):
-        acc.addcmul_(vals[k], xp[mmax + d: mmax + d + n])
-    return acc
+        out.addcmul_(vals[k], xp[mmax + d: mmax + d + n])
+    return out
 
 
 PANEL_B_MAX = 16           # the reference's panel gate (its xch.py:2188)
@@ -1166,6 +1208,7 @@ def spmm(state: Xch4State, X: torch.Tensor) -> torch.Tensor:
     if X.dtype != state.val1[0].dtype:
         raise TypeError(f"xch: X is {X.dtype}, the state holds "
                         f"{state.val1[0].dtype} values")
+    check_spmm_dtype("xch", X.dtype)
     n_cols = X.shape[1]
     if (2 <= n_cols <= PANEL_B_MAX and state.n_slots1
             and X.dtype in PANEL_TYPES
@@ -1236,7 +1279,7 @@ def _peel_nnz(state: Xch4State) -> int:
 
 
 def traffic_bytes(state: Xch4State, cfg: Config) -> int:
-    vsz = np.dtype(cfg.dtype).itemsize
+    vsz = value_size(cfg.dtype)
     pass1 = state.n_slots1 * (vsz + 2) + state.n_slots1 * 4
     pass2 = state.n_slots2 * (4 + state.kblk) + state.n_slots1 * 4
     tot = (pass1 + pass2 + state.n_row * vsz
@@ -1250,10 +1293,10 @@ def traffic_bytes(state: Xch4State, cfg: Config) -> int:
 def _to_coo_v4(state: Xch4State) -> COOMatrix:
     """Host-side inverse of the v4 layout."""
     cat = lambda t, ax=0: np.concatenate(  # noqa: E731
-        [a.cpu().numpy() for a in t], axis=ax)
+        [to_host(a) for a in t], axis=ax)
     parts = []
     if state.dia_vals is not None:
-        dv = state.dia_vals.cpu().numpy().astype(np.float64)
+        dv = to_host(state.dia_vals).astype(np.float64)
         for k, d in enumerate(state.dia_offs):
             rr = np.flatnonzero(dv[k] != 0)
             parts.append((rr.astype(np.int64), rr + d, dv[k][rr]))

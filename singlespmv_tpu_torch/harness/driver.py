@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..core.dtypes import to_host, value_tensor
 from ..core.mmio import load_matrix as _load_mtx
 from ..core.oracle import verify_result
 from ..core.rng import create_random_vector
@@ -411,8 +412,7 @@ def run_benchmark(
 
     if x is None:
         x = create_random_vector(coo.n_col)     # deterministic, seed 3
-    x_host = np.asarray(x, dtype=cfg.np_dtype)
-    xd = torch.from_numpy(x_host).to(device)
+    xd = value_tensor(x, cfg.dtype).to(device)   # bfloat16: x rounded
 
     # --- OptimizeProblem: host convert (or the cache's load) plus the move
     # to the device; under format=auto an engine that refuses at its first
@@ -447,8 +447,8 @@ def run_benchmark(
             if cfg.verify:
                 for trial in range(2):
                     y = spmv(state, xd)
-                    ok, vdetails = verify_result(coo, x, y.cpu().numpy(),
-                                                 dtype=cfg.np_dtype)
+                    ok, vdetails = verify_result(coo, x, to_host(y),
+                                                 dtype=cfg.dtype)
                     verify_ok = verify_ok and ok
                     if not ok:
                         log(f"VERIFY FAILED (pass {trial}): {vdetails}")
@@ -576,4 +576,4 @@ def run_benchmark(
         report["MaxRelErr"] = vdetails["max_rel_err"]
 
     return BenchResult(report=report, gflops=gflops, seconds=best, loop=loop,
-                       verify_ok=verify_ok, y=y.cpu().numpy())
+                       verify_ok=verify_ok, y=to_host(y))

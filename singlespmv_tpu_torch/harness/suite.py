@@ -27,6 +27,7 @@ import weakref
 from typing import Callable, Dict, List, Optional
 
 from ..config import Config
+from ..core.dtypes import VALUE_TYPES
 
 # CSR5 AVX2 double-precision GFLOPS a matrix: the reference's committed
 # numbers (BASELINE.md; singleSpMV's opt/Benchmark_SpMV_using_CSR5/
@@ -257,8 +258,7 @@ if __name__ == "__main__":
     ap.add_argument("--out", default=None)
     ap.add_argument("--matrix-dir", default=None)
     ap.add_argument("--append", action="store_true")
-    ap.add_argument("--dtype", default="float32",
-                    choices=["float32", "float64"])
+    ap.add_argument("--dtype", default="float32", choices=VALUE_TYPES)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("names", nargs="*", default=None)
     a = ap.parse_args()

@@ -99,10 +99,12 @@ def run_sweep(
     quick: bool = False,
     manifest_name: str = "manifest.json",
     device="cuda",
+    dtype: str = None,
     log=lambda msg: print(msg, file=sys.stderr),
 ) -> int:
     """Runs every (todo row × matrix) pair not already in the manifest on
-    ``device``; returns the number of failures.
+    ``device``; returns the number of failures.  ``dtype`` sets the value
+    type of the rows that name none.
 
     Idempotence: a JSON manifest records finished (prefix, matrix) pairs,
     the analog of singleSpMV's lockfiles, so an interrupted sweep resumes
@@ -123,6 +125,8 @@ def run_sweep(
     for row in rows:
         prefix = row.get("prefix") or row.get("format", "run")
         cfg = config_from_row(row)
+        if dtype and not row.get("dtype"):
+            cfg = cfg.replace(dtype=dtype)
         for mat in matrices:
             key = f"{prefix}::{get_basename(mat)}"
             if manifest.get(key) == "done":

@@ -51,11 +51,13 @@ SIGNATURES = {
     # ybase win lane sub val hm1 dest x y | H T m planes n_y span | stream
     "slab_spmv_rows_f32": [_P] * 9 + [_I] * 6 + [_P],
     "slab_spmv_rows_f64": [_P] * 9 + [_I] * 6 + [_P],
+    "slab_spmv_rows_bf16": [_P] * 9 + [_I] * 6 + [_P],
     # uids sg0 sg1 win lane sub val hm1 idx x out | H T m planes B | stream
     "slab_spmm_f32": [_P] * 11 + [_I] * 5 + [_P],
     # win lane sub val x out | H T m | stream
     "xch_mul_f32": [_P] * 6 + [_I] * 3 + [_P],
     "xch_mul_f64": [_P] * 6 + [_I] * 3 + [_P],
+    "xch_mul_bf16": [_P] * 6 + [_I] * 3 + [_P],
     # gids off cs win lane sub hm1 sig idx prod out
     # | H T m kblk p_oh n_grp gb p1 | stream
     "xch_route4_f32": [_P] * 11 + [_I] * 8 + [_P],
@@ -63,6 +65,7 @@ SIGNATURES = {
     # base cs win lane sub hm1 dest prod y | H T m p1 n_y span | stream
     "xch_route4_rows_f32": [_P] * 9 + [_I] * 6 + [_P],
     "xch_route4_rows_f64": [_P] * 9 + [_I] * 6 + [_P],
+    "xch_route4_rows_bf16": [_P] * 9 + [_I] * 6 + [_P],
     # win lane sub val x out | H T m B | stream
     "xch_mul_panel_f32": [_P] * 6 + [_I] * 4 + [_P],
     # gids off cs win lane sub hm1 sig idx prod out
@@ -73,20 +76,24 @@ SIGNATURES = {
     "xch_route_f32": [_P] * 11 + [_I] * 8 + [_P],
     # members lane src val x out | H W gran m | stream
     "block_gather_mul_f32": [_P] * 6 + [_I] * 4 + [_P],
+    "block_gather_mul_bf16": [_P] * 6 + [_I] * 4 + [_P],
     # prod hm1 idx out | rb_pad G K | stream
     "bucket_reduce_f32": [_P] * 4 + [_I] * 3 + [_P],
     # prod hm1 idx out | CB nu_pad K | stream
     "bucket_reduce_grouped_f32": [_P] * 4 + [_I] * 3 + [_P],
     # prod hm1r dest yrow y | H sh nu_pad rg n_y parts | stream
     "bucket_rows_f32": [_P] * 5 + [_I] * 6 + [_P],
+    "bucket_rows_bf16": [_P] * 5 + [_I] * 6 + [_P],
     # yt src_lane src_chunk out | rows cols | stream
     "lane_unpermute_f32": [_P] * 4 + [_I] * 2 + [_P],
     # prod heads out | H W | stream
     "segmented_scan_tiles_f32": [_P] * 3 + [_I] * 2 + [_P],
     "segmented_scan_tiles_f64": [_P] * 3 + [_I] * 2 + [_P],
+    "segmented_scan_tiles_bf16": [_P] * 3 + [_I] * 2 + [_P],
     # bids col val heads x out | H W B | stream
     "block_gather_scan_f32": [_P] * 6 + [_I] * 3 + [_P],
     "block_gather_scan_f64": [_P] * 6 + [_I] * 3 + [_P],
+    "block_gather_scan_bf16": [_P] * 6 + [_I] * 3 + [_P],
     # col val x blk sub sel out | n w kind a b | stream
     "probe_gather_f32": [_P] * 7 + [_I] * 5 + [_P],
     "probe_gather_bf16": [_P] * 7 + [_I] * 5 + [_P],

@@ -14,10 +14,13 @@ Values are float32 or float64, the same for val, the x table and the
 output.  At float64 the native-fp64 build of the kernel runs, which stands
 for the df64 kernel ``block_gather_scan_df`` (:144) of the reference, so
 one call takes one value array where the reference takes (hi, lo) planes.
+At bfloat16 val and the x table are read as 2 bytes and the products, the
+scan and the output are float32 (``acc_dtype``).
 The heads are bool or uint8, W a multiple of 4.  An empty stream launches
 nothing.  The wrapper counts the launches of its float32 kernel in
-``block_gather_scan.launches`` and of its float64 kernel in
-``block_gather_scan.launches_f64``.
+``block_gather_scan.launches``, of its float64 kernel in
+``block_gather_scan.launches_f64`` and of its bfloat16 kernel in
+``block_gather_scan.launches_bf16``.
 """
 from __future__ import annotations
 
@@ -25,7 +28,9 @@ import torch
 
 from .segscan import check_heads, check_width
 from .segsum import segmented_scan_inclusive
-from .slab import LANES, _check, _count, _entry, _ptr, _raise_on, value_type
+from ..core.dtypes import acc, acc_dtype
+from .slab import (LANES, SPMV_TYPES, _check, _count, _entry, _ptr,
+                   _raise_on, value_type)
 from .xch import _device, _stream
 
 TILE_ROWS = 8       # stream rows of a tile; a tile reads one x block
@@ -41,7 +46,7 @@ def block_gather_scan_ref(tile_block_ids, col, val, heads, x_table):
     bid = tile_block_ids.long().repeat_interleave(TILE_ROWS)[:h, None]
     lane = col.long() - bid * LANES
     g = x_table.reshape(-1)[bid * LANES + lane]
-    return segmented_scan_inclusive(val * g, heads)
+    return segmented_scan_inclusive(acc(val) * acc(g), heads)
 
 
 def block_gather_scan(tile_block_ids, col, val, heads, x_table):
@@ -49,16 +54,16 @@ def block_gather_scan(tile_block_ids, col, val, heads, x_table):
 
     tile_block_ids: (ceil(H/8),) int32 — the x block of each (8, W) tile.
     col:            (H, W) int32 global columns, inside the tile's block.
-    val:            (H, W) float32 or float64.
+    val:            (H, W) float32, float64 or bfloat16.
     heads:          (H, W) bool or uint8, nonzero at each run's start.
     x_table:        (B, 128) of val's type — x padded to 128-lane rows.
-    Returns (H, W) of val's type."""
+    Returns (H, W) of ``acc_dtype`` of val's type (float32 for bfloat16)."""
     dev = _device(x_table)
     if col.dim() != 2:
         raise ValueError(f"col has shape {tuple(col.shape)}, expected (H, W)")
     h, w = col.shape
     check_width(w)
-    vt = value_type(val)
+    vt = value_type(val, SPMV_TYPES)
     _check("col", col, torch.int32, (h, w), dev)
     _check("val", val, vt, (h, w), dev)
     check_heads(heads, (h, w), dev)
@@ -71,7 +76,7 @@ def block_gather_scan(tile_block_ids, col, val, heads, x_table):
     if dev.type == "cpu":
         return block_gather_scan_ref(tile_block_ids, col, val, heads,
                                      x_table)
-    out = torch.empty(h, w, dtype=vt, device=dev)  # all written
+    out = torch.empty(h, w, dtype=acc_dtype(vt), device=dev)  # all written
     if h:
         rc = _entry("block_gather_scan", vt)(
             *map(_ptr, (tile_block_ids, col, val, heads, x_table, out)), h,
@@ -82,3 +87,4 @@ def block_gather_scan(tile_block_ids, col, val, heads, x_table):
 
 
 block_gather_scan.launches = block_gather_scan.launches_f64 = 0
+block_gather_scan.launches_bf16 = 0

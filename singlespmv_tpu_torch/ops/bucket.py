@@ -17,9 +17,15 @@ CUDA tensor a wrapper launches its kernel, or raises; on a CPU tensor it
 runs the plain version (``*_ref``), which the tests hold against the Pallas
 kernels and ``chip_smoke.py`` holds against the kernels on the card.
 
-Values are float32 only: the reference's bkt refuses float64 on its chip, and
-every wrapper raises ``TypeError`` on another value type.  Each wrapper
-counts the launches of its kernel in ``<wrapper>.launches``.
+Values are float32, and on the spmv path (``block_gather_mul``,
+``bucket_rows``) also bfloat16 (``STAGE_TYPES``): the reference's bkt
+refuses float64 on its chip, and every wrapper raises ``TypeError`` on
+another value type.  At bfloat16 stage A reads val and the x table as 2
+bytes and writes bfloat16 products (each rounded once, as the reference's
+are ``val.dtype``), and stage B reads them as 2 bytes and sums in float32
+into a float32 y, which the caller rounds once.  Each wrapper counts the
+launches of its float32 kernel in ``<wrapper>.launches`` and of its
+bfloat16 kernel in ``<wrapper>.launches_bf16``.
 """
 from __future__ import annotations
 
@@ -27,11 +33,14 @@ import ctypes
 
 import torch
 
+from ..core.dtypes import acc
 from . import _build
-from .slab import LANES, _check, _picked, _ptr, _raise_on, _totals
+from .slab import (LANES, _check, _count, _entry, _picked, _ptr, _raise_on,
+                   _totals, value_type)
 from .xch import _device, _stream
 
 SIGMAS = 8          # 128-row blocks of a 1024-row unit
+STAGE_TYPES = (torch.float32, torch.bfloat16)   # the spmv path's values
 ROW_GROUPS = {128: torch.int8, 1024: torch.int16}   # rg → dest type
 
 
@@ -46,8 +55,8 @@ def block_gather_mul_ref(members, lane, src, val, x_table, m: int = 1,
     j = src.reshape(-1).long() if m > 1 else torch.zeros_like(s)
     member = members.long()[(s // gran) * m + j.clamp(0, m - 1)]
     g = x_table.reshape(-1)[member * LANES + lane.reshape(-1).long()]
-    g = torch.where((j >= 0) & (j < m), g, 0.0)
-    return val * g.view(h, w)
+    g = torch.where((j >= 0) & (j < m), acc(g), 0.0)
+    return (acc(val) * g.view(h, w)).to(val.dtype)
 
 
 def bucket_reduce_ref(products, hm1, idx, rb_pad: int):
@@ -85,10 +94,11 @@ def bucket_reduce_grouped_ref(prod_grid, hm1, idx, nu_pad: int,
 def bucket_rows_ref(prod, hm1r, dest, yrow, y, sh: int, nu_pad: int,
                     parts: int = 0):
     """Plain version of ``bucket_rows``: ``index_add_`` of the run totals
-    at their y rows (``parts`` picks a kernel, not a function)."""
+    at their y rows (``parts`` picks a kernel, not a function); bfloat16
+    products are widened and summed in float32."""
     h = prod.shape[0]
     rg = yrow.numel() // nu_pad
-    w = _totals(prod, hm1r)
+    w = _totals(acc(prod), hm1r)
     unit = (torch.arange(h, device=prod.device) // sh) % nu_pad
     d = dest.long()
     inside = (d >= 0) & (d < rg)
@@ -118,8 +128,9 @@ def block_gather_mul(members, lane, src, val, x_table, m: int = 1,
 
     members: (H·W/gran·m,) int32; lane, src: (H, W) int8 (src unread if
     m == 1, and then it may be None: the kernel gets a null pointer, as
-    ellg's passes of one member carry none); val: (H, W) float32;
-    x_table: (CB, 128) float32.  Returns (H, W) float32."""
+    ellg's passes of one member carry none); val: (H, W) float32 or
+    bfloat16; x_table: (CB, 128) of val's type.  Returns (H, W) of val's
+    type."""
     dev = _device(x_table)
     h, w = lane.shape
     gran = w if gran is None else gran
@@ -131,22 +142,23 @@ def block_gather_mul(members, lane, src, val, x_table, m: int = 1,
         raise ValueError(f"stage A with m={m} needs src")
     if src is not None:
         _check("src", src, torch.int8, (h, w), dev)
-    _check("val", val, torch.float32, (h, w), dev)
+    vt = value_type(val, STAGE_TYPES)
+    _check("val", val, vt, (h, w), dev)
     _check("members", members, torch.int32, (h * w // gran * m,), dev)
     if x_table.dim() != 2 or x_table.shape[1] != LANES:
         raise ValueError(f"x_table has shape {tuple(x_table.shape)}, "
                          f"expected (CB, {LANES})")
-    _check("x_table", x_table, torch.float32, x_table.shape, dev)
+    _check("x_table", x_table, vt, x_table.shape, dev)
     if dev.type == "cpu":
         return block_gather_mul_ref(members, lane, src, val, x_table, m, gran)
-    out = torch.empty(h, w, dtype=torch.float32, device=dev)  # all written
+    out = torch.empty(h, w, dtype=vt, device=dev)  # all written
     if h:
         src_p = ctypes.c_void_p(None) if src is None else _ptr(src)
-        rc = _build.load().block_gather_mul_f32(
+        rc = _entry("block_gather_mul", vt)(
             _ptr(members), _ptr(lane), src_p, _ptr(val), _ptr(x_table),
             _ptr(out), h, w, gran, m, _stream(dev))
         _raise_on(rc, "block_gather_mul")
-        block_gather_mul.launches += 1
+        _count(block_gather_mul, vt)
     return out
 
 
@@ -230,14 +242,16 @@ def bucket_rows(prod, hm1r, dest, yrow, y, sh: int, nu_pad: int,
     """Stage B on the run-end stream: adds each run total of the product
     stream into ``y`` at its row; returns ``y``.
 
-    prod:  (H, 128) float32 — stage A's products in their own order, stream
+    prod:  (H, 128) float32 or bfloat16 — stage A's products in their own
+           order, stream
            row r = (c·nu_pad + n)·sh + j of unit n (H a multiple of
            nu_pad·sh).
     hm1r:  (H, 128) int8 — lane of the run head − 1, in the same order.
     dest:  (H, 128) int8 (rg = 128) or int16 (rg = 1024) — at a run's end
            slot, its row in unit n's rg rows; −1 on every other slot.
     yrow:  (nu_pad·rg,) int32 — y row of unit row n·rg + d; −1 dropped.
-    y:     (n,) float32, zeroed by the caller; rows at or past n are dropped.
+    y:     (n,) float32 (for either product type), zeroed by the caller;
+           rows at or past n are dropped.
     parts: 0, a warp a stream row with a reduction a run end; else the
            merge kernel, ``parts`` blocks a unit summing their warps' rows
            in shared memory before a reduction a y row
@@ -257,7 +271,8 @@ def bucket_rows(prod, hm1r, dest, yrow, y, sh: int, nu_pad: int,
                          f"(nu_pad·rg,) with rg in {tuple(ROW_GROUPS)}")
     if parts < 0:
         raise ValueError(f"{parts} parts a unit")
-    _check("prod", prod, torch.float32, (h, LANES), dev)
+    vt = value_type(prod, STAGE_TYPES)
+    _check("prod", prod, vt, (h, LANES), dev)
     _check("hm1r", hm1r, torch.int8, (h, LANES), dev)
     _check("dest", dest, ROW_GROUPS[rg], (h, LANES), dev)
     _check("yrow", yrow, torch.int32, (nu_pad * rg,), dev)
@@ -268,11 +283,11 @@ def bucket_rows(prod, hm1r, dest, yrow, y, sh: int, nu_pad: int,
     if dev.type == "cpu":
         return bucket_rows_ref(prod, hm1r, dest, yrow, y, sh, nu_pad, parts)
     if h:
-        rc = _build.load().bucket_rows_f32(
+        rc = _entry("bucket_rows", vt)(
             *map(_ptr, (prod, hm1r, dest, yrow, y)), h, sh, nu_pad, rg,
             y.numel(), parts, _stream(dev))
         _raise_on(rc, "bucket_rows")
-        bucket_rows.launches += 1
+        _count(bucket_rows, vt)
     return y
 
 
@@ -301,8 +316,8 @@ def lane_unpermute(y_t, src_lane, src_chunk):
     return out
 
 
-block_gather_mul.launches = 0
+block_gather_mul.launches = block_gather_mul.launches_bf16 = 0
 bucket_reduce.launches = 0
 bucket_reduce_grouped.launches = 0
-bucket_rows.launches = 0
+bucket_rows.launches = bucket_rows.launches_bf16 = 0
 lane_unpermute.launches = 0

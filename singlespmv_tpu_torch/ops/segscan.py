@@ -9,19 +9,23 @@ plain version (``segmented_scan_tiles_ref``, the Hillis–Steele loop of
 ``ops/segsum.py``), which the tests hold against the Pallas kernel and
 ``chip_smoke.py`` holds against the kernel on the card.
 
-Values are float32 or float64; at float64 the native-fp64 build of the same
-kernel runs.  The heads are bool or uint8 (the formats store uint8 once, at
+Values are float32, float64 or bfloat16; at float64 the native-fp64 build
+of the same kernel runs, at bfloat16 a build that reads the products as 2
+bytes and scans and writes float32 (``acc_dtype``).  The heads are bool or uint8 (the formats store uint8 once, at
 convert), read as stored.  W must be a multiple of 4.  An empty stream
 (H = 0) launches nothing.  The wrapper counts the launches of its float32
-kernel in ``segmented_scan_tiles.launches`` and of its float64 kernel in
-``segmented_scan_tiles.launches_f64``.
+kernel in ``segmented_scan_tiles.launches``, of its float64 kernel in
+``segmented_scan_tiles.launches_f64`` and of its bfloat16 kernel in
+``segmented_scan_tiles.launches_bf16``.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core.dtypes import acc, acc_dtype
 from .segsum import segmented_scan_inclusive
-from .slab import _check, _count, _entry, _ptr, _raise_on, value_type
+from .slab import (SPMV_TYPES, _check, _count, _entry, _ptr, _raise_on,
+                   value_type)
 from .xch import _device, _stream
 
 HEAD_TYPES = (torch.uint8, torch.bool)
@@ -42,29 +46,31 @@ def check_width(w: int):
 
 
 def segmented_scan_tiles_ref(products, heads):
-    """Plain version of ``segmented_scan_tiles``."""
-    return segmented_scan_inclusive(products, heads)
+    """Plain version of ``segmented_scan_tiles`` (bfloat16 widened to
+    float32)."""
+    return segmented_scan_inclusive(acc(products), heads)
 
 
 def segmented_scan_tiles(products, heads):
     """Segmented inclusive sum-scan along each row of an (H, W) stream.
 
-    products: (H, W) float32 or float64.
+    products: (H, W) float32, float64 or bfloat16.
     heads:    (H, W) bool or uint8, nonzero at the first element of each
               run; every row also starts a run.
-    Returns (H, W) of the products' type."""
+    Returns (H, W) of ``acc_dtype`` of the products' type (float32 for
+    bfloat16)."""
     dev = _device(products)
     if products.dim() != 2:
         raise ValueError(f"products have shape {tuple(products.shape)}, "
                          "expected (H, W)")
     h, w = products.shape
     check_width(w)
-    vt = value_type(products)
+    vt = value_type(products, SPMV_TYPES)
     _check("products", products, vt, (h, w), dev)
     check_heads(heads, (h, w), dev)
     if dev.type == "cpu":
         return segmented_scan_tiles_ref(products, heads)
-    out = torch.empty(h, w, dtype=vt, device=dev)  # all written
+    out = torch.empty(h, w, dtype=acc_dtype(vt), device=dev)  # all written
     if h:
         rc = _entry("segmented_scan_tiles", vt)(
             *map(_ptr, (products, heads, out)), h, w, _stream(dev))
@@ -74,3 +80,4 @@ def segmented_scan_tiles(products, heads):
 
 
 segmented_scan_tiles.launches = segmented_scan_tiles.launches_f64 = 0
+segmented_scan_tiles.launches_bf16 = 0

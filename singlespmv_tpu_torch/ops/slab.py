@@ -31,11 +31,14 @@ out blocks or y.  At float64 ``slab_spmv_rows`` and ``slab_spmv`` launch
 the native-fp64 builds of their kernels, which stand for the df64 kernel
 ``slab_spmv_df`` of the reference; ``slab_spmv_blk`` is float32 only, as
 the reference's float64 plans are unit mode only, and so is the panel, as
-the TPU ran it.
+the TPU ran it.  ``slab_spmv_rows`` also takes bfloat16 val and x table
+(``SPMV_TYPES``): its bfloat16 kernel reads them as 2 bytes a value and
+sums in float32 into a float32 y (``acc_dtype``), which the caller rounds once;
+it never widens them to run the float32 kernel.
 
 Each wrapper counts the launches of its float32 kernel in
-``<wrapper>.launches`` and of its float64 kernel in
-``<wrapper>.launches_f64``.
+``<wrapper>.launches``, of its float64 kernel in ``<wrapper>.launches_f64``
+and of its bfloat16 kernel in ``<wrapper>.launches_bf16``.
 
 Out blocks that no grid step owns (``lo_mask`` of the format is 0 there) come
 back zero here, where the TPU leaves them unwritten.
@@ -46,10 +49,12 @@ import ctypes
 
 import torch
 
+from ..core.dtypes import acc, acc_dtype
 from . import _build
 
 LANES = 128
 VALUE_TYPES = (torch.float32, torch.float64)
+SPMV_TYPES = VALUE_TYPES + (torch.bfloat16,)   # the spmv kernels' values
 PANEL_TYPES = (torch.float32,)   # the SpMM panel kernels', as on the TPU
 UNIT_PLANES = (8, 16)
 BLK_PLANES = (8, 16, 32)
@@ -121,16 +126,20 @@ def _raise_on(rc, name):
                                  f"cudaError {rc}")
 
 
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+
+
 def _entry(name, vt):
     """The C entry of kernel ``name`` for value type ``vt``."""
-    return getattr(_build.load(),
-                   f"{name}_{'f64' if vt == torch.float64 else 'f32'}")
+    return getattr(_build.load(), f"{name}_{_SUFFIX[vt]}")
 
 
 def _count(wrapper, vt):
     """One more launch of ``wrapper``'s kernel for value type ``vt``."""
     if vt == torch.float64:
         wrapper.launches_f64 += 1
+    elif vt == torch.bfloat16:
+        wrapper.launches_bf16 += 1
     else:
         wrapper.launches += 1
 
@@ -194,9 +203,10 @@ def slab_spmv_blk_ref(uids, win, lane, sub, val, hm1, idx, sig, x_table,
 def slab_spmv_rows_ref(ybase, win, lane, sub, val, hm1, dest, x_table, y,
                        m: int, T: int = 64, span: int = 0):
     """Plain version of ``slab_spmv_rows``: ``index_add_`` of the run totals
-    at their destinations (``span`` picks a kernel, not a function)."""
+    at their destinations (``span`` picks a kernel, not a function);
+    bfloat16 values are widened and summed in float32."""
     h = lane.shape[0]
-    w = _totals(val * _gather(win, lane, sub, x_table, m), hm1)
+    w = _totals(acc(val) * acc(_gather(win, lane, sub, x_table, m)), hm1)
     step = torch.arange(h, device=w.device) // T
     d = dest.long()
     base = ybase.long()[step[:, None], d.clamp(min=0) >> 7]
@@ -231,19 +241,21 @@ def slab_spmv_rows(ybase, win, lane, sub, val, hm1, dest, x_table, y,
              block p of the step's out block (planes ≤ 32), −1 where the
              block is dropped.
     win:     (H,) int32 — window base col-block per stream row.
-    lane, sub, hm1: (H, 128) int8; val: (H, 128) float32 or float64.
+    lane, sub, hm1: (H, 128) int8; val: (H, 128) float32, float64 or
+             bfloat16.
     dest:    (H, 128) int16 — at a run's end slot, its position p·128 + l
              in the step's out block; −1 on every other slot.
     x_table: (CB, 128) of val's type.
-    y:       (n,) of val's type, zeroed by the caller before its first call;
-             positions at or past n are dropped.
+    y:       (n,) of ``acc_dtype(val.dtype)`` (float32 for bfloat16 values),
+             zeroed by the caller before its first call; positions at or
+             past n are dropped.
     span:    0, each run end adds into y; or planes·128, where the stream's
              run ends pile onto few y rows (``formats/slab.py:route_rows``):
              the merge kernel sums a block's rows in shared memory first.
              The function is the same.
     The sums of a y position add in run-dependent order on the card."""
     h, n_steps, dev, vt = _check_stream(lane, val, hm1, sub, win, x_table,
-                                        T)
+                                        T, types=SPMV_TYPES)
     planes = ybase.shape[1] if ybase.dim() == 2 else 0
     if not 1 <= planes <= ROWS_PLANES_MAX:
         raise ValueError(f"ybase has shape {tuple(ybase.shape)}, expected "
@@ -254,13 +266,13 @@ def slab_spmv_rows(ybase, win, lane, sub, val, hm1, dest, x_table, y,
     if span not in (0, planes * LANES):
         raise ValueError(f"merge span {span} is neither 0 nor planes·128 = "
                          f"{planes * LANES}")
-    if MERGE_WARPS * span * vt.itemsize > MERGE_SMEM:
+    if MERGE_WARPS * span * acc_dtype(vt).itemsize > MERGE_SMEM:
         raise ValueError(f"merge span {span} of {vt} passes the merge "
                          f"kernel's {MERGE_SMEM} bytes of shared memory")
     if y.dim() != 1 or y.numel() >= 2 ** 31:
         raise ValueError(f"y has shape {tuple(y.shape)}, expected (n,) with "
                          "n < 2**31")
-    _check("y", y, vt, y.shape, dev)
+    _check("y", y, acc_dtype(vt), y.shape, dev)
     if dev.type == "cpu":
         return slab_spmv_rows_ref(ybase, win, lane, sub, val, hm1, dest,
                                   x_table, y, m, T, span)
@@ -386,6 +398,7 @@ def slab_spmm(uids, sg0, sg1, win, lane, sub, val, hm1, idx, x_panel,
 
 
 slab_spmv_rows.launches = slab_spmv_rows.launches_f64 = 0
+slab_spmv_rows.launches_bf16 = 0
 slab_spmv.launches = slab_spmv.launches_f64 = 0
 slab_spmv_blk.launches = 0
 slab_spmm.launches = 0

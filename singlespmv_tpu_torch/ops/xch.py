@@ -32,10 +32,14 @@ products and the out rows or y.  At float64 the wrappers launch the
 native-fp64 builds of the kernels, which stand for the df64 kernels
 ``xch_mul_df`` (:495) and ``xch_route4_df`` (:594) of the reference.  The
 panels and ``xch_route`` are float32 only, as the TPU ran them.
+``xch_mul`` and ``xch_route4_rows`` also run bfloat16 kernels: val, the x
+table and the product grid are bfloat16 (2 bytes a slot in device memory,
+each product rounded once, as the reference's grid is ``val.dtype``), and
+the route sums in float32 into a float32 y (``acc_dtype``).
 
 Each wrapper counts the launches of its float32 kernel in
-``<wrapper>.launches`` and of its float64 kernel in
-``<wrapper>.launches_f64``.
+``<wrapper>.launches``, of its float64 kernel in ``<wrapper>.launches_f64``
+and of its bfloat16 kernel in ``<wrapper>.launches_bf16``.
 
 Pass 2 reads the products that pass 1 wrote on the same stream, so the
 caller needs no synchronisation between the two.
@@ -46,10 +50,11 @@ import ctypes
 
 import torch
 
+from ..core.dtypes import acc, acc_dtype
 from . import _build, probes
-from .slab import (LANES, PANEL_TYPES, VALUE_TYPES, _check, _check_table,
-                   _count, _entry, _gather, _picked, _ptr, _raise_on,
-                   _totals, value_type)
+from .slab import (LANES, PANEL_TYPES, SPMV_TYPES, VALUE_TYPES, _check,
+                   _check_table, _count, _entry, _gather, _picked, _ptr,
+                   _raise_on, _totals, value_type)
 
 M_MAX = 120        # window blocks: int8 sub headroom (formats/xch.M_MAX)
 P_OH_MAX = 64      # one-hot rows per step: the kernel's shared accumulator
@@ -135,13 +140,13 @@ def _check_rows_route(base, cs, win, lane, sub, hm1, dest, prod, y, m, T,
     if prod.dim() != 3 or prod.shape[2] != LANES or not all(prod.shape):
         raise ValueError(f"prod3 has shape {tuple(prod.shape)}, expected "
                          "(n_chunks, P1, 128)")
-    vt = value_type(prod, VALUE_TYPES)
+    vt = value_type(prod, SPMV_TYPES)
     _check("prod3", prod, vt, prod.shape, dev)
     if y.dim() != 1 or y.numel() >= 2 ** 31:
         raise ValueError(f"y has shape {tuple(y.shape)}, expected (n,) with "
                          "n < 2**31")
-    _check("y", y, vt, y.shape, dev)
-    if span * vt.itemsize * 8 > MERGE_SMEM:
+    _check("y", y, acc_dtype(vt), y.shape, dev)
+    if span * acc_dtype(vt).itemsize * 8 > MERGE_SMEM:
         raise ValueError(f"merge span {span} of {vt} passes the merge "
                          f"kernel's {MERGE_SMEM} bytes of shared memory")
     return h, dev, vt
@@ -150,8 +155,10 @@ def _check_rows_route(base, cs, win, lane, sub, hm1, dest, prod, y, m, T,
 # ----------------------------------------------------- plain PyTorch versions
 
 def xch_mul_ref(win, lane, sub, val, x_table, m: int, T: int = 64):
-    """Plain version of ``xch_mul``."""
-    return val * _gather(win, lane, sub, x_table, m)
+    """Plain version of ``xch_mul``: at bfloat16 the float32 product (exact)
+    rounded once."""
+    return (acc(val) * acc(_gather(win, lane, sub, x_table, m))).to(
+        val.dtype)
 
 
 def xch_route4_ref(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
@@ -176,11 +183,11 @@ def xch_route4_rows_ref(base, cs, win, lane, sub, hm1, dest, prod3, y,
                         m: int, T: int = 64, span: int = 0):
     """Plain version of ``xch_route4_rows``: ``index_add_`` of the run
     totals at their destinations (``span`` picks a kernel, not a
-    function)."""
+    function); bfloat16 products are widened and summed in float32."""
     h = lane.shape[0]
     step = torch.arange(h, device=lane.device) // T
     rows = cs.long()[step] * prod3.shape[1] + win.long()   # product rows
-    w = _totals(_gather(rows, lane, sub, prod3, m), hm1)
+    w = _totals(acc(_gather(rows, lane, sub, prod3, m)), hm1)
     d = dest.long()
     pos = base.long()[step][:, None] + d
     keep = (d >= 0) & (pos < y.numel())
@@ -252,12 +259,12 @@ def xch_mul(win, lane, sub, val, x_table, m: int, T: int = 64, out=None):
     gather], written linearly.
 
     win:      (H,) int32 — x window base col-block per stream row.
-    lane/sub: (H, 128) int8; val: (H, 128) float32 or float64.
+    lane/sub: (H, 128) int8; val: (H, 128) float32, float64 or bfloat16.
     x_table:  (CB, 128) of val's type.
     out:      None, or the contiguous (H, 128) of val's type to write: a row
               slice of the caller's product grid.
     Returns the (H, 128) products of val's type (``out`` where given)."""
-    h, dev, vt = _check_mul(win, lane, sub, val, x_table, m, T, VALUE_TYPES,
+    h, dev, vt = _check_mul(win, lane, sub, val, x_table, m, T, SPMV_TYPES,
                             2)
     if out is not None:
         _check("out", out, vt, (h, LANES), dev)
@@ -318,9 +325,11 @@ def xch_route4_rows(base, cs, win, lane, sub, hm1, dest, prod3, y,
     lane/sub/hm1: (H, 128) int8.
     dest: (H, 128) int16 — at a run's end slot, its y position less
           base[step]; −1 on every other slot.
-    prod3: (n_chunks, P1, 128) float32 or float64 pass-1 products.
-    y:    (n,) of prod3's type, zeroed by the caller before its first call;
-          positions at or past n are dropped.
+    prod3: (n_chunks, P1, 128) float32, float64 or bfloat16 pass-1
+          products.
+    y:    (n,) of ``acc_dtype(prod3.dtype)`` (float32 for bfloat16), zeroed
+          by the caller before its first call; positions at or past n are
+          dropped.
     span: 0, each run end adds into y; or p_oh·128, every dest below it,
           where the stream's run ends pile onto few y rows
           (``formats/xch.py:route_rows``): the merge kernel sums a block's
@@ -445,9 +454,10 @@ def xch_route(uids, gids, cs, sg0, sg1, win, lane, sub, hm1, idx, prod3,
     return out
 
 
-xch_mul.launches = xch_mul.launches_f64 = 0
+xch_mul.launches = xch_mul.launches_f64 = xch_mul.launches_bf16 = 0
 xch_route4.launches = xch_route4.launches_f64 = 0
 xch_route4_rows.launches = xch_route4_rows.launches_f64 = 0
+xch_route4_rows.launches_bf16 = 0
 xch_mul_panel.launches = 0
 xch_route4_panel.launches = 0
 xch_route.launches = 0

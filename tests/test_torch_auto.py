@@ -158,6 +158,38 @@ def test_auto_trials_skip_guard_errors_only(monkeypatch):
         auto.convert(coo, cfg, device="cpu")
 
 
+def test_auto_trial_conversions_side_by_side(monkeypatch):
+    """The trial candidates convert in threads: each state is the one its
+    own convert builds, a conversion that refuses with a guard error is
+    recorded and skipped, and any other error stops convert."""
+    coo = port_coo(powerlaw(3000, 30000, seed=2))
+    cfg = port_cfg(_only("bkt", "bkt_g", "slab"))
+    monkeypatch.setattr(auto, "_measures", lambda device: True)
+    monkeypatch.setattr(auto, "_quick_bench",
+                        lambda mod, state, *a: 1e-3 * (mod is not bkt))
+    x = torch.linspace(-1.0, 1.0, coo.n_col)
+    st = auto.convert(coo, cfg, device="cpu")
+    alone = bkt.convert(coo, cfg.replace(
+        bkt_row_group=1024 if st.chosen == "bkt_g" else 128))
+    assert st.chosen in ("bkt", "bkt_g") and len(st.trials) == 3
+    assert torch.equal(auto.spmv(st, x), bkt.spmv(alone, x))
+    real = bkt.convert
+
+    def refuse(exc):
+        def fn(coo, cfg, **kw):
+            if cfg.bkt_row_group == 1024:
+                raise exc
+            return real(coo, cfg, **kw)
+        return fn
+
+    monkeypatch.setattr(bkt, "convert", refuse(MemoryError("too big")))
+    st = auto.convert(coo, cfg, device="cpu")
+    assert [f for f, _ in st.failed] == ["bkt_g"] and len(st.trials) == 2
+    monkeypatch.setattr(bkt, "convert", refuse(RuntimeError("a fault")))
+    with pytest.raises(RuntimeError, match="a fault"):
+        auto.convert(coo, cfg, device="cpu")
+
+
 def test_port_runs_without_the_reference_package():
     """A fresh process where ``singlespmv_tpu`` cannot be imported: the
     port imports, converts and multiplies, and neither jax nor the

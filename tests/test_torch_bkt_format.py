@@ -173,8 +173,14 @@ def test_plain_format_guards():
     big = COOMatrix.from_triplets(20000, 20000, [0], [0], [1.0])
     with pytest.raises(ValueError, match="density guard"):
         dense.convert(port_coo(big), port_cfg(Config()))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        csr.convert(port_coo(coo), port_cfg(Config(dtype="bfloat16")))
+    with pytest.raises(NotImplementedError, match="float16 is not"):
+        csr.convert(port_coo(coo), port_cfg(Config(dtype="float16")))
+    # bfloat16 is ported: csr converts it and verifies
+    sb = csr.convert(port_coo(coo), port_cfg(Config(dtype="bfloat16")))
+    x = np.random.default_rng(0).uniform(size=coo.n_col)
+    yb = csr.spmv(sb, torch.from_numpy(x).to(torch.bfloat16))
+    assert sb.val.dtype == yb.dtype == torch.bfloat16
+    assert verify_result(coo, x, yb.float().numpy(), dtype="bfloat16")[0]
     empty = COOMatrix.from_triplets(50, 40, [], [], [])
     st = csr.convert(port_coo(empty), port_cfg(Config()))
     y = csr.spmv(st, torch.ones(40))

@@ -2,9 +2,9 @@
 calls (``harness/driver.py:make_chained_runner``).
 
 The graph's y must pass the oracle, and on the states of
-``test_torch_cuda_drift.py`` equal the eager y within its drift bound
-(1e-6·max|y| at float32, 1e-12·max|y| at float64: the routes add run
-totals in warp order); a replay launches no
+``test_torch_cuda_drift.py`` equal the eager y within each row's reorder
+bound (``core/oracle.py:reorder_bound``: the routes add run totals in warp
+order); a replay launches no
 wrapper, so the launch counters rise only at the warm-up and the capture; a
 capture that fails raises ``CaptureError`` naming the format, in the runner
 and in ``run_benchmark``, and never falls back to eager calls; phases, step
@@ -27,10 +27,9 @@ from singlespmv_tpu_torch.harness import driver, run_benchmark
 from singlespmv_tpu_torch.ops import slab as slab_ops
 
 from test_torch_cuda_drift import _case as drift_case
+from test_torch_cuda_drift import within_reorder_bound
 
 pytestmark = pytest.mark.cuda
-
-DRIFT = {torch.float32: 1e-6, torch.float64: 1e-12}
 
 
 @pytest.fixture
@@ -87,18 +86,16 @@ def test_graph_y_passes_the_oracle(cuda, fmt, dtype, n):
 @pytest.mark.parametrize("kind", ["slab merged", "slab direct", "xch"])
 def test_graph_y_within_the_drift_bound_of_eager_y(cuda, kind, dtype):
     """On the states of ``test_torch_cuda_drift.py``, whose two eager calls
-    meet C.7's bound, the graph's y meets it against the eager y."""
+    meet the reorder bound, the graph's y meets it against the eager
+    y."""
     coo, st, spmv = drift_case(kind, dtype)
     st = st.to(cuda)
     x = _x(coo, dtype, cuda)
     eager = spmv(st, x)
     y = driver.make_chained_runner(spmv, st, x, name=kind, chain=8)(9)
     torch.cuda.synchronize()
-    scale = float(eager.abs().max())
-    drift = float((y - eager).abs().max())
-    print(f"{kind} {dtype}: graph vs eager bitwise equal "
-          f"{torch.equal(y, eager)}, max drift {drift:.3g} of {scale:.3g}")
-    assert scale > 0 and drift <= DRIFT[eager.dtype] * scale
+    within_reorder_bound(coo, st, spmv, x, y, eager,
+                         f"{kind} {dtype}: graph vs eager")
 
 
 def test_replays_launch_no_wrapper(cuda):

@@ -125,8 +125,12 @@ def test_dia_density_guard_and_dtypes(monkeypatch):
     with pytest.raises(ValueError, match="density guard"):
         dia.convert(port_coo(coo), port_cfg(_cfg("dia", "float32")))
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        dia.convert(port_coo(coo), port_cfg(_cfg("dia", "bfloat16")))
+    # bfloat16 is ported: dia converts it and verifies
+    sb = dia.convert(port_coo(coo), port_cfg(_cfg("dia", "bfloat16")))
+    x = np.random.default_rng(0).uniform(size=300)
+    yb = dia.spmv(sb, torch.from_numpy(x).to(torch.bfloat16))
+    assert sb.diag.dtype == yb.dtype == torch.bfloat16
+    assert verify_result(coo, x, yb.float().numpy(), dtype="bfloat16")[0]
     st = dia.convert(port_coo(coo), port_cfg(_cfg("dia", "float64")))
     with pytest.raises(TypeError):
         dia.spmv(st, torch.zeros(300, dtype=torch.float32))

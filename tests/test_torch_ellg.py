@@ -7,7 +7,8 @@ and non-full levels, several x panels (``X_BLOCKS`` cut to 4 col-blocks
 in both packages) and a bkt_g and a csr rest.  The spmv agrees with the
 reference's spmv (its Pallas ``block_gather_mul`` in interpret mode) to
 1e-6·max|y| and passes the float64 COO oracle (1e-6 abs-or-rel).  auto
-never offers ellg, and float64 is refused (ROADMAP A.10).
+never offers ellg, and float64 is refused, as the reference's ellg refuses
+it (bfloat16 runs: ``tests/test_torch_bf16.py``).
 """
 import jax
 import numpy as np
@@ -200,10 +201,10 @@ def test_auto_withholds_ellg():
 
 def test_float64_is_refused():
     coo = port_coo(CASES["band"]())
-    with pytest.raises(TypeError, match="A.10"):
+    with pytest.raises(TypeError, match="float32 and bfloat16"):
         ellg.convert(coo, port_cfg(CFG.replace(dtype="float64")))
     st = ellg.convert(coo, port_cfg(CFG))
-    with pytest.raises(TypeError, match="A.10"):
+    with pytest.raises(TypeError, match="float32 and bfloat16"):
         ellg.spmv(st, torch.zeros(coo.n_col, dtype=torch.float64))
 
 

@@ -229,15 +229,19 @@ def test_state_moves_nested_state():
 
 @pytest.mark.parametrize("dtype", ["float64", "bfloat16"])
 def test_other_dtypes_name_the_roadmap(dtype):
-    """float64 is ported (native fp64); bfloat16 still names ROADMAP A.10.
-    A state never takes an x of another value type."""
+    """float64 is ported (native fp64), and so is bfloat16 (ROADMAP A.10:
+    the state holds bfloat16 values and y verifies).  A state never takes
+    an x of another value type."""
     coo = generate("band", 512, 5, seed=1)
     st = xch.convert(port_coo(coo), port_cfg(F32))
     with pytest.raises(TypeError, match="float32 values"):
         xch.spmv(st, torch.zeros(coo.n_col, dtype=getattr(torch, dtype)))
     if dtype == "bfloat16":
-        with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-            xch.convert(port_coo(coo), port_cfg(F32.replace(dtype=dtype)))
+        sb = xch.convert(port_coo(coo), port_cfg(F32.replace(dtype=dtype)))
+        x = np.random.default_rng(0).uniform(size=coo.n_col)
+        yb = xch.spmv(sb, torch.from_numpy(x).to(torch.bfloat16))
+        assert sb.val1[0].dtype == yb.dtype == torch.bfloat16
+        assert verify_result(coo, x, yb.float().numpy(), dtype=dtype)[0]
         return
     assert xch.convert(port_coo(coo),
                        port_cfg(F32.replace(dtype=dtype))).val1[0].dtype \

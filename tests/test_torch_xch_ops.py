@@ -211,4 +211,8 @@ def test_sources_digest_covers_headers(tmp_path):
         "block_gather_scan_f32", "block_gather_scan_f64", "xch_route_f32",
         "probe_gather_f32", "probe_gather_bf16", "probe_onehot_f32",
         "probe_dynslice_f32", "probe_segscan_f32", "probe_transpose_f32",
-        "probe_slab_f32"}
+        "probe_slab_f32",
+        # the bfloat16 builds of the spmv path's kernels (ROADMAP A.10)
+        "slab_spmv_rows_bf16", "xch_mul_bf16", "xch_route4_rows_bf16",
+        "block_gather_mul_bf16", "bucket_rows_bf16",
+        "segmented_scan_tiles_bf16", "block_gather_scan_bf16"}
