@@ -44,6 +44,21 @@ Its phases, in the order they run:
    webbase-1M and g7jac200sc; and float64 SpMM with xch on ASIC_680ks at
    B = 8 (the column loop over the fp64 spmv) against the oracle at
    1e-12·max|Y|;
+3b. bfloat16 SpMM (ROADMAP A.10b), on phase 2's and 3's states rounded
+   to bfloat16 (``as_bfloat16``; hyb on Chebyshev4 and csr converted at
+   bfloat16): ``spmm_fn`` at B 8 on g7jac200sc (slab unit), webbase-1M
+   (xch, a peel and nested long rows), Chebyshev4 (hyb),
+   unbalance-16384 (bsr) and g7jac200sc (csr) and auto with ``spmm_b`` 8
+   on webbase-1M and g7jac200sc (estimates, trials, pick), every column
+   through ``verify_result(dtype=bfloat16)``; fails unless the three
+   panels' ``*_bf16`` builds launched there and no other build did; then
+   the panels against their plain versions (``slab_spmm`` on g7jac200sc at
+   B 8, 16, 32, the xch pair on webbase-1M and ASIC_680ks at B 8, 16): per
+   call at ``TOL``, every column of the kernels' Y and of the plain Y
+   within ``tests/torch_bounds.py:accuracy_bound``'s rule, two calls
+   within each row's ``reorder_bound``; one ``spmm_bf16_row`` a kernel
+   (busy µs against the bound, the chained spmm at B 8 beside phase 3's
+   float32 one, torch's bfloat16 CSR ``A @ X``);
 4. drives the slab main path: ``run_benchmark`` with format="slab" in float32
    on the full-size raefsky3 and torso1 stand-ins (both plan blk mode), and
    the full-size g7jac200sc stand-in's spmv with the planner's unit-only plan
@@ -100,7 +115,10 @@ Its phases, in the order they run:
    ``probe_pal2step`` (printing the TSV and ``PROBE_PAIRS``: each
    hand-written probe's G elem/s beside the probe of the same motion that
    the reference left to XLA), and ``probe_slab.main``'s nine rows, each
-   probe's loop at ``CAL_TARGET_S``;
+   probe's loop at ``CAL_TARGET_S`` on its captured chain (CUDA-graph
+   replays), with a ``probe_chain`` line a probe: the captured µs an
+   iteration beside its kernel's busy µs and the old eager loop's µs (one
+   run, for the record, counted in no path);
 12. driver timing: every ``run_benchmark`` times a spmv as the
    reference's driver does, by the median of marginals over chained runs
    (CUDA-graph replays of ``harness/driver.py:CHAIN`` calls).  The runs of
@@ -304,9 +322,9 @@ def _busy_ms(fn, match="", reps=REPS, launches=None):
 
 
 def _extra(on, timer, fn, *args, **kw):
-    """``timer(fn, ...)``, or None where ``on`` is false: the whole-call
-    times beside a kernel check (call, spmv, spmv busy), which phase
-    bfloat16 takes on one state only."""
+    """``timer(fn, ...)``, or None where ``on`` is false: the times beside
+    a kernel check, which phase bfloat16 takes on one state only and phase
+    spmm bfloat16 at one B a kernel only."""
     return timer(fn, *args, **kw) if on else None
 
 
@@ -592,7 +610,8 @@ def by_kernel(compared):
                 out.setdefault(k + sfx, []).append(
                     res[k] | {"label": res["label"]}
                     | {e: res[e] for e in ("library_error",
-                                           "reorder_worst_share")
+                                           "reorder_worst_share",
+                                           "accuracy_worst_share")
                        if e in res})
     return out
 
@@ -766,10 +785,12 @@ def compare_scan(label, state, mod, x, tol=TOL, extra=True):
     return res
 
 
-def compare_slab_spmm(label, state, slab, ops, X, a_csr, tol=TOL):
+def compare_slab_spmm(label, state, slab, ops, X, a_csr, tol=TOL,
+                      timed=True):
     """Phase 3: ``slab_spmm`` against its plain version on every chunk of a
-    unit-mode state, for the panel X (n_col, B), with torch's ``a_csr @ X``
-    beside it."""
+    unit-mode state, for the panel X (n_col, B) of float32 or bfloat16
+    (float32 out blocks either way), with torch's ``a_csr @ X`` beside it
+    (None: torch refuses it).  Without ``timed`` the times stay None."""
     xp = slab.x_table(state, X)
     n_cols = X.shape[1]
     args = [(*a, xp, nu, state.m, state.t_step)
@@ -793,30 +814,37 @@ def compare_slab_spmm(label, state, slab, ops, X, a_csr, tol=TOL):
         nbytes += routed * state.t_step * 128
         nbytes += _nbytes(state.sub[i]) if state.m > 1 else 0
         nbytes += state.chunk_nu[i] * n_cols * state.planes * 128 * 4
+    on = timed
     res = {
-        "label": label, "dtype": str(X.dtype), "kernel": "slab_spmm",
+        "label": label, "dtype": str(X.dtype),
+        "kernel": "slab_spmm" + SFX[X.dtype],
         "B": n_cols, "planes": state.planes, "m": state.m, "T": state.t_step,
         "stream_rows": state.n_slots // 128, "chunks": len(args),
         "max_abs_err": err, "rel_err": rel,
-        "ms": _busy_ms(lambda: [f() for f in kern], "slab_spmm_kernel",
-                       launches=_launched(ops.slab_spmm)),
-        "plain_ms": _busy_ms(lambda: [f() for f in ref], reps=PLAIN_REPS),
-        "call_ms": _cuda_ms(lambda: [f() for f in kern]),
-        "spmm_ms": _cuda_ms(lambda: slab.spmm(state, X)),
-        "spmm_busy_ms": _busy_ms(lambda: slab.spmm(state, X)),
-        "library_ms": _library_ms(a_csr, X),
+        "ms": _extra(on, _busy_ms, lambda: [f() for f in kern],
+                     "slab_spmm_kernel", launches=_launched(ops.slab_spmm)),
+        "plain_ms": _extra(on, _busy_ms, lambda: [f() for f in ref],
+                           reps=PLAIN_REPS),
+        "call_ms": _extra(on, _cuda_ms, lambda: [f() for f in kern]),
+        "spmm_ms": _extra(on, _cuda_ms, lambda: slab.spmm(state, X)),
+        "spmm_busy_ms": _extra(on, _busy_ms, lambda: slab.spmm(state, X)),
+        "library_ms": _extra(on and a_csr is not None, _library_ms, a_csr,
+                             X),
     } | _bound(nbytes, n_cols * (3 * state.n_slots + _routed(*state.idx)),
                X.dtype)
     print(f"kernel {label}: {json.dumps(_marked(res))}", flush=True)
     return res
 
 
-def compare_xch_panels(label, state, xch, ops, X, a_csr, tol=TOL):
+def compare_xch_panels(label, state, xch, ops, X, a_csr, tol=TOL,
+                       timed=True):
     """Phase 3: ``xch_mul_panel`` and ``xch_route4_panel`` against their
     plain versions on every call of the state and of its nested state, for
-    the panel X (n_col, B), with torch's ``a_csr @ X`` (the whole product)
-    beside each."""
-    n_cols = X.shape[1]
+    the panel X (n_col, B) of float32 or bfloat16 (products of X's type,
+    float32 out rows), with torch's ``a_csr @ X`` (the whole product; None:
+    torch refuses it) beside each.  Without ``timed`` the times stay
+    None."""
+    n_cols, vsz = X.shape[1], X.element_size()
     calls = {"xch_mul_panel": ([], []), "xch_route4_panel": ([], [])}
     cost = {k: [0, 0] for k in calls}
     for st in _states(state):
@@ -847,31 +875,33 @@ def compare_xch_panels(label, state, xch, ops, X, a_csr, tol=TOL):
             g, o, c, win, lane, sub, hm, _, idx = a
             h = lane.shape[0]
             # bytes: the streams once (sig one byte a row), per column one
-            # product gathered per slot and the out rows; operations: per
-            # column a prefix add and a difference per slot and an add per
-            # routed run end
+            # product gathered per slot (of X's type) and the float32 out
+            # rows; operations: per column a prefix add and a difference
+            # per slot and an add per routed run end
             cost["xch_route4_panel"][0] += (
                 _nbytes(g, o, c, win, lane, hm, idx) + h
                 + (_nbytes(sub) if st.m2 > 1 else 0)
-                + n_cols * (h * 128 + ng * st.gb * 128) * 4)
+                + n_cols * (h * 128 * vsz + ng * st.gb * 128 * 4))
             cost["xch_route4_panel"][1] += n_cols * (2 * h * 128
                                                      + _routed(idx))
     res = {"label": label, "dtype": str(X.dtype), "B": n_cols,
            "states": len(list(_states(state)))}
-    library = _library_ms(a_csr, X)
+    on = timed
+    library = _extra(on and a_csr is not None, _library_ms, a_csr, X)
     for name, (ks, rs) in calls.items():
         err, rel = _check_calls(label, name, ks, rs, tol)
         res[name] = {
             "max_abs_err": err, "rel_err": rel,
-            "ms": _busy_ms(lambda ks=ks: [f() for f in ks], f"{name}_kernel",
-                           launches=_launched(getattr(ops, name))),
-            "plain_ms": _busy_ms(lambda rs=rs: [f() for f in rs],
-                                 reps=PLAIN_REPS),
-            "call_ms": _cuda_ms(lambda ks=ks: [f() for f in ks]),
+            "ms": _extra(on, _busy_ms, lambda ks=ks: [f() for f in ks],
+                         f"{name}_kernel",
+                         launches=_launched(getattr(ops, name))),
+            "plain_ms": _extra(on, _busy_ms, lambda rs=rs: [f() for f in rs],
+                               reps=PLAIN_REPS),
+            "call_ms": _extra(on, _cuda_ms, lambda ks=ks: [f() for f in ks]),
             "library_ms": library,    # the whole product's
         } | _bound(*cost[name], X.dtype)
-    res["spmm_ms"] = _cuda_ms(lambda: xch.spmm(state, X))
-    res["spmm_busy_ms"] = _busy_ms(lambda: xch.spmm(state, X))
+    res["spmm_ms"] = _extra(on, _cuda_ms, lambda: xch.spmm(state, X))
+    res["spmm_busy_ms"] = _extra(on, _busy_ms, lambda: xch.spmm(state, X))
     print(f"kernel {label}: {json.dumps(_marked(res))}", flush=True)
     return res
 
@@ -897,7 +927,9 @@ def torch_csr(coo, dev, dtype=np.float32):
 def verify_columns(label, coo, X, Y, verify_result, dtype=np.float32):
     """Holds every column of Y to the float64 COO oracle; fails on one
     FAIL.  Returns the largest max_abs_err."""
-    X, Y = X.cpu().numpy(), Y.cpu().numpy()
+    from singlespmv_tpu_torch.core.dtypes import to_host
+
+    X, Y = to_host(X), to_host(Y)
     if Y.shape != (coo.n_row, X.shape[1]) or not np.isfinite(Y).all():
         raise SystemExit(f"{label}: Y has shape {Y.shape} or is not finite")
     worst = 0.0
@@ -1363,10 +1395,45 @@ def compare_calibration(dev):
     return out
 
 
-def run_calibration_path(dev):
+def eager_probe_seconds(dev):
+    """{probe: seconds an iteration} of the microbench's 35 probes and
+    ``probe_pal2step`` on a host loop of eager calls
+    (``microbench.loop_chain``): the timing before the probes' chains were
+    captured as CUDA graphs, one run, for the record."""
+    from singlespmv_tpu_torch.harness import microbench
+
+    captured = microbench.chained
+    microbench.chained = microbench.loop_chain
+    try:
+        rows = microbench.run(target_s=CAL_TARGET_S, device=dev,
+                              log=lambda m: None)
+        _, pal = microbench.probe_pal2step(device=dev, target_s=CAL_TARGET_S)
+    finally:
+        microbench.chained = captured
+    return {r[0]: r[2] for r in rows} | {"pal2step_w1024_k1": pal}
+
+
+def probe_kernel_busy(dev):
+    """{probe: its kernel's busy ms a call} on the probe's own inputs, for
+    every call of ``microbench.KERNEL_CASES``."""
+    from singlespmv_tpu_torch.harness import microbench
+
+    out = {}
+    for name, (case, ckw) in microbench.KERNEL_CASES.items():
+        fn, args, kw = case(**ckw, device=dev)
+        out[name] = _busy_ms(lambda: fn(*args, **kw), CAL_MATCH[fn.__name__],
+                             launches=_launched(fn))
+        del fn, args
+    return out
+
+
+def run_calibration_path(dev, eager, busy):
     """The calibration path through its entry points: calibrate.measure
     (saved to a temporary file, never into the tree), the microbench's 35
-    probes and probe_pal2step, and probe_slab's nine rows."""
+    probes and probe_pal2step, and probe_slab's nine rows.  Each probe's
+    seconds an iteration come from its captured chain; a ``probe_chain``
+    line puts them beside its kernel's busy time (``busy``, ms) and the
+    eager loop's (``eager``, seconds)."""
     from singlespmv_tpu_torch.core import chipconst
     from singlespmv_tpu_torch.harness import calibrate, microbench
     from singlespmv_tpu_torch.harness import probe_slab as pslab
@@ -1411,6 +1478,15 @@ def run_calibration_path(dev):
     elems, sec = microbench.probe_pal2step(device=dev, target_s=CAL_TARGET_S)
     print(f"probe pal2step_w1024_k1 {elems / sec / 1e9:10.2f} G elem/s   "
           f"({sec * 1e6:9.1f} us)", flush=True)
+    for name, _, s_iter, _ in rows + [("pal2step_w1024_k1", elems, sec,
+                                       None)]:
+        b = busy.get(name)
+        print("probe_chain " + json.dumps({
+            "probe": name, "captured_us": s_iter * 1e6,
+            "kernel_busy_us": None if b is None else b * 1e3,
+            "busy_from": "events" if isinstance(b, EventsMs) else
+            (None if b is None else "trace"),
+            "eager_loop_us": eager[name] * 1e6}), flush=True)
     slab_rows = pslab.main(dev, CAL_TARGET_S,
                            log=lambda m: print(f"probe_slab {m}", flush=True))
     if len(slab_rows) != 9 or not all(r[3] > 0 for r in slab_rows):
@@ -2017,6 +2093,245 @@ def run_bfloat16(mats, dev, card, count_path, wrappers, f32_states):
     return compared, got
 
 
+BF16_SPMM_B = 8          # the bfloat16 spmm_fn path's panels
+BF16_SPMM_PATH = (("g7jac200sc", "slab"), ("webbase-1M", "xch"),
+                  ("Chebyshev4", "hyb"), ("unbalance-16384", "bsr"),
+                  ("g7jac200sc", "csr"))
+BF16_SPMM_AUTO = ("webbase-1M", "g7jac200sc")   # two driver stand-ins
+BF16_PANEL_CHECKS = ((("g7jac200sc", "slab"), SLAB_PANEL_B),
+                     (("webbase-1M", "xch"), XCH_PANEL_B),
+                     (("ASIC_680ks", "xch"), XCH_PANEL_B))
+# the timed checks: the stand-in and B of the float32 kernel line's
+BF16_PANEL_TIMED = {("g7jac200sc", "slab"): 32, ("webbase-1M", "xch"): 16}
+BF16_PANEL_KERNELS = tuple(k + "_bf16" for k in PANEL_KERNELS)
+SPMM_F32_US = {}   # (stand-in, B) → phase 3's chained µs of the f32 spmm
+
+
+class PlainPanels:
+    """Sets the format modules' three panel wrappers to their plain
+    versions for a block, so that ``spmm`` on the card's tensors gives the
+    plain Y beside the kernels' Y; puts them back after."""
+
+    def __enter__(self):
+        from singlespmv_tpu_torch.formats import slab, xch
+        from singlespmv_tpu_torch.ops import slab as ops
+        from singlespmv_tpu_torch.ops import xch as xops
+
+        self.was = (slab.slab_spmm, xch.xch_mul_panel, xch.xch_route4_panel)
+        slab.slab_spmm = ops.slab_spmm_ref
+        xch.xch_mul_panel = xops.xch_mul_panel_ref
+        xch.xch_route4_panel = xops.xch_route4_panel_ref
+
+    def __exit__(self, *exc):
+        from singlespmv_tpu_torch.formats import slab, xch
+
+        slab.slab_spmm, xch.xch_mul_panel, xch.xch_route4_panel = self.was
+
+
+def _torch_bounds():
+    """``tests/torch_bounds.py`` of this checkout: the proven accuracy
+    bound of the port's bfloat16 products, which the CPU tests hold the
+    port to (it imports only the port)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_bounds
+
+    return torch_bounds
+
+
+def bf16_panel_bounds(stored, Xh, state, fmt, xmax):
+    """(n_row, B): ``tests/torch_bounds.py:accuracy_bound``'s rule for each
+    column of a bfloat16 Y, with the prefix mass M_i taken once, at the
+    entrywise max|X| over the state's panels (``xmax``, float64), which
+    bounds every column's M_i from above.  Returns (the float64 oracle of
+    the stored values, the bounds)."""
+    from singlespmv_tpu_torch.core.oracle import reference_spmv, ulp
+
+    tb = _torch_bounds()
+    up = tb.U_BF16 if tb.rounds_products(state, fmt) else 0.0
+    t = 2.0 * tb.gamma(tb.PREFIX_ADDS) * (1.0 + up) * tb.prefix_mass(
+        state, fmt, torch.from_numpy(xmax))
+    g = tb.gamma(stored.row_lengths())
+    rs, bs = [], []
+    for b in range(Xh.shape[1]):
+        xh = Xh[:, b].astype(np.float64)
+        s = np.bincount(stored.row, weights=np.abs(stored.val * xh[
+            stored.col]), minlength=stored.n_row)
+        r = reference_spmv(stored, xh)
+        e = up * s + t + g * ((1.0 + up) * s + t)
+        rs.append(r)
+        bs.append(e + 0.5 * ulp("bfloat16", np.abs(r) + e))
+    return np.stack(rs, 1), np.stack(bs, 1)
+
+
+def run_spmm_bfloat16(mats, coos, held, dev, card, count_path, wrappers):
+    """Phase "spmm bfloat16" (ROADMAP A.10b).  States come from phases 2
+    and 3 (``held``: (stand-in, format) → float32 state on the card)
+    through ``as_bfloat16``; the others (csr, hyb) are converted at
+    bfloat16.  (a) The path, counted: ``spmm_fn`` at bfloat16 and
+    ``BF16_SPMM_B`` on ``BF16_SPMM_PATH`` and auto with ``spmm_b`` = 8 on
+    ``BF16_SPMM_AUTO`` (estimates, trials, pick), every Y through
+    ``verify_result(dtype=bfloat16)`` column by column; fails unless the
+    three ``*_bf16`` panel builds launched and no other build did.  (b) The
+    panel kernels, not counted: on ``BF16_PANEL_CHECKS`` each kernel call
+    against its plain version (at ``TOL`` of max|out|, float32 outs; the
+    products equal), every column of the kernels' Y and of the plain Y
+    (``PlainPanels``) within ``bf16_panel_bounds`` of the oracle of the
+    stored values, two calls of the kernels' Y within each row's
+    ``reorder_bound``; the checks at ``BF16_PANEL_TIMED`` timed, and a row
+    printed per kernel: busy µs against the bound, the chained spmm µs at
+    B 8 beside phase 3's float32 one, torch's bfloat16 CSR ``A @ X``.
+    Returns the comparison results."""
+    from singlespmv_tpu_torch import Config
+    from singlespmv_tpu_torch.core import verify_result
+    from singlespmv_tpu_torch.core.dtypes import round_values, to_host
+    from singlespmv_tpu_torch.core.oracle import reorder_bound
+    from singlespmv_tpu_torch.core.types import COOMatrix
+    from singlespmv_tpu_torch.formats import (adds_per_row, auto, get_format,
+                                              slab, spmm_fn, xch)
+    from singlespmv_tpu_torch.harness.driver import marginal_seconds
+    from singlespmv_tpu_torch.ops import slab as ops
+    from singlespmv_tpu_torch.ops import xch as xops
+
+    cfg = Config(format="slab", dtype="bfloat16")
+    rng = np.random.default_rng(19)
+
+    def coo_of(name):
+        return coos.get(name) or mats[name]
+
+    def panel(name, n_cols):
+        Xh = round_values(rng.uniform(-1.0, 1.0, (coo_of(name).n_col,
+                                                  n_cols)), "bfloat16")
+        return Xh, torch.from_numpy(Xh).to(dev, torch.bfloat16)
+
+    states = {}
+    for name, fmt in BF16_SPMM_PATH + tuple(k for k, _ in BF16_PANEL_CHECKS):
+        if (name, fmt) in states:
+            continue
+        t0 = time.perf_counter()
+        if (name, fmt) in held:
+            states[name, fmt] = as_bfloat16(held[name, fmt])
+            how = "rounded from float32"
+        else:
+            states[name, fmt] = get_format(fmt).convert(
+                coo_of(name), cfg.replace(format=fmt)).to(dev)
+            how = "converted at bfloat16"
+        torch.cuda.synchronize()
+        print(f"spmm bfloat16 state {name} {fmt}: {how} in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    # (a) the path through spmm_fn and auto, counted
+    _zero(*wrappers)
+    for name, fmt in BF16_SPMM_PATH:
+        st = states[name, fmt]
+        Xh, X = panel(name, BF16_SPMM_B)
+        Y = spmm_fn(cfg.replace(format=fmt))(st, X)
+        if Y.dtype != torch.bfloat16:
+            raise SystemExit(f"spmm bfloat16 {name} {fmt}: Y is {Y.dtype}")
+        err = verify_columns(f"spmm bfloat16 {name} {fmt}", coo_of(name), X,
+                             Y, verify_result, "bfloat16")
+        print(f"spmm bfloat16 {name} {fmt} B{BF16_SPMM_B}: Verify: PASS "
+              f"({BF16_SPMM_B} columns) max_abs_err {err}", flush=True)
+    acfg = Config(format="auto", dtype="bfloat16", spmm_b=BF16_SPMM_B)
+    with TrialWindow(BF16_TRIAL_WINDOW_S):
+        for name in BF16_SPMM_AUTO:
+            t0 = time.perf_counter()
+            st = auto.convert(mats[name], acfg, device=dev).to(dev)
+            rep = auto.report_fields(st, acfg)
+            print(f"auto spmm_b={BF16_SPMM_B} bfloat16 {name} "
+                  f"({time.perf_counter() - t0:.1f} s): " + " ".join(
+                      f"{k}: {rep[k]}" for k in (
+                          "ChosenFormat", "AutoEstimates(us)",
+                          "AutoTrials(us)", "AutoFailed")), flush=True)
+            check_auto({name: rep})
+            Xh, X = panel(name, BF16_SPMM_B)
+            err = verify_columns(f"auto spmm bfloat16 {name}", mats[name], X,
+                                 auto.spmm(st, X), verify_result, "bfloat16")
+            print(f"auto spmm_b={BF16_SPMM_B} bfloat16 {name}: Verify: PASS "
+                  f"({BF16_SPMM_B} columns) max_abs_err {err}", flush=True)
+            del st
+    got = count_path("spmm bfloat16", wrappers, BF16_PANEL_KERNELS)
+    wide = {k: v for k, v in got.items() if v and not k.endswith("_bf16")}
+    if wide:
+        raise SystemExit(f"spmm bfloat16: a float32 or float64 kernel ran: "
+                         f"{wide}")
+    # (b) the panel kernels against their plain versions, not counted
+    compared, rows = [], []
+    for (name, fmt), widths in BF16_PANEL_CHECKS:
+        t0 = time.perf_counter()
+        coo, st = coo_of(name), states[name, fmt]
+        mod = slab if fmt == "slab" else xch
+        fcfg = cfg.replace(format=fmt)
+        stored = COOMatrix(coo.n_row, coo.n_col, coo.row, coo.col,
+                           round_values(coo.val, "bfloat16"))
+        panels = {n_cols: panel(name, n_cols) for n_cols in widths}
+        xmax = np.max([np.abs(Xh).max(axis=1) for Xh, _ in panels.values()],
+                      axis=0).astype(np.float64)
+        adds = adds_per_row(st, fcfg)
+        a_csr, lib_err = bf16_library(torch_csr(coo, dev, "bfloat16"),
+                                      panels[widths[0]][1])
+        for n_cols in widths:
+            Xh, X = panels[n_cols]
+            label = f"{name} B{n_cols}"
+            timed = BF16_PANEL_TIMED.get((name, fmt)) == n_cols
+            if fmt == "slab":
+                res = compare_slab_spmm(label, st, slab, ops, X, a_csr,
+                                        timed=timed)
+            else:
+                res = compare_xch_panels(label, st, xch, xops, X, a_csr,
+                                         timed=timed)
+            y1, y2 = (to_host(mod.spmm(st, X)).astype(np.float64)
+                      for _ in range(2))
+            with PlainPanels():
+                yp = to_host(mod.spmm(st, X)).astype(np.float64)
+            r, bound = bf16_panel_bounds(stored, Xh, st, fmt, xmax)
+            share = max(float(np.max(np.abs(y - r) / bound))
+                        for y in (y1, yp))
+            drift = np.abs(y1 - y2)
+            reorder = max(float(np.max(drift[:, b] / np.maximum(
+                reorder_bound(stored, Xh[:, b].astype(np.float64), adds,
+                              "float32", "bfloat16"), 1e-300), initial=0.0))
+                          for b in range(n_cols))
+            res |= {"accuracy_worst_share": share,
+                    "reorder_worst_share": reorder}
+            if lib_err is not None:
+                res["library_error"] = lib_err
+            print(f"spmm bfloat16 {label} {fmt}: kernels' and plain Y, worst "
+                  f"column entry at {share:.3g} of its accuracy bound; two "
+                  f"calls at {reorder:.3g} of the reorder bound", flush=True)
+            if not (share <= 1.0 and reorder <= 1.0):
+                raise SystemExit(f"spmm bfloat16 {label}: a Y left its "
+                                 "accuracy bound, or two calls differ past "
+                                 "the reorder bound")
+            compared.append(res)
+            if timed:
+                Xh8, X8 = panel(name, BF16_SPMM_B)
+                us = 1e6 * marginal_seconds(spmm_fn(fcfg), st, X8, dev,
+                                            SPMM_WINDOW_S)
+                for k in (("slab_spmm",) if fmt == "slab"
+                          else ("xch_mul_panel", "xch_route4_panel")):
+                    t = res if fmt == "slab" else res[k]
+                    rows.append({
+                        "kernel": k + "_bf16", "label": label,
+                        "busy_us": t["ms"] * 1e3,
+                        "bound_us": t["bound_ms"] * 1e3,
+                        "bound_by": t["bound_by"],
+                        "busy_from": "events" if isinstance(
+                            t["ms"], EventsMs) else "trace",
+                        f"spmm_B{BF16_SPMM_B}_bf16_us": us,
+                        f"spmm_B{BF16_SPMM_B}_f32_us": SPMM_F32_US.get(
+                            (name, BF16_SPMM_B)),
+                        "torch_bf16_csr_us": "none" if t["library_ms"] is None
+                        else t["library_ms"] * 1e3,
+                        "card": card})
+        print(f"spmm bfloat16 checks {name} {fmt}: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del a_csr
+    for row in rows:
+        print("spmm_bf16_row " + json.dumps(row), flush=True)
+    _zero(*wrappers)      # the checks' launches count in no path
+    return compared
+
+
 def _route_seconds(state, xch):
     """Seconds ``route_rows`` takes on a host state and its nested ones."""
     t0 = time.perf_counter()
@@ -2289,6 +2604,7 @@ def main() -> int:
                                      verify_result)
                 lib = marginal_seconds(lambda a, b: a @ b, a_csr, X, dev,
                                        SPMM_WINDOW_S)
+                SPMM_F32_US[name, n_cols] = sec * 1e6
                 t_spmv = t_spmv or sec
                 ratio = n_cols * t_spmv / sec if n_cols > 1 else None
                 row = {"matrix": name, "plan": ("spmv:" if n_cols == 1
@@ -2305,8 +2621,7 @@ def main() -> int:
             del a_csr, st
         count_path("spmm float32", all_k, PANEL_KERNELS)
     csrs.clear()
-    for name in ("webbase-1M", "ASIC_680ks", "unbalance-16384", "torso1"):
-        del spmm_states[name]
+    del spmm_states["torso1"]    # the others are phase "spmm bfloat16"'s
     with Phase("spmm auto float32"):
         _zero(*all_k)
         acfg = Config(format="auto", spmm_b=8)
@@ -2343,7 +2658,19 @@ def main() -> int:
         if not rel <= F64_TOL:
             raise SystemExit(f"spmm float64: off the oracle by {rel:.3g} > "
                              f"{F64_TOL} of max|Y|")
-        del asic64, Y, spmm_states, g7_unit
+        del asic64, Y, g7_unit
+    # --- 3b. bfloat16 SpMM (ROADMAP A.10b): the path through spmm_fn and
+    #     auto at bfloat16, counted, then the three panel kernels' bfloat16
+    #     builds against their plain versions, on phase 2's and 3's states
+    #     rounded to bfloat16 ---
+    with Phase("spmm bfloat16"):
+        held = {(n, f): spmm_states[n] for n, f in (
+            ("g7jac200sc", "slab"), ("webbase-1M", "xch"),
+            ("ASIC_680ks", "xch"), ("unbalance-16384", "bsr"))}
+        compared.extend(run_spmm_bfloat16(
+            mats, spmm_coo, held, dev, card.splitlines()[0], count_path,
+            all_k))
+        del held, spmm_states
 
     # --- 4. the slab main path; count the launches it makes ---
     run_cfg = Config(**CFG_KW, calibrate_seconds=0.2, n_trials=3)
@@ -2489,8 +2816,12 @@ def main() -> int:
     with Phase("calibration kernels"):
         cal_checks = compare_calibration(dev)
     with Phase("calibration path"):
+        # the eager loop's times and the kernels' busy times first: their
+        # launches count in no path
+        eager = eager_probe_seconds(dev)
+        busy = probe_kernel_busy(dev)
         _zero(*cal_k)
-        run_calibration_path(dev)
+        run_calibration_path(dev, eager, busy)
         count_path("calibration", cal_k, ("xch_route", "xch_mul") + tuple(
             w.__name__ for w in pops.WRAPPERS))
 
@@ -2728,6 +3059,12 @@ def main() -> int:
             ("slab_spmm", slab_src, "slab.py:228", "g7jac200sc B32"),
             ("xch_mul_panel", xch_src, "xch.py:338", "webbase-1M B16"),
             ("xch_route4_panel", xch_src, "xch.py:424", "webbase-1M B16"),
+            # bfloat16 SpMM (A.10b): the panels' bfloat16 builds; their
+            # launches are phase "spmm bfloat16"'s path
+            ("slab_spmm_bf16", slab_src, "slab.py:228", "g7jac200sc B32"),
+            ("xch_mul_panel_bf16", xch_src, "xch.py:338", "webbase-1M B16"),
+            ("xch_route4_panel_bf16", xch_src, "xch.py:424",
+             "webbase-1M B16"),
             # bfloat16 (A.10): the same kernels' bfloat16 builds; their
             # launches are the bfloat16 paths'
             ("slab_spmv_bf16", slab_src, "slab.py:263", "g7jac200sc"),
@@ -2760,7 +3097,8 @@ def main() -> int:
             "bound_ms": t[0]["bound_ms"], "bound_by": t[0]["bound_by"],
             "library_ms": t[0]["library_ms"]}
             | {k: t[0][k] for k in ("bound_ms_idx_layout", "library_error",
-                                    "reorder_worst_share") if k in t[0]}
+                                    "reorder_worst_share",
+                                    "accuracy_worst_share") if k in t[0]}
             | first_port_ms))
     # block_gather_mul at ellg's gran 128: one entry a pass; launches are
     # the ellg path's

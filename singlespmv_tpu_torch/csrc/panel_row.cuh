@@ -1,6 +1,10 @@
 // Stream-row machinery of the panel (SpMM) kernels: slab_spmm_kernel
 // (slab.cu), xch_mul_panel_kernel and xch_route4_panel_kernel (xch.cu),
-// float only.
+// for storage type S = float or __nv_bfloat16 of val and of the panel they
+// gather.  A bfloat16 value is widened to float where it is loaded
+// (stage_row, load_cols, walk_batch): the staged values, the run sums, the
+// carries and out stay float, so every sum is taken in float and out is
+// never added to by a bfloat16 atomic.
 //
 // The panels are interleaved: panel row c holds the B column values of
 // slot column c contiguously ((CB, 128, B) for x, (n_chunks, P1, 128, B)
@@ -86,32 +90,61 @@ __device__ __forceinline__ int column_tile(int B, int V = 1) {
   return C;
 }
 
-// The V consecutive values at p (16-byte aligned where V is 4).
-template <int V>
-__device__ __forceinline__ void load_cols(const float* __restrict__ p,
+// The V consecutive values at p, widened to float: where V is 4, one
+// 16-byte load of four floats or one 8-byte load of four bfloat16 (p
+// aligned to it).
+template <int V, typename S>
+__device__ __forceinline__ void load_cols(const S* __restrict__ p,
                                           float (&v)[V]) {
   if constexpr (V == 4) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    float4 a;
+    if constexpr (sizeof(S) == 2) {
+      const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+      a = make_float4(bf16_bits(u.x & 0xffffu), bf16_bits(u.x >> 16),
+                      bf16_bits(u.y & 0xffffu), bf16_bits(u.y >> 16));
+    } else {
+      a = __ldg(reinterpret_cast<const float4*>(p));
+    }
     v[0] = a.x;
     v[1] = a.y;
     v[2] = a.z;
     v[3] = a.w;
   } else {
 #pragma unroll
-    for (int j = 0; j < V; ++j) v[j] = __ldg(p + j);
+    for (int j = 0; j < V; ++j) v[j] = ldg_acc(p + j);
+  }
+}
+
+// The V floats v stored at p in storage type S, each rounded once (to
+// nearest) at bfloat16: one 16-byte store of four floats or one 8-byte
+// store of four bfloat16 where V is 4 (p aligned to it).
+template <int V, typename S>
+__device__ __forceinline__ void store_cols(S* __restrict__ p,
+                                           const float (&v)[V]) {
+  if constexpr (V == 4) {
+    store4(p, make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if constexpr (sizeof(S) == 2)
+        p[j] = __float2bfloat16_rn(v[j]);
+      else
+        p[j] = v[j];
+    }
   }
 }
 
 // Stages stream row r: the calling lane writes its slots 4k..4k+3, each
 // gathering panel row col0 + (win[r] + sub) * 128 + lane, with no
-// destination.  val is read only when kVal, hm1 only when not null.
-template <bool kVal>
+// destination.  val (of storage type S, staged as float) is read only when
+// kVal, hm1 only when not null.
+template <bool kVal, typename S>
 __device__ __forceinline__ void stage_row(PanelSlot* st, const LaneGroups& lg,
                                           int r, int m, int col0,
                                           const int32_t* __restrict__ win,
                                           const int8_t* __restrict__ lane,
                                           const int8_t* __restrict__ sub,
-                                          const float* __restrict__ val,
+                                          const S* __restrict__ val,
                                           const int8_t* __restrict__ hm1) {
   const int k = threadIdx.x & 31;
   const size_t o = (size_t)r * kLanes + 4 * k;
@@ -150,9 +183,9 @@ __device__ __forceinline__ void read_dests(PanelSlot* st, const LaneGroups& lg,
 }
 
 // One batch of U slots from slot i of segment g (see walk_row).
-template <int U, bool kVal>
+template <int U, bool kVal, typename S>
 __device__ __forceinline__ void walk_batch(const PanelSlot* sp, int i, int l0,
-                                           const float* __restrict__ xc,
+                                           const S* __restrict__ xc,
                                            int B, bool on, float& run,
                                            bool& headed, int& wait,
                                            float& wait_sum,
@@ -163,7 +196,7 @@ __device__ __forceinline__ void walk_batch(const PanelSlot* sp, int i, int l0,
   for (int u = 0; u < U; ++u) q[u] = sp[i + u];
 #pragma unroll
   for (int u = 0; u < U; ++u)
-    xv[u] = on ? __ldg(xc + (size_t)q[u].col * B) : 0.f;
+    xv[u] = on ? ldg_acc(xc + (size_t)q[u].col * B) : 0.f;
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     const float p = kVal ? q[u].val * xv[u] : xv[u];
@@ -183,14 +216,14 @@ __device__ __forceinline__ void walk_batch(const PanelSlot* sp, int i, int l0,
 
 // Walks segment g of a staged row for column c of the tile and adds each
 // run total into out position dest: xc and oc point at column c of panel
-// row 0 and of out position 0, B is the width of both (their row stride),
-// `on` is false past the panel's last column (those lanes gather and add
-// nothing, but take part in the carry's shuffles).  Called by the whole
-// warp.
-template <bool kVal>
+// row 0 (of storage type S) and of out position 0 (float), B is the width
+// of both (their row stride), `on` is false past the panel's last column
+// (those lanes gather and add nothing, but take part in the carry's
+// shuffles).  Called by the whole warp.
+template <bool kVal, typename S>
 __device__ __forceinline__ void walk_row(const PanelSlot* st,
                                          const LaneGroups& lg,
-                                         const float* __restrict__ xc,
+                                         const S* __restrict__ xc,
                                          float* __restrict__ oc, int B,
                                          bool on) {
   const PanelSlot* sp = st + lg.g * (lg.S + 1);
@@ -200,11 +233,11 @@ __device__ __forceinline__ void walk_row(const PanelSlot* st,
   int wait = -1;        // the end whose run began before the segment
   int i = 0;
   for (; i + kWalkBatch <= lg.S; i += kWalkBatch)
-    walk_batch<kWalkBatch, kVal>(sp, i, l0, xc, B, on, run, headed, wait,
-                                 wait_sum, oc);
+    walk_batch<kWalkBatch, kVal, S>(sp, i, l0, xc, B, on, run, headed,
+                                    wait, wait_sum, oc);
   for (; i < lg.S; i += 4)  // S = 4L: a multiple of 4
-    walk_batch<4, kVal>(sp, i, l0, xc, B, on, run, headed, wait, wait_sum,
-                        oc);
+    walk_batch<4, kVal, S>(sp, i, l0, xc, B, on, run, headed, wait,
+                           wait_sum, oc);
   // segmented inclusive scan of (headed, run) over the groups: run becomes
   // the sum since the last head up to the end of segment g; the carry into
   // g is g - 1's
@@ -223,15 +256,16 @@ __device__ __forceinline__ void walk_row(const PanelSlot* st,
 }
 
 // The route of a staged row with destinations: walk_row for each column
-// tile of the B columns, the panel at x, the out positions at out.
-template <bool kVal>
+// tile of the B columns, the panel (of storage type S) at x, the float out
+// positions at out.
+template <bool kVal, typename S>
 __device__ __forceinline__ void route_row(const PanelSlot* st,
                                           const LaneGroups& lg,
-                                          const float* __restrict__ x,
+                                          const S* __restrict__ x,
                                           float* __restrict__ out, int B) {
   for (int b0 = 0; b0 < B; b0 += lg.C)
-    walk_row<kVal>(st, lg, x + b0 + lg.c, out + b0 + lg.c, B,
-                   lg.c < B - b0);
+    walk_row<kVal, S>(st, lg, x + b0 + lg.c, out + b0 + lg.c, B,
+                      lg.c < B - b0);
 }
 
 }  // namespace

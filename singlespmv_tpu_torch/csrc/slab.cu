@@ -15,10 +15,13 @@
 //   slab_unit_kernel<float|double> and slab_blk_kernel, the first port of
 //     those three on the TPU's idx planes, are on no path: they stay as the
 //     "first port" variant of harness/slab_ab.py and for the parity tests;
-//   slab_spmm_kernel replaces _slab_spmm_kernel, the kernel of slab_spmm
+//   slab_spmm_kernel<S> replaces _slab_spmm_kernel, the kernel of slab_spmm
 //     (singlespmv_tpu/ops/pallas/slab.py:184 and :228): the unit route over a
-//     panel of B columns; float only, as the TPU ran it (its float64 SpMM
-//     is a column loop over the spmv kernels).
+//     panel of B columns, at float and at bfloat16 as the TPU ran it (its
+//     float64 SpMM is a column loop over the spmv kernels).  At bfloat16
+//     val and the panel are read as 2 bytes a value and out is float: the
+//     products, run sums and out are float, where the TPU rounded each of
+//     them to bfloat16, and the caller rounds Y once.
 //
 // Per stream row r of 128 slots l, in grid step t = r / T, all compute
 //   gather   g[l] = x[(win[r] + sub[r,l]) * 128 + lane[r,l]]  (sub unread if m == 1)
@@ -113,7 +116,9 @@
 // with its atomics sent to distinct shared addresses instead.  Bound:
 // the streams once (idx only for the routed planes), the panel once (from
 // L2: far smaller than the 50 MB L2 on the main path) and the out rows
-// once, bytes.
+// once, bytes.  At bfloat16 the streams' val and the panel take 2 bytes a
+// value and out stays float: the bytes fall by the val stream's half
+// (out and the int8 streams are the same).
 //
 // Bound.  Per slot the spmv route streams 4 B of val (8 B at double), 2 B
 // of int8 (lane, hm1) or 3 B when m > 1 (sub) and 2 B of dest, 4 B of win
@@ -334,12 +339,14 @@ __global__ void __launch_bounds__(kThreads) slab_rows_merge_kernel(
   }
 }
 
+// S is the storage type of val and the x panel; out is float.
+template <typename S>
 __global__ void __launch_bounds__(kThreads) slab_spmm_kernel(
     const int32_t* __restrict__ uids, const int32_t* __restrict__ sg0,
     const int32_t* __restrict__ sg1, const int32_t* __restrict__ win,
     const int8_t* __restrict__ lane, const int8_t* __restrict__ sub,
-    const float* __restrict__ val, const int8_t* __restrict__ hm1,
-    const int8_t* __restrict__ idx, const float* __restrict__ x,
+    const S* __restrict__ val, const int8_t* __restrict__ hm1,
+    const int8_t* __restrict__ idx, const S* __restrict__ x,
     float* __restrict__ out, int H, int T, int m, int planes, int B) {
   __shared__ __align__(16) PanelSlot stage[kWarps][kPanelStage];
   const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -349,12 +356,31 @@ __global__ void __launch_bounds__(kThreads) slab_spmm_kernel(
   if (lo > hi) return;  // the step routes nothing; uniform over the warp
   const LaneGroups lg(column_tile(B), 1);
   PanelSlot* st = stage[threadIdx.x >> 5];
-  stage_row<true>(st, lg, r, m, 0, win, lane, sub, val, hm1);
+  stage_row<true, S>(st, lg, r, m, 0, win, lane, sub, val, hm1);
   __syncwarp();
   read_dests(st, lg, idx + ((size_t)lo * H + r) * kLanes, (size_t)H * kLanes,
              hi - lo + 1, (uids[t] * planes + lo) * kLanes);
   __syncwarp();
-  route_row<true>(st, lg, x, out, B);
+  route_row<true, S>(st, lg, x, out, B);
+}
+
+template <typename S>
+int launch_spmm(const void* uids, const void* sg0, const void* sg1,
+                const void* win, const void* lane, const void* sub,
+                const void* val, const void* hm1, const void* idx,
+                const void* x, void* out, int H, int T, int m, int planes,
+                int B, void* stream) {
+  if (planes < 1 || planes > kMaxUnitPlanes || T < 1 || H < 0 || H % T ||
+      B < 1)
+    return (int)cudaErrorInvalidValue;
+  if (H == 0) return 0;
+  slab_spmm_kernel<S><<<(H + kWarps - 1) / kWarps, kThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const int32_t*)uids, (const int32_t*)sg0, (const int32_t*)sg1,
+      (const int32_t*)win, (const int8_t*)lane, (const int8_t*)sub,
+      (const S*)val, (const int8_t*)hm1, (const int8_t*)idx, (const S*)x,
+      (float*)out, H, T, m, planes, B);
+  return (int)cudaGetLastError();
 }
 
 template <typename V>
@@ -496,7 +522,7 @@ extern "C" int slab_spmv_rows_bf16(const void* ybase, const void* win,
 }
 
 // `out` must be zeroed, of (nu * planes * 128, B) floats; `x` is the
-// interleaved (cb, 128, B) panel.
+// interleaved (cb, 128, B) panel of val's type.
 extern "C" int slab_spmm_f32(const void* uids, const void* sg0,
                              const void* sg1, const void* win,
                              const void* lane, const void* sub,
@@ -504,15 +530,19 @@ extern "C" int slab_spmm_f32(const void* uids, const void* sg0,
                              const void* idx, const void* x, void* out,
                              int H, int T, int m, int planes, int B,
                              void* stream) {
-  if (planes < 1 || planes > kMaxUnitPlanes || T < 1 || H < 0 || H % T ||
-      B < 1)
-    return (int)cudaErrorInvalidValue;
-  if (H == 0) return 0;
-  slab_spmm_kernel<<<(H + kWarps - 1) / kWarps, kThreads, 0,
-                     (cudaStream_t)stream>>>(
-      (const int32_t*)uids, (const int32_t*)sg0, (const int32_t*)sg1,
-      (const int32_t*)win, (const int8_t*)lane, (const int8_t*)sub,
-      (const float*)val, (const int8_t*)hm1, (const int8_t*)idx,
-      (const float*)x, (float*)out, H, T, m, planes, B);
-  return (int)cudaGetLastError();
+  return launch_spmm<float>(uids, sg0, sg1, win, lane, sub, val, hm1, idx, x,
+                            out, H, T, m, planes, B, stream);
+}
+
+// bfloat16 val and x panel (2 bytes a value), float32 out: the caller
+// rounds Y once.
+extern "C" int slab_spmm_bf16(const void* uids, const void* sg0,
+                              const void* sg1, const void* win,
+                              const void* lane, const void* sub,
+                              const void* val, const void* hm1,
+                              const void* idx, const void* x, void* out,
+                              int H, int T, int m, int planes, int B,
+                              void* stream) {
+  return launch_spmm<bf16>(uids, sg0, sg1, win, lane, sub, val, hm1, idx, x,
+                           out, H, T, m, planes, B, stream);
 }

@@ -18,11 +18,14 @@
 //   xch_route4_kernel<float> and <double>, the first port of _xch_route4_kernel
 //     on the TPU's idx planes, are on no path: they stay as the "as before"
 //     variant of harness/xch_ab.py;
-//   xch_mul_panel_kernel and xch_route4_panel_kernel replace
+//   xch_mul_panel_kernel<S, V> and xch_route4_panel_kernel<S> replace
 //     _xch_mul_panel_kernel and _xch_route4_panel_kernel, the kernels of
 //     xch_mul_panel and xch_route4_panel (singlespmv_tpu/ops/pallas/xch.py:313,
-//     :338 and :364, :424): both passes over a panel of B columns, float only,
-//     as the TPU ran them;
+//     :338 and :364, :424): both passes over a panel of B columns, at float
+//     and at bfloat16 as the TPU ran them.  At bfloat16 val, the x panel and
+//     the product panel are 2 bytes a value, each product rounded once to
+//     bfloat16 as the TPU's panel rounds it to val's type; the route sums
+//     in float into a float out, which the caller rounds once;
 //   xch_mul_kernel<bf16> and the two route kernels at <bf16> run the
 //     same functions on bfloat16 values, x and product grid (2 bytes a
 //     slot in device memory), every sum in float into a float y;
@@ -122,7 +125,10 @@
 // the x panel once and the products once; pass 2 the streams once, one
 // gathered product per slot and column (the product panel of a large
 // matrix outgrows L2, so these come from device memory) and the out rows
-// once; bytes both.
+// once; bytes both.  At bfloat16 val, the x panel and the product panel
+// take 2 bytes a value (a lane's 4 columns one 8-byte access), out stays
+// float: pass 1's bytes fall by nearly half, pass 2's by the gathered
+// products' half.
 //
 // The v3 route.  Per stream row r in step t it gathers from the products of
 // chunk cs[t] and takes run totals as pass 2 does, then for each plane s of
@@ -328,23 +334,25 @@ __global__ void __launch_bounds__(kThreads) xch_route4_rows_merge_kernel(
   }
 }
 
-template <int V>
+// S is the storage type of val, the x panel and the product panel; each
+// product is taken in float (exact for two bfloat16) and stored rounded to
+// S once (store_cols).
+template <typename S, int V>
 __global__ void __launch_bounds__(kThreads) xch_mul_panel_kernel(
     const int32_t* __restrict__ win, const int8_t* __restrict__ lane,
-    const int8_t* __restrict__ sub, const float* __restrict__ val,
-    const float* __restrict__ x, float* __restrict__ out, int H, int m,
-    int B) {
+    const int8_t* __restrict__ sub, const S* __restrict__ val,
+    const S* __restrict__ x, S* __restrict__ out, int H, int m, int B) {
   __shared__ __align__(16) PanelSlot stage[kWarps][kPanelStage];
   const int warp = threadIdx.x >> 5;
   const int r = blockIdx.x * kWarps + warp;
   if (r >= H) return;
   const LaneGroups lg(column_tile(B, V), V);
   PanelSlot* st = stage[warp];
-  stage_row<true>(st, lg, r, m, 0, win, lane, sub, val, nullptr);
+  stage_row<true, S>(st, lg, r, m, 0, win, lane, sub, val, nullptr);
   __syncwarp();
   // a step writes G consecutive slots' products: one contiguous run;
   // kWalkBatch steps' gathers are in flight together
-  float* orow = out + (size_t)r * kLanes * B;
+  S* orow = out + (size_t)r * kLanes * B;
   for (int b = lg.c; b < B; b += lg.C)
     for (int l0 = lg.g; l0 < kLanes; l0 += kWalkBatch * lg.G) {
       float xv[kWalkBatch][V], v[kWalkBatch];
@@ -359,25 +367,23 @@ __global__ void __launch_bounds__(kThreads) xch_mul_panel_kernel(
       for (int u = 0; u < kWalkBatch; ++u) {
         const int l = l0 + u * lg.G;
         if (l >= kLanes) continue;
-        float* o = orow + (size_t)l * B + b;
-        if constexpr (V == 4) {
-          *reinterpret_cast<float4*>(o) =
-              make_float4(v[u] * xv[u][0], v[u] * xv[u][1], v[u] * xv[u][2],
-                          v[u] * xv[u][3]);
-        } else {
+        float p[V];
 #pragma unroll
-          for (int j = 0; j < V; ++j) o[j] = v[u] * xv[u][j];
-        }
+        for (int j = 0; j < V; ++j) p[j] = v[u] * xv[u][j];
+        store_cols<V>(orow + (size_t)l * B + b, p);
       }
     }
 }
 
+// S is the storage type of the product panel; the run sums and out are
+// float.
+template <typename S>
 __global__ void __launch_bounds__(kThreads) xch_route4_panel_kernel(
     const int32_t* __restrict__ gids, const int32_t* __restrict__ off,
     const int32_t* __restrict__ cs, const int32_t* __restrict__ win,
     const int8_t* __restrict__ lane, const int8_t* __restrict__ sub,
     const int8_t* __restrict__ hm1, const int8_t* __restrict__ sig,
-    const int8_t* __restrict__ idx, const float* __restrict__ prod,
+    const int8_t* __restrict__ idx, const S* __restrict__ prod,
     float* __restrict__ out, int H, int T, int m, int kblk, int p_oh,
     int gb, int p1, int B, int n_out) {
   __shared__ __align__(16) PanelSlot stage[kWarps][kPanelStage];
@@ -389,8 +395,8 @@ __global__ void __launch_bounds__(kThreads) xch_route4_panel_kernel(
   if (base < 0) return;
   const LaneGroups lg(column_tile(B), 1);
   PanelSlot* st = stage[threadIdx.x >> 5];
-  stage_row<false>(st, lg, r, m, cs[t] * p1 * kLanes, win, lane, sub,
-                   nullptr, hm1);
+  stage_row<false, S>(st, lg, r, m, cs[t] * p1 * kLanes, win, lane, sub,
+                      nullptr, hm1);
   __syncwarp();
   // the planes j whose one-hot row s + j lies in [0, p_oh) and whose out
   // row lies in [base, n_out)
@@ -401,7 +407,53 @@ __global__ void __launch_bounds__(kThreads) xch_route4_panel_kernel(
     read_dests(st, lg, idx + ((size_t)j0 * H + r) * kLanes,
                (size_t)H * kLanes, j1 - j0, (int)(base + s + j0) * kLanes);
   __syncwarp();
-  route_row<false>(st, lg, prod, out, B);
+  route_row<false, S>(st, lg, prod, out, B);
+}
+
+template <typename S>
+int launch_mul_panel(const void* win, const void* lane, const void* sub,
+                     const void* val, const void* x, void* out, int H, int T,
+                     int m, int B, void* stream) {
+  if (m < 1 || m > kMaxWindow || T < 1 || H < 0 || H % T || B < 1)
+    return (int)cudaErrorInvalidValue;
+  if (H == 0) return 0;
+  // lanes of 4 columns (16-byte gathers and stores of float, 8-byte ones
+  // of bfloat16) where B allows
+  const int grid = (H + kWarps - 1) / kWarps;
+  if (B % 4)
+    xch_mul_panel_kernel<S, 1><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)win, (const int8_t*)lane, (const int8_t*)sub,
+        (const S*)val, (const S*)x, (S*)out, H, m, B);
+  else
+    xch_mul_panel_kernel<S, 4><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)win, (const int8_t*)lane, (const int8_t*)sub,
+        (const S*)val, (const S*)x, (S*)out, H, m, B);
+  return (int)cudaGetLastError();
+}
+
+template <typename S>
+int launch_route4_panel(const void* gids, const void* off, const void* cs,
+                        const void* win, const void* lane, const void* sub,
+                        const void* hm1, const void* sig, const void* idx,
+                        const void* prod, void* out, int H, int T, int m,
+                        int kblk, int p_oh, int n_grp, int gb, int p1, int B,
+                        int n_chunks, void* stream) {
+  // an out position (row * 128 + lane) and a product row are ints
+  const long long n_out = (long long)n_grp * gb;
+  if (m < 1 || m > kMaxWindow || kblk < 1 || p_oh < 1 || p_oh > kMaxPoh ||
+      T < 1 || H < 0 || H % T || n_grp < 0 || gb < 1 || p1 < 1 || B < 1 ||
+      n_chunks < 1 || n_out * kLanes > INT32_MAX ||
+      (long long)n_chunks * p1 * kLanes > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (H == 0) return 0;
+  xch_route4_panel_kernel<S><<<(H + kWarps - 1) / kWarps, kThreads, 0,
+                               (cudaStream_t)stream>>>(
+      (const int32_t*)gids, (const int32_t*)off, (const int32_t*)cs,
+      (const int32_t*)win, (const int8_t*)lane, (const int8_t*)sub,
+      (const int8_t*)hm1, (const int8_t*)sig, (const int8_t*)idx,
+      (const S*)prod, (float*)out, H, T, m, kblk, p_oh, gb, p1, B,
+      (int)n_out);
+  return (int)cudaGetLastError();
 }
 
 // The planes [lo, hi] of the pg-groups that a step with sg0 = s0 and
@@ -685,25 +737,22 @@ extern "C" int xch_route4_rows_bf16(const void* base, const void* cs,
 }
 
 // `out` (H, 128, B) is written in full; `x` is the interleaved (cb, 128, B)
-// panel.
+// panel; both of val's type.
 extern "C" int xch_mul_panel_f32(const void* win, const void* lane,
                                  const void* sub, const void* val,
                                  const void* x, void* out, int H, int T,
                                  int m, int B, void* stream) {
-  if (m < 1 || m > kMaxWindow || T < 1 || H < 0 || H % T || B < 1)
-    return (int)cudaErrorInvalidValue;
-  if (H == 0) return 0;
-  // lanes of 4 columns (16-byte gathers and stores) where B allows
-  const int grid = (H + kWarps - 1) / kWarps;
-  if (B % 4)
-    xch_mul_panel_kernel<1><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)win, (const int8_t*)lane, (const int8_t*)sub,
-        (const float*)val, (const float*)x, (float*)out, H, m, B);
-  else
-    xch_mul_panel_kernel<4><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)win, (const int8_t*)lane, (const int8_t*)sub,
-        (const float*)val, (const float*)x, (float*)out, H, m, B);
-  return (int)cudaGetLastError();
+  return launch_mul_panel<float>(win, lane, sub, val, x, out, H, T, m, B,
+                                 stream);
+}
+
+// bfloat16 val, x panel and product panel (each product rounded once).
+extern "C" int xch_mul_panel_bf16(const void* win, const void* lane,
+                                  const void* sub, const void* val,
+                                  const void* x, void* out, int H, int T,
+                                  int m, int B, void* stream) {
+  return launch_mul_panel<bf16>(win, lane, sub, val, x, out, H, T, m, B,
+                                stream);
 }
 
 // `out` must be zeroed, of (n_out, 128) floats (ngb * g_grp * planes rows);
@@ -740,20 +789,23 @@ extern "C" int xch_route4_panel_f32(const void* gids, const void* off,
                                     void* out, int H, int T, int m, int kblk,
                                     int p_oh, int n_grp, int gb, int p1,
                                     int B, int n_chunks, void* stream) {
-  // an out position (row * 128 + lane) and a product row are ints
-  const long long n_out = (long long)n_grp * gb;
-  if (m < 1 || m > kMaxWindow || kblk < 1 || p_oh < 1 || p_oh > kMaxPoh ||
-      T < 1 || H < 0 || H % T || n_grp < 0 || gb < 1 || p1 < 1 || B < 1 ||
-      n_chunks < 1 || n_out * kLanes > INT32_MAX ||
-      (long long)n_chunks * p1 * kLanes > INT32_MAX)
-    return (int)cudaErrorInvalidValue;
-  if (H == 0) return 0;
-  xch_route4_panel_kernel<<<(H + kWarps - 1) / kWarps, kThreads, 0,
-                            (cudaStream_t)stream>>>(
-      (const int32_t*)gids, (const int32_t*)off, (const int32_t*)cs,
-      (const int32_t*)win, (const int8_t*)lane, (const int8_t*)sub,
-      (const int8_t*)hm1, (const int8_t*)sig, (const int8_t*)idx,
-      (const float*)prod, (float*)out, H, T, m, kblk, p_oh, gb, p1, B,
-      (int)n_out);
-  return (int)cudaGetLastError();
+  return launch_route4_panel<float>(gids, off, cs, win, lane, sub, hm1, sig,
+                                    idx, prod, out, H, T, m, kblk, p_oh,
+                                    n_grp, gb, p1, B, n_chunks, stream);
+}
+
+// bfloat16 product panel (2 bytes a value), float32 out: the caller rounds
+// Y once.
+extern "C" int xch_route4_panel_bf16(const void* gids, const void* off,
+                                     const void* cs, const void* win,
+                                     const void* lane, const void* sub,
+                                     const void* hm1, const void* sig,
+                                     const void* idx, const void* prod,
+                                     void* out, int H, int T, int m,
+                                     int kblk, int p_oh, int n_grp, int gb,
+                                     int p1, int B, int n_chunks,
+                                     void* stream) {
+  return launch_route4_panel<bf16>(gids, off, cs, win, lane, sub, hm1, sig,
+                                   idx, prod, out, H, T, m, kblk, p_oh,
+                                   n_grp, gb, p1, B, n_chunks, stream);
 }

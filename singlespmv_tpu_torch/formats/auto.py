@@ -10,8 +10,9 @@ value type is the port's own rule (``supports``): bkt and bkt_g at float32
 and bfloat16, as on the TPU; every other ported engine at float32,
 float64 and bfloat16 (the reference's bfloat16 set: its Pallas engines,
 whose kernels take bfloat16, and the closed forms).  At bfloat16 every
-price reads 2-byte values; under bfloat16 an SpMM plan (``spmm_b`` > 0)
-raises ``NotImplementedError`` (ROADMAP A.10b).  At
+price reads 2-byte values, an SpMM plan (``spmm_b`` > 0) among them, and
+``spmm`` runs the chosen engine's bfloat16 SpMM (its panel kernels where
+its gates take the panel), each column of Y rounded once.  At
 float64 css keeps the reference's df64 price (×4 on its kernel term, no
 ×20), though the port runs it on native fp64.  The reference offers xch
 only where its Pallas kernels take the value type, which on the TPU
@@ -60,7 +61,7 @@ from . import hyb as hyb_mod
 from . import slab as slab_mod
 from . import ss as ss_mod
 from . import xch as xch_mod
-from .base import TensorState, check_spmm_dtype, module_spmm
+from .base import TensorState, module_spmm
 
 STATE_REV = 1   # bump with a change of AutoState; cache.py folds in
 #                 every engine's rev
@@ -307,8 +308,6 @@ def convert(coo: COOMatrix, cfg: Config, log=None, device=None) -> AutoState:
     """Rank by the model, time the close candidates on ``device`` when it is
     a CUDA device, and convert the winner.  The state comes back on
     ``device`` when trials ran there, else on the CPU."""
-    if cfg.spmm_b > 0:
-        check_spmm_dtype("auto", cfg.dtype)
     plans = {}
     costs = estimate_costs(coo, cfg, plans=plans)
     for ex in cfg.auto_exclude:
@@ -391,7 +390,8 @@ def spmv(state: AutoState, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmm(state: AutoState, X: torch.Tensor) -> torch.Tensor:
-    check_spmm_dtype("auto", X.dtype)
+    """Y = A @ X through the chosen engine's ``spmm`` (or the column loop
+    of its ``spmv``), at every value type."""
     return module_spmm(_MODULES[state.chosen])(state.inner, X)
 
 

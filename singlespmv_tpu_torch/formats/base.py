@@ -19,9 +19,10 @@ reference's ``jax.vmap``.  X is (n_col, B) and Y (n_row, B).
 States are frozen dataclasses of torch tensors (``TensorState``); ``convert``
 returns them on the CPU and ``state.to(device)`` moves them.  Values are
 float32, float64 or bfloat16 (``check_dtype``); bfloat16 states hold
-``torch.bfloat16`` tensors, and their spmv accumulates in float32 and
-rounds y once (``core/dtypes.py``).  Under bfloat16 ``spmm_fn`` raises
-``NotImplementedError``: the SpMM panels are float32 only (ROADMAP A.10b).
+``torch.bfloat16`` tensors, and their spmv and spmm accumulate in float32
+and round each y, and each column of Y, once (``core/dtypes.py``): a
+format that adds parts (a peel, a nested or residual engine) adds them in
+the accumulator type, through ``acc_spmv`` and ``acc_spmm``.
 """
 from __future__ import annotations
 
@@ -48,14 +49,6 @@ def check_dtype(fmt: str, dtype) -> None:
         raise NotImplementedError(
             f"{fmt}: {', '.join(VALUE_DTYPES)} are ported to the GPU, "
             f"{name} is not")
-
-
-def check_spmm_dtype(fmt: str, dtype) -> None:
-    """Refuses SpMM at bfloat16: its panels wait for ROADMAP A.10b."""
-    if dtypes.name_of(dtype) == "bfloat16":
-        raise NotImplementedError(
-            f"{fmt}: SpMM at bfloat16 is not ported yet (ROADMAP A.10b: "
-            "A.10 ported bfloat16 SpMV only)")
 
 
 def register_format(name: str, module) -> None:
@@ -143,26 +136,38 @@ def acc_spmv(mod) -> Callable:
 
 
 def column_loop(spmv: Callable, state, X: torch.Tensor) -> torch.Tensor:
-    """Y = A @ X by one ``spmv`` per column of X (n_col, B): (n_row, B)."""
-    check_spmm_dtype("column loop", X.dtype)
+    """Y = A @ X by one ``spmv`` per column of X (n_col, B): (n_row, B) of
+    the type ``spmv`` returns (``acc_spmv``'s: the accumulator type)."""
     return torch.stack([spmv(state, x) for x in X.t().contiguous()], dim=1)
 
 
+def acc_spmm(mod) -> Callable:
+    """The spmm of format module ``mod`` in the accumulator type (float32
+    for bfloat16 values), for a format that adds it to other parts before
+    it rounds Y once: the module's ``spmm_acc`` where it has one, else the
+    column loop of ``acc_spmv``."""
+    fn = getattr(mod, "spmm_acc", None)
+    if fn is not None:
+        return fn
+    spmv = acc_spmv(mod)
+    return lambda state, X: column_loop(spmv, state, X)
+
+
 def module_spmm(mod) -> Callable:
-    """The ``spmm`` of format module ``mod``, or the column loop of its
-    ``spmv``."""
+    """The ``spmm`` of format module ``mod``, or ``acc_spmm``'s column loop
+    rounded once to X's type."""
     native = getattr(mod, "spmm", None)
     if native is not None:
         return native
-    return lambda state, X: column_loop(mod.spmv, state, X)
+    spmm = acc_spmm(mod)
+    return lambda state, X: spmm(state, X).to(X.dtype)
 
 
 def spmm_fn(cfg: Config) -> Callable:
     """SpMM, Y = A @ X with X (n_col, B): the format's ``spmm`` where it has
     one, else the column loop of its ``spmv``
-    (``singlespmv_tpu/formats/base.py:90``).  Raises
-    ``NotImplementedError`` under bfloat16 (``check_spmm_dtype``)."""
-    check_spmm_dtype(cfg.format, cfg.dtype)
+    (``singlespmv_tpu/formats/base.py:90``), at every value type; each
+    column of Y is summed in the accumulator type and rounded once."""
     return module_spmm(get_format(cfg.format))
 
 

@@ -26,8 +26,7 @@ import torch
 from ..config import Config
 from ..core.dtypes import acc, to_host, value_size, value_tensor
 from ..core.types import COOMatrix, cdiv
-from .base import (TensorState, check_dtype, check_spmm_dtype,
-                   state_from_arrays)
+from .base import TensorState, check_dtype, state_from_arrays
 from .slab import _t
 
 MAX_GATHERED_ELEMS = 1 << 28    # cap on the gathered (n_blocks, bn, Bc) X
@@ -130,9 +129,9 @@ def spmv_acc(state: BSRState, x: torch.Tensor) -> torch.Tensor:
     return yb.view(-1)[: state.n_row]
 
 
-def spmm(state: BSRState, X: torch.Tensor) -> torch.Tensor:
-    """Y = A @ X, X (n_col, B) (the reference's ``formats/bsr.py:118``)."""
-    check_spmm_dtype("bsr", X.dtype)
+def spmm_acc(state: BSRState, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X, X (n_col, B) (the reference's ``formats/bsr.py:118``), in
+    the accumulator type: blocks and X widened, as ``spmv_acc`` does."""
     b, bn = X.shape[1], state.bn
     cb = cdiv(state.n_col, bn)
     if state.ell_k:
@@ -142,7 +141,8 @@ def spmm(state: BSRState, X: torch.Tensor) -> torch.Tensor:
         Xg = Xp.view(cb + 1, bn, b).index_select(
             0, state.ell_bcol.view(-1)).view(state.n_brow, state.ell_k * bn,
                                              b)
-        return torch.bmm(state.ell_blocks, Xg).view(-1, b)[: state.n_row]
+        return torch.bmm(acc(state.ell_blocks), acc(Xg)).view(
+            -1, b)[: state.n_row]
     chunk = max(8, min(b, MAX_GATHERED_ELEMS
                        // max(state.n_blocks * bn, 1)))
 
@@ -151,15 +151,21 @@ def spmm(state: BSRState, X: torch.Tensor) -> torch.Tensor:
         Xp = torch.zeros(cb * bn, bc, dtype=X.dtype, device=X.device)
         Xp[: state.n_col] = Xc
         Xb = Xp.view(cb, bn, bc).index_select(0, state.bcol)
-        Yb = torch.zeros(state.n_brow, state.bm, bc, dtype=X.dtype,
+        part = torch.bmm(acc(state.blocks), acc(Xb))
+        Yb = torch.zeros(state.n_brow, state.bm, bc, dtype=part.dtype,
                          device=X.device)
-        Yb.index_add_(0, state.brow, torch.bmm(state.blocks, Xb))
+        Yb.index_add_(0, state.brow, part)
         return Yb.view(-1, bc)[: state.n_row]
 
     if chunk >= b:
         return one_chunk(X)
     return torch.cat([one_chunk(X[:, i: i + chunk])
                       for i in range(0, b, chunk)], 1)
+
+
+def spmm(state: BSRState, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X, X (n_col, B), rounded once to X's type."""
+    return spmm_acc(state, X).to(X.dtype)
 
 
 def report_fields(state: BSRState, cfg: Config) -> dict:

@@ -18,7 +18,7 @@ import torch
 from ..config import Config
 from ..core.dtypes import acc, to_host, value_tensor
 from ..core.types import COOMatrix, round_up
-from .base import TensorState, check_dtype, check_spmm_dtype
+from .base import TensorState, check_dtype
 from .slab import _t
 
 PAD_MULTIPLE = 1024
@@ -85,15 +85,20 @@ def phases(state: CSRState):
     return {"Mul": mul, "Sum": reduce}
 
 
-def spmm(state: CSRState, X: torch.Tensor) -> torch.Tensor:
-    """Y = A @ X, X (n_col, B): products of the rows of X, summed by row."""
-    check_spmm_dtype("csr", X.dtype)
-    products = state.val[:, None] * X.index_select(0, state.col)
+def spmm_acc(state: CSRState, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X, X (n_col, B), in the accumulator type: products of the
+    rows of X, summed by row."""
+    products = acc(state.val)[:, None] * acc(X.index_select(0, state.col))
     Y = torch.zeros(state.n_row, X.shape[1], dtype=products.dtype,
                     device=X.device)
     if state.n_row:
         Y.index_add_(0, state.rows, products)
     return Y
+
+
+def spmm(state: CSRState, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X, X (n_col, B), rounded once to X's type."""
+    return spmm_acc(state, X).to(X.dtype)
 
 
 def report_fields(state: CSRState, cfg: Config) -> dict:

@@ -14,9 +14,9 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..core.dtypes import to_host, value_size, value_tensor
+from ..core.dtypes import acc, to_host, value_size, value_tensor
 from ..core.types import COOMatrix, round_up
-from .base import TensorState, check_dtype, check_spmm_dtype
+from .base import TensorState, check_dtype
 
 MAX_DENSE_ELEMENTS = 1 << 28  # 1 GiB of f32
 
@@ -50,13 +50,18 @@ def spmv(state: DenseState, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(state.mat, xp)[: state.n_row]
 
 
-def spmm(state: DenseState, X: torch.Tensor) -> torch.Tensor:
-    """Y = A @ X, X (n_col, B): one matrix product."""
-    check_spmm_dtype("dense", X.dtype)
+def spmm_acc(state: DenseState, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X, X (n_col, B), in the accumulator type: one matrix
+    product of the widened matrix and panel."""
     Xp = torch.zeros(state.mat.shape[1], X.shape[1], dtype=X.dtype,
                      device=X.device)
     Xp[: state.n_col] = X
-    return torch.matmul(state.mat, Xp)[: state.n_row]
+    return torch.matmul(acc(state.mat), acc(Xp))[: state.n_row]
+
+
+def spmm(state: DenseState, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X, X (n_col, B), rounded once to X's type."""
+    return spmm_acc(state, X).to(X.dtype)
 
 
 def traffic_bytes(state: DenseState, cfg: Config) -> int:

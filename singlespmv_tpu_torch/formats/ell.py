@@ -18,9 +18,9 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..core.dtypes import acc, to_host, value_size, value_tensor
+from ..core.dtypes import acc, acc_dtype, to_host, value_size, value_tensor
 from ..core.types import COOMatrix, round_up
-from .base import TensorState, check_dtype, check_spmm_dtype
+from .base import TensorState, check_dtype
 from .slab import _t
 
 STATE_REV = 1   # bump with a change of the layout (formats/cache.py)
@@ -80,15 +80,19 @@ def phases(state: ELLState):
     return {"Mul": mul, "Sum": reduce}
 
 
-def spmm(state: ELLState, X: torch.Tensor) -> torch.Tensor:
-    """Y = A @ X, X (n_col, B): one row gather of X a K slot, added into
-    an (n_row_pad, B) accumulator."""
-    check_spmm_dtype("ell", X.dtype)
-    acc = torch.zeros(state.n_row_pad, X.shape[1], dtype=X.dtype,
-                      device=X.device)
+def spmm_acc(state: ELLState, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X, X (n_col, B), in the accumulator type: one row gather of
+    X a K slot, added into an (n_row_pad, B) accumulator."""
+    Y = torch.zeros(state.n_row_pad, X.shape[1], dtype=acc_dtype(X.dtype),
+                    device=X.device)
     for colk, valk in zip(state.col, state.val):
-        acc += valk[:, None] * X.index_select(0, colk)
-    return acc[: state.n_row]
+        Y += acc(valk)[:, None] * acc(X.index_select(0, colk))
+    return Y[: state.n_row]
+
+
+def spmm(state: ELLState, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X, X (n_col, B), rounded once to X's type."""
+    return spmm_acc(state, X).to(X.dtype)
 
 
 def report_fields(state: ELLState, cfg: Config) -> dict:

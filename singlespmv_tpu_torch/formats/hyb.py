@@ -41,8 +41,7 @@ from . import css as css_mod
 from . import dia as dia_mod
 from . import slab as slab_mod
 from . import xch as xch_mod
-from .base import (TensorState, acc_spmv, check_dtype, column_loop,
-                   module_spmm)
+from .base import TensorState, acc_spmm, acc_spmv, check_dtype, column_loop
 
 # the reference's cost-model constants (TPU v5e, measured there)
 HBM_BPS = 700e9          # streamed bytes/s achieved
@@ -174,11 +173,18 @@ def adds_per_row(state: HYBState) -> np.ndarray:
     return k + peel[: state.n_row]
 
 
-def spmm(state: HYBState, X: torch.Tensor) -> torch.Tensor:
-    Y = column_loop(dia_mod.spmv, state.dia_state, X)
+def spmm_acc(state: HYBState, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X, X (n_col, B), in the accumulator type: the peel's column
+    loop and the residual's spmm added before any rounding."""
+    Y = column_loop(dia_mod.spmv_acc, state.dia_state, X)
     if state.rest_fmt:
-        Y = Y + module_spmm(REST_MODULES[state.rest_fmt])(state.rest_state, X)
+        Y = Y + acc_spmm(REST_MODULES[state.rest_fmt])(state.rest_state, X)
     return Y
+
+
+def spmm(state: HYBState, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X, X (n_col, B), rounded once to X's type."""
+    return spmm_acc(state, X).to(X.dtype)
 
 
 def report_fields(state: HYBState, cfg: Config) -> dict:

@@ -56,7 +56,7 @@ from ..core.types import COOMatrix, cdiv
 
 from ..ops.slab import (MERGE_SMEM, MERGE_WARPS, PANEL_TYPES, slab_spmm,
                         slab_spmv_rows)
-from .base import TensorState, check_dtype, check_spmm_dtype, column_loop
+from .base import TensorState, check_dtype, column_loop
 
 STATE_REV = 1   # bump with a change of the layout (formats/cache.py)
 LANES = 128
@@ -861,27 +861,28 @@ def spmv(state: SlabState, x: torch.Tensor) -> torch.Tensor:
 PANEL_B_MAX = 32           # the reference's panel kernel unrolls B in-kernel
 
 
-def spmm(state: SlabState, X: torch.Tensor) -> torch.Tensor:
-    """Y = A @ X, X (n_col, B): the reference's panel path (its
+def spmm_acc(state: SlabState, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X, X (n_col, B), in the accumulator type (float32 for
+    bfloat16 values): the reference's panel path (its
     ``formats/slab.py:867``).  In unit mode with 2 ≤ B ≤ ``PANEL_B_MAX``, a
-    float32 panel and B x tables within ``X_TABLE_CAP``, one ``slab_spmm``
-    per stream chunk reads the streams once per column tile (its x panel
-    interleaved, ``x_table``); blk mode and
-    every other B take the column loop of ``spmv``.  The gates are the
-    reference's, the TPU's x-table cap included, so both packages take the
-    same branch for one state and B; shedding the cap is ROADMAP A.7b's
-    work."""
+    float32 or bfloat16 panel (``PANEL_TYPES``, the TPU's) and B x tables
+    within ``X_TABLE_CAP`` (at X's own 4 or 2 bytes a value), one
+    ``slab_spmm`` per stream chunk reads the streams once per column tile
+    (its x panel interleaved, ``x_table``) into float32 out blocks, which
+    the pair-block overlap-add sums in float32; blk mode and every other
+    B take the column loop of ``spmv_acc``.  The gates are the reference's,
+    the TPU's x-table cap included, so both packages take the same branch
+    for one state and B; shedding the cap is ROADMAP A.7b's work."""
     if X.dtype != state.val[0].dtype:
         raise TypeError(f"slab: X is {X.dtype}, the state holds "
                         f"{state.val[0].dtype} values")
-    check_spmm_dtype("slab", X.dtype)
     n_cols = X.shape[1]
     table_bytes = state.cb_pad * LANES * X.element_size()
     if (state.mode != "unit" or state.nnz == 0 or state.n_units == 0
             or not 2 <= n_cols <= PANEL_B_MAX
             or n_cols * table_bytes > X_TABLE_CAP
             or X.dtype not in PANEL_TYPES):
-        return column_loop(spmv, state, X)
+        return column_loop(spmv_acc, state, X)
     xp = x_table(state, X)
     nu, planes = state.n_units, state.planes
     outs = [slab_spmm(u, s0, s1, w, la, su, va, h1, ix, xp, nu_c, state.m,
@@ -899,9 +900,14 @@ def spmm(state: SlabState, X: torch.Tensor) -> torch.Tensor:
         yu = out4[:, 0].clone()
         yu[1:] += out4[:-1, 1]
     y2 = torch.zeros(cdiv(max(state.n_row, 1), UNIT_ROWS), UNIT_ROWS, n_cols,
-                     dtype=X.dtype, device=X.device)
+                     dtype=out.dtype, device=X.device)
     y2[state.unit_ids.long()] = yu
     return y2.view(-1, n_cols)[: state.n_row]
+
+
+def spmm(state: SlabState, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X, X (n_col, B), rounded once to X's type."""
+    return spmm_acc(state, X).to(X.dtype)
 
 
 # ----------------------------------------------------------------- reports ---

@@ -69,7 +69,7 @@ from ..core.types import COOMatrix, cdiv
 from ..ops.slab import PANEL_TYPES
 from ..ops.xch import MERGE_SMEM, xch_mul, xch_mul_panel, xch_route4_panel, \
     xch_route4_rows
-from .base import TensorState, check_dtype, check_spmm_dtype, column_loop
+from .base import TensorState, check_dtype, column_loop
 from .slab import _t, _walk
 
 STATE_REV = 1   # bump with a change of the layout (formats/cache.py)
@@ -1198,30 +1198,38 @@ def _dia_part(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
 PANEL_B_MAX = 16           # the reference's panel gate (its xch.py:2188)
 
 
-def spmm(state: Xch4State, X: torch.Tensor) -> torch.Tensor:
-    """Y = A @ X, X (n_col, B): the reference's panel path (its
+def spmm_acc(state: Xch4State, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X, X (n_col, B), in the accumulator type (float32 for
+    bfloat16 values): the reference's panel path (its
     ``formats/xch.py:2182``).  With 2 ≤ B ≤ ``PANEL_B_MAX``, pass-1 slots,
-    a float32 panel and B x tables within ``X_TABLE_CAP``, the panel kernels
-    read the index streams once for all B columns; otherwise the column
-    loop of ``spmv``.  The gates are the reference's, the TPU's x-table cap
-    included (ROADMAP A.7b sheds it)."""
+    a float32 or bfloat16 panel (``PANEL_TYPES``, the TPU's) and B x tables
+    within ``X_TABLE_CAP`` (at X's own 4 or 2 bytes a value), the panel
+    kernels read the index streams once for all B columns; otherwise the
+    column loop of ``spmv_acc``.  The gates are the reference's, the TPU's
+    x-table cap included (ROADMAP A.7b sheds it)."""
     if X.dtype != state.val1[0].dtype:
         raise TypeError(f"xch: X is {X.dtype}, the state holds "
                         f"{state.val1[0].dtype} values")
-    check_spmm_dtype("xch", X.dtype)
     n_cols = X.shape[1]
     if (2 <= n_cols <= PANEL_B_MAX and state.n_slots1
             and X.dtype in PANEL_TYPES
             and n_cols * state.cb_pad * LANES * X.element_size()
             <= X_TABLE_CAP):
         return _spmm_panel_v4(state, X)
-    return column_loop(spmv, state, X)
+    return column_loop(spmv_acc, state, X)
+
+
+def spmm(state: Xch4State, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X, X (n_col, B), rounded once to X's type: the route's
+    out groups, the nested long-row state's Y and the peeled bands are
+    added in the accumulator type first, as ``spmv`` adds them."""
+    return spmm_acc(state, X).to(X.dtype)
 
 
 def _spmm_panel_v4(state: Xch4State, X: torch.Tensor) -> torch.Tensor:
     """Both passes over the panel, the visited out groups placed into Y,
-    then the nested long-row state's ``spmm`` at ``long_rows`` and the
-    peeled bands."""
+    then the nested long-row state's ``spmm_acc`` at ``long_rows`` and the
+    peeled bands, all in the accumulator type."""
     n, n_cols = state.n_row, X.shape[1]
     xp = x_table(state, X)
     prods = [xch_mul_panel(w, la, su, va, xp, state.m1, state.t1)
@@ -1238,12 +1246,12 @@ def _spmm_panel_v4(state: Xch4State, X: torch.Tensor) -> torch.Tensor:
     out = outs[0] if len(outs) == 1 else torch.cat(outs, 0)
     # out rows are Y's (row, B) layout: the groups drop into place
     n_grp_tot = cdiv(cdiv(max(n, 1), LANES), state.gb)
-    yg = torch.zeros(n_grp_tot, state.gb * LANES, n_cols, dtype=X.dtype,
+    yg = torch.zeros(n_grp_tot, state.gb * LANES, n_cols, dtype=out.dtype,
                      device=X.device)
     yg[state.vis_gids.long()] = out.view(-1, state.gb * LANES, n_cols)
     Y = yg.view(-1, n_cols)[:n]
     if state.long is not None:
-        Y.index_add_(0, state.long_rows.long(), spmm(state.long, X))
+        Y.index_add_(0, state.long_rows.long(), spmm_acc(state.long, X))
     if state.dia_vals is not None:
         Y += _dia_part(state, X)
     return Y

@@ -14,9 +14,13 @@ builds the kernel call that a probe times, (wrapper, args, kwargs), and
 ``KERNEL_CASES`` names every such call the probes make, for the checks of
 the kernels against their plain versions.
 
-A chained loop is a Python loop of eager calls, so a probe's time per
-iteration is the kernel's plus the launch path's; ``chip_smoke.py`` reads
-each kernel's own device time beside it.
+On the card a chain runs on the device's clock, as the reference's
+``jit(fori_loop)`` runs it: ``chained`` captures its calls in CUDA graphs
+and replays them (the driver's ``make_chained_runner`` does the same for
+spmv calls), so a probe's time per iteration is its body's device time,
+with no launch path in it; ``chip_smoke.py`` reads each kernel's own busy
+time beside it.  On the CPU a chain is a host loop of eager calls
+(``loop_chain``).
 
     python -m singlespmv_tpu_torch.harness.microbench [--out micro.tsv]
         [--target-s S] [probe ...]
@@ -34,23 +38,101 @@ import numpy as np
 import torch
 
 from ..ops import probes
-from .driver import best_marginal_seconds, device_of
+from .driver import (CHAIN, WARMUP_CALLS, CaptureError, best_marginal_seconds,
+                     device_of)
 
 LANES = 128
 TARGET_S = 0.25      # the reference's loop length before the trials
 F32 = torch.float32
 
 
-def chained(body):
-    """run_n(carry, n, *consts): ``body`` n times, each output the next
-    carry, with a tiny scalar the body may fold in (the reference's
-    ``jit(fori_loop)``, here a loop of eager calls)."""
+def _tiny(device):
+    """The tiny scalar a body may fold into its carry."""
+    return torch.tensor(np.finfo(np.float32).tiny, dtype=torch.float32,
+                        device=device)
+
+
+def loop_chain(body):
+    """run_n(carry, n, *consts): ``body`` n times as a host loop of eager
+    calls, each output the next carry: the chain on the CPU."""
     def run_n(carry, n, *consts):
-        tiny = torch.tensor(np.finfo(np.float32).tiny, dtype=torch.float32,
-                            device=carry.device)
+        tiny = _tiny(carry.device)
         for _ in range(n):
             carry = body(carry, tiny, *consts)
         return carry
+
+    return run_n
+
+
+def _capture(body, buf, tiny, consts, k):
+    """A CUDA graph of ``k`` chained calls of ``body`` from the carry in
+    ``buf``, the last output copied back into ``buf``."""
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            c = buf
+            for _ in range(k):
+                c = body(c, tiny, *consts)
+            buf.copy_(c)
+    except Exception as e:
+        raise CaptureError(
+            f"{getattr(body, '__name__', 'body')}: the CUDA graph capture "
+            f"of {k} chained calls failed: {type(e).__name__}: {e}") from e
+    return graph
+
+
+def chained(body):
+    """run_n(carry, n, *consts): ``body`` n times, each output the next
+    carry, with a tiny scalar the body may fold in: the port's counterpart
+    of the reference's ``jit(fori_loop)``
+    (``singlespmv_tpu/harness/microbench.py:25-40``).
+
+    On a CUDA device, as ``driver.make_chained_runner`` runs spmv calls:
+    at the first call for a carry's shape and type and a set of consts,
+    ``body`` runs ``WARMUP_CALLS`` times eagerly on a side stream, then one
+    ``torch.cuda.CUDAGraph`` captures ``CHAIN`` (64) calls, each output the
+    next call's carry, and another one call; both start from one carry
+    buffer and copy their last output back into it.  ``run_n`` copies
+    ``carry`` into the buffer, replays the first graph n // 64 times and
+    the second n % 64 times, and returns a copy of the buffer: the carry of
+    n chained calls.  An iteration's time is the body's device time and
+    one copy of the carry every 64 calls.  A capture that fails raises
+    ``CaptureError``: nothing falls back to eager calls.  The wrappers'
+    launch counters rise by the warm-up and the captured calls, never by a
+    replay.  On the CPU, ``loop_chain``."""
+    graphs = {}
+
+    def captured(carry, consts):
+        key = (tuple(carry.shape), carry.dtype, carry.device) + tuple(
+            (c.data_ptr(), tuple(c.shape), c.dtype) for c in consts)
+        if key not in graphs:
+            dev = carry.device
+            buf, tiny = carry.clone(), _tiny(dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                c = buf.clone()
+                for _ in range(WARMUP_CALLS):
+                    c = body(c, tiny, *consts)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            # the graphs read buf and tiny where they lay at the capture:
+            # both are kept with them (the caller keeps the consts)
+            graphs[key] = (buf, tiny,
+                           _capture(body, buf, tiny, consts, CHAIN),
+                           _capture(body, buf, tiny, consts, 1))
+        return graphs[key]
+
+    def run_n(carry, n, *consts):
+        if carry.device.type != "cuda":
+            return loop_chain(body)(carry, n, *consts)
+        buf, _, top, one = captured(carry, consts)
+        buf.copy_(carry)
+        q, r = divmod(int(n), CHAIN)
+        for graph, times in ((top, q), (one, r)):
+            for _ in range(times):
+                graph.replay()
+        return buf.clone()
 
     return run_n
 

@@ -3,7 +3,8 @@ PyTorch on one GPU.
 
 A fused slab step on synthetic tiles — 8-row window gather, 8-way select,
 run totals and S8 σ-plane routes into an (NU·8, 128) out — timed in the
-microbenchmarks' chained loop, whole (stage "all") or cut at a stage
+microbenchmarks' chained loop (``microbench.chained``: replayed CUDA graphs
+on the card), whole (stage "all") or cut at a stage
 (``ops.probes.STAGES``: window, gather, select, prefix, route, routeonly).
 ``main`` runs the reference's nine (T, S8, stage) rows at CB 1,700 and
 NU 208 and prints G slot/s per row:

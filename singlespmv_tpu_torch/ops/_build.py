@@ -54,6 +54,7 @@ SIGNATURES = {
     "slab_spmv_rows_bf16": [_P] * 9 + [_I] * 6 + [_P],
     # uids sg0 sg1 win lane sub val hm1 idx x out | H T m planes B | stream
     "slab_spmm_f32": [_P] * 11 + [_I] * 5 + [_P],
+    "slab_spmm_bf16": [_P] * 11 + [_I] * 5 + [_P],
     # win lane sub val x out | H T m | stream
     "xch_mul_f32": [_P] * 6 + [_I] * 3 + [_P],
     "xch_mul_f64": [_P] * 6 + [_I] * 3 + [_P],
@@ -68,9 +69,11 @@ SIGNATURES = {
     "xch_route4_rows_bf16": [_P] * 9 + [_I] * 6 + [_P],
     # win lane sub val x out | H T m B | stream
     "xch_mul_panel_f32": [_P] * 6 + [_I] * 4 + [_P],
+    "xch_mul_panel_bf16": [_P] * 6 + [_I] * 4 + [_P],
     # gids off cs win lane sub hm1 sig idx prod out
     # | H T m kblk p_oh n_grp gb p1 B n_chunks | stream
     "xch_route4_panel_f32": [_P] * 11 + [_I] * 10 + [_P],
+    "xch_route4_panel_bf16": [_P] * 11 + [_I] * 10 + [_P],
     # uids cs sg0 sg1 win lane sub hm1 idx prod out
     # | H T m planes pg p1 n_out R | stream
     "xch_route_f32": [_P] * 11 + [_I] * 8 + [_P],

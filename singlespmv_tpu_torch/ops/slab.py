@@ -30,11 +30,12 @@ The value type is float32 or float64, the same for val, the x table and the
 out blocks or y.  At float64 ``slab_spmv_rows`` and ``slab_spmv`` launch
 the native-fp64 builds of their kernels, which stand for the df64 kernel
 ``slab_spmv_df`` of the reference; ``slab_spmv_blk`` is float32 only, as
-the reference's float64 plans are unit mode only, and so is the panel, as
-the TPU ran it.  ``slab_spmv_rows`` also takes bfloat16 val and x table
-(``SPMV_TYPES``): its bfloat16 kernel reads them as 2 bytes a value and
-sums in float32 into a float32 y (``acc_dtype``), which the caller rounds once;
-it never widens them to run the float32 kernel.
+the reference's float64 plans are unit mode only.  ``slab_spmv_rows`` also
+takes bfloat16 val and x table (``SPMV_TYPES``), and the panel ``slab_spmm``
+takes float32 or bfloat16 (``PANEL_TYPES``), as the TPU ran it: their
+bfloat16 kernels read val and x as 2 bytes a value and sum in float32 into
+a float32 y or out (``acc_dtype``), which the caller rounds once; they never
+widen them to run the float32 kernel.
 
 Each wrapper counts the launches of its float32 kernel in
 ``<wrapper>.launches``, of its float64 kernel in ``<wrapper>.launches_f64``
@@ -55,7 +56,9 @@ from . import _build
 LANES = 128
 VALUE_TYPES = (torch.float32, torch.float64)
 SPMV_TYPES = VALUE_TYPES + (torch.bfloat16,)   # the spmv kernels' values
-PANEL_TYPES = (torch.float32,)   # the SpMM panel kernels', as on the TPU
+# the SpMM panel kernels': the TPU's (singlespmv_tpu/ops/pallas/__init__.py:
+# supports admits float32 and bfloat16; its float64 SpMM loops the spmv)
+PANEL_TYPES = (torch.float32, torch.bfloat16)
 UNIT_PLANES = (8, 16)
 BLK_PLANES = (8, 16, 32)
 BLK_KBLK = (1, 2, 4)
@@ -172,12 +175,14 @@ def _picked(w, e):
 def slab_spmv_ref(uids, sg0, sg1, win, lane, sub, val, hm1, idx, x_table,
                   nu: int, m: int, T: int = 64):
     """Plain version of ``slab_spmv``.  It routes every plane; sg0/sg1 only
-    prune planes that hold no end-lane, so ignoring them changes nothing."""
+    prune planes that hold no end-lane, so ignoring them changes nothing.
+    bfloat16 values (the panel's, column by column) are widened and summed
+    in float32, into float32 out blocks."""
     planes, h = idx.shape[0], lane.shape[0]
-    w = _totals(val * _gather(win, lane, sub, x_table, m), hm1)
+    w = _totals(acc(val) * acc(_gather(win, lane, sub, x_table, m)), hm1)
     step = torch.arange(h, device=w.device) // T
     base = uids.long()[step] * planes                      # (H,)
-    out = torch.zeros(nu * planes, LANES, dtype=val.dtype, device=w.device)
+    out = torch.zeros(nu * planes, LANES, dtype=w.dtype, device=w.device)
     for s in range(planes):
         out.index_add_(0, base + s, _picked(w, idx[s]))
     return out
@@ -219,7 +224,8 @@ def slab_spmm_ref(uids, sg0, sg1, win, lane, sub, val, hm1, idx, x_panel,
                   nu: int, m: int, T: int = 64):
     """Plain version of ``slab_spmm``: ``slab_spmv_ref`` of each column over
     the planes [sg0[t], sg1[t]] of each step t, as column b of the out
-    blocks."""
+    blocks; at bfloat16 float32 products and sums into float32 out, as the
+    kernel takes them."""
     planes, h, n_cols = idx.shape[0], lane.shape[0], x_panel.shape[-1]
     step = torch.arange(h, device=val.device) // T
     s = torch.arange(planes, device=val.device)[:, None]
@@ -359,18 +365,21 @@ def slab_spmv_blk(uids, win, lane, sub, val, hm1, idx, sig, x_table,
 
 def slab_spmm(uids, sg0, sg1, win, lane, sub, val, hm1, idx, x_panel,
               nu: int, m: int, T: int = 64):
-    """Unit-route slab SpMM over one stream chunk, float32.
+    """Unit-route slab SpMM over one stream chunk, float32 or bfloat16.
 
-    x_panel: (CB, 128, B) float32 — the interleaved panel: x_panel[c, l]
-             holds the B column values of x row c·128 + l.
+    val:     (H, 128) float32 or bfloat16.
+    x_panel: (CB, 128, B) of val's type — the interleaved panel:
+             x_panel[c, l] holds the B column values of x row c·128 + l.
     Other arguments as in ``slab_spmv``, which routes the same streams for
     one column; the panel too routes only the planes [sg0[t], sg1[t]] of
     each step (the converts leave idx −1 outside them; the TPU's panel
-    routed every plane).  Returns (nu·planes, 128, B) float32: block u rows
-    [u·planes, (u+1)·planes) hold its σ-planes, each lane's B columns
-    contiguous (Y's own layout)."""
-    h, n_steps, dev, _ = _check_stream(lane, val, hm1, sub, win, x_panel, T,
-                                       types=PANEL_TYPES, rank=3)
+    routed every plane).  Returns (nu·planes, 128, B) float32, the
+    accumulator of either value type (the caller rounds Y once): block u
+    rows [u·planes, (u+1)·planes) hold its σ-planes, each lane's B columns
+    contiguous (Y's own layout).  The sums of an out position add in
+    run-dependent order on the card."""
+    h, n_steps, dev, vt = _check_stream(lane, val, hm1, sub, win, x_panel,
+                                        T, types=PANEL_TYPES, rank=3)
     planes, n_cols = idx.shape[0], x_panel.shape[-1]
     if planes not in UNIT_PLANES:
         raise ValueError(f"unit route takes {UNIT_PLANES} planes, "
@@ -384,16 +393,16 @@ def slab_spmm(uids, sg0, sg1, win, lane, sub, val, hm1, idx, x_panel,
     if dev.type == "cpu":
         return slab_spmm_ref(uids, sg0, sg1, win, lane, sub, val, hm1, idx,
                              x_panel, nu, m, T)
-    out = torch.zeros(nu * planes, LANES, n_cols, dtype=torch.float32,
+    out = torch.zeros(nu * planes, LANES, n_cols, dtype=acc_dtype(vt),
                       device=dev)
     if h:
-        rc = _build.load().slab_spmm_f32(
+        rc = _entry("slab_spmm", vt)(
             *map(_ptr, (uids, sg0, sg1, win, lane, sub, val, hm1, idx,
                         x_panel, out)),
             h, T, m, planes, n_cols,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
         _raise_on(rc, "slab_spmm")
-        slab_spmm.launches += 1
+        _count(slab_spmm, vt)
     return out
 
 
@@ -401,4 +410,4 @@ slab_spmv_rows.launches = slab_spmv_rows.launches_f64 = 0
 slab_spmv_rows.launches_bf16 = 0
 slab_spmv.launches = slab_spmv.launches_f64 = 0
 slab_spmv_blk.launches = 0
-slab_spmm.launches = 0
+slab_spmm.launches = slab_spmm.launches_bf16 = 0

@@ -30,12 +30,14 @@ and ``chip_smoke.py`` holds against the kernels on the card.
 The value type is float32 or float64, the same for val, the x table, the
 products and the out rows or y.  At float64 the wrappers launch the
 native-fp64 builds of the kernels, which stand for the df64 kernels
-``xch_mul_df`` (:495) and ``xch_route4_df`` (:594) of the reference.  The
-panels and ``xch_route`` are float32 only, as the TPU ran them.
-``xch_mul`` and ``xch_route4_rows`` also run bfloat16 kernels: val, the x
-table and the product grid are bfloat16 (2 bytes a slot in device memory,
-each product rounded once, as the reference's grid is ``val.dtype``), and
-the route sums in float32 into a float32 y (``acc_dtype``).
+``xch_mul_df`` (:495) and ``xch_route4_df`` (:594) of the reference.
+``xch_route`` is float32 only, and the panels float32 or bfloat16
+(``PANEL_TYPES``), as the TPU ran them.  ``xch_mul``, ``xch_route4_rows``
+and both panels run bfloat16 kernels: val, the x table or panel and the
+product grid or panel are bfloat16 (2 bytes a slot in device memory, each
+product rounded once, as the reference's grid is ``val.dtype``), and the
+routes sum in float32 into a float32 y or out (``acc_dtype``), which the
+caller rounds once.
 
 Each wrapper counts the launches of its float32 kernel in
 ``<wrapper>.launches``, of its float64 kernel in ``<wrapper>.launches_f64``
@@ -163,15 +165,17 @@ def xch_mul_ref(win, lane, sub, val, x_table, m: int, T: int = 64):
 
 def xch_route4_ref(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
                    n_grp: int, gb: int, m: int, T: int = 64, p_oh: int = 16):
-    """Plain version of ``xch_route4``."""
+    """Plain version of ``xch_route4``; bfloat16 products (the panel's,
+    column by column) are widened and summed in float32, into float32
+    out rows."""
     h = lane.shape[0]
     step = torch.arange(h, device=lane.device) // T
     rows = cs.long()[step] * prod3.shape[1] + win.long()   # product rows
-    w = _totals(_gather(rows, lane, sub, prod3, m), hm1)
+    w = _totals(acc(_gather(rows, lane, sub, prod3, m)), hm1)
     s = sig[:, 0].long()
     base = gids.long()[step] * gb + off.long()[step] + s   # (H,)
     n_out = n_grp * gb
-    out = torch.zeros(n_out, LANES, dtype=prod3.dtype, device=lane.device)
+    out = torch.zeros(n_out, LANES, dtype=w.dtype, device=lane.device)
     for j in range(idx.shape[0]):
         keep = ((s + j >= 0) & (s + j < p_oh))[:, None]    # one-hot range
         out.index_add_(0, (base + j).clamp(0, max(n_out - 1, 0)),
@@ -236,7 +240,7 @@ def xch_route_ref(uids, gids, cs, sg0, sg1, win, lane, sub, hm1, idx, prod3,
 
 def xch_mul_panel_ref(win, lane, sub, val, x_panel, m: int, T: int = 64):
     """Plain version of ``xch_mul_panel``: ``xch_mul_ref`` of each
-    column."""
+    column (at bfloat16 each float32 product rounded once)."""
     return torch.stack([xch_mul_ref(win, lane, sub, val, x_panel[..., b], m,
                                     T) for b in range(x_panel.shape[-1])], -1)
 
@@ -245,7 +249,7 @@ def xch_route4_panel_ref(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
                          n_grp: int, gb: int, m: int, T: int = 64,
                          p_oh: int = 16):
     """Plain version of ``xch_route4_panel``: ``xch_route4_ref`` of each
-    column."""
+    column (at bfloat16 float32 sums into float32 out rows)."""
     return torch.stack([
         xch_route4_ref(gids, off, cs, win, lane, sub, hm1, sig, idx,
                        prod3[..., b], n_grp, gb, m, T, p_oh)
@@ -350,55 +354,60 @@ def xch_route4_rows(base, cs, win, lane, sub, hm1, dest, prod3, y,
 
 
 def xch_mul_panel(win, lane, sub, val, x_panel, m: int, T: int = 64):
-    """Pass 1 over one call chunk for a panel of B columns, float32.
+    """Pass 1 over one call chunk for a panel of B columns, float32 or
+    bfloat16.
 
-    x_panel: (CB, 128, B) float32 — the interleaved panel: x_panel[c, l]
-             holds the B column values of x row c·128 + l.
-    Other arguments as in ``xch_mul``.  Returns (H, 128, B) float32
-    products: a slot's B products are contiguous."""
-    h, dev, _ = _check_mul(win, lane, sub, val, x_panel, m, T, PANEL_TYPES,
-                           3)
+    val:     (H, 128) float32 or bfloat16.
+    x_panel: (CB, 128, B) of val's type — the interleaved panel:
+             x_panel[c, l] holds the B column values of x row c·128 + l.
+    Other arguments as in ``xch_mul``.  Returns the (H, 128, B) products of
+    val's type (at bfloat16 each float32 product rounded once): a slot's B
+    products are contiguous."""
+    h, dev, vt = _check_mul(win, lane, sub, val, x_panel, m, T, PANEL_TYPES,
+                            3)
     if dev.type == "cpu":
         return xch_mul_panel_ref(win, lane, sub, val, x_panel, m, T)
     n_cols = x_panel.shape[-1]
-    out = torch.empty(h, LANES, n_cols, dtype=torch.float32,
-                      device=dev)    # all written
+    out = torch.empty(h, LANES, n_cols, dtype=vt, device=dev)  # all written
     if h:
-        rc = _build.load().xch_mul_panel_f32(
+        rc = _entry("xch_mul_panel", vt)(
             *map(_ptr, (win, lane, sub, val, x_panel, out)), h, T, m, n_cols,
             _stream(dev))
         _raise_on(rc, "xch_mul_panel")
-        xch_mul_panel.launches += 1
+        _count(xch_mul_panel, vt)
     return out
 
 
 def xch_route4_panel(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
                      n_grp: int, gb: int, m: int, T: int = 64,
                      p_oh: int = 16):
-    """Pass 2 over one call chunk for a panel of B columns, float32.
+    """Pass 2 over one call chunk for a panel of B columns, float32 or
+    bfloat16.
 
-    prod3: (n_chunks, P1, 128, B) float32 — the interleaved pass-1
-    products.  Other arguments as in ``xch_route4``.  Returns
-    (n_grp·gb, 128, B) float32: out row i's B columns are contiguous, as in
-    Y; out rows past n_grp·gb are dropped, as in ``xch_route4``, where the
-    Pallas panel kernel writes its step's p_oh rows unclipped."""
-    h, dev, _, kblk = _check_route(
+    prod3: (n_chunks, P1, 128, B) float32 or bfloat16 — the interleaved
+    pass-1 products.  Other arguments as in ``xch_route4``.  Returns
+    (n_grp·gb, 128, B) float32, the accumulator of either type (the caller
+    rounds Y once): out row i's B columns are contiguous, as in Y; out rows
+    past n_grp·gb are dropped, as in ``xch_route4``, where the Pallas panel
+    kernel writes its step's p_oh rows unclipped.  The sums of an out
+    position add in run-dependent order on the card."""
+    h, dev, vt, kblk = _check_route(
         gids, off, cs, win, lane, sub, hm1, sig, idx, prod3, gb, n_grp, m, T,
         p_oh, PANEL_TYPES, 4)
     if dev.type == "cpu":
         return xch_route4_panel_ref(gids, off, cs, win, lane, sub, hm1, sig,
                                     idx, prod3, n_grp, gb, m, T, p_oh)
     n_chunks, p1, _, n_cols = prod3.shape
-    out = torch.zeros(n_grp * gb, LANES, n_cols, dtype=torch.float32,
+    out = torch.zeros(n_grp * gb, LANES, n_cols, dtype=acc_dtype(vt),
                       device=dev)
     if h:
-        rc = _build.load().xch_route4_panel_f32(
+        rc = _entry("xch_route4_panel", vt)(
             *map(_ptr, (gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
                         out)),
             h, T, m, kblk, p_oh, n_grp, gb, p1, n_cols, n_chunks,
             _stream(dev))
         _raise_on(rc, "xch_route4_panel")
-        xch_route4_panel.launches += 1
+        _count(xch_route4_panel, vt)
     return out
 
 
@@ -437,7 +446,8 @@ def xch_route(uids, gids, cs, sg0, sg1, win, lane, sub, hm1, idx, prod3,
             or not all(prod3.shape[:-1]):
         raise ValueError(f"prod3 has shape {tuple(prod3.shape)}, expected "
                          "(n_chunks, P1, 128)")
-    _check("prod3", prod3, value_type(prod3, PANEL_TYPES), prod3.shape, dev)
+    _check("prod3", prod3, value_type(prod3, (torch.float32,)), prod3.shape,
+           dev)
     if dev.type == "cpu":
         return xch_route_ref(uids, gids, cs, sg0, sg1, win, lane, sub, hm1,
                              idx, prod3, ngb, m, planes, T, g_grp, pg)
@@ -458,6 +468,6 @@ xch_mul.launches = xch_mul.launches_f64 = xch_mul.launches_bf16 = 0
 xch_route4.launches = xch_route4.launches_f64 = 0
 xch_route4_rows.launches = xch_route4_rows.launches_f64 = 0
 xch_route4_rows.launches_bf16 = 0
-xch_mul_panel.launches = 0
-xch_route4_panel.launches = 0
+xch_mul_panel.launches = xch_mul_panel.launches_bf16 = 0
+xch_route4_panel.launches = xch_route4_panel.launches_bf16 = 0
 xch_route.launches = 0

@@ -24,8 +24,8 @@ the reference's state across (``state_from_reference``), the carried
 bfloat16 state gives the port's own y bit for bit.  Also: rounding agrees
 with ml_dtypes; a cached bfloat16 state loads back bit for bit; hostlib
 and mkl refuse bfloat16 with
-``ValueError``, as the reference's scipy path does; SpMM refuses it
-(ROADMAP A.10b); ``reorder_bound`` is 0 on rows of one run end and holds
+``ValueError``, as the reference's scipy path does (SpMM at bfloat16 is
+``tests/test_torch_bf16_spmm.py``'s); ``reorder_bound`` is 0 on rows of one run end and holds
 on a hand-built reordering, a peel added after the free-order sum
 included, and ``adds_per_row`` counts the peel; and the bfloat16 path runs
 in a process where ml_dtypes cannot be imported.
@@ -218,23 +218,6 @@ def test_host_libraries_refuse_bfloat16(fmt):
     with pytest.raises(ValueError, match="bfloat16"):
         formats.convert(port_coo(BAND()),
                         port_cfg(Config(format=fmt, dtype=BF16)))
-
-
-@pytest.mark.parametrize("fmt", ["csr", "slab", "xch", "dense", "hyb",
-                                 "css"])
-def test_spmm_refuses_bfloat16(fmt):
-    coo = port_coo(BAND())
-    cfg = port_cfg(Config(format=fmt, dtype=BF16))
-    st = formats.convert(coo, cfg)
-    X = torch.ones(coo.n_col, 3, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="A.10b"):
-        formats.spmm_fn(cfg)
-    with pytest.raises(NotImplementedError, match="A.10b"):
-        formats.base.module_spmm(formats.get_format(fmt))(st, X)
-    if fmt == "csr":
-        with pytest.raises(NotImplementedError, match="A.10b"):
-            formats.convert(coo, port_cfg(Config(format="auto", dtype=BF16,
-                                                 spmm_b=8)))
 
 
 def test_reorder_bound():

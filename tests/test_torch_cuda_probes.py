@@ -445,3 +445,54 @@ def test_xch_route_ngb_cuts_units(cuda, monkeypatch, sched):
             torch.cuda.current_stream(cuda).cuda_stream)
         assert rc == 0
         _close(out, want[:n_out])
+
+
+# ---------------------------------------------- the probes' captured chain --
+
+def _chain_body(name, dev):
+    """(body, carry, consts, exact) of one probe's chain at a small size:
+    the body ``microbench._time_kernel`` or the probe chains."""
+    if name == "stream":
+        a = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (64, 128)).astype(np.float32)).to(dev)
+        return microbench.stream_body, a, (), True
+    if name == "hbm_read":
+        rng = np.random.default_rng(1)
+        a = torch.from_numpy(rng.standard_normal((4096, 128)).astype(
+            np.float32)).to(dev)
+        return microbench.hbm_read_body, torch.zeros(8, 128, device=dev), \
+            (a,), False
+    if name == "seg_scan":
+        fn, (heads, val), kw = microbench.seg_scan_case(G=256, device=dev)
+        return (lambda c, tiny, h: fn(h, c, **kw)), val, (heads,), True
+    fn, (offs, v), kw = microbench.dynslice_accum_case(T=512, device=dev)
+    return (lambda c, tiny, o: c + fn(o, c)[0, 0] * tiny), v, (offs,), \
+        False
+
+
+@pytest.mark.parametrize("n", [3, 64, 70, 200])
+@pytest.mark.parametrize("name", ["stream", "hbm_read", "seg_scan",
+                                  "dynslice"])
+def test_captured_chain_is_the_eager_chain(cuda, name, n):
+    """``microbench.chained`` on the card replays CUDA graphs of chained
+    calls (64 and 1): it returns the carry of n eager chained calls, within
+    the probe's own check (exact where the body sums in a fixed order, 1e-5
+    of max|carry| where a reduction or atomics sum in another)."""
+    body, carry, consts, exact = _chain_body(name, cuda)
+    run_n = microbench.chained(body)
+    got = run_n(carry, n, *consts)
+    want = microbench.loop_chain(body)(carry, n, *consts)
+    _close(got, want, exact=exact)
+    again = run_n(carry, n, *consts)         # replays, no new capture
+    _close(again, want, exact=exact)
+
+
+def test_a_body_that_cannot_be_captured_raises(cuda):
+    """A chain whose body syncs with the host cannot be captured: it raises
+    ``CaptureError``, and nothing falls back to eager calls."""
+    def body(c, tiny):
+        return c + float(c.sum()) * tiny
+
+    carry = torch.ones(8, 128, device=cuda)
+    with pytest.raises(driver.CaptureError, match="capture"):
+        microbench.chained(body)(carry, 10)

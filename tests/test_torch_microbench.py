@@ -348,6 +348,38 @@ def test_run_writes_the_references_columns(tmp_path):
     assert float(sec) > 0 and float(rate) > 0
 
 
+@pytest.mark.parametrize("n", [1, 5, 70])
+@pytest.mark.parametrize("body", ["stream", "hbm_read", "seg_scan"])
+def test_chained_on_the_cpu_is_the_loop(body, n):
+    """On the CPU ``chained`` runs the host loop: n calls, each output the
+    next carry, equal to a loop written out (70 passes the card's chain of
+    64 calls)."""
+    rng = np.random.default_rng(n)
+    carry = torch.from_numpy(rng.standard_normal((64, 128)).astype(
+        np.float32))
+    if body == "stream":
+        fn, consts = microbench.stream_body, ()
+    elif body == "hbm_read":
+        fn = microbench.hbm_read_body
+        consts = (torch.from_numpy(rng.standard_normal((256, 128)).astype(
+            np.float32)),)
+    else:
+        heads = torch.from_numpy(rng.integers(0, 2, (64, 128)).astype(
+            np.int32))
+
+        def fn(c, tiny, heads):
+            return probes.seg_scan(heads, c)
+
+        consts = (heads,)
+    tiny = torch.tensor(np.finfo(np.float32).tiny)
+    want = carry
+    for _ in range(n):
+        want = fn(want, tiny, *consts)
+    got = microbench.chained(fn)(carry, n, *consts)
+    assert torch.equal(got, want)
+    assert torch.equal(microbench.loop_chain(fn)(carry, n, *consts), want)
+
+
 def test_no_card_no_fallback(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

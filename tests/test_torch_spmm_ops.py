@@ -233,7 +233,7 @@ def test_panel_wrappers_check_layout():
     _, tens = _args(st, SLAB_NAMES)
     xp = _interleaved(_panel((2, st.cb_pad, 128), 1))
     nu, m, t = st.chunk_nu[0], st.m, st.t_step
-    with pytest.raises(TypeError):                  # the panel is float32
+    with pytest.raises(TypeError):                  # no float64 panel
         sops.slab_spmm(*tens[:6], tens[6].double(), *tens[7:], xp.double(),
                        nu, m, t)
     with pytest.raises(ValueError):                 # a table, not a panel

@@ -215,4 +215,6 @@ def test_sources_digest_covers_headers(tmp_path):
         # the bfloat16 builds of the spmv path's kernels (ROADMAP A.10)
         "slab_spmv_rows_bf16", "xch_mul_bf16", "xch_route4_rows_bf16",
         "block_gather_mul_bf16", "bucket_rows_bf16",
-        "segmented_scan_tiles_bf16", "block_gather_scan_bf16"}
+        "segmented_scan_tiles_bf16", "block_gather_scan_bf16",
+        # and of the SpMM panel kernels (ROADMAP A.10b)
+        "slab_spmm_bf16", "xch_mul_panel_bf16", "xch_route4_panel_bf16"}

@@ -149,3 +149,36 @@ def accuracy_bound(coo: COOMatrix, xh, state, fmt, x) -> np.ndarray:
     t = 2.0 * gamma(PREFIX_ADDS) * (1.0 + up) * prefix_mass(state, fmt, x)
     e = up * s + t + gamma(coo.row_lengths()) * ((1.0 + up) * s + t)
     return e + 0.5 * ulp("bfloat16", np.abs(r) + e)
+
+
+def _f64(args):
+    return [a.double() if a.is_floating_point() else a for a in args]
+
+
+def _abs(args):
+    return [a.abs() if a.is_floating_point() else a for a in args]
+
+
+def route_entry_bound(plain, args, panel, hm1_at, rest, val_at=None):
+    """The same rule for one call of a panel route (``slab_spmm``,
+    ``xch_route4_panel``) whose out entries are float32 sums of run totals
+    W = P[e] − P[h], each P a float32 prefix of at most 128 products taken
+    exactly from stored values: with S an entry's Σ|p|, M its prefix mass
+    and n its products, b = T + γ(n)·(S + T), T = 2·γ(130)·M.  ``plain`` is
+    the route's plain version, run in float64 on the call's ``args`` (hm1
+    at ``hm1_at``, the values at ``val_at`` where the route multiplies),
+    ``panel`` and ``rest``.  Returns numpy arrays of out's shape: (the
+    float64 plain version, the bound, S + M)."""
+    exact = plain(*_f64(args), panel.double(), *rest)
+    absl = _abs(_f64(args))
+    s = plain(*absl, panel.double().abs(), *rest)
+    heads = list(absl)
+    heads[hm1_at] = torch.full_like(args[hm1_at], -1)
+    mass = plain(*heads, panel.double().abs(), *rest)
+    count = _f64(args)
+    if val_at is not None:
+        count[val_at] = (count[val_at] != 0).double()
+    n = plain(*count, (panel != 0).double(), *rest)
+    t = 2.0 * gamma(PREFIX_ADDS) * to_host(mass)
+    s, n = to_host(s), to_host(n)
+    return to_host(exact), t + gamma(n) * (s + t), s + to_host(mass)
