@@ -184,13 +184,30 @@ Its phases, in the order they run:
    chained Time(s) and GFLOPS beside the float32 run of the same stand-in
    and format where this smoke made one; fails where a bfloat16 kernel
    never launched in (b) or a float32 or float64 kernel did;
+14c. the parallel layer (``singlespmv_tpu_torch/parallel/``, ROADMAP
+   A.14; ``run_parallel``): on a local mesh, every shard on the card,
+   DistXch at R 4 on webbase-1M (all-gather) and R 8 on a 1,048,576-row
+   band (a ppermute ring), the largest shard's ``xch_mul`` and
+   ``xch_route4_rows`` (and on webbase-1M its two panel kernels at B 8)
+   against their plain versions, each y through the oracle, each step's
+   chained µs beside the single-device xch Time(s), ``DistXch.spmm`` at
+   B 8; DistSpMV (2 × 2, float32 and float64, and ``gather_x`` at R 4) and
+   HaloSpMV (rounds on the band, boundary on torso1),
+   ``segmented_scan_tiles`` against its plain version on DistSpMV's
+   stacked stream and HaloSpMV's local and halo streams, ``exchange_elems``
+   and ``n_collectives``; the weak and strong scaling tables, each point a
+   CUDA graph of 8 steps (what sharding costs on one card); the dryrun;
+   and DistXch and DistSpMV on NCCL at world size 1 in a process started
+   with the phase, whose host work overlaps the phase's;
 15. the xch path on circuit5M (several kernel calls per pass, a nested
    long-row state): the time ``route_rows`` takes, kernels against their
    plain versions on every call, then its spmv against the float64 COO
    oracle;
 16. checks that each path launched each of its kernels: the launch counts
    are set to 0 just before a path and read just after it; the slab, hyb,
-   auto, float64 and solver paths the slab route ``slab_spmv_rows``; and
+   auto, float64 and solver paths the slab route ``slab_spmv_rows``, the
+   parallel path ``xch_mul``, ``xch_route4_rows`` and
+   ``segmented_scan_tiles``; and
    that no path launched the first port's kernels that left the spmv
    path: ``xch_route4`` and ``slab_spmv`` / ``slab_spmv_blk``.
 
@@ -217,6 +234,7 @@ of the same work on the idx-plane layout it replaced), and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
 no CUDA device is present or any phase fails.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -1566,7 +1584,6 @@ def run_campaign_tools(mats, dev, card):
     ``HEADLINE_MATS``, a two-row sweep on lhr34 and ``format-logs`` over
     its logs.  Fails unless each runs, every row passes Verify and the
     headline prints bench.py's keys."""
-    import contextlib
     import io
 
     from singlespmv_tpu_torch import bench, cli
@@ -2332,6 +2349,374 @@ def run_spmm_bfloat16(mats, coos, held, dev, card, count_path, wrappers):
     return compared
 
 
+PAR_BAND = 1_048_576     # (a)'s band: generate("band", PAR_BAND, 9, seed=2)
+PAR_SPMM_B = 8           # DistXch.spmm's panel on webbase-1M
+PAR_WINDOW_S = 0.05      # each timed run of a step's chained timing
+PAR_WEAK_ROWS = 65_536   # (c)'s band: rows a shard (weak), 4 shards' (strong)
+PAR_NCCL_TIMEOUT_S = 240
+PAR_NCCL_MATRIX = (100_000, 1_000_000)   # (e): powerlaw(n, nnz, seed=4)
+
+
+def compare_stacked_scan(label, prod, heads, tol):
+    """Phase "parallel" (b): ``segmented_scan_tiles`` against its plain
+    version on a distributed operator's stacked stream (every shard's
+    products, as the step scans them in one call), timed beside its bound
+    as ``compare_scan`` times it."""
+    from singlespmv_tpu_torch.ops import segscan as sops
+
+    got = sops.segmented_scan_tiles(prod, heads)
+    want = sops.segmented_scan_tiles_ref(prod, heads)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / max(float(want.abs().max()), 1e-30)
+    del got, want
+    h, w = prod.shape
+    res = {
+        "label": label, "dtype": str(prod.dtype),
+        "kernel": "segmented_scan_tiles" + SFX[prod.dtype],
+        "stream": [h, w], "max_abs_err": err, "rel_err": rel,
+        "ms": _busy_ms(lambda: sops.segmented_scan_tiles(prod, heads),
+                       "segscan_kernel",
+                       launches=_launched(sops.segmented_scan_tiles)),
+        "plain_ms": _busy_ms(
+            lambda: sops.segmented_scan_tiles_ref(prod, heads)),
+        "library_ms": None,
+    } | _bound(_nbytes(prod, heads) + prod.numel() * prod.element_size(),
+               h * w, prod.dtype)
+    print(f"kernel {label}: {json.dumps(_marked(res))}", flush=True)
+    if not rel <= tol:
+        raise SystemExit(f"{label} segmented_scan_tiles: kernel disagrees "
+                         f"with its plain version ({rel:.3g} > {tol})")
+    return res
+
+
+def _nccl_rank(init_file, n, nnz):
+    """Phase "parallel" (e), in a process of its own on cuda:0: the dist
+    backend on NCCL at world size 1, a file rendezvous; DistXch and
+    DistSpMV on ``powerlaw(n, nnz, seed=4)``, each y through the oracle.
+    Exits non-zero on a failure."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from singlespmv_tpu_torch import Config
+    from singlespmv_tpu_torch.core import create_random_vector, verify_result
+    from singlespmv_tpu_torch.data.generators import powerlaw
+    from singlespmv_tpu_torch.parallel import DistSpMV, DistXch, make_mesh
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_IB_DISABLE", "1")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{init_file}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    ok_all = True
+    try:
+        coo = powerlaw(n, nnz, seed=4)
+        x = create_random_vector(coo.n_col, dtype=np.float32)
+        mesh = make_mesh((("row", 1),), device="cuda", backend="dist")
+        for op in (DistXch.convert(coo, Config(format="xch"), mesh),
+                   DistSpMV.convert(coo, Config(format="ss"), mesh)):
+            y = op(x).cpu().numpy()
+            ok, det = verify_result(coo, x, y, dtype=np.float32)
+            print(f"parallel nccl world 1 {type(op).__name__} on "
+                  f"{mesh.device}: Verify: {'PASS' if ok else 'FAIL'} "
+                  f"max_abs_err {det['max_abs_err']}", flush=True)
+            ok_all &= bool(ok and np.isfinite(y).all())
+    finally:
+        dist.destroy_process_group()
+    sys.exit(0 if ok_all else 1)
+
+
+@contextlib.contextmanager
+def nccl_started():
+    """Phase "parallel" (e): starts ``_nccl_rank`` in a spawned process, so
+    that its start and its host work overlap the phase's conversions.
+    Yields a function that waits for it and fails on a non-zero exit or
+    past ``PAR_NCCL_TIMEOUT_S`` from the start; on leaving, the process is
+    killed if it still runs and its rendezvous removed."""
+    import multiprocessing
+
+    init = tempfile.mkdtemp(prefix="nccl_")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_nccl_rank, args=(os.path.join(init, "rendezvous"),
+                                 *PAR_NCCL_MATRIX))
+    t0 = time.perf_counter()
+    proc.start()
+
+    def done():
+        proc.join(max(PAR_NCCL_TIMEOUT_S - (time.perf_counter() - t0), 1.0))
+        if proc.is_alive():
+            raise SystemExit("parallel: the NCCL rank did not finish in "
+                             f"{PAR_NCCL_TIMEOUT_S} s")
+        if proc.exitcode != 0:
+            raise SystemExit(f"parallel: the NCCL rank exited "
+                             f"{proc.exitcode}")
+
+    try:
+        yield done
+    finally:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+        shutil.rmtree(init, ignore_errors=True)
+
+
+def run_parallel(mats, dev, card, count_path, wrappers, nccl_done):
+    """Phase "parallel": the parallel layer (``singlespmv_tpu_torch/
+    parallel/``) on one card, every shard of a local mesh on it.  Returns
+    the kernel checks for the ``kernels`` line.
+
+    (a) DistXch at R 4 on webbase-1M (scattered: all-gather) and at R 8 on
+    ``generate("band", PAR_BAND, 9, seed=2)`` (banded: a ring of at most 3
+    rounds), float32: the convert's host seconds, each shard's nnz and
+    kernel calls, the largest shard's ``xch_mul`` and ``xch_route4_rows``
+    calls (and on webbase-1M its ``xch_mul_panel`` and ``xch_route4_panel``
+    calls at B 8) against their plain versions, y through the oracle, a
+    step's chained µs (a CUDA graph, as the driver times, or eager CUDA
+    events where the capture fails, and the line says which) beside the
+    single-device xch
+    Time(s) of the same stand-in, and ``DistXch.spmm`` at B 8 on
+    webbase-1M, every column through the oracle;
+    (b) DistSpMV on torso1 (ss) on a 2 × 2 mesh (float32 and float64) and
+    with ``gather_x`` at R 4; HaloSpMV at R 4 in rounds mode on the band
+    and in boundary mode on torso1: ``segmented_scan_tiles`` against its
+    plain version on DistSpMV's stacked stream and on HaloSpMV's local and
+    halo streams, each y through the oracle (float64 within ``F64_TOL``
+    of max|y| too), ``exchange_elems`` and ``n_collectives``;
+    (c) ``weak_scaling`` (the band at PAR_WEAK_ROWS rows a shard) and
+    ``strong_scaling`` (the band at 4 · PAR_WEAK_ROWS rows) at mesh sizes
+    1, 2, 4, each point a CUDA graph of 8 steps, the best of 3 replays
+    (``parallel/bench.py:_time_op``): on one card this measures what
+    sharding costs, not scaling across cards;
+    (d) ``dryrun_multichip(8)``;
+    (e) DistXch and DistSpMV under ``backend="dist"`` with NCCL at world
+    size 1, in a process on cuda:0 (``_nccl_rank``) that ``nccl_started``
+    starts with the phase; ``nccl_done`` waits for it.
+    The kernel checks and the single-device xch timing come first; the
+    launches of (a)–(d) after them are the path's.  Prints the seconds of
+    each part."""
+    from singlespmv_tpu_torch import Config
+    from singlespmv_tpu_torch.core import (create_random_vector,
+                                           reference_spmv, verify_result)
+    from singlespmv_tpu_torch.data.generators import generate
+    from singlespmv_tpu_torch.formats import xch
+    from singlespmv_tpu_torch.harness.driver import (CaptureError,
+                                                     marginal_seconds)
+    from singlespmv_tpu_torch.ops import xch as xops
+    from singlespmv_tpu_torch.parallel import (DistSpMV, DistXch, HaloSpMV,
+                                               make_mesh)
+    from singlespmv_tpu_torch.parallel.bench import (report, strong_scaling,
+                                                     weak_scaling)
+    from singlespmv_tpu_torch.parallel.dryrun import dryrun_multichip
+    from singlespmv_tpu_torch.parallel.spmv import stream_products
+
+    def mesh(*shape):
+        return make_mesh(shape, device=dev)
+
+    def x_of(coo, dtype=np.float32):
+        xh = create_random_vector(coo.n_col, dtype=dtype)
+        return xh, torch.from_numpy(xh).to(dev)
+
+    xcfg = Config(format="xch", dtype="float32")
+    ss32 = Config(format="ss", dtype="float32")
+    parts, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        t = time.perf_counter()
+        parts[name] = round(t - t_part[0], 1)
+        t_part[0] = t
+
+    t0 = time.perf_counter()
+    band = generate("band", PAR_BAND, 9, seed=2)
+    print(f"parallel: band {band.n_row} rows, {band.nnz} nnz, made in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    coos = {"webbase-1M": mats["webbase-1M"], "band": band,
+            "torso1": mats["torso1"]}
+
+    def converted(label, make):
+        t0 = time.perf_counter()
+        op = make()
+        torch.cuda.synchronize()
+        print(f"parallel {label}: convert host {time.perf_counter() - t0:.2f}"
+              " s", flush=True)
+        return op
+
+    # --- (a) and (b): the operators, then each kernel against its plain
+    #     version on a shard's or the stack's inputs ---
+    dist_x = {}
+    for name, R in (("webbase-1M", 4), ("band", 8)):
+        op = converted(f"DistXch {name} R {R}", lambda: DistXch.convert(
+            coos[name], xcfg, mesh(("row", R))))
+        print(f"parallel DistXch {name} R {R}: x_mode {op.x_mode} n_rounds "
+              f"{op.n_rounds} shards (nnz, calls) " + str([
+                  (n, (len(st.win1), len(st.gids2)))
+                  for n, st in zip(op.sub_nnz, op.states)]), flush=True)
+        dist_x[name] = op
+    if not (dist_x["band"].x_mode == "ring"
+            and sum(dist_x["band"].n_rounds) <= 3):
+        raise SystemExit(f"parallel: the band's DistXch took "
+                         f"{dist_x['band'].x_mode} {dist_x['band'].n_rounds}, "
+                         "not a ring of at most 3 rounds")
+    ops = {
+        "DistSpMV torso1 2x2": converted("DistSpMV torso1 2x2", lambda:
+            DistSpMV.convert(coos["torso1"], ss32,
+                             mesh(("row", 2), ("col", 2)))),
+        "DistSpMV torso1 2x2 f64": converted(
+            "DistSpMV torso1 2x2 f64", lambda: DistSpMV.convert(
+                coos["torso1"], ss32.replace(dtype="float64"),
+                mesh(("row", 2), ("col", 2)))),
+        "DistSpMV torso1 gather_x R4": converted(
+            "DistSpMV torso1 gather_x R4", lambda: DistSpMV.convert(
+                coos["torso1"], ss32, mesh(("row", 4)), col_axis=None,
+                gather_x=True)),
+        "HaloSpMV band rounds R4": converted(
+            "HaloSpMV band rounds R4", lambda: HaloSpMV.convert(
+                band, ss32, mesh(("row", 4)), mode="rounds")),
+        "HaloSpMV torso1 boundary R4": converted(
+            "HaloSpMV torso1 boundary R4", lambda: HaloSpMV.convert(
+                coos["torso1"], ss32, mesh(("row", 4)), mode="boundary")),
+    }
+    part("convert")
+    compared = []
+    for name, op in dist_x.items():
+        k = int(np.argmax(op.sub_nnz))
+        st = op.states[k]
+        _, xd = x_of(coos[name])
+        fp = op.footprints(xd)[k][: st.n_col]
+        compared.append(compare_xch(f"{name} DistXch R{op.R} shard {k}", st,
+                                    xch, xops, fp, extra=False))
+        if name == "webbase-1M":      # DistXch.spmm's panel kernels
+            X = torch.from_numpy(np.random.default_rng(1).uniform(-1.0, 1.0, (
+                coos[name].n_col, PAR_SPMM_B)).astype(np.float32)).to(dev)
+            compared.append(compare_xch_panels(
+                f"{name} DistXch R{op.R} shard {k} B{PAR_SPMM_B}", st, xch,
+                xops, op.footprints(X)[k][: st.n_col], None))
+            del X
+    for label in ("DistSpMV torso1 2x2", "DistSpMV torso1 2x2 f64"):
+        op = ops[label]
+        dtype = np.float64 if label.endswith("f64") else np.float32
+        _, xd = x_of(coos["torso1"], dtype)
+        prod = stream_products(op.streams, op.shard_x(xd))
+        compared.append(compare_stacked_scan(
+            label, prod, op.streams.heads.view(prod.shape),
+            F64_TOL if dtype == np.float64 else TOL))
+        del prod
+    for label in ("HaloSpMV band rounds R4", "HaloSpMV torso1 boundary R4"):
+        op = ops[label]
+        _, xd = x_of(coos[label.split()[1]])
+        x_loc = op.local_x(xd)
+        for part_name, streams, xs in (("local", op.local, x_loc),
+                                       ("halo", op.halo, op.exchange(x_loc))):
+            if (part_name == "local" and op.merged) or not xs:
+                continue
+            prod = stream_products(streams, xs)
+            compared.append(compare_stacked_scan(
+                f"{label} {part_name}", prod, streams.heads.view(prod.shape),
+                TOL))
+            del prod
+    part("kernel checks")
+    # the single-device xch Time(s) of (a)'s stand-ins, from the xch path
+    # where it ran them, else here
+    single = {}
+    for name in dist_x:
+        single[name] = (RUNS.get((name, "xch", "float32"), {}).get("Time(s)"),
+                        "phase xch path")
+        if single[name][0] is None:
+            st = xch.convert(coos[name], xcfg).to(dev)
+            single[name] = (marginal_seconds(
+                xch.spmv, st, x_of(coos[name])[1], dev, PAR_WINDOW_S,
+                name="xch"), f"this phase, peel offsets {len(st.dia_offs)}")
+            del st
+    part("single-device xch")
+
+    # --- the path: every launch from here is the path's ---
+    _zero(*wrappers)
+    for name, op in dist_x.items():
+        coo = coos[name]
+        xh, xd = x_of(coo)
+        y = op(xd).cpu().numpy()
+        ok, det = verify_result(coo, xh, y, dtype=np.float32)
+        if not (ok and y.shape == (coo.n_row,) and np.isfinite(y).all()):
+            raise SystemExit(f"parallel DistXch {name}: Verify FAIL {det}")
+        try:
+            sec = marginal_seconds(lambda o, a: o.step(a), op, xd, dev,
+                                   PAR_WINDOW_S, name="DistXch")
+            timed = "chained (CUDA graphs of 64 steps)"
+        except CaptureError as e:
+            print(f"parallel DistXch {name}: {e}; timed eagerly", flush=True)
+            sec, timed = _cuda_ms(lambda: op.step(xd)) / 1e3, \
+                "eager (CUDA events, host gaps included)"
+        one, source = single[name]
+        row = {"op": "DistXch", "matrix": name, "R": op.R,
+               "x_mode": op.x_mode, "n_rounds": list(op.n_rounds),
+               "step_us": sec * 1e6, "timed": timed,
+               "single_device_xch_us": one * 1e6,
+               "single_device_from": source, "ratio": sec / one,
+               "shard_nnz": list(op.sub_nnz),
+               "max_abs_err": det["max_abs_err"], "verify": "PASS"}
+        print(f"parallel_row {json.dumps(row)}", flush=True)
+    coo = coos["webbase-1M"]
+    X = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1.0, 1.0, (coo.n_col, PAR_SPMM_B)).astype(np.float32)).to(dev)
+    err = verify_columns("parallel DistXch spmm webbase-1M", coo, X,
+                         dist_x["webbase-1M"].spmm(X), verify_result)
+    print(f"parallel DistXch spmm webbase-1M B{PAR_SPMM_B}: Verify: PASS "
+          f"({PAR_SPMM_B} columns) max_abs_err {err}", flush=True)
+    del dist_x, X
+    part("(a) DistXch")
+    for label, op in ops.items():
+        coo = coos[label.split()[1]]
+        dtype = np.float64 if label.endswith("f64") else np.float32
+        xh, xd = x_of(coo, dtype)
+        y = op(xd).cpu().numpy()
+        ok, det = verify_result(coo, xh, y, dtype=dtype)
+        row = {"op": label.split()[0], "label": label, "R": op.R,
+               "verify": "PASS" if ok else "FAIL",
+               "max_abs_err": det["max_abs_err"],
+               "step_ms_eager": _cuda_ms(lambda: op.step(xd))}
+        if isinstance(op, HaloSpMV):
+            row |= {"mode": op.mode, "exchange_elems": op.exchange_elems,
+                    "n_collectives": op.n_collectives, "n_col": coo.n_col,
+                    "local_nnz": op.local_nnz, "halo_nnz": op.halo_nnz}
+        if dtype == np.float64:
+            want = reference_spmv(coo, xh)
+            row["oracle_rel_err"] = float(np.abs(y - want).max()
+                                          / np.abs(want).max())
+            ok = ok and row["oracle_rel_err"] <= F64_TOL
+        print(f"parallel_row {json.dumps(row)}", flush=True)
+        if not (ok and np.isfinite(y).all()):
+            raise SystemExit(f"parallel {label}: {row}")
+    del ops
+    part("(b) DistSpMV, HaloSpMV")
+
+    # --- (c) the scaling harness on the local mesh, (d) the dryrun ---
+    print(f"parallel scaling, local mesh on one card ({card}): what sharding "
+          "costs on one card, not scaling across cards", flush=True)
+    pts = weak_scaling(lambda n: generate("band", PAR_WEAK_ROWS * n, 9,
+                                          seed=n),
+                       limit=4, device=dev)
+    print(f"weak scaling, band {PAR_WEAK_ROWS} rows a shard, DistSpMV ss "
+          f"f32, CUDA graphs of 8 steps:\n{report(pts)}", flush=True)
+    pts = strong_scaling(generate("band", 4 * PAR_WEAK_ROWS, 9, seed=4),
+                         limit=4, device=dev)
+    print(f"strong scaling, band {4 * PAR_WEAK_ROWS} rows, DistSpMV ss "
+          f"f32, CUDA graphs of 8 steps:\n{report(pts)}", flush=True)
+    part("(c) scaling")
+    dryrun_multichip(8, device=dev)
+    print("parallel dryrun_multichip(8): OK", flush=True)
+    part("(d) dryrun")
+    count_path("parallel", wrappers, ("xch_mul", "xch_route4_rows",
+                                      "segmented_scan_tiles"))
+
+    # --- (e) NCCL at world size 1: the process started with the phase ---
+    nccl_done()
+    part("(e) nccl")
+    print(f"parallel nccl world 1: OK; seconds of the parts: {parts}",
+          flush=True)
+    return compared
+
+
 def _route_seconds(state, xch):
     """Seconds ``route_rows`` takes on a host state and its nested ones."""
     t0 = time.perf_counter()
@@ -2971,6 +3356,13 @@ def main() -> int:
         bf16_compared, bf16_launches = run_bfloat16(
             mats, dev, card.splitlines()[0], count_path, all_k, f32_states)
         compared.extend(bf16_compared)
+
+    # --- 14c. the parallel layer: DistXch, DistSpMV, HaloSpMV, the scaling
+    #     harness and the dryrun on a local mesh on the card, then NCCL at
+    #     world size 1 ---
+    with Phase("parallel"), nccl_started() as nccl_done:
+        compared.extend(run_parallel(mats, dev, card.splitlines()[0],
+                                     count_path, all_k, nccl_done))
 
     # --- 15. the xch path on circuit5M, last because its stand-in takes
     #     longest to build: kernels vs plain versions on every call, then

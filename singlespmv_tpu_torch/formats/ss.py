@@ -81,17 +81,18 @@ def _with_run_index(arrays: dict) -> dict:
 
 def build_stream(coo: COOMatrix, cfg: Config, *, rows=None, cols=None,
                  vals=None, sorted_combine: bool = True, cls=SSState,
-                 **extra):
+                 min_h: int = 0, min_r_max: int = 0, **extra):
     """Lays out the stream, for ss and for css (which passes its
     block-ordered triplets, its state class ``cls`` and its own fields
-    ``extra``).  The reference's ``min_h``/``min_r_max``, which only its
-    sharded operators pass, are left out with them (ROADMAP A.14)."""
+    ``extra``).  ``min_h`` and ``min_r_max`` force the least H and R_max,
+    as in the reference: the sharded operators (``parallel/``) give every
+    shard's stream the same shape, so that the shards stack."""
     check_dtype("ss", cfg.dtype)
     w = max(cfg.lane_width, round_up(cfg.segment_width, cfg.lane_width))
     if rows is None:
         rows, cols, vals = coo.row, coo.col, coo.val
     nnz = int(rows.shape[0])
-    nnz_pad = round_up(max(nnz, 1), w)
+    nnz_pad = max(round_up(max(nnz, 1), w), min_h * w)
     h = nnz_pad // w
     idx = cfg.index_dtype
 
@@ -115,7 +116,7 @@ def build_stream(coo: COOMatrix, cfg: Config, *, rows=None, cols=None,
     heads2d = heads_flat.reshape(h, w)
     rank2d = np.cumsum(heads2d, axis=1) - 1
     n_runs = rank2d[:, -1] + 1
-    r_max = round_up(int(n_runs.max(initial=1)), 8)
+    r_max = max(round_up(int(n_runs.max(initial=1)), 8), min_r_max)
 
     end_pos = np.zeros((h, r_max), dtype=np.int32)
     rank_rows = np.full((h, r_max), coo.n_row, dtype=idx)

@@ -192,8 +192,8 @@ def test_auto_trial_conversions_side_by_side(monkeypatch):
 
 def test_port_runs_without_the_reference_package():
     """A fresh process where ``singlespmv_tpu`` cannot be imported: the
-    port imports, converts and multiplies, and neither jax nor the
-    reference package is loaded."""
+    port imports, converts and multiplies (a local-mesh DistXch among
+    them), and neither jax nor the reference package is loaded."""
     code = (
         "import sys\n"
         "sys.modules['singlespmv_tpu'] = None\n"
@@ -215,6 +215,11 @@ def test_port_runs_without_the_reference_package():
         "    y = mod.spmv(mod.convert(coo, cfg), torch.from_numpy(x))\n"
         "    ok, det = verify_result(coo, x, y.numpy())\n"
         "    assert ok, det\n"
+        "from singlespmv_tpu_torch.parallel import DistXch, make_mesh\n"
+        "op = DistXch.convert(coo, Config(format='xch'), "
+        "make_mesh((('row', 2),), device='cpu'))\n"
+        "ok, det = verify_result(coo, x, op(x).numpy())\n"
+        "assert ok, det\n"
         "bad = sorted(m for m in sys.modules if m.startswith("
         "('jax', 'singlespmv_tpu.')) or m == 'jaxlib')\n"
         "assert not bad, bad\n"
