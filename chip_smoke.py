@@ -22,9 +22,12 @@ Its phases, in the order they run:
    bound of the idx-plane layout it replaced beside its own; the bucket
    kernels on the full-size bkt_g states (1024-row buckets) of g7jac200sc,
    lhr34, twotone, raefsky3 and thermomech_dK and the bkt state (128-row
-   buckets) of raefsky3: stage A ``block_gather_mul``, stage B
-   ``bucket_rows`` on the run-end stream with the bound of the idx-plane
-   layout beside its own and torch's ``A_csr @ x`` beside it, and the first
+   buckets) of raefsky3: the spmv's fused stage A + B
+   ``bucket_fused_rows`` (the products in registers) with torch's
+   ``A_csr @ x`` beside it and the busy time of the unfused pair it
+   replaced beside its own; that pair, the first port, on no path: stage A
+   ``block_gather_mul`` and stage B ``bucket_rows`` on the run-end stream
+   with the bound of the idx-plane layout beside its own; and the first
    port's stage B (``bucket_reduce``, ``bucket_reduce_grouped``,
    ``lane_unpermute``, on no path) with ``torch.gather``'s time beside
    ``lane_unpermute``'s; and the scan kernels: ``segmented_scan_tiles`` on
@@ -74,8 +77,9 @@ Its phases, in the order they run:
    kernels (the slab route on all three) against their plain versions at
    the residual's shapes;
 7. drives the bkt path: ``run_benchmark`` with format="bkt" on raefsky3
-   (128-row buckets) and g7jac200sc (1024-row buckets), and fails if the
-   first port's stage B ran;
+   (128-row buckets) and g7jac200sc (1024-row buckets), and fails unless
+   ``bucket_fused_rows`` ran, or if the unfused pair or the first port's
+   stage B did;
 8. drives the scan formats: ``run_benchmark`` in float32 with format="css"
    on thermomech_dK and webbase-1M, "ss" on torso1 and "csr5" on torso1 and
    webbase-1M (css and ss with their phases profiled, ss its scan steps
@@ -139,10 +143,14 @@ Its phases, in the order they run:
    (their OptimizeTime then the load; the file untouched, the same engine,
    both y passing Verify and within each row's reorder bound); and writes one ``trace_dir`` trace, which
    must hold device events;
-13. the campaign layer: ``block_gather_mul`` at ellg's gran 128 against
-   its plain version on every pass of the ellg states of raefsky3 and
-   g7jac200sc (between them one and several members a row; a pass of one
-   member carries no src), each pass timed beside its bound; then drives
+13. the campaign layer: ellg's passes kernel ``ellg_rows`` (every pass
+   of a state in one launch) against its plain version on the ellg states
+   of raefsky3 and g7jac200sc (between them one and several members a
+   row; a pass of one member carries no src), timed beside its bound and
+   beside the first port of the passes (stage A at gran 128, then the row
+   sums and adds in torch); that first port's ``block_gather_mul`` at gran
+   128 against its plain version on every pass, each pass timed beside its
+   bound (uncounted: it is on no path); then drives
    ``run_benchmark`` with format="ellg" on both, and "coo", "ell", "jds",
    "bcoo" and "hostlib" on raefsky3 (hostlib on the host, as its
    ``PREFERRED_DEVICE`` says), each to a Verify PASS; then the headline
@@ -172,7 +180,8 @@ Its phases, in the order they run:
    g7jac200sc (slab unit) and torso1 (slab blk), webbase-1M (xch and the
    csr5 normal track), thermomech_dK (bkt_g and css) and raefsky3 (bkt):
    the float32 checks' states with their values rounded to bfloat16
-   (``as_bfloat16``: the layout does not depend on the value type), each
+   (``as_bfloat16``: the layout does not depend on the value type), and
+   ``ellg_rows`` on raefsky3's ellg state converted at bfloat16, each
    timed beside its bound at 2-byte values and torch's bfloat16 CSR
    product, the whole spmv's times on webbase-1M's xch; then two calls of
    the whole bfloat16 spmv on the card, every row within its
@@ -207,9 +216,12 @@ Its phases, in the order they run:
    are set to 0 just before a path and read just after it; the slab, hyb,
    auto, float64 and solver paths the slab route ``slab_spmv_rows``, the
    parallel path ``xch_mul``, ``xch_route4_rows`` and
-   ``segmented_scan_tiles``; and
+   ``segmented_scan_tiles``, the bkt and auto paths ``bucket_fused_rows``,
+   the ellg path ``ellg_rows``; and
    that no path launched the first port's kernels that left the spmv
-   path: ``xch_route4`` and ``slab_spmv`` / ``slab_spmv_blk``.
+   path: ``xch_route4``, ``slab_spmv`` / ``slab_spmv_blk``, the bucket
+   pair ``block_gather_mul`` / ``bucket_rows`` and the first port's stage
+   B (their checks above put the counts back).
 
 Each phase prints its seconds.
 
@@ -608,10 +620,26 @@ def compare_xch(label, state, xch, ops, x, tol=TOL, a_csr=None, extra=True):
     return res
 
 
-BUCKET_KERNELS = ("block_gather_mul", "bucket_rows")
+BUCKET_KERNELS = ("bucket_fused_rows",)   # bkt's and bkt_g's spmv path
+BUCKET_PAIR = ("block_gather_mul", "bucket_rows")   # its first port: stage
+#                                    A's product grid, read back by stage B
 # the first port's stage B: checked in phase 2, on no path
 BUCKET_FIRST_PORT = ("bucket_reduce", "bucket_reduce_grouped",
                      "lane_unpermute")
+
+
+@contextlib.contextmanager
+def uncounted(*wrappers):
+    """Puts the wrappers' launch counts back as they were after the block:
+    a kernel launched there to check or time it, off every path, counts in
+    no path."""
+    saved = {(w, attr): getattr(w, attr) for w in wrappers
+             for _, attr in COUNTERS if hasattr(w, attr)}
+    try:
+        yield
+    finally:
+        for (w, attr), v in saved.items():
+            setattr(w, attr, v)
 
 
 def by_kernel(compared):
@@ -623,7 +651,7 @@ def by_kernel(compared):
             continue
         sfx = {str(t): s for t, s in SFX.items()}[res["dtype"]]
         for k in ("xch_mul", "xch_route4_rows") + BUCKET_KERNELS \
-                + BUCKET_FIRST_PORT + PANEL_KERNELS:
+                + BUCKET_PAIR + BUCKET_FIRST_PORT + PANEL_KERNELS:
             if k in res:
                 out.setdefault(k + sfx, []).append(
                     res[k] | {"label": res["label"]}
@@ -652,98 +680,125 @@ def compare_rest(label, state, slab, xch, ops, xops, x, tol):
 
 def compare_bucket(label, state, bkt, bops, x, tol=TOL, a_csr=None,
                    extra=True):
-    """Phase 2 for one bkt state: each of its kernels against its plain
-    version on the inputs the spmv gives it, kernel and plain times, the
-    bound; beside stage B ``bucket_rows`` the bound of the idx-plane layout
-    and ``a_csr``'s product (torch's CSR tensor of the state's matrix:
-    cuSPARSE); and the first port's stage B on the same products, with
-    torch.gather's time beside lane_unpermute's (float32 only, as the first
-    port is).  The first port's launches here are not counted: its
-    counters are as they were after."""
+    """Phase 2 for one bkt state: its spmv kernel, the fused stage A + B
+    ``bucket_fused_rows``, against its plain version on the inputs the spmv
+    gives it, kernel and plain times, the bound and ``a_csr``'s product
+    (torch's CSR tensor of the state's matrix: cuSPARSE); the unfused pair
+    it replaced (stage A ``block_gather_mul``, then stage B
+    ``bucket_rows`` on the products), each kernel the same way, with the
+    pair's busy time beside the fused one and beside stage B the bound of
+    the idx-plane layout; and the first port's stage B on the same
+    products, with torch.gather's time beside lane_unpermute's (float32
+    only, as the first port is).  The launches of the pair and of the
+    first port here are not counted: their counters are as they were
+    after."""
     grouped = state.row_group == 1024
     first_port = x.dtype == torch.float32
     nu_pad, sh, _, h = bkt._unit_rows(state)
     xt = bkt.x_table(state, x)
     a = (state.members, state.lane, state.src, state.val, xt, state.m)
-    prod = bops.block_gather_mul(*a)
     y = torch.zeros(state.n_row, dtype=torch.float32, device=x.device)
-    rows = (prod.view(h, 128), state.hm1r, state.dest, state.yrow, y, sh,
-            nu_pad, state.parts)
-    b = (bkt.stage_b_input(state, prod), state.hm1, state.idx, nu_pad) + (
-        (state.n_chunks,) if grouped else ())
-    stage_b = "bucket_reduce_grouped" if grouped else "bucket_reduce"
-    first = [getattr(bops, k) for k in BUCKET_FIRST_PORT]
-    counted = [w.launches for w in first]
-    y_tab = getattr(bops, stage_b)(*b) if first_port else None
-    slots, run_ends = state.n_slots, int((state.dest >= 0).sum())
-    # bytes: each stream once (src only when m > 1), the x table, the out;
-    # operations: a multiply per slot (A), a prefix add and a difference
-    # per slot and an add per run end (B).  bucket_rows streams the
-    # products, hm1r and dest, yrow once, y once; the idx-plane layout the
-    # products, hm1 and K idx planes, and its row table once
-    calls = {
-        "block_gather_mul": (a, _bound(
-            _nbytes(state.members, state.lane, state.val, xt, prod)
-            + (_nbytes(state.src) if state.m > 1 else 0), slots,
-            torch.float32)),
-        "bucket_rows": (rows, _bound(_nbytes(*rows[:5]),
-                                     2 * slots + run_ends, torch.float32)),
-    }
-    if first_port:
-        calls[stage_b] = (b, _bound(_nbytes(*b[:3], y_tab),
-                                    2 * slots + _routed(state.idx),
-                                    torch.float32))
-    library = {"bucket_rows": None if a_csr is None
-               else lambda: a_csr @ x}
-    if state.balanced and first_port:
-        u = (bkt.y_table_t(state, y_tab), state.src_lane, state.src_chunk)
-        calls["lane_unpermute"] = (u, _bound(_nbytes(*u, u[0]), 0,
-                                             torch.float32))
-        flat = state.src_chunk.long() * 128 + state.src_lane.long()
-        library["lane_unpermute"] = lambda: torch.gather(u[0], 1, flat)
-    res = {"label": label, "dtype": str(x.dtype), "row_group":
-           state.row_group, "m": state.m, "K": state.k, "S": state.s,
-           "G": state.g, "col_groups": state.g_tot, "rb_pad": state.rb_pad,
-           "units": nu_pad, "stream_rows": h, "run_ends": run_ends,
-           "parts": state.parts,
-           "slots": slots, "pad": round(slots / max(state.nnz, 1), 3),
-           "balanced": state.balanced}
-    for name, (args, bound) in calls.items():
-        fn, ref = getattr(bops, name), getattr(bops, name + "_ref")
-        if name == "bucket_rows":     # adds into y: a zeroed y each call
-            run = lambda f: f(*args[:4], y.zero_(), *args[5:])  # noqa: E731
-        else:
-            run = lambda f: f(*args)                            # noqa: E731
-        got = run(fn).clone()
-        want = run(ref)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        rel = err / max(float(want.abs().max()), 1e-30)
-        lib = library.get(name)
-        if name == "lane_unpermute" and not torch.equal(lib(), want):
-            raise SystemExit(f"{label} {name}: torch.gather computes "
-                             "another function")
-        res[name] = {
-            "max_abs_err": err, "rel_err": rel,
-            "ms": _busy_ms(lambda: run(fn), f"{name}_",
-                           launches=_launched(fn)),
-            "plain_ms": _busy_ms(lambda: run(ref)),
-            "call_ms": _extra(extra, _cuda_ms, lambda: run(fn)),
-            "library_ms": None if lib is None
-            else _library_ms(a_csr, x) if name == "bucket_rows"
-            else _busy_ms(lib),
-        } | bound
-        if not rel <= tol:
-            raise SystemExit(f"{label} {name}: kernel disagrees with its "
-                             f"plain version (max |diff| / max |out| = "
-                             f"{rel:.3g} > {tol})")
+    off_path = [getattr(bops, k) for k in BUCKET_PAIR + BUCKET_FIRST_PORT]
+    with uncounted(*off_path):
+        prod = bops.block_gather_mul(*a)
+        rows = (prod.view(h, 128), state.hm1r, state.dest, state.yrow, y, sh,
+                nu_pad, state.parts)
+        fused = a + rows[1:]
+        b = (bkt.stage_b_input(state, prod), state.hm1, state.idx,
+             nu_pad) + ((state.n_chunks,) if grouped else ())
+        stage_b = "bucket_reduce_grouped" if grouped else "bucket_reduce"
+        y_tab = getattr(bops, stage_b)(*b) if first_port else None
+        slots, run_ends = state.n_slots, int((state.dest >= 0).sum())
+        # bytes: each stream once (src only when m > 1), the x table, the
+        # out; operations: a multiply per slot (A), a prefix add and a
+        # difference per slot and an add per run end (B).  bucket_rows
+        # streams the products, hm1r and dest, yrow once, y once; the
+        # idx-plane layout the products, hm1 and K idx planes, and its row
+        # table once; the fused launch stage A's inputs and stage B's but
+        # the products, with no product out and none in
+        stage_a_in = _nbytes(state.members, state.lane, state.val, xt) + (
+            _nbytes(state.src) if state.m > 1 else 0)
+        calls = {
+            "bucket_fused_rows": (fused, _bound(
+                stage_a_in + _nbytes(*rows[1:5]), 3 * slots + run_ends,
+                torch.float32)),
+            "block_gather_mul": (a, _bound(stage_a_in + _nbytes(prod), slots,
+                                           torch.float32)),
+            "bucket_rows": (rows, _bound(_nbytes(*rows[:5]),
+                                         2 * slots + run_ends,
+                                         torch.float32)),
+        }
+        if first_port:
+            calls[stage_b] = (b, _bound(_nbytes(*b[:3], y_tab),
+                                        2 * slots + _routed(state.idx),
+                                        torch.float32))
+        library = dict.fromkeys(("bucket_fused_rows", "bucket_rows"),
+                                None if a_csr is None else lambda: a_csr @ x)
+        if state.balanced and first_port:
+            u = (bkt.y_table_t(state, y_tab), state.src_lane,
+                 state.src_chunk)
+            calls["lane_unpermute"] = (u, _bound(_nbytes(*u, u[0]), 0,
+                                                 torch.float32))
+            flat = state.src_chunk.long() * 128 + state.src_lane.long()
+            library["lane_unpermute"] = lambda: torch.gather(u[0], 1, flat)
+        res = {"label": label, "dtype": str(x.dtype), "row_group":
+               state.row_group, "m": state.m, "K": state.k, "S": state.s,
+               "G": state.g, "col_groups": state.g_tot,
+               "rb_pad": state.rb_pad, "units": nu_pad, "stream_rows": h,
+               "run_ends": run_ends, "parts": state.parts,
+               "slots": slots, "pad": round(slots / max(state.nnz, 1), 3),
+               "balanced": state.balanced}
+        cusparse_ms = None if a_csr is None else _library_ms(a_csr, x)
+        for name, (args, bound) in calls.items():
+            fn, ref = getattr(bops, name), getattr(bops, name + "_ref")
+            if name in ("bucket_rows", "bucket_fused_rows"):
+                # adds into y: a zeroed y each call
+                run = lambda f, n=len(args): f(  # noqa: E731
+                    *args[:n - 4], y.zero_(), *args[n - 3:])
+            else:
+                run = lambda f: f(*args)                        # noqa: E731
+            got = run(fn).clone()
+            want = run(ref)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            rel = err / max(float(want.abs().max()), 1e-30)
+            lib = library.get(name)
+            if name == "lane_unpermute" and not torch.equal(lib(), want):
+                raise SystemExit(f"{label} {name}: torch.gather computes "
+                                 "another function")
+            match = "GatherProducts" if name == "bucket_fused_rows" \
+                else "StreamProducts" if name == "bucket_rows" \
+                else f"{name}_"
+            res[name] = {
+                "max_abs_err": err, "rel_err": rel,
+                "ms": _busy_ms(lambda: run(fn), match,
+                               launches=_launched(fn)),
+                "plain_ms": _busy_ms(lambda: run(ref)),
+                "call_ms": _extra(extra and name == "bucket_fused_rows",
+                                  _cuda_ms, lambda: run(fn)),
+                "library_ms": None if lib is None
+                else cusparse_ms if name in ("bucket_rows",
+                                             "bucket_fused_rows")
+                else _busy_ms(lib),
+            } | bound
+            if not rel <= tol:
+                raise SystemExit(f"{label} {name}: kernel disagrees with its "
+                                 f"plain version (max |diff| / max |out| = "
+                                 f"{rel:.3g} > {tol})")
+    res["bucket_fused_rows"]["pair_ms"] = (res["block_gather_mul"]["ms"]
+                                           + res["bucket_rows"]["ms"])
+    res["bucket_fused_rows"]["pair_bound_ms"] = (
+        res["block_gather_mul"]["bound_ms"] + res["bucket_rows"]["bound_ms"])
     if first_port:
         res["bucket_rows"]["bound_ms_idx_layout"] = res[stage_b]["bound_ms"]
-    for w, n in zip(first, counted):
-        w.launches = n
     res["spmv_ms"] = _extra(extra, _cuda_ms, lambda: bkt.spmv(state, x))
     res["spmv_busy_ms"] = _extra(extra, _busy_ms,
                                  lambda: bkt.spmv(state, x))
+    f = res["bucket_fused_rows"]
+    print(f"bucket pair {label}: fused {f['ms']:.6f} ms (bound "
+          f"{f['bound_ms']:.6f}) against the unfused pair {f['pair_ms']:.6f}"
+          f" ms (bounds {f['pair_bound_ms']:.6f}); cuSPARSE "
+          f"{f['library_ms']} ms", flush=True)
     print(f"kernel {label}: {json.dumps(_marked(res))}", flush=True)
     return res
 
@@ -1520,49 +1575,103 @@ SWEEP_TODO = ("prefix,format,calibrate_seconds,n_trials\n"   # two rows,
               "ell,ell,0.05,3\nellg,ellg,0.05,3\n")        # on lhr34
 
 
-def compare_ellg(label, state, ellg, bops, x):
-    """The campaign's kernel check for one ellg state: ``block_gather_mul``
-    at gran 128 against its plain version on every pass, at the pass's
-    shapes (its panel of the x table, m members, src None where m is 1),
-    each pass timed with its bound.  Returns a result per pass."""
+def compare_ellg(label, state, ellg, bops, x, per_pass=True):
+    """The campaign's kernel checks for one ellg state: its passes' kernel
+    ``ellg_rows`` (every pass in one launch) against its plain version,
+    timed beside its bound and beside the first port of the passes
+    (``ellg_rows_ref`` with stage A on the kernel); and that first port's
+    stage A,
+    ``block_gather_mul`` at gran 128, against its plain version on every
+    pass, at the pass's shapes (its panel of the x table, m members, src
+    None where m is 1), each pass timed with its bound (its launches not
+    counted), where ``per_pass``.  Returns (the ``ellg_rows`` result, a
+    result per pass)."""
     xp = torch.zeros(-(-state.n_col // 128) * 128, dtype=x.dtype,
                      device=x.device)
     xp[: state.n_col] = x
+    y = torch.zeros(state.n_row, dtype=torch.float32, device=x.device)
+    table = ellg.row_passes(state.passes)
+    run = lambda f: f(table, xp, y.zero_())                  # noqa: E731
+    got = run(bops.ellg_rows).clone()
+    want = run(bops.ellg_rows_ref)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / max(float(want.abs().max()), 1e-30)
+    if not rel <= TOL:
+        raise SystemExit(f"{label}: ellg_rows disagrees with its plain "
+                         f"version ({rel:.3g} > {TOL} of max|y|)")
+    slots = sum(p.lane.numel() for p in state.passes)
+    # bytes: each pass's members, lane, val, src where m > 1 and blocks
+    # where not full, each col-block of x that a pass's panel holds once
+    # (passes may share a panel), y once; operations: a multiply and an
+    # add a slot
+    in_panel = np.zeros(xp.numel() // 128, bool)
+    for p in state.passes:
+        in_panel[p.panel_base: p.panel_base + p.panel_cb] = True
+    nbytes = y.numel() * 4 + int(in_panel.sum()) * 128 * x.element_size() \
+        + sum(_nbytes(p.members, p.lane, p.val)
+              + (_nbytes(p.src) if p.m > 1 else 0)
+              + (0 if p.blocks is None else _nbytes(p.blocks))
+              for p in state.passes)
+    with uncounted(bops.block_gather_mul):
+        pair_ms = _busy_ms(lambda: bops.ellg_rows_ref(
+            table, xp, y.zero_(), stage_a=bops.block_gather_mul))
+    # the library: torch's CSR of the passes' matrix (the rest taken away)
+    # times x, at x's value type
+    a_csr = torch_csr(ellg.to_coo(dataclasses.replace(
+        state, rest_fmt="", rest_state=None)), x.device,
+        "bfloat16" if x.dtype == torch.bfloat16 else np.float32)
+    library_ms = _library_ms(a_csr, x)
+    del a_csr
+    rows = {"label": label, "dtype": str(x.dtype),
+            "kernel": "ellg_rows" + SFX[x.dtype],
+            "passes": [f"t{p.t}m{p.m}{'' if p.full else ' blocks'}"
+                       for p in state.passes], "slots": slots,
+            "max_abs_err": err, "rel_err": rel,
+            "ms": _busy_ms(lambda: run(bops.ellg_rows), "ellg_rows_kernel",
+                           launches=_launched(bops.ellg_rows)),
+            "plain_ms": _busy_ms(lambda: run(bops.ellg_rows_ref)),
+            "call_ms": _cuda_ms(lambda: run(bops.ellg_rows)),
+            "first_port_ms": pair_ms, "library_ms": library_ms} | _bound(
+        nbytes, 2 * slots, x.dtype)
+    print(f"kernel ellg {label} ellg_rows: {json.dumps(_marked(rows))}",
+          flush=True)
     out = []
-    for i, p in enumerate(state.passes):
+    for i, p in enumerate(state.passes if per_pass else ()):
         lo = p.panel_base * 128
         xpan = xp[lo: lo + p.panel_cb * 128].view(p.panel_cb, 128)
         args = (p.members, p.lane, p.src, p.val, xpan, p.m)
-        got = bops.block_gather_mul(*args, gran=128).clone()
-        want = bops.block_gather_mul_ref(*args, gran=128)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        rel = err / max(float(want.abs().max()), 1e-30)
-        if not rel <= TOL:
-            raise SystemExit(f"{label} pass {i}: block_gather_mul at gran 128 "
-                             f"disagrees with its plain version ({rel:.3g} > "
-                             f"{TOL} of max|out|)")
-        slots = p.lane.numel()
-        # bytes: members, lane, val, src where m > 1, the panel once, the
-        # products out; operations: a multiply a slot
-        res = {"label": f"{label} pass {i}", "t": p.t, "m": p.m,
-               "full": p.full, "shape": list(p.lane.shape), "gran": 128,
-               "slots": slots, "panel_cb": p.panel_cb, "max_abs_err": err,
-               "rel_err": rel,
-               "ms": _busy_ms(lambda: bops.block_gather_mul(*args, gran=128),
-                              "block_gather_mul_",
-                              launches=_launched(bops.block_gather_mul)),
-               "plain_ms": _busy_ms(
-                   lambda: bops.block_gather_mul_ref(*args, gran=128)),
-               "call_ms": _cuda_ms(
-                   lambda: bops.block_gather_mul(*args, gran=128)),
-               "library_ms": None} | _bound(
-            _nbytes(p.members, p.lane, p.val, xpan) + 4 * slots
-            + (_nbytes(p.src) if p.m > 1 else 0), slots, torch.float32)
+        with uncounted(bops.block_gather_mul):
+            got = bops.block_gather_mul(*args, gran=128).clone()
+            want = bops.block_gather_mul_ref(*args, gran=128)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            rel = err / max(float(want.abs().max()), 1e-30)
+            if not rel <= TOL:
+                raise SystemExit(f"{label} pass {i}: block_gather_mul at "
+                                 f"gran 128 disagrees with its plain version "
+                                 f"({rel:.3g} > {TOL} of max|out|)")
+            slots = p.lane.numel()
+            # bytes: members, lane, val, src where m > 1, the panel once,
+            # the products out; operations: a multiply a slot
+            res = {"label": f"{label} pass {i}", "t": p.t, "m": p.m,
+                   "full": p.full, "shape": list(p.lane.shape), "gran": 128,
+                   "slots": slots, "panel_cb": p.panel_cb,
+                   "max_abs_err": err, "rel_err": rel,
+                   "ms": _busy_ms(
+                       lambda: bops.block_gather_mul(*args, gran=128),
+                       "block_gather_mul_",
+                       launches=_launched(bops.block_gather_mul)),
+                   "plain_ms": _busy_ms(
+                       lambda: bops.block_gather_mul_ref(*args, gran=128)),
+                   "library_ms": None} | _bound(
+                _nbytes(p.members, p.lane, p.val, xpan)
+                + x.element_size() * slots
+                + (_nbytes(p.src) if p.m > 1 else 0), slots, x.dtype)
         print(f"kernel ellg {res['label']}: {json.dumps(_marked(res))}",
               flush=True)
         out.append(res)
-    return out
+    return rows, out
 
 
 def _bench_py_keys():
@@ -1644,8 +1753,9 @@ def run_campaign(mats, dev, card, count_path, wrappers):
     (which must plan m = 1 and m > 1 between them), then the ellg path and
     ``NEW_FORMATS`` on raefsky3 through ``run_benchmark``, then
     ``run_campaign_tools``; ``count_path`` reads the launches of
-    ``wrappers`` after each path.  Returns (the per-pass checks, the ellg
-    path's launches of ``block_gather_mul``)."""
+    ``wrappers`` after each path.  Returns (the ``ellg_rows`` checks, the
+    per-pass checks of its first port's stage A, the ellg path's launches
+    of that stage A: 0, or the path fails)."""
     from singlespmv_tpu_torch import Config
     from singlespmv_tpu_torch.core import create_random_vector
     from singlespmv_tpu_torch.formats import ellg
@@ -1654,7 +1764,7 @@ def run_campaign(mats, dev, card, count_path, wrappers):
 
     cfg = Config(format="ellg")
     run_cfg = cfg.replace(calibrate_seconds=0.2, n_trials=3)
-    checks, members = [], set()
+    rows, checks, members = [], [], set()
     for name in ELLG_MATS:
         t0 = time.perf_counter()
         st = ellg.convert(mats[name], cfg)
@@ -1663,7 +1773,10 @@ def run_campaign(mats, dev, card, count_path, wrappers):
         members |= {p.m for p in st.passes}
         x = torch.from_numpy(create_random_vector(
             mats[name].n_col, dtype=np.float32)).to(dev)
-        checks += compare_ellg(f"{name} ellg", st.to(dev), ellg, bops, x)
+        r, per_pass = compare_ellg(f"{name} ellg", st.to(dev), ellg, bops,
+                                   x)
+        rows.append(r)
+        checks += per_pass
         del st
     if 1 not in members or not members - {1}:
         raise SystemExit(f"ellg stand-ins {ELLG_MATS} plan m in "
@@ -1673,7 +1786,7 @@ def run_campaign(mats, dev, card, count_path, wrappers):
              ("Levels", "RestFormat", "RestNnz", "PadFactor"), dev,
              rest=("BKT_G", "CSR", "NONE"))
     launched = count_path("campaign ellg", wrappers, (
-        "block_gather_mul", "bucket_rows"))["block_gather_mul"]
+        "ellg_rows", "bucket_fused_rows"))["block_gather_mul"]
     _zero(*wrappers)
     for fmt in NEW_FORMATS:
         rep = run_path({"raefsky3": mats["raefsky3"]},
@@ -1687,8 +1800,8 @@ def run_campaign(mats, dev, card, count_path, wrappers):
     count_path("campaign formats", wrappers, ())
     _zero(*wrappers)
     run_campaign_tools(mats, dev, card)
-    count_path("campaign tools", wrappers, ("block_gather_mul",))
-    return checks, launched
+    count_path("campaign tools", wrappers, ("ellg_rows",))
+    return rows, checks, launched
 
 
 SOLVER_GRID = 100        # the solver phase's grids: 100³ unknowns, 6.94 M
@@ -1936,8 +2049,8 @@ BF16_EXTRA = (("webbase-1M", "xch"),)   # states whose whole spmv is timed
 BF16_FORMATS = ("slab", "xch", "hyb", "bkt", "ellg", "ss", "csr5", "css",
                 "csr")    # driven on raefsky3
 BF16_KERNELS = ("slab_spmv_rows_bf16", "xch_mul_bf16",
-                "xch_route4_rows_bf16", "block_gather_mul_bf16",
-                "bucket_rows_bf16", "segmented_scan_tiles_bf16",
+                "xch_route4_rows_bf16", "bucket_fused_rows_bf16",
+                "ellg_rows_bf16", "segmented_scan_tiles_bf16",
                 "block_gather_scan_bf16")
 AUTO_TRIAL_WINDOW_S = 0.1    # auto's trial window in the auto paths here
 #                              (its default 0.35 s is the headline's): the
@@ -2021,7 +2134,7 @@ def run_bfloat16(mats, dev, card, count_path, wrappers, f32_states):
     from singlespmv_tpu_torch.core.dtypes import (round_values, to_host,
                                                   value_tensor)
     from singlespmv_tpu_torch.core.types import COOMatrix
-    from singlespmv_tpu_torch.formats import bkt, csr5, css, slab, xch
+    from singlespmv_tpu_torch.formats import bkt, csr5, css, ellg, slab, xch
     from singlespmv_tpu_torch.harness import run_benchmark
     from singlespmv_tpu_torch.ops import bucket as bops
     from singlespmv_tpu_torch.ops import slab as ops
@@ -2075,6 +2188,19 @@ def run_bfloat16(mats, dev, card, count_path, wrappers, f32_states):
                              "the oracle")
         compared.append(res)
         del st
+    # ellg's passes kernel at bfloat16, on raefsky3's ellg state converted
+    # at bfloat16 (the first port's stage A checked per pass at float32)
+    t1 = time.perf_counter()
+    st = ellg.convert(mats["raefsky3"], cfg.replace(format="ellg")).to(dev)
+    xh = round_values(create_random_vector(mats["raefsky3"].n_col),
+                      "bfloat16")
+    res, _ = compare_ellg("raefsky3 ellg", st, ellg, bops,
+                          value_tensor(xh, "bfloat16").to(dev),
+                          per_pass=False)
+    compared.append(res)
+    print(f"bfloat16 raefsky3 ellg ({time.perf_counter() - t1:.1f} s)",
+          flush=True)
+    del st
     print(f"bfloat16 (a): {time.perf_counter() - t0:.1f} s", flush=True)
     # (b) the bfloat16 paths through run_benchmark
     t0 = time.perf_counter()
@@ -2909,14 +3035,14 @@ def main() -> int:
                                              xops.xch_route4_rows)
     # the first port's kernels that left the spmv path: no path may run them
     first_port = (xops.xch_route4, ops.slab_spmv, ops.slab_spmv_blk) + tuple(
-        getattr(bops, k) for k in BUCKET_FIRST_PORT)
-    bkt_k = tuple(getattr(bops, k) for k in BUCKET_KERNELS)
+        getattr(bops, k) for k in BUCKET_FIRST_PORT + BUCKET_PAIR)
+    bkt_k = tuple(getattr(bops, k) for k in BUCKET_KERNELS + ("ellg_rows",))
     scan_k = (sops.segmented_scan_tiles, gops.block_gather_scan)
     panel_k = (ops.slab_spmm, xops.xch_mul_panel, xops.xch_route4_panel)
     all_k = slab_k + xch_k + bkt_k + scan_k + panel_k
     f32_kernels = (("slab_spmv_rows", "xch_mul",
                     "xch_route4_rows", "segmented_scan_tiles",
-                    "block_gather_scan")
+                    "block_gather_scan", "ellg_rows")
                    + BUCKET_KERNELS + PANEL_KERNELS)
     launches = {}
 
@@ -2930,9 +3056,10 @@ def main() -> int:
         for k in need:
             if got[k] < 1:
                 raise SystemExit(f"{path}: kernel {k} was never launched")
-        if any(_counts(*first_port).values()):
-            raise SystemExit(f"{path}: a first-port kernel ran: "
-                             f"{_counts(*first_port)}")
+        off = _counts(*first_port)
+        if any(off.values()):
+            raise SystemExit(f"{path}: a first-port kernel ran: {off}")
+        got |= off
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         return got
@@ -3164,7 +3291,7 @@ def main() -> int:
         check_auto(reps)
         print_scan_estimates(reps)
         count_path("auto float32", all_k,
-                   ("block_gather_mul", "bucket_rows", "slab_spmv_rows"))
+                   ("bucket_fused_rows", "slab_spmv_rows"))
 
     # --- 10. the float64 paths, held to the oracle at F64_TOL ---
     oracle = {"x": lambda coo: create_random_vector(coo.n_col),
@@ -3333,13 +3460,14 @@ def main() -> int:
             raise SystemExit("trace_dir: no trace with device events")
         count_path("driver timing", all_k, ("slab_spmv_rows",))
 
-    # --- 13. the campaign layer: ellg's stage A at gran 128 against its
-    #     plain version on every pass of two stand-ins, the ellg path, the
-    #     other new formats through run_benchmark, the headline module, a
-    #     sweep and format-logs ---
+    # --- 13. the campaign layer: ellg's passes kernel and its first
+    #     port's stage A at gran 128 against their plain versions on two
+    #     stand-ins, the ellg path, the other new formats through
+    #     run_benchmark, the headline module, a sweep and format-logs ---
     with Phase("campaign"):
-        ellg_checks, ellg_launches = run_campaign(
+        ellg_rows_checks, ellg_checks, ellg_launches = run_campaign(
             mats, dev, card.splitlines()[0], count_path, all_k)
+        compared += ellg_rows_checks
 
     # --- 14. the solver layer: CG and BiCGStab as replayed CUDA graphs over
     #     slab and auto, SpTRSV and SpGEMM, while circuit5M's stand-in
@@ -3415,14 +3543,19 @@ def main() -> int:
     # The slab route's three rows are one kernel: launches are its f32
     # (unit and blk alike) and f64 counts.  The rows of the first port's
     # stage B (bucket_reduce, bucket_reduce_grouped, lane_unpermute) are
-    # bucket_rows, which computes their functions on the path, with the
-    # first port's own time beside it ("first_port_ms")
+    # bucket_rows, stage B alone, with the first port's own time beside it
+    # ("first_port_ms").  The bucket kernels off the path (the pair and the
+    # first port's stage B) report their own path launches, 0 (count_path
+    # fails on any), and name bucket_fused_rows, which computes their
+    # functions on the path ("on_path_as")
     launch_key = {"slab_spmv": "slab_spmv_rows",
                   "slab_spmv_blk": "slab_spmv_rows",
                   "slab_spmv_f64": "slab_spmv_rows_f64",
                   "slab_spmv_bf16": "slab_spmv_rows_bf16",
-                  "slab_spmv_blk_bf16": "slab_spmv_rows_bf16"} \
-        | dict.fromkeys(BUCKET_FIRST_PORT, "bucket_rows")
+                  "slab_spmv_blk_bf16": "slab_spmv_rows_bf16"}
+    on_path_as = dict.fromkeys(BUCKET_FIRST_PORT + BUCKET_PAIR,
+                               "bucket_fused_rows") \
+        | {k + "_bf16": "bucket_fused_rows_bf16" for k in BUCKET_PAIR}
     for kname, src, line, timed in (
             ("slab_spmv", slab_src, "slab.py:263", "g7jac200sc"),
             ("slab_spmv_blk", slab_src, "slab.py:310", "torso1"),
@@ -3431,6 +3564,9 @@ def main() -> int:
             ("slab_spmv_f64", slab_src, "slab.py:463", "torso1"),
             ("xch_mul_f64", xch_src, "xch.py:495", "webbase-1M"),
             ("xch_route4_rows_f64", xch_src, "xch.py:594", "webbase-1M"),
+            ("bucket_fused_rows", bkt_src, "bucket.py:91",
+             "thermomech_dK bkt_g"),
+            ("ellg_rows", bkt_src, "bucket.py:91", "g7jac200sc ellg"),
             ("block_gather_mul", bkt_src, "bucket.py:91",
              "thermomech_dK bkt_g"),
             ("bucket_rows", bkt_src, "bucket.py:264",
@@ -3463,6 +3599,9 @@ def main() -> int:
             ("slab_spmv_blk_bf16", slab_src, "slab.py:310", "torso1"),
             ("xch_mul_bf16", xch_src, "xch.py:48", "webbase-1M"),
             ("xch_route4_rows_bf16", xch_src, "xch.py:151", "webbase-1M"),
+            ("bucket_fused_rows_bf16", bkt_src, "bucket.py:91",
+             "thermomech_dK bkt_g"),
+            ("ellg_rows_bf16", bkt_src, "bucket.py:91", "raefsky3 ellg"),
             ("block_gather_mul_bf16", bkt_src, "bucket.py:91",
              "thermomech_dK bkt_g"),
             ("bucket_rows_bf16", bkt_src, "bucket.py:264",
@@ -3490,10 +3629,15 @@ def main() -> int:
             "library_ms": t[0]["library_ms"]}
             | {k: t[0][k] for k in ("bound_ms_idx_layout", "library_error",
                                     "reorder_worst_share",
-                                    "accuracy_worst_share") if k in t[0]}
-            | first_port_ms))
-    # block_gather_mul at ellg's gran 128: one entry a pass; launches are
-    # the ellg path's
+                                    "accuracy_worst_share", "pair_ms",
+                                    "pair_bound_ms", "first_port_ms")
+               if k in t[0]}
+            | first_port_ms
+            | ({"on_path_as": on_path_as[kname]}
+               if kname in on_path_as else {})))
+    # block_gather_mul at ellg's gran 128, the first port of ellg's
+    # passes: one entry a pass; launches are the ellg path's of
+    # block_gather_mul (0), ellg_rows computing its function there
     for r in ellg_checks:
         kernels.append(_marked({
             "name": f"block_gather_mul[{r['label']} t{r['t']} m{r['m']} "
@@ -3503,7 +3647,7 @@ def main() -> int:
             "launches": ellg_launches, "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]}))
+            "library_ms": r["library_ms"], "on_path_as": "ellg_rows"}))
     # the calibration path's: max_abs_err over every check, times of the
     # first (xch_route at 16 planes, each probe at its defaults, probe_slab
     # at T 32, S8 8, stage all); xch_route's at 8 planes beside them

@@ -1,15 +1,17 @@
 """BKT — the two-phase bucketed format of ``singlespmv_tpu/formats/bkt.py``.
 
-Stage A writes val·x products in (column group, row unit)-bucket order
-(``block_gather_mul``); stage B (``bucket_rows``) reads them in that order
-and adds each run total straight into y, at the row that a run-end
-destination stream names (``route_rows``: ``hm1r``, ``dest``, ``yrow``),
-for 128-row buckets and the 1024-row buckets of ``bkt_g`` alike, the
-inverse of the balance permutation folded into ``yrow``.  Both are CUDA
-kernels (``csrc/bucket.cu`` behind ``ops/bucket.py``).  The reference's
-stage B (``bucket_reduce``, ``bucket_reduce_grouped``, then
-``lane_unpermute``) reads the idx planes, which the state keeps for the
-first port's kernels and their checks.
+Stage A makes val·x products in (column group, row unit)-bucket order;
+stage B takes them in that order and adds each run total straight into y,
+at the row that a run-end destination stream names (``route_rows``:
+``hm1r``, ``dest``, ``yrow``), for 128-row buckets and the 1024-row buckets
+of ``bkt_g`` alike, the inverse of the balance permutation folded into
+``yrow``.  The spmv runs both in one CUDA kernel, ``bucket_fused_rows``
+(``csrc/bucket.cu`` behind ``ops/bucket.py``), the products in registers.
+The first port's pair (``block_gather_mul`` writing the products,
+``bucket_rows`` reading them back) and the reference's stage B
+(``bucket_reduce``, ``bucket_reduce_grouped``, then ``lane_unpermute``, on
+the idx planes, which the state keeps) are on no path: they stay for the
+first port's checks.
 
 ``estimate`` and ``convert`` are copies of the reference's, array for array:
 one COO gives the same plan and the same arrays in both packages (the tests
@@ -34,7 +36,7 @@ from ..core import hostmem as hm
 from ..core.dtypes import (from_numpy, name_of, to_host, value_size,
                            value_tensor)
 from ..core.types import COOMatrix, cdiv, round_up
-from ..ops.bucket import block_gather_mul, bucket_rows
+from ..ops.bucket import bucket_fused_rows
 from .base import TensorState
 from .slab import _t
 
@@ -222,7 +224,7 @@ class BKTState(TensorState):
     hm1r: torch.Tensor = None   # (H, 128) int8 — hm1
     dest: torch.Tensor = None   # (H, 128) int8 / int16 — run's unit row
     yrow: torch.Tensor = None   # (rb_pad·128,) int32 — y row of a unit row
-    parts: int = 0              # bucket_rows' blocks a unit (0: a warp a row)
+    parts: int = 0              # stage B's blocks a unit (0: a warp a row)
 
 
 def convert(coo: COOMatrix, cfg: Config) -> BKTState:
@@ -541,8 +543,8 @@ def route_rows(state) -> dict:
 
     ``hm1r`` and ``dest`` are (H, 128), in stage A's own row order: row
     r = (c·nu_pad + n)·sh + j holds the j-th 128 slots of the bucket of
-    col-group c and row unit n (sh = S / 128), so ``bucket_rows`` reads the
-    products where stage A wrote them.  ``hm1r`` is ``hm1`` moved there
+    col-group c and row unit n (sh = S / 128), so stage B takes the
+    products in the order stage A makes them.  ``hm1r`` is ``hm1`` moved there
     from stage B's order (bkt_g: (NU_pad, G, 128) unit-major; bkt: the
     j-interleaved blocks of 8 units).  ``dest`` holds, at the slot e that
     ends a run, the run's row in its unit: for bkt_g the int16 σ·128 + l
@@ -685,15 +687,15 @@ def y_table_t(state: BKTState, y_tab: torch.Tensor) -> torch.Tensor:
 
 
 def spmv_acc(state: BKTState, x: torch.Tensor) -> torch.Tensor:
-    """Stage A's products (of the value type), then stage B into a float32
-    y."""
+    """Stage A's products (of the value type) and stage B into a float32
+    y, in one launch."""
     _check_dtype(x.dtype)
-    nu_pad, sh, _, h = _unit_rows(state)
-    prod = block_gather_mul(state.members, state.lane, state.src, state.val,
-                            x_table(state, x), state.m)
+    nu_pad, sh = _unit_rows(state)[:2]
     y = torch.zeros(state.n_row, dtype=torch.float32, device=x.device)
-    return bucket_rows(prod.view(h, LANES), state.hm1r, state.dest,
-                       state.yrow, y, sh, nu_pad, state.parts)
+    return bucket_fused_rows(state.members, state.lane, state.src, state.val,
+                             x_table(state, x), state.m, state.hm1r,
+                             state.dest, state.yrow, y, sh, nu_pad,
+                             state.parts)
 
 
 def spmv(state: BKTState, x: torch.Tensor) -> torch.Tensor:

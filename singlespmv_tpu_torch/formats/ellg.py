@@ -18,19 +18,24 @@ reference's, so one COO gives the same passes array for array, priced by
 the reference's v5e rates (``RATE``, ``TAIL_RATE``, ``SCATTER_RATE``,
 ``PASS_FIXED_S``; their refit for the card is ROADMAP A.7b).
 
-spmv: each pass runs the CUDA stage-A kernel ``ops/bucket.py:
-block_gather_mul`` at ``gran`` = 128 (the Pallas ``block_gather_mul``,
-``ops/pallas/bucket.py:91``, as the reference calls it) on its panel's x
-table, a contiguous view of the zero-padded x; the (−1, t) row sum of its
-products is added into the (RB, 128) y table, by ``index_add_`` over the
-pass's row blocks where the pass is not ``full``; the rest's spmv is added
-last.  A pass of one member carries no ``src`` (None, as in the
-reference), and the wrapper hands the kernel a null pointer for it.
+spmv: one CUDA kernel, ``ops/bucket.py:ellg_rows``, runs every pass of the
+state: each pass's products (the Pallas ``block_gather_mul`` at ``gran`` =
+128, ``ops/pallas/bucket.py:91``, as the reference calls it, on the pass's
+panel of the zero-padded x) are made in registers, each matrix row's t
+slots summed, and the sum added into y at the row's block (the pass's
+own block where it is ``full``, ``blocks`` where not), as the reference
+adds its (−1, t) row sums into its (RB, 128) y table; the rest's spmv is
+added last.  ``row_passes`` hands the kernel the passes as its table of
+tensors and scalars (``ops/bucket.py:RowPass``).  A pass of one member
+carries no ``src`` (None, as in the reference), and the kernel gets a null
+pointer for it.  The first port of the passes, stage A at gran 128
+(``block_gather_mul``) then the row sums and the adds in torch, is
+``ellg_rows``' plain version with the kernel for stage A.
 ``spmm`` is the column loop of the spmv, as the reference vmaps it.  The
 reference's ellg refuses every value type its Pallas kernels lack, so the
-port runs float32 and bfloat16 (at bfloat16 stage A writes bfloat16
-products, and the row sums, the y table and the rest's y are float32, y
-rounded once) and refuses float64.  auto never offers ellg, as in the
+port runs float32 and bfloat16 (at bfloat16 each product is rounded once
+to bfloat16, as stage A stores it, and the row sums, y and the rest's y
+are float32, y rounded once) and refuses float64.  auto never offers ellg, as in the
 reference.
 """
 from __future__ import annotations
@@ -43,10 +48,10 @@ import torch
 
 from ..config import Config
 from ..core import hostmem as hm
-from ..core.dtypes import (acc, acc_dtype, from_numpy, name_of, to_host,
+from ..core.dtypes import (acc_dtype, from_numpy, name_of, to_host,
                            value_size, value_tensor)
 from ..core.types import COOMatrix, cdiv
-from ..ops.bucket import block_gather_mul
+from ..ops.bucket import RowPass, ellg_rows
 from . import bkt as bkt_mod
 from . import csr as csr_mod
 from .base import TensorState, acc_spmv, column_loop, state_from_arrays
@@ -473,25 +478,27 @@ def state_from_reference(arrays: dict) -> ELLGState:
 
 # ---------------------------------------------------------------------- spmv -
 
+def row_passes(passes) -> tuple:
+    """The ``ELLGPass``es as ``ops/bucket.py:ellg_rows`` takes them
+    (``RowPass``: a full pass carries no blocks).  Raises ``ValueError`` on
+    a pass whose ``full`` and ``blocks`` disagree."""
+    out = []
+    for i, p in enumerate(passes):
+        if p.full != (p.blocks is None):
+            raise ValueError(f"pass {i}: a full pass carries no blocks, any "
+                             "other pass its blocks")
+        out.append(RowPass(p.t, p.m, p.panel_base, p.panel_cb, p.members,
+                           p.lane, p.src, p.val, p.blocks))
+    return tuple(out)
+
+
 def spmv(state: ELLGState, x: torch.Tensor) -> torch.Tensor:
     _check_dtype(x.dtype)
     CBtot = cdiv(max(state.n_col, 1), LANES)
-    RB = cdiv(max(state.n_row, 1), LANES)
     xp = torch.zeros(CBtot * LANES, dtype=x.dtype, device=x.device)
     xp[: state.n_col] = x
-    y2 = torch.zeros(RB, LANES, dtype=acc_dtype(x.dtype), device=x.device)
-    for p in state.passes:
-        lo = p.panel_base * LANES
-        xpan = xp[lo: lo + p.panel_cb * LANES].view(p.panel_cb, LANES)
-        prod = block_gather_mul(p.members, p.lane, p.src, p.val, xpan, p.m,
-                                gran=LANES)
-        part = acc(prod).view(-1, p.t).sum(dim=1).view(p.n_blocks, LANES)
-        if p.full:
-            k = min(p.n_blocks, RB)
-            y2[:k] += part[:k]
-        else:
-            y2.index_add_(0, p.blocks, part)
-    y = y2.view(-1)[: state.n_row]
+    y = torch.zeros(state.n_row, dtype=acc_dtype(x.dtype), device=x.device)
+    y = ellg_rows(row_passes(state.passes), xp, y)
     if state.rest_fmt:
         y = y + acc_spmv(REST_MODULES[state.rest_fmt])(state.rest_state, x)
     return y.to(x.dtype)
@@ -510,6 +517,26 @@ def report_fields(state: ELLGState, cfg: Config) -> dict:
             "RestFormat": (state.rest_fmt or "none").upper(),
             "RestNnz": state.rest_nnz,
             "PadFactor": round(state.n_slots / max(state.nnz, 1), 3)}
+
+
+def adds_per_row(state: ELLGState) -> np.ndarray:
+    """(n_row,) int64: the totals ``spmv`` adds into each y row in a free
+    order on the card: one a pass whose blocks reach the row (its row sum,
+    itself summed in a fixed order), then the rest's (bkt_g's run ends;
+    one for a csr rest, whose row sums have a fixed order)."""
+    n = state.n_row
+    rb = cdiv(max(n, 1), LANES)
+    reach = np.zeros(rb, np.int64)
+    for p in state.passes:
+        blocks = (np.arange(min(p.n_blocks, rb)) if p.full
+                  else np.unique(to_host(p.blocks).astype(np.int64)))
+        reach[blocks[blocks < rb]] += 1
+    adds = np.repeat(reach, LANES)[:n]
+    if state.rest_fmt == "bkt_g":
+        adds = adds + bkt_mod.adds_per_row(state.rest_state)
+    elif state.rest_fmt:
+        adds = adds + 1
+    return adds
 
 
 def traffic_bytes(state: ELLGState, cfg: Config) -> int:

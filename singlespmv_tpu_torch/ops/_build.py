@@ -87,6 +87,13 @@ SIGNATURES = {
     # prod hm1r dest yrow y | H sh nu_pad rg n_y parts | stream
     "bucket_rows_f32": [_P] * 5 + [_I] * 6 + [_P],
     "bucket_rows_bf16": [_P] * 5 + [_I] * 6 + [_P],
+    # members lane src val x hm1r dest yrow y
+    # | H gran m sh nu_pad rg n_y parts | stream
+    "bucket_fused_rows_f32": [_P] * 9 + [_I] * 8 + [_P],
+    "bucket_fused_rows_bf16": [_P] * 9 + [_I] * 8 + [_P],
+    # ptrs ints (host) | n_pass | y | rb n_y | stream
+    "ellg_rows_f32": [_P, _P, _I, _P, _I, _I, _P],
+    "ellg_rows_bf16": [_P, _P, _I, _P, _I, _I, _P],
     # yt src_lane src_chunk out | rows cols | stream
     "lane_unpermute_f32": [_P] * 4 + [_I] * 2 + [_P],
     # prod heads out | H W | stream

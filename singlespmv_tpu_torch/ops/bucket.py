@@ -1,35 +1,44 @@
-"""Bucket kernels of bkt and bkt_g: the wrappers of ``csrc/bucket.cu`` and
-their plain PyTorch versions.
+"""Bucket kernels of bkt, bkt_g and ellg: the wrappers of
+``csrc/bucket.cu`` and their plain PyTorch versions.
 
-The spmv path is ``block_gather_mul`` (stage A), then ``bucket_rows``
-(stage B of 128-row and 1024-row buckets alike): the function of the Pallas
-``bucket_reduce`` or ``bucket_reduce_grouped`` followed by
-``lane_unpermute`` (``singlespmv_tpu/ops/pallas/bucket.py`` :198, :264 and
-:313), routed by a run-end destination stream that
-``formats/bkt.py:route_rows`` derives from the reference's idx planes,
-adding into the caller's y where the Pallas functions return row tables.
+The spmv path of bkt and bkt_g is ``bucket_fused_rows``: stage A's gather
+and multiply (the function of the Pallas ``block_gather_mul``,
+``singlespmv_tpu/ops/pallas/bucket.py:91``) made in registers and consumed
+in the same launch by stage B, which adds each run total into the caller's
+y at the row that a run-end destination stream names (the function of the
+Pallas ``bucket_reduce`` or ``bucket_reduce_grouped`` followed by
+``lane_unpermute``, :198, :264 and :313; ``formats/bkt.py:route_rows``
+derives the stream from the reference's idx planes).  ellg's passes are
+``ellg_rows``: every pass of a state in one launch, each product made in
+registers at gran 128, each matrix row's ``t`` slots summed and added into
+y (the Pallas ``block_gather_mul`` at gran 128 followed by the reference's
+row sums and y-table adds).
 
-``block_gather_mul`` (:91), ``bucket_reduce``, ``bucket_reduce_grouped``
-and ``lane_unpermute`` take the arguments of their Pallas counterparts and
-return the same arrays.  The last three, the first port of stage B, run on
-no path: they stay for ``harness/bucket_ab.py`` and the parity tests.  On a
-CUDA tensor a wrapper launches its kernel, or raises; on a CPU tensor it
-runs the plain version (``*_ref``), which the tests hold against the Pallas
+``block_gather_mul`` (stage A, writing the product grid) and
+``bucket_rows`` (stage B, reading it back), the first port of the pair,
+run on no path since the fused kernel: they stay for
+``harness/bucket_ab.py``, ``chip_smoke.py`` and the parity tests, as do
+``bucket_reduce``, ``bucket_reduce_grouped`` and ``lane_unpermute``, the
+first port of stage B.  The first two take the arguments of their Pallas
+counterparts and return the same arrays, as do the last three.  On a CUDA
+tensor a wrapper launches its kernel, or raises; on a CPU tensor it runs
+the plain version (``*_ref``), which the tests hold against the Pallas
 kernels and ``chip_smoke.py`` holds against the kernels on the card.
 
-Values are float32, and on the spmv path (``block_gather_mul``,
-``bucket_rows``) also bfloat16 (``STAGE_TYPES``): the reference's bkt
-refuses float64 on its chip, and every wrapper raises ``TypeError`` on
-another value type.  At bfloat16 stage A reads val and the x table as 2
-bytes and writes bfloat16 products (each rounded once, as the reference's
-are ``val.dtype``), and stage B reads them as 2 bytes and sums in float32
-into a float32 y, which the caller rounds once.  Each wrapper counts the
-launches of its float32 kernel in ``<wrapper>.launches`` and of its
-bfloat16 kernel in ``<wrapper>.launches_bf16``.
+Values are float32, and on the spmv paths (``bucket_fused_rows``,
+``ellg_rows`` and the pair) also bfloat16 (``STAGE_TYPES``): the
+reference's bkt refuses float64 on its chip, and every wrapper raises
+``TypeError`` on another value type.  At bfloat16 val and the x table are
+2 bytes, each product is rounded once to bfloat16 (as the reference's are
+``val.dtype``; ``block_gather_mul`` stores them so), and the sums are
+float32 into a float32 y, which the caller rounds once.  Each wrapper
+counts the launches of its float32 kernel in ``<wrapper>.launches`` and of
+its bfloat16 kernel in ``<wrapper>.launches_bf16``.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -107,6 +116,62 @@ def bucket_rows_ref(prod, hm1r, dest, yrow, y, sh: int, nu_pad: int,
     return y.index_add_(0, pos[keep], w[keep])
 
 
+def bucket_fused_rows_ref(members, lane, src, val, x_table, m: int, hm1r,
+                          dest, yrow, y, sh: int, nu_pad: int, parts: int = 0,
+                          gran: int | None = None):
+    """Plain version of ``bucket_fused_rows``: stage A's plain version, then
+    stage B's on its products."""
+    prod = block_gather_mul_ref(members, lane, src, val, x_table, m, gran)
+    return bucket_rows_ref(prod.view(-1, LANES), hm1r, dest, yrow, y, sh,
+                           nu_pad, parts)
+
+
+class RowPass(NamedTuple):
+    """One ellg pass as ``ellg_rows`` takes it: a stream of
+    n_blocks · t rows of 128 slots (``lane``/``val``/``src`` of
+    n_blocks · t · 128 slots, t slots a matrix row), m ids of ``members`` a
+    stream row, ids local to its x panel, the col-blocks panel_base …
+    panel_base + panel_cb − 1 of x; block b of the pass is y's block
+    ``blocks[b]``, or b where ``blocks`` is None."""
+    t: int
+    m: int
+    panel_base: int
+    panel_cb: int
+    members: torch.Tensor              # (n_blocks·t·m,) int32
+    lane: torch.Tensor                 # (H, W) int8
+    src: Optional[torch.Tensor]        # (H, W) int8; None if m == 1
+    val: torch.Tensor                  # (H, W) float32 or bfloat16
+    blocks: Optional[torch.Tensor]     # (n_blocks,) int32, or None
+
+
+def _n_blocks(p: RowPass) -> int:
+    return p.lane.numel() // (LANES * p.t)
+
+
+def ellg_rows_ref(passes, xp, y, stage_a=block_gather_mul_ref):
+    """Plain version of ``ellg_rows``: per pass, stage A at gran 128 on its
+    x panel, the (−1, t) row sums, added into a (RB, 128) y table (its
+    first n_blocks rows where ``blocks`` is None, ``index_add_`` at its
+    ``blocks`` where not); then the table, cut to y's rows, into y.  With
+    ``stage_a=block_gather_mul`` (the kernel on a card) this is the first
+    port of the passes."""
+    rb = -(-y.numel() // LANES)
+    y2 = torch.zeros(rb, LANES, dtype=torch.float32, device=y.device)
+    for p in passes:
+        nb = _n_blocks(p)
+        lo = p.panel_base * LANES
+        xpan = xp[lo: lo + p.panel_cb * LANES].view(p.panel_cb, LANES)
+        prod = stage_a(p.members, p.lane, p.src, p.val, xpan, p.m,
+                       gran=LANES)
+        part = acc(prod).view(-1, p.t).sum(dim=1).view(nb, LANES)
+        if p.blocks is None:
+            k = min(nb, rb)
+            y2[:k] += part[:k]
+        else:
+            y2.index_add_(0, p.blocks, part)
+    return y.add_(y2.view(-1)[: y.numel()])
+
+
 def lane_unpermute_ref(y_t, src_lane, src_chunk):
     """Plain version of ``lane_unpermute``."""
     rows, cols = y_t.shape
@@ -120,18 +185,13 @@ def lane_unpermute_ref(y_t, src_lane, src_chunk):
 
 # --------------------------------------------------------------- wrappers ---
 
-def block_gather_mul(members, lane, src, val, x_table, m: int = 1,
-                     gran: int | None = None):
-    """Stage A: products[s] = val[s] · x_table[members[unit(s)·m + src[s]],
-    lane[s]] over the (H, W) stream, unit(s) = s // gran (gran defaults to
-    W: one unit per stream row, the bkt layout).
-
-    members: (H·W/gran·m,) int32; lane, src: (H, W) int8 (src unread if
-    m == 1, and then it may be None: the kernel gets a null pointer, as
-    ellg's passes of one member carry none); val: (H, W) float32 or
-    bfloat16; x_table: (CB, 128) of val's type.  Returns (H, W) of val's
-    type."""
+def _check_stage_a(members, lane, src, val, x_table, m, gran):
+    """Checks of stage A's arguments.  Returns (device, gran, value
+    type)."""
     dev = _device(x_table)
+    if lane.dim() != 2:
+        raise ValueError(f"lane has shape {tuple(lane.shape)}, expected "
+                         "(H, W)")
     h, w = lane.shape
     gran = w if gran is None else gran
     if m < 1 or gran < LANES or gran % LANES or (h * w) % gran:
@@ -149,8 +209,50 @@ def block_gather_mul(members, lane, src, val, x_table, m: int = 1,
         raise ValueError(f"x_table has shape {tuple(x_table.shape)}, "
                          f"expected (CB, {LANES})")
     _check("x_table", x_table, vt, x_table.shape, dev)
+    return dev, gran, vt
+
+
+def _check_stage_b(h, hm1r, dest, yrow, y, sh, nu_pad, parts, dev):
+    """Checks of stage B's arguments for ``h`` stream rows.  Returns the
+    row group rg."""
+    if sh < 1 or nu_pad < 1 or h < 0 or h % (sh * nu_pad):
+        raise ValueError(f"the stream's {h} rows of {LANES} are not whole "
+                         f"units of nu_pad·sh = {nu_pad}·{sh} rows")
+    rg = yrow.numel() // nu_pad if yrow.dim() == 1 else 0
+    if rg not in ROW_GROUPS:
+        raise ValueError(f"yrow has shape {tuple(yrow.shape)}, expected "
+                         f"(nu_pad·rg,) with rg in {tuple(ROW_GROUPS)}")
+    if parts < 0:
+        raise ValueError(f"{parts} parts a unit")
+    _check("hm1r", hm1r, torch.int8, (h, LANES), dev)
+    _check("dest", dest, ROW_GROUPS[rg], (h, LANES), dev)
+    _check("yrow", yrow, torch.int32, (nu_pad * rg,), dev)
+    _check_y(y, dev)
+    return rg
+
+
+def _check_y(y, dev):
+    if y.dim() != 1 or y.numel() >= 2 ** 31:
+        raise ValueError(f"y has shape {tuple(y.shape)}, expected (n,) with "
+                         "n < 2**31")
+    _check("y", y, torch.float32, y.shape, dev)
+
+
+def block_gather_mul(members, lane, src, val, x_table, m: int = 1,
+                     gran: int | None = None):
+    """Stage A: products[s] = val[s] · x_table[members[unit(s)·m + src[s]],
+    lane[s]] over the (H, W) stream, unit(s) = s // gran (gran defaults to
+    W: one unit per stream row, the bkt layout).
+
+    members: (H·W/gran·m,) int32; lane, src: (H, W) int8 (src unread if
+    m == 1, and then it may be None: the kernel gets a null pointer, as
+    ellg's passes of one member carry none); val: (H, W) float32 or
+    bfloat16; x_table: (CB, 128) of val's type.  Returns (H, W) of val's
+    type."""
+    dev, gran, vt = _check_stage_a(members, lane, src, val, x_table, m, gran)
     if dev.type == "cpu":
         return block_gather_mul_ref(members, lane, src, val, x_table, m, gran)
+    h, w = lane.shape
     out = torch.empty(h, w, dtype=vt, device=dev)  # all written
     if h:
         src_p = ctypes.c_void_p(None) if src is None else _ptr(src)
@@ -265,21 +367,9 @@ def bucket_rows(prod, hm1r, dest, yrow, y, sh: int, nu_pad: int,
         raise ValueError(f"prod has shape {tuple(prod.shape)}, expected "
                          f"(H, {LANES}) with H a multiple of nu_pad·sh = "
                          f"{nu_pad}·{sh}")
-    rg = yrow.numel() // nu_pad if yrow.dim() == 1 else 0
-    if rg not in ROW_GROUPS:
-        raise ValueError(f"yrow has shape {tuple(yrow.shape)}, expected "
-                         f"(nu_pad·rg,) with rg in {tuple(ROW_GROUPS)}")
-    if parts < 0:
-        raise ValueError(f"{parts} parts a unit")
     vt = value_type(prod, STAGE_TYPES)
     _check("prod", prod, vt, (h, LANES), dev)
-    _check("hm1r", hm1r, torch.int8, (h, LANES), dev)
-    _check("dest", dest, ROW_GROUPS[rg], (h, LANES), dev)
-    _check("yrow", yrow, torch.int32, (nu_pad * rg,), dev)
-    if y.dim() != 1 or y.numel() >= 2 ** 31:
-        raise ValueError(f"y has shape {tuple(y.shape)}, expected (n,) with "
-                         "n < 2**31")
-    _check("y", y, torch.float32, y.shape, dev)
+    rg = _check_stage_b(h, hm1r, dest, yrow, y, sh, nu_pad, parts, dev)
     if dev.type == "cpu":
         return bucket_rows_ref(prod, hm1r, dest, yrow, y, sh, nu_pad, parts)
     if h:
@@ -288,6 +378,111 @@ def bucket_rows(prod, hm1r, dest, yrow, y, sh: int, nu_pad: int,
             y.numel(), parts, _stream(dev))
         _raise_on(rc, "bucket_rows")
         _count(bucket_rows, vt)
+    return y
+
+
+def bucket_fused_rows(members, lane, src, val, x_table, m: int, hm1r, dest,
+                      yrow, y, sh: int, nu_pad: int, parts: int = 0,
+                      gran: int | None = None):
+    """Stage A and stage B in one launch: the products of
+    ``block_gather_mul`` (same arguments; ``gran`` defaults to W) made in
+    registers and added as ``bucket_rows`` adds its ``prod`` (same
+    arguments; stream row r of ``prod`` is slots r·128 … r·128 + 127 of
+    the (H, W) stream), with no product grid in device memory.  Adds into
+    ``y`` (float32, zeroed by the caller) and returns it.  At bfloat16 each
+    product is rounded once to bfloat16 before the sums, as stage A stores
+    it.  The sums of a y row add in run-dependent order on the card."""
+    dev, gran, vt = _check_stage_a(members, lane, src, val, x_table, m, gran)
+    h = lane.numel() // LANES
+    rg = _check_stage_b(h, hm1r, dest, yrow, y, sh, nu_pad, parts, dev)
+    if dev.type == "cpu":
+        return bucket_fused_rows_ref(members, lane, src, val, x_table, m,
+                                     hm1r, dest, yrow, y, sh, nu_pad, parts,
+                                     gran)
+    if h:
+        src_p = ctypes.c_void_p(None) if src is None else _ptr(src)
+        rc = _entry("bucket_fused_rows", vt)(
+            _ptr(members), _ptr(lane), src_p, _ptr(val), _ptr(x_table),
+            *map(_ptr, (hm1r, dest, yrow, y)), h, gran, m, sh, nu_pad, rg,
+            y.numel(), parts, _stream(dev))
+        _raise_on(rc, "bucket_fused_rows")
+        _count(bucket_fused_rows, vt)
+    return y
+
+
+ELLG_MAX_PASSES = 32    # passes a launch of ellg_rows (csrc: kMaxPasses)
+
+
+def _check_pass(i, p, xp, vt, dev):
+    """Checks of ellg pass ``i`` (a ``RowPass``) against the flat x."""
+    t, m = p.t, p.m
+    if t < 1 or t > LANES or t & (t - 1) or m < 1:
+        raise ValueError(f"pass {i}: t={t} (a power of two ≤ {LANES}) and "
+                         f"m={m} are not a pass's")
+    if p.panel_base < 0 or p.panel_cb < 1 \
+            or (p.panel_base + p.panel_cb) * LANES > xp.numel():
+        raise ValueError(f"pass {i}: its panel [{p.panel_base}, "
+                         f"{p.panel_base + p.panel_cb}) lies outside x's "
+                         f"{xp.numel() // LANES} col-blocks")
+    if p.lane.dim() != 2 or p.lane.numel() % (t * LANES):
+        raise ValueError(f"pass {i}: lane has shape {tuple(p.lane.shape)}, "
+                         f"expected whole blocks of {t * LANES} slots")
+    nb = _n_blocks(p)
+    shape = tuple(p.lane.shape)
+    _check("lane", p.lane, torch.int8, shape, dev)
+    _check("val", p.val, vt, shape, dev)
+    if p.src is None and m > 1:
+        raise ValueError(f"pass {i} with m={m} needs src")
+    if p.src is not None:
+        _check("src", p.src, torch.int8, shape, dev)
+    _check("members", p.members, torch.int32, (nb * t * m,), dev)
+    if p.blocks is not None:
+        _check("blocks", p.blocks, torch.int32, (nb,), dev)
+
+
+def ellg_rows(passes, xp, y):
+    """ellg's passes in one launch (one a ``ELLG_MAX_PASSES`` passes): per
+    pass, the products val · x_panel[members[r·m + src], lane] of its
+    stream row r (gran 128) made in registers, the sum of each matrix
+    row's ``t`` consecutive slots, added into ``y`` at the row's y row
+    (block b of the pass is y's block ``blocks[b]``, or b where ``blocks``
+    is None; blocks at or past ⌈n/128⌉ and rows at or past n dropped).
+    Returns ``y``.
+
+    passes: ``RowPass`` tuples; xp: (CB·128,) the zero-padded x, of the
+            passes' value type; y: (n,) float32, zeroed by the caller.  At
+            bfloat16 each product is rounded once to bfloat16 before the
+            sums.  The sums of a y row add in run-dependent order on the
+            card."""
+    dev = _device(xp)
+    if xp.dim() != 1 or xp.numel() % LANES:
+        raise ValueError(f"xp has shape {tuple(xp.shape)}, expected "
+                         f"(CB·{LANES},)")
+    vt = value_type(xp, STAGE_TYPES)
+    _check("xp", xp, vt, xp.shape, dev)
+    _check_y(y, dev)
+    for i, p in enumerate(passes):
+        _check_pass(i, p, xp, vt, dev)
+    if dev.type == "cpu":
+        return ellg_rows_ref(passes, xp, y)
+    live = [p for p in passes if p.lane.numel()]
+    if live:
+        ptrs = (ctypes.c_void_p * (6 * len(live)))()
+        ints = (ctypes.c_int * (3 * len(live)))()
+        for i, p in enumerate(live):
+            ptrs[6 * i: 6 * i + 6] = [
+                p.members.data_ptr(), p.lane.data_ptr(),
+                None if p.src is None else p.src.data_ptr(),
+                p.val.data_ptr(),
+                None if p.blocks is None else p.blocks.data_ptr(),
+                xp.data_ptr() + p.panel_base * LANES * xp.element_size()]
+            ints[3 * i: 3 * i + 3] = [p.t, p.m, _n_blocks(p)]
+        rc = _entry("ellg_rows", vt)(
+            ptrs, ints, len(live), _ptr(y), -(-y.numel() // LANES),
+            y.numel(), _stream(dev))
+        _raise_on(rc, "ellg_rows")
+        for _ in range(-(-len(live) // ELLG_MAX_PASSES)):
+            _count(ellg_rows, vt)
     return y
 
 
@@ -320,4 +515,6 @@ block_gather_mul.launches = block_gather_mul.launches_bf16 = 0
 bucket_reduce.launches = 0
 bucket_reduce_grouped.launches = 0
 bucket_rows.launches = bucket_rows.launches_bf16 = 0
+bucket_fused_rows.launches = bucket_fused_rows.launches_bf16 = 0
+ellg_rows.launches = ellg_rows.launches_bf16 = 0
 lane_unpermute.launches = 0

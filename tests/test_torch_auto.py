@@ -101,14 +101,14 @@ def _raises(exc):
 
 
 def _raises_on_grouped(exc):
-    """A stage B (``bucket_rows``) that raises ``exc`` on bkt_g's stream
-    (int16 dests) and runs bkt's."""
-    real = bkt.bucket_rows
+    """A bucket kernel (``bucket_fused_rows``, stage A and B) that raises
+    ``exc`` on bkt_g's stream (int16 dests) and runs bkt's."""
+    real = bkt.bucket_fused_rows
 
-    def fn(prod, hm1r, dest, *a, **k):
-        if dest.dtype == torch.int16:
+    def fn(*a, **k):
+        if a[7].dtype == torch.int16:               # dest
             raise exc
-        return real(prod, hm1r, dest, *a, **k)
+        return real(*a, **k)
     return fn
 
 
@@ -117,14 +117,14 @@ def test_driver_retry_excludes_guard_errors_only(monkeypatch):
     cfg = port_cfg(_only("bkt_g", "csr"))
     st = auto.convert(coo, cfg)
     assert st.chosen == "bkt_g" and st.inner.row_group == 1024
-    monkeypatch.setattr(bkt, "block_gather_mul", _raises(
+    monkeypatch.setattr(bkt, "bucket_fused_rows", _raises(
         ValueError("stage A refused")))
     res = run_benchmark(coo, cfg, quick=True, device="cpu",
                         log=lambda m: None)
     assert res.report["ChosenFormat"] == "CSR" and res.verify_ok
     assert res.report["AutoExcluded"].startswith("bkt_g: ValueError")
-    monkeypatch.setattr(bkt, "block_gather_mul", _raises(
-        KernelError("block_gather_mul: CUDA kernel launch failed")))
+    monkeypatch.setattr(bkt, "bucket_fused_rows", _raises(
+        KernelError("bucket_fused_rows: CUDA kernel launch failed")))
     with pytest.raises(KernelError):
         run_benchmark(coo, cfg, quick=True, device="cpu", log=lambda m: None)
 
@@ -146,14 +146,14 @@ def test_auto_trials_skip_guard_errors_only(monkeypatch):
     st = auto.convert(coo, cfg, device="cpu")
     assert len(st.trials) == 3 and st.chosen == st.trials[0][0]
     assert not st.failed
-    monkeypatch.setattr(bkt, "bucket_rows", _raises_on_grouped(
+    monkeypatch.setattr(bkt, "bucket_fused_rows", _raises_on_grouped(
         TypeError("stage B refused")))
     st = auto.convert(coo, cfg, device="cpu")
     assert [f for f, _ in st.failed] == ["bkt_g"]
     assert "bkt_g" not in dict(st.trials) and len(st.trials) == 2
     assert "bkt_g: TypeError" in auto.report_fields(st, cfg)["AutoFailed"]
-    monkeypatch.setattr(bkt, "bucket_rows", _raises_on_grouped(
-        KernelError("bucket_rows: CUDA kernel launch failed")))
+    monkeypatch.setattr(bkt, "bucket_fused_rows", _raises_on_grouped(
+        KernelError("bucket_fused_rows: CUDA kernel launch failed")))
     with pytest.raises(KernelError):
         auto.convert(coo, cfg, device="cpu")
 

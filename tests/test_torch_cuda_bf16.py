@@ -5,12 +5,17 @@ every kernel format against its plain versions and the oracle.
 The bfloat16 builds read values, x and the product grids as 2 bytes
 (``csrc/stream_row.cuh``: ``load4``, ``gather4``) and sum in float32:
 ``slab_spmv_rows``, ``xch_mul`` and ``xch_route4_rows``,
-``block_gather_mul`` and ``bucket_rows``, ``segmented_scan_tiles`` and
-``block_gather_scan``.  A product kernel (``xch_mul``,
-``block_gather_mul``: each bfloat16 product exact in float32, rounded once)
-equals its plain version bit for bit; a route or scan, whose y or output is
-float32, agrees with its plain version to 1e-5 of max|y| (the atomics and
-the prefix sum in other orders).  The whole spmv, y rounded once to
+``block_gather_mul`` and ``bucket_rows``, ``bucket_fused_rows``,
+``ellg_rows``, ``segmented_scan_tiles`` and ``block_gather_scan``.  A
+product kernel (``xch_mul``, ``block_gather_mul``: each bfloat16 product
+exact in float32, rounded once) equals its plain version bit for bit; a
+route or scan, whose y or output is float32, agrees with its plain version
+to 1e-5 of max|y| (the atomics and the prefix sum in other orders).  The
+fused kernels round each product once to bfloat16 as stage A stores it:
+``bucket_fused_rows`` lies within each row's float32 ``reorder_bound`` of
+the unfused pair on the same state, ``ellg_rows`` within the bound of any
+order of a row's products of the first port of the passes (stage A, then
+the sums in torch); a product left unrounded would miss either by far.  The whole spmv, y rounded once to
 bfloat16, on the card (twice) and on the plain versions (the state moved
 to the host) lies within ``torch_bounds.accuracy_bound`` of the float64
 oracle of the stored values; the two card results lie within each row's
@@ -31,6 +36,8 @@ Needs an NVIDIA GPU and skips without one.  This file imports no jax:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda_bf16.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -60,8 +67,9 @@ pytestmark = pytest.mark.cuda
 BF16 = "bfloat16"
 TOL = 1e-5       # a float32 y or scan against its plain version, of max|y|
 WRAPPERS = (ops.slab_spmv_rows, xops.xch_mul, xops.xch_route4_rows,
-            bops.block_gather_mul, bops.bucket_rows,
-            sops.segmented_scan_tiles, gops.block_gather_scan)
+            bops.block_gather_mul, bops.bucket_rows, bops.bucket_fused_rows,
+            bops.ellg_rows, sops.segmented_scan_tiles,
+            gops.block_gather_scan)
 
 
 @pytest.fixture
@@ -189,6 +197,46 @@ def test_bucket_bf16(cuda, rg):
             torch.zeros(st.n_row, device=cuda), sh, nu_pad, st.parts)
           for f in (bops.bucket_rows, bops.bucket_rows_ref)]
     _close(*ys)
+    # the fused launch: each product rounded once, as the pair stores it
+    fused = [f(*a, st.hm1r, st.dest, st.yrow,
+               torch.zeros(st.n_row, device=cuda), sh, nu_pad, st.parts)
+             for f in (bops.bucket_fused_rows, bops.bucket_fused_rows_ref)]
+    _close(*fused)
+    bound = reorder_bound(stored(coo), xh, bkt.adds_per_row(st), "float32",
+                          "float32")
+    err = np.abs(to_host(fused[0]).astype(np.float64) - to_host(ys[0]))
+    assert (err <= bound).all(), float(np.max(err - bound))
+    _spmv_within_bound(coo, st, cfg, cuda)
+
+
+def test_ellg_rows_bf16(cuda):
+    """ellg's passes in one bfloat16 launch: against its plain version,
+    and against the first port of the passes (stage A's bfloat16 products,
+    then the row sums in torch) within the bound of any order of a row's
+    products."""
+    coo = _scattered(20000, 100000, 2)
+    cfg = Config(format="ellg", dtype=BF16)
+    st = ellg.convert(coo, cfg)
+    assert len(st.passes) > 1
+    passes_only = dataclasses.replace(st, rest_fmt="", rest_state=None)
+    pcoo = ellg.to_coo(passes_only)
+    st = st.to(cuda)
+    xh, x = _x(coo, cuda)
+    xp = torch.zeros(-(-coo.n_col // 128) * 128, device=cuda,
+                     dtype=torch.bfloat16)
+    xp[: coo.n_col] = x
+    n0 = bops.ellg_rows.launches_bf16
+    first_port = dict(stage_a=bops.block_gather_mul)
+    ys = [f(ellg.row_passes(st.passes), xp,
+            torch.zeros(st.n_row, device=cuda), **kw)
+          for f, kw in ((bops.ellg_rows, {}), (bops.ellg_rows_ref, {}),
+                        (bops.ellg_rows_ref, first_port))]
+    assert bops.ellg_rows.launches_bf16 == n0 + 1
+    _close(ys[0], ys[1])
+    bound = reorder_bound(pcoo, xh, pcoo.row_lengths(), "float32",
+                          "float32")
+    err = np.abs(to_host(ys[0]).astype(np.float64) - to_host(ys[2]))
+    assert (err <= bound).all(), float(np.max(err - bound))
     _spmv_within_bound(coo, st, cfg, cuda)
 
 

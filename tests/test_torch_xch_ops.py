@@ -217,4 +217,7 @@ def test_sources_digest_covers_headers(tmp_path):
         "block_gather_mul_bf16", "bucket_rows_bf16",
         "segmented_scan_tiles_bf16", "block_gather_scan_bf16",
         # and of the SpMM panel kernels (ROADMAP A.10b)
-        "slab_spmm_bf16", "xch_mul_panel_bf16", "xch_route4_panel_bf16"}
+        "slab_spmm_bf16", "xch_mul_panel_bf16", "xch_route4_panel_bf16",
+        # the bucket engine's fused stage A + B and ellg's passes
+        "bucket_fused_rows_f32", "bucket_fused_rows_bf16",
+        "ellg_rows_f32", "ellg_rows_bf16"}
