@@ -16,10 +16,16 @@ Its phases, in the order they run:
    raefsky3 and torso1 (blk) and g7jac200sc (unit) in float32 and of torso1
    and g7jac200sc (the float64 planner's unit-only plans) in float64, with
    the bound of the idx-plane layout it replaced beside its own and the
-   time ``route_rows`` took at convert; both xch kernels in float32 and, in
-   float64, their native-fp64 builds (webbase-1M and ASIC_680ks):
-   ``xch_mul`` and the spmv route ``xch_route4_rows``, the latter with the
-   bound of the idx-plane layout it replaced beside its own; the bucket
+   time ``route_rows`` took at convert; the xch spmv's kernel
+   ``xch_fused_rows`` (both passes in one launch a pass-2 call, the
+   products in registers) in float32 and, in float64, its native-fp64
+   build (webbase-1M and ASIC_680ks), on every pass-2 call of the state and
+   its nested states, with torch's ``A_csr @ x`` beside it, the busy time
+   and bounds of the pair it replaced beside its own, and the fused spmv
+   against the pair's within each row's reorder bound; that pair, now on
+   the profiling phases and the calibration only: ``xch_mul`` and the
+   route ``xch_route4_rows``, the latter with the bound of the idx-plane
+   layout it replaced beside its own; the bucket
    kernels on the full-size bkt_g states (1024-row buckets) of g7jac200sc,
    lhr34, twotone, raefsky3 and thermomech_dK and the bkt state (128-row
    buckets) of raefsky3: the spmv's fused stage A + B
@@ -68,7 +74,8 @@ Its phases, in the order they run:
    against the float64 COO oracle;
 5. drives the xch main path: ``run_benchmark`` with format="xch" in float32
    on the full-size webbase-1M and ASIC_680ks stand-ins, with its phases
-   profiled;
+   profiled (the phases run the pair, Mul then Sum, whose launches there
+   count in no path), and fails unless ``xch_fused_rows`` ran;
 6. drives the hyb main path: ``run_benchmark`` with format="hyb" in float32
    on the full-size Chebyshev4 and PR02R stand-ins (a band peel plus a slab
    residual) and webbase-1M (whose hyper-sparse residual rides xch); then,
@@ -196,8 +203,8 @@ Its phases, in the order they run:
 14c. the parallel layer (``singlespmv_tpu_torch/parallel/``, ROADMAP
    A.14; ``run_parallel``): on a local mesh, every shard on the card,
    DistXch at R 4 on webbase-1M (all-gather) and R 8 on a 1,048,576-row
-   band (a ppermute ring), the largest shard's ``xch_mul`` and
-   ``xch_route4_rows`` (and on webbase-1M its two panel kernels at B 8)
+   band (a ppermute ring), the largest shard's ``xch_fused_rows`` calls
+   (and the pair's, and on webbase-1M its two panel kernels at B 8)
    against their plain versions, each y through the oracle, each step's
    chained µs beside the single-device xch Time(s), ``DistXch.spmm`` at
    B 8; DistSpMV (2 × 2, float32 and float64, and ``gather_x`` at R 4) and
@@ -215,13 +222,15 @@ Its phases, in the order they run:
 16. checks that each path launched each of its kernels: the launch counts
    are set to 0 just before a path and read just after it; the slab, hyb,
    auto, float64 and solver paths the slab route ``slab_spmv_rows``, the
-   parallel path ``xch_mul``, ``xch_route4_rows`` and
-   ``segmented_scan_tiles``, the bkt and auto paths ``bucket_fused_rows``,
-   the ellg path ``ellg_rows``; and
-   that no path launched the first port's kernels that left the spmv
-   path: ``xch_route4``, ``slab_spmv`` / ``slab_spmv_blk``, the bucket
-   pair ``block_gather_mul`` / ``bucket_rows`` and the first port's stage
-   B (their checks above put the counts back).
+   xch, hyb, float64 and parallel paths ``xch_fused_rows`` and the
+   parallel path ``segmented_scan_tiles``, the bkt and auto paths
+   ``bucket_fused_rows``, the ellg path ``ellg_rows``; and
+   that no path launched the kernels that left the spmv path:
+   ``xch_route4``, ``slab_spmv`` / ``slab_spmv_blk``, the bucket pair
+   ``block_gather_mul`` / ``bucket_rows``, the first port's stage B and
+   the xch pair ``xch_mul`` / ``xch_route4_rows`` (the calibration path
+   excepted, which runs ``xch_mul``; their checks above, and the xch
+   path's profiled phases, put the counts back).
 
 Each phase prints its seconds.
 
@@ -239,7 +248,9 @@ the product kernels torch's CSR product ``A_csr @ x`` (cuSPARSE's kernels)
 on the same matrix, dtype and B, the whole product where an xch kernel is
 one of two passes; the launches on the main paths; the bound: the larger
 of the bytes the call must move at 3.35 TB/s and its operations at the
-card's peak; for ``xch_route4_rows`` and the slab route's three rows
+card's peak; for ``xch_fused_rows`` the pair's busy time and summed
+bounds (``pair_ms``, ``pair_bound_ms``); for ``xch_route4_rows`` and the
+slab route's three rows
 (``slab_spmv``, ``slab_spmv_blk`` and ``slab_spmv_f64``: one kernel, whose
 f32 launches the first two share) also ``bound_ms_idx_layout``, the bound
 of the same work on the idx-plane layout it replaced), and as its last line
@@ -514,11 +525,20 @@ def _states(state):
 
 def _xch_calls(state, xch, ops, x):
     """{kernel: (kernel calls, plain-version calls)} over every call of the
-    state and its nested states, as formats/xch.spmv makes them, on the
-    same inputs (a route call adds into a y of its own, zeroed); each call
+    state and its nested states on the same inputs: the fused route as
+    formats/xch.spmv makes its calls, and the pair as formats/xch.phases
+    makes them (a route call adds into a y of its own, zeroed); each call
     is a function of no argument."""
-    calls = {"xch_mul": ([], []), "xch_route4_rows": ([], [])}
+    calls = {"xch_fused_rows": ([], []), "xch_mul": ([], []),
+             "xch_route4_rows": ([], [])}
     for st in _states(state):
+        for i, fused in enumerate((ops.xch_fused_rows,
+                                   ops.xch_fused_rows_ref)):
+            calls["xch_fused_rows"][i].extend(
+                lambda a=a, st=st, f=fused: f(
+                    *a, x, torch.zeros(st.n_row, dtype=ops.acc_dtype(
+                        x.dtype), device=x.device), st.t2, st.merge2)
+                for a in zip(st.base2, st.val2, st.col2, st.hm2, st.dest2))
         xt = xch.x_table(st, x)
         prod3 = xch.products(st, xt)
         for i, mul in enumerate((ops.xch_mul, ops.xch_mul_ref)):
@@ -555,11 +575,45 @@ def _check_calls(label, name, ks, rs, tol):
     return err, rel
 
 
-def compare_xch(label, state, xch, ops, x, tol=TOL, a_csr=None, extra=True):
+def compare_xch(label, state, xch, ops, x, tol=TOL, a_csr=None, extra=True,
+                coo=None):
     """Phase 2 for one xch state: each kernel vs its plain version on every
-    call of the state and of its nested state; ``a_csr`` and ``extra`` as
-    in ``compare_kernel``: the library time of the whole product stands
-    beside each of the two passes."""
+    call of the state and of its nested state: the spmv's fused route
+    ``xch_fused_rows``, and the pair it replaced (``xch_mul`` then
+    ``xch_route4_rows``, whose launches here count in no path), with the
+    pair's busy time and summed bounds beside the fused one's; ``a_csr``
+    and ``extra`` as in ``compare_kernel``: the library time of the whole
+    product stands beside each kernel.  With ``coo`` (the matrix of the
+    values the state holds) the fused spmv and the pair's must agree
+    within each row's reorder bound."""
+    from singlespmv_tpu_torch import Config
+    from singlespmv_tpu_torch.core.dtypes import name_of, to_host
+
+    with uncounted(ops.xch_mul, ops.xch_route4_rows):
+        res = _compare_xch(label, state, xch, ops, x, tol, a_csr, extra)
+        if coo is not None:
+            y_f = xch.spmv(state, x)
+            y_p = xch.pair_spmv_acc(state, x).to(x.dtype)
+            within, worst = reorder_check(
+                coo, state, Config(format="xch", dtype=name_of(x.dtype)),
+                to_host(x), to_host(y_f), to_host(y_p))
+            res["xch_fused_rows"]["pair_reorder_worst_share"] = worst
+            print(f"xch pair {label}: fused spmv against the pair's, worst "
+                  f"row at {worst:.3g} of its reorder bound; bitwise equal "
+                  f"{bool(torch.equal(y_f, y_p))}", flush=True)
+            if not within:
+                raise SystemExit(f"{label}: the fused xch spmv and the "
+                                 "pair's differ past a row's reorder bound")
+    f = res["xch_fused_rows"]
+    print(f"xch pair {label}: fused {f['ms']:.6f} ms (bound "
+          f"{f['bound_ms']:.6f}) against the pair {f['pair_ms']:.6f} ms "
+          f"(bounds {f['pair_bound_ms']:.6f}); cuSPARSE {f['library_ms']} "
+          "ms", flush=True)
+    print(f"kernel {label}: {json.dumps(_marked(res))}", flush=True)
+    return res
+
+
+def _compare_xch(label, state, xch, ops, x, tol, a_csr, extra):
     calls = _xch_calls(state, xch, ops, x)
     res = {"label": label, "dtype": str(x.dtype),
            "plans": [{k: getattr(st, k) for k in (
@@ -571,13 +625,23 @@ def compare_xch(label, state, xch, ops, x, tol=TOL, a_csr=None, extra=True):
     # product gathered per pass-2 slot), the x table once, its output once
     # (y once a state); operations: a multiply per pass-1 slot, a prefix add
     # and a run-total difference per pass-2 slot, an add per routed run
-    # end.  Beside the route's, the bound of the idx-plane layout it
-    # replaced (sig one byte a row, the kblk idx planes, the out groups once)
+    # end.  The fused route: val2, col2, hm1, dest and base, x once and y
+    # once a state; a multiply, a prefix add and a difference per pass-2
+    # slot, an add per run end.  Beside the route's, the bound of the
+    # idx-plane layout it replaced (sig one byte a row, the kblk idx planes,
+    # the out groups once)
     vsz = x.element_size()
-    cost = {"xch_mul": [0, 0], "xch_route4_rows": [0, 0]}
+    cost = {"xch_fused_rows": [0, 0], "xch_mul": [0, 0],
+            "xch_route4_rows": [0, 0]}
     idx_layout = [0, 0]
     library = None if a_csr is None else _library_ms(a_csr, x)
     for st in _states(state):
+        cost["xch_fused_rows"][0] += st.n_row * ops.acc_dtype(
+            x.dtype).itemsize + _nbytes(x)
+        for b, v, c, hm, d in zip(st.base2, st.val2, st.col2, st.hm2,
+                                  st.dest2):
+            cost["xch_fused_rows"][0] += _nbytes(b, v, c, hm, d)
+            cost["xch_fused_rows"][1] += 3 * v.numel() + int((d >= 0).sum())
         for win, lane, sub, val in zip(st.win1, st.lane1, st.sub1, st.val1):
             cost["xch_mul"][0] += _nbytes(win, lane, val, val, xch.x_table(
                 st, x)) + (_nbytes(sub) if st.m1 > 1 else 0)
@@ -602,8 +666,7 @@ def compare_xch(label, state, xch, ops, x, tol=TOL, a_csr=None, extra=True):
             # device busy time over all the calls: kernel, plain version
             # (the route's two kernels: the direct and the merge one)
             "ms": _busy_ms(lambda ks=ks: [f() for f in ks],
-                           name if name == "xch_route4_rows"
-                           else f"{name}_kernel",
+                           XCH_MATCH[name],
                            launches=_launched(getattr(ops, name))),
             "plain_ms": _busy_ms(lambda rs=rs: [f() for f in rs]),
             # the calls on the device's clock, host gaps included
@@ -613,11 +676,22 @@ def compare_xch(label, state, xch, ops, x, tol=TOL, a_csr=None, extra=True):
         } | _bound(*cost[name], x.dtype)
     res["xch_route4_rows"]["bound_ms_idx_layout"] = _bound(
         *idx_layout, x.dtype)["bound_ms"]
+    res["xch_fused_rows"]["pair_ms"] = (res["xch_mul"]["ms"]
+                                        + res["xch_route4_rows"]["ms"])
+    res["xch_fused_rows"]["pair_bound_ms"] = (
+        res["xch_mul"]["bound_ms"] + res["xch_route4_rows"]["bound_ms"])
     res["spmv_ms"] = _extra(extra, _cuda_ms, lambda: xch.spmv(state, x))
     res["spmv_busy_ms"] = _extra(extra, _busy_ms,
                                  lambda: xch.spmv(state, x))
-    print(f"kernel {label}: {json.dumps(_marked(res))}", flush=True)
     return res
+
+
+# each xch kernel's name in a torch.profiler trace: the route kernels are
+# one template, told apart by their producer
+XCH_MATCH = {"xch_fused_rows": "StreamGather", "xch_mul": "xch_mul_kernel",
+             "xch_route4_rows": "GridProducts"}
+XCH_PAIR = ("xch_mul", "xch_route4_rows")   # the fused route's pair: on the
+#                   profiling phases and the calibration only
 
 
 BUCKET_KERNELS = ("bucket_fused_rows",)   # bkt's and bkt_g's spmv path
@@ -642,6 +716,34 @@ def uncounted(*wrappers):
             setattr(w, attr, v)
 
 
+@contextlib.contextmanager
+def phases_uncounted(xch, xops):
+    """xch's profiling phases (the pair: ``xch_mul``, then
+    ``xch_route4_rows``) with their launches counted in no path, inside the
+    block: the spmv runs the fused route, the phases the reference's two
+    passes."""
+    phases = xch.phases
+
+    def wrapped(state):
+        ph = phases(state)
+        if ph is None:
+            return None
+
+        def quiet(fn):
+            def run(st, inp):
+                with uncounted(xops.xch_mul, xops.xch_route4_rows):
+                    return fn(st, inp)
+            return run
+
+        return {k: quiet(fn) for k, fn in ph.items()}
+
+    xch.phases = wrapped
+    try:
+        yield
+    finally:
+        xch.phases = phases
+
+
 def by_kernel(compared):
     """{kernel: [its comparison results]} over the compare_* results."""
     out = {}
@@ -650,7 +752,7 @@ def by_kernel(compared):
             out.setdefault(res["kernel"], []).append(res)
             continue
         sfx = {str(t): s for t, s in SFX.items()}[res["dtype"]]
-        for k in ("xch_mul", "xch_route4_rows") + BUCKET_KERNELS \
+        for k in ("xch_fused_rows",) + XCH_PAIR + BUCKET_KERNELS \
                 + BUCKET_PAIR + BUCKET_FIRST_PORT + PANEL_KERNELS:
             if k in res:
                 out.setdefault(k + sfx, []).append(
@@ -2048,8 +2150,8 @@ BF16_KERNEL_STATES = (("g7jac200sc", "slab"), ("torso1", "slab"),
 BF16_EXTRA = (("webbase-1M", "xch"),)   # states whose whole spmv is timed
 BF16_FORMATS = ("slab", "xch", "hyb", "bkt", "ellg", "ss", "csr5", "css",
                 "csr")    # driven on raefsky3
-BF16_KERNELS = ("slab_spmv_rows_bf16", "xch_mul_bf16",
-                "xch_route4_rows_bf16", "bucket_fused_rows_bf16",
+BF16_KERNELS = ("slab_spmv_rows_bf16", "xch_fused_rows_bf16",
+                "bucket_fused_rows_bf16",
                 "ellg_rows_bf16", "segmented_scan_tiles_bf16",
                 "block_gather_scan_bf16")
 AUTO_TRIAL_WINDOW_S = 0.1    # auto's trial window in the auto paths here
@@ -2159,12 +2261,14 @@ def run_bfloat16(mats, dev, card, count_path, wrappers, f32_states):
         a_csr, lib_err = csrs[name]
         label = f"{name} {fmt}"
         extra = (name, fmt) in BF16_EXTRA
+        stored = COOMatrix(coo.n_row, coo.n_col, coo.row, coo.col,
+                           round_values(coo.val, "bfloat16"))
         if fmt == "slab":
             res = compare_kernel(name, st, slab, ops, x, a_csr=a_csr,
                                  extra=extra)
         elif fmt == "xch":
             res = compare_xch(name, st, xch, xops, x, a_csr=a_csr,
-                              extra=extra)
+                              extra=extra, coo=stored)
         elif fmt.startswith("bkt"):
             res = compare_bucket(label, st, bkt, bops, x, a_csr=a_csr,
                                  extra=extra)
@@ -2174,8 +2278,6 @@ def run_bfloat16(mats, dev, card, count_path, wrappers, f32_states):
             res["library_error"] = lib_err
         # the whole spmv twice on the card; values as the state stores them
         y1, y2 = (to_host(mod.spmv(st, x)) for _ in range(2))
-        stored = COOMatrix(coo.n_row, coo.n_col, coo.row, coo.col,
-                           round_values(coo.val, "bfloat16"))
         within, worst = reorder_check(stored, st, fcfg, xh, y1, y2)
         ok = verify_result(coo, xh, y1, dtype="bfloat16")[0]
         res["reorder_worst_share"] = worst
@@ -2596,8 +2698,8 @@ def run_parallel(mats, dev, card, count_path, wrappers, nccl_done):
     (a) DistXch at R 4 on webbase-1M (scattered: all-gather) and at R 8 on
     ``generate("band", PAR_BAND, 9, seed=2)`` (banded: a ring of at most 3
     rounds), float32: the convert's host seconds, each shard's nnz and
-    kernel calls, the largest shard's ``xch_mul`` and ``xch_route4_rows``
-    calls (and on webbase-1M its ``xch_mul_panel`` and ``xch_route4_panel``
+    kernel calls, the largest shard's ``xch_fused_rows`` calls and the
+    pair's (and on webbase-1M its ``xch_mul_panel`` and ``xch_route4_panel``
     calls at B 8) against their plain versions, y through the oracle, a
     step's chained µs (a CUDA graph, as the driver times, or eager CUDA
     events where the capture fails, and the line says which) beside the
@@ -2832,7 +2934,7 @@ def run_parallel(mats, dev, card, count_path, wrappers, nccl_done):
     dryrun_multichip(8, device=dev)
     print("parallel dryrun_multichip(8): OK", flush=True)
     part("(d) dryrun")
-    count_path("parallel", wrappers, ("xch_mul", "xch_route4_rows",
+    count_path("parallel", wrappers, ("xch_fused_rows",
                                       "segmented_scan_tiles"))
 
     # --- (e) NCCL at world size 1: the process started with the phase ---
@@ -2843,12 +2945,26 @@ def run_parallel(mats, dev, card, count_path, wrappers, nccl_done):
     return compared
 
 
-def _route_seconds(state, xch):
-    """Seconds ``route_rows`` takes on a host state and its nested ones."""
-    t0 = time.perf_counter()
-    for st in _states(state):
-        xch.route_rows(st)
-    return time.perf_counter() - t0
+@contextlib.contextmanager
+def routes_timed(xch):
+    """The seconds that ``xch.route_rows`` takes inside the block, summed
+    (a convert calls it once a state and once a nested state), in the list
+    the block receives: the convert's own calls, not a second run."""
+    spent = [0.0]
+    route_rows = xch.route_rows
+
+    def timed(state):
+        t0 = time.perf_counter()
+        try:
+            return route_rows(state)
+        finally:
+            spent[0] += time.perf_counter() - t0
+
+    xch.route_rows = timed
+    try:
+        yield spent
+    finally:
+        xch.route_rows = route_rows
 
 
 COUNTERS = (("", "launches"), ("_f64", "launches_f64"),
@@ -2949,18 +3065,18 @@ def main() -> int:
             del st
     with Phase("xch kernels float32"):
         for name in XCH_MATS[:-1]:
-            t0 = time.perf_counter()
-            st = xch.convert(mats[name], xcfg)
+            with routes_timed(xch) as routes:
+                t0 = time.perf_counter()
+                st = xch.convert(mats[name], xcfg)
             t1 = time.perf_counter()
-            routes = _route_seconds(st, xch)
             st = st.to(dev)
             torch.cuda.synchronize()
             print(f"xch convert {name}: host {t1 - t0:.2f} s, of which "
-                  f"route_rows {routes:.3f} s; to the card "
-                  f"{time.perf_counter() - t1 - routes:.2f} s")
+                  f"route_rows {routes[0]:.3f} s; to the card "
+                  f"{time.perf_counter() - t1:.2f} s")
             compared.append(compare_xch(name, st, xch, xops,
                                         x_of(mats[name]),
-                                        a_csr=csr_of(name)))
+                                        a_csr=csr_of(name), coo=mats[name]))
             spmm_states[name] = st
             if (name, "xch") in BF16_KERNEL_STATES:
                 f32_states[(name, "xch")] = st
@@ -2983,7 +3099,7 @@ def main() -> int:
                                  f"{st.val1[0].dtype}")
             compared.append(compare_xch(
                 name, st, xch, xops, x_of(mats[name], np.float64), F64_TOL,
-                a_csr=csr_of(name, np.float64)))
+                a_csr=csr_of(name, np.float64), coo=mats[name]))
             if name == "ASIC_680ks":
                 asic64 = st
             del st
@@ -3031,34 +3147,37 @@ def main() -> int:
                                          x_of(g7, np.float64), F64_TOL))
             del st
 
-    slab_k, xch_k = (ops.slab_spmv_rows,), (xops.xch_mul,
-                                             xops.xch_route4_rows)
-    # the first port's kernels that left the spmv path: no path may run them
+    slab_k, xch_k = (ops.slab_spmv_rows,), (xops.xch_fused_rows,)
+    # the kernels that left the spmv path: no path may run them (the xch
+    # pair runs in the profiling phases, whose launches count nowhere, and
+    # xch_mul in the calibration path, which allows it)
     first_port = (xops.xch_route4, ops.slab_spmv, ops.slab_spmv_blk) + tuple(
-        getattr(bops, k) for k in BUCKET_FIRST_PORT + BUCKET_PAIR)
+        getattr(bops, k) for k in BUCKET_FIRST_PORT + BUCKET_PAIR) + tuple(
+        getattr(xops, k) for k in XCH_PAIR)
     bkt_k = tuple(getattr(bops, k) for k in BUCKET_KERNELS + ("ellg_rows",))
     scan_k = (sops.segmented_scan_tiles, gops.block_gather_scan)
     panel_k = (ops.slab_spmm, xops.xch_mul_panel, xops.xch_route4_panel)
     all_k = slab_k + xch_k + bkt_k + scan_k + panel_k
-    f32_kernels = (("slab_spmv_rows", "xch_mul",
+    f32_kernels = (("slab_spmv_rows", "xch_fused_rows", "xch_mul",
                     "xch_route4_rows", "segmented_scan_tiles",
                     "block_gather_scan", "ellg_rows")
                    + BUCKET_KERNELS + PANEL_KERNELS)
     launches = {}
 
-    def count_path(path, wrappers, need):
+    def count_path(path, wrappers, need, allow=()):
         """Adds the path's launch counts; fails if a kernel in ``need`` was
-        not launched, or if a kernel of the first port that left the spmv
-        path ever was (nothing here calls them, so their counts stay 0
-        unless a path does)."""
+        not launched, or if a kernel that left the spmv path ever was
+        (nothing here calls them, so their counts stay 0 unless a path
+        does), but the wrappers in ``allow``."""
         got = _counts(*wrappers)
         print(f"launches in the {path} path: {got}", flush=True)
         for k in need:
             if got[k] < 1:
                 raise SystemExit(f"{path}: kernel {k} was never launched")
-        off = _counts(*first_port)
+        off = _counts(*(w for w in first_port if w not in allow))
         if any(off.values()):
-            raise SystemExit(f"{path}: a first-port kernel ran: {off}")
+            raise SystemExit(f"{path}: a kernel off the spmv path ran: "
+                             f"{off}")
         got |= off
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
@@ -3157,8 +3276,7 @@ def main() -> int:
         X = panel(coo, 8, np.float64)
         _zero(*all_k)
         Y = spmm_fn(xcfg64)(asic64, X)
-        got = count_path("spmm float64", all_k,
-                         ("xch_mul_f64", "xch_route4_rows_f64"))
+        got = count_path("spmm float64", all_k, ("xch_fused_rows_f64",))
         if any(got.get(k) for k in f32_kernels):
             raise SystemExit("spmm float64: a float32 kernel ran")
         verify_columns("spmm float64 ASIC_680ks", coo, X, Y, verify_result,
@@ -3206,14 +3324,14 @@ def main() -> int:
         del state
 
     # --- 5. the xch main path; count the launches it makes ---
-    with Phase("xch path float32"):
+    with Phase("xch path float32"), phases_uncounted(xch, xops):
         _zero(*xch_k)
         profiled = run_path(
             {n: mats[n] for n in ("webbase-1M", "ASIC_680ks")},
             run_cfg.replace(format="xch", profiling=True), run_benchmark,
             ("PadFactor", "KBlk", "POh", "PeelOffs", "LongRows"), dev,
             driver=drv)
-        count_path("xch float32", xch_k, ("xch_mul", "xch_route4_rows"))
+        count_path("xch float32", xch_k, ("xch_fused_rows",))
 
     # --- 6. the hyb main path: band peel plus a residual ---
     hyb_keys = ("PeelDiags", "PeelNnz", "RestFormat", "RestNnz",
@@ -3227,7 +3345,7 @@ def main() -> int:
                         driver=drv)
         if reps["webbase-1M"]["RestFormat"] != "XCH":
             raise SystemExit("webbase-1M: the hyb residual left xch")
-        count_path("hyb float32", all_k, ("xch_mul", "xch_route4_rows",
+        count_path("hyb float32", all_k, ("xch_fused_rows",
                                           "slab_spmv_rows"))
 
     # --- 6b. where a hyb spmv's time goes, and the residual's kernels
@@ -3301,7 +3419,7 @@ def main() -> int:
             ("slab", "torso1", ("PadFactor", "RoutePlanes"),
              ("slab_spmv_rows_f64",)),
             ("xch", "webbase-1M", ("KBlk", "POh", "PeelOffs", "LongRows"),
-             ("xch_mul_f64", "xch_route4_rows_f64")),
+             ("xch_fused_rows_f64",)),
             ("hyb", "Chebyshev4", hyb_keys, ("slab_spmv_rows_f64",)),
             ("auto", "g7jac200sc", auto_keys, ("slab_spmv_rows_f64",)),
             ("css", "g7jac200sc", scan_keys["css"],
@@ -3335,7 +3453,8 @@ def main() -> int:
         _zero(*cal_k)
         run_calibration_path(dev, eager, busy)
         count_path("calibration", cal_k, ("xch_route", "xch_mul") + tuple(
-            w.__name__ for w in pops.WRAPPERS))
+            w.__name__ for w in pops.WRAPPERS), allow=(xops.xch_mul,))
+        _zero(xops.xch_mul)    # counted: off every later path
 
     # --- 12. driver timing: the chained Time(s) beside the eager wall and
     #     the busy time, the A/B of the chain's length, the phases and
@@ -3497,11 +3616,11 @@ def main() -> int:
     #     its spmv against the oracle ---
     with Phase("xch circuit5M float32"):
         big = mats["circuit5M"]
-        t0 = time.perf_counter()
-        state = xch.convert(big, xcfg)
-        t1 = time.perf_counter()
-        print(f"xch convert circuit5M: host {t1 - t0:.1f} s, of which "
-              f"route_rows {_route_seconds(state, xch):.2f} s")
+        with routes_timed(xch) as routes:
+            t0 = time.perf_counter()
+            state = xch.convert(big, xcfg)
+        print(f"xch convert circuit5M: host {time.perf_counter() - t0:.1f} "
+              f"s, of which route_rows {routes[0]:.2f} s")
         state = state.to(dev)
         if not (len(state.win1) > 1 and len(state.gids2) > 1
                 and state.long is not None):
@@ -3519,8 +3638,7 @@ def main() -> int:
               f"max_abs_err {det['max_abs_err']}")
         if not (ok and y.shape == (big.n_row,) and np.isfinite(y).all()):
             raise SystemExit("circuit5M: xch spmv output is wrong")
-        count_path("xch float32 circuit5M", xch_k,
-                   ("xch_mul", "xch_route4_rows"))
+        count_path("xch float32 circuit5M", xch_k, ("xch_fused_rows",))
         del state
     mats.close()
 
@@ -3555,13 +3673,17 @@ def main() -> int:
                   "slab_spmv_blk_bf16": "slab_spmv_rows_bf16"}
     on_path_as = dict.fromkeys(BUCKET_FIRST_PORT + BUCKET_PAIR,
                                "bucket_fused_rows") \
-        | {k + "_bf16": "bucket_fused_rows_bf16" for k in BUCKET_PAIR}
+        | {k + "_bf16": "bucket_fused_rows_bf16" for k in BUCKET_PAIR} \
+        | {k + sfx: "xch_fused_rows" + sfx for k in XCH_PAIR
+           for sfx in SFX.values()}
     for kname, src, line, timed in (
             ("slab_spmv", slab_src, "slab.py:263", "g7jac200sc"),
             ("slab_spmv_blk", slab_src, "slab.py:310", "torso1"),
+            ("xch_fused_rows", xch_src, "xch.py:48", "circuit5M"),
             ("xch_mul", xch_src, "xch.py:48", "circuit5M"),
             ("xch_route4_rows", xch_src, "xch.py:151", "circuit5M"),
             ("slab_spmv_f64", slab_src, "slab.py:463", "torso1"),
+            ("xch_fused_rows_f64", xch_src, "xch.py:495", "webbase-1M"),
             ("xch_mul_f64", xch_src, "xch.py:495", "webbase-1M"),
             ("xch_route4_rows_f64", xch_src, "xch.py:594", "webbase-1M"),
             ("bucket_fused_rows", bkt_src, "bucket.py:91",
@@ -3597,6 +3719,7 @@ def main() -> int:
             # launches are the bfloat16 paths'
             ("slab_spmv_bf16", slab_src, "slab.py:263", "g7jac200sc"),
             ("slab_spmv_blk_bf16", slab_src, "slab.py:310", "torso1"),
+            ("xch_fused_rows_bf16", xch_src, "xch.py:48", "webbase-1M"),
             ("xch_mul_bf16", xch_src, "xch.py:48", "webbase-1M"),
             ("xch_route4_rows_bf16", xch_src, "xch.py:151", "webbase-1M"),
             ("bucket_fused_rows_bf16", bkt_src, "bucket.py:91",
@@ -3622,6 +3745,9 @@ def main() -> int:
         kernels.append(_marked({
             "name": kname, "route": "cuda", "source": src,
             "replaces": f"singlespmv_tpu/ops/pallas/{line}",
+            **({"replaces_also": "singlespmv_tpu/ops/pallas/" + (
+                "xch.py:594" if kname.endswith("_f64") else "xch.py:151")}
+               if kname.startswith("xch_fused_rows") else {}),
             "launches": launches[launch_key.get(kname, kname)],
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": t[0]["ms"], "plain_ms": t[0]["plain_ms"],
@@ -3630,7 +3756,9 @@ def main() -> int:
             | {k: t[0][k] for k in ("bound_ms_idx_layout", "library_error",
                                     "reorder_worst_share",
                                     "accuracy_worst_share", "pair_ms",
-                                    "pair_bound_ms", "first_port_ms")
+                                    "pair_bound_ms",
+                                    "pair_reorder_worst_share",
+                                    "first_port_ms")
                if k in t[0]}
             | first_port_ms
             | ({"on_path_as": on_path_as[kname]}

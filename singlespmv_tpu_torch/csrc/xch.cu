@@ -2,19 +2,31 @@
 // interface (ops/_build.py builds this file with ctypes, ops/xch.py calls
 // it).
 //
-//   xch_mul_kernel<float> replaces _xch_mul_kernel, the kernel of xch_mul
-//     (singlespmv_tpu/ops/pallas/xch.py:41 and :48);
-//   xch_route4_rows_kernel<float> and xch_route4_rows_merge_kernel<float>
-//     replace _xch_route4_kernel, the kernel of xch_route4
-//     (singlespmv_tpu/ops/pallas/xch.py:78 and :151), on the spmv path: the
-//     same sums, routed by a run-end destination stream that
-//     formats/xch.py:route_rows derives from the TPU's idx planes;
+//   xch_route4_rows_kernel<StreamGather<S>, int16_t> and
+//     xch_route4_rows_merge_kernel<StreamGather<S>> (xch_fused_rows, the
+//     spmv path of xch, of hyb's xch residual, of auto's xch trials and of
+//     every DistXch shard) replace, on the spmv path, both passes at once:
+//     _xch_mul_kernel and _xch_route4_kernel, the kernels of xch_mul and
+//     xch_route4 (singlespmv_tpu/ops/pallas/xch.py:41, :48 and :78, :151),
+//     and at S = double their df64 builds _xch_mul_df_kernel and
+//     _xch_route4_df_kernel (xch_mul_df and xch_route4_df, :463, :495 and
+//     :524, :594).  One launch a pass-2 call gathers x, multiplies in
+//     registers and routes the run totals into y: no product grid is
+//     written or read.  Each product is the one pass 1 stores (__fmul_rn,
+//     __dmul_rn; at bfloat16 the float product rounded once), so the fused
+//     launch computes the pair's function product for product;
+//   xch_mul_kernel<float> replaces _xch_mul_kernel (xch.py:41 and :48) and
+//     xch_route4_rows_kernel<GridProducts<float>, int16_t> and
+//     xch_route4_rows_merge_kernel<GridProducts<float>> replace
+//     _xch_route4_kernel (xch.py:78 and :151), routed by a run-end
+//     destination stream that formats/xch.py:route_rows derives from the
+//     TPU's idx planes: the pair, which now runs only in the driver's
+//     profiling phases (Mul, then Sum) and in the calibration;
 //   xch_mul_kernel<double> and the two route kernels at <double> replace
-//     _xch_mul_df_kernel and _xch_route4_df_kernel, the kernels of xch_mul_df
-//     and xch_route4_df (singlespmv_tpu/ops/pallas/xch.py:463, :495 and :524,
-//     :594): the same functions at native fp64, where the TPU carried (hi, lo)
-//     float planes through Dekker products and a compensated per-(plane, row)
-//     route;
+//     _xch_mul_df_kernel and _xch_route4_df_kernel (xch.py:463, :495 and
+//     :524, :594) there: the same functions at native fp64, where the TPU
+//     carried (hi, lo) float planes through Dekker products and a
+//     compensated per-(plane, row) route;
 //   xch_route4_kernel<float> and <double>, the first port of _xch_route4_kernel
 //     on the TPU's idx planes, are on no path: they stay as the "as before"
 //     variant of harness/xch_ab.py;
@@ -158,6 +170,27 @@
 // atomic an entry a block) is the "first port" variant of
 // harness/route_ab.py.
 //
+// The fused route (xch_fused_rows).  Each nonzero has one pass-1 slot and
+// one pass-2 slot, so the exchange is a fixed map from each pass-2 slot to
+// the pass-1 slot whose product it reads, P = (cs[t] * p1 + win2[r] +
+// sub2[r,l]) * 128 + lane2[r,l].  route_rows composes it at convert time
+// into a stream in pass 2's order: val2[r,l] = val1[P] and col2[r,l] =
+// (win1[P / 128] + sub1[P]) * 128 + lane1[P], padding slots included (a
+// position in the x table's zero padding gets col2 0 and val2 0).  The
+// producer StreamGather reads them (one 16-byte load of four col2 and one
+// of four val2 a lane), gathers x itself (no x table) and hands the
+// products to the same scan (lane_totals), run-end adds (add_run) and
+// merge kernel as the pair's route (GridProducts).  Bound: val2 (4 B, 8 B
+// at double, 2 B at bfloat16), col2 4 B, hm1 1 B and dest 2 B a slot, base
+// a step, x once and y once, where the pair moved val, lane, sub, the
+// product written and gathered back, lane, sub and hm1 of pass 2: 11 bytes
+// a slot in float against 17-19.  On an H100 the reductions, one a run end
+// into L2 at 42-53 G a second (harness/xch_ab.py), are expected to set its
+// pace rather than its bytes; the fusion removes pass 1's launch and the
+// grid's traffic, not those reductions.  x is gathered in pass 2's row
+// order, so pass 1's window locality is gone; the x of the main path's
+// stand-ins fits in L2.
+//
 // Bound.  Pass 1 streams 4 B of val (8 B at double) and 1 B of lane per slot
 // (2 B when m > 1) and writes 4 B (8 B) of product; x is gathered from L2.
 // The spmv route streams 4 B of lane, hm1 and dest per slot (5 B when
@@ -266,26 +299,85 @@ __device__ __forceinline__ void add_run(V* __restrict__ y, int b, int d, V v,
   if (d >= 0 && pos < n_y) atomicAdd(y + pos, v);  // result unused: RED.ADD
 }
 
-// S is the storage type of the products, acc_t<S> that of y and the sums.
-template <typename S, typename D>
-__global__ void __launch_bounds__(kThreads) xch_route4_rows_kernel(
-    const int32_t* __restrict__ base, const int32_t* __restrict__ cs,
-    const int32_t* __restrict__ win, const int8_t* __restrict__ lane,
-    const int8_t* __restrict__ sub, const int8_t* __restrict__ hm1,
-    const D* __restrict__ dest, const S* __restrict__ prod,
-    acc_t<S>* __restrict__ y, int H, int T, int m, int p1, int n_y) {
+// The spmv route's producers: the four values of stream row r that the
+// calling lane holds (slots 4k..4k+3), in the accumulator type V.
+//   GridProducts reads them from pass 1's product grid, through the
+//   exchange (cs, win, lane, sub of pass 2: the pair's route);
+//   StreamGather makes them in registers from the pass-2-ordered stream
+//   that formats/xch.py:route_rows derives at convert time: four val2
+//   values and one 16-byte group of four col2 a lane, x gathered at col2,
+//   each product rounded as pass 1 stores it (stored_products).
+template <typename S>
+struct GridProducts {
   using V = acc_t<S>;
+  const int32_t* cs;
+  const int32_t* win;
+  const int8_t* lane;
+  const int8_t* sub;
+  const S* prod;
+  int T, m, p1;
+  __device__ __forceinline__ V4<S> operator()(int r) const {
+    return gather4<S>(r, m, win, lane, sub,
+                      prod + (size_t)__ldg(cs + r / T) * p1 * kLanes);
+  }
+};
+
+// val * x slot by slot, as xch_mul_kernel stores the product: rounded to
+// float (__fmul_rn) or to double (__dmul_rn), never contracted into an FMA
+// with the scan's first add; at bfloat16 the float product (exact) rounded
+// once to bfloat16 and widened back.
+__device__ __forceinline__ float4 stored_products(const float*, float4 v,
+                                                  float4 g) {
+  return make_float4(__fmul_rn(v.x, g.x), __fmul_rn(v.y, g.y),
+                     __fmul_rn(v.z, g.z), __fmul_rn(v.w, g.w));
+}
+
+__device__ __forceinline__ Double4 stored_products(const double*, Double4 v,
+                                                   Double4 g) {
+  return {__dmul_rn(v.x, g.x), __dmul_rn(v.y, g.y), __dmul_rn(v.z, g.z),
+          __dmul_rn(v.w, g.w)};
+}
+
+__device__ __forceinline__ float4 stored_products(const bf16*, float4 v,
+                                                  float4 g) {
+  const float4 p = stored_products((const float*)nullptr, v, g);
+  return make_float4(__bfloat162float(__float2bfloat16_rn(p.x)),
+                     __bfloat162float(__float2bfloat16_rn(p.y)),
+                     __bfloat162float(__float2bfloat16_rn(p.z)),
+                     __bfloat162float(__float2bfloat16_rn(p.w)));
+}
+
+template <typename S>
+struct StreamGather {
+  using V = acc_t<S>;
+  const S* val;
+  const int32_t* col;
+  const S* x;
+  __device__ __forceinline__ V4<S> operator()(int r) const {
+    const size_t off = (size_t)r * kLanes + 4 * (threadIdx.x & 31);
+    const int4 c = *reinterpret_cast<const int4*>(col + off);
+    const V4<S> g = {ldg_acc(x + c.x), ldg_acc(x + c.y), ldg_acc(x + c.z),
+                     ldg_acc(x + c.w)};
+    return stored_products(val, load4(val + off), g);
+  }
+};
+
+// P is the producer (GridProducts or StreamGather of storage type S); y and
+// the sums are of acc_t<S>.  A warp a stream row.
+template <typename P, typename D>
+__global__ void __launch_bounds__(kThreads) xch_route4_rows_kernel(
+    const P prod, const int32_t* __restrict__ base,
+    const int8_t* __restrict__ hm1, const D* __restrict__ dest,
+    typename P::V* __restrict__ y, int H, int T, int n_y) {
+  using V = typename P::V;
   __shared__ __align__(16) V wbuf[kWarps][kLanes];
   const int warp = threadIdx.x >> 5;
   const int r = blockIdx.x * kWarps + warp;
   if (r >= H) return;  // uniform over the warp
-  const int t = r / T;
   const size_t off = (size_t)r * kLanes + 4 * (threadIdx.x & 31);
   const int4 d = load_dest4(dest + off);
-  const int b = base[t];
-  const S* x = prod + (size_t)cs[t] * p1 * kLanes;
-  const V4<S> w = lane_totals<V>(gather4<S>(r, m, win, lane, sub, x),
-                                 load_c4(hm1 + off), wbuf[warp]);
+  const int b = __ldg(base + r / T);
+  const V4<V> w = lane_totals<V>(prod(r), load_c4(hm1 + off), wbuf[warp]);
   add_run(y, b, d.x, w.x, n_y);
   add_run(y, b, d.y, w.y, n_y);
   add_run(y, b, d.z, w.z, n_y);
@@ -294,15 +386,12 @@ __global__ void __launch_bounds__(kThreads) xch_route4_rows_kernel(
 
 constexpr int kMergeSmem = 96 * 1024;  // the merge kernel's spans, at most
 
-template <typename S>
+template <typename P>
 __global__ void __launch_bounds__(kThreads) xch_route4_rows_merge_kernel(
-    const int32_t* __restrict__ base, const int32_t* __restrict__ cs,
-    const int32_t* __restrict__ win, const int8_t* __restrict__ lane,
-    const int8_t* __restrict__ sub, const int8_t* __restrict__ hm1,
-    const int16_t* __restrict__ dest, const S* __restrict__ prod,
-    acc_t<S>* __restrict__ y, int T, int rpb, int m, int p1, int n_y,
-    int span) {
-  using V = acc_t<S>;
+    const P prod, const int32_t* __restrict__ base,
+    const int8_t* __restrict__ hm1, const int16_t* __restrict__ dest,
+    typename P::V* __restrict__ y, int T, int rpb, int n_y, int span) {
+  using V = typename P::V;
   __shared__ __align__(16) V wbuf[kWarps][kLanes];
   extern __shared__ __align__(16) unsigned char merge_smem[];
   V* const spans = reinterpret_cast<V*>(merge_smem);  // (kWarps, span)
@@ -312,12 +401,10 @@ __global__ void __launch_bounds__(kThreads) xch_route4_rows_merge_kernel(
   V* const mine = spans + (size_t)warp * span;
   for (int i = k; i < span; i += 32) mine[i] = V(0);
   __syncwarp();
-  const S* x = prod + (size_t)cs[t] * p1 * kLanes;
   for (int r = r0 + warp; r < r0 + rpb; r += kWarps) {
     const size_t off = (size_t)r * kLanes + 4 * k;
     const int4 d = load_dest4(dest + off);
-    const V4<S> w = lane_totals<V>(gather4<S>(r, m, win, lane, sub, x),
-                                   load_c4(hm1 + off), wbuf[warp]);
+    const V4<V> w = lane_totals<V>(prod(r), load_c4(hm1 + off), wbuf[warp]);
     if ((unsigned)d.x < (unsigned)span) mine[d.x] += w.x;
     if ((unsigned)d.y < (unsigned)span) mine[d.y] += w.y;
     if ((unsigned)d.z < (unsigned)span) mine[d.z] += w.z;
@@ -609,6 +696,40 @@ int launch_route4(const void* gids, const void* off, const void* cs,
 }
 
 // span 0: a reduction a run end; else the merge kernel over `span` dests.
+// P is the producer; y is of P::V.
+template <typename P>
+int launch_rows(const P prod, const void* base, const void* hm1,
+                const void* dest, void* y, int H, int T, int n_y, int span,
+                void* stream) {
+  using V = typename P::V;
+  const size_t smem = (size_t)kWarps * span * sizeof(V);
+  if (T < 1 || H < 0 || H % T || n_y < 0 || span < 0 || span % kLanes ||
+      smem > kMergeSmem)
+    return (int)cudaErrorInvalidValue;
+  if (H == 0) return 0;
+  if (span == 0) {
+    using Dest = int16_t;  // the stream's; harness/xch_ab.py times int32
+    xch_route4_rows_kernel<P, Dest><<<(H + kWarps - 1) / kWarps, kThreads,
+                                      0, (cudaStream_t)stream>>>(
+        prod, (const int32_t*)base, (const int8_t*)hm1, (const Dest*)dest,
+        (V*)y, H, T, n_y);
+    return (int)cudaGetLastError();
+  }
+  static bool raised = false;  // once: the spans may pass 48 KB
+  if (!raised) {
+    cudaFuncSetAttribute(xch_route4_rows_merge_kernel<P>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kMergeSmem);
+    raised = true;
+  }
+  const int rpb = rows_per_block(T);
+  xch_route4_rows_merge_kernel<P><<<H / rpb, kThreads, smem,
+                                    (cudaStream_t)stream>>>(
+      prod, (const int32_t*)base, (const int8_t*)hm1, (const int16_t*)dest,
+      (V*)y, T, rpb, n_y, span);
+  return (int)cudaGetLastError();
+}
+
 // S is the storage type of the products; y is of acc_t<S>.
 template <typename S>
 int launch_route4_rows(const void* base, const void* cs, const void* win,
@@ -616,35 +737,22 @@ int launch_route4_rows(const void* base, const void* cs, const void* win,
                        const void* dest, const void* prod, void* y, int H,
                        int T, int m, int p1, int n_y, int span,
                        void* stream) {
-  using V = acc_t<S>;
-  const size_t smem = (size_t)kWarps * span * sizeof(V);
-  if (m < 1 || m > kMaxWindow || T < 1 || H < 0 || H % T || p1 < 1 ||
-      n_y < 0 || span < 0 || span % kLanes || smem > kMergeSmem)
-    return (int)cudaErrorInvalidValue;
-  if (H == 0) return 0;
-  if (span == 0) {
-    using Dest = int16_t;  // the stream's; harness/xch_ab.py times int32
-    xch_route4_rows_kernel<S, Dest><<<(H + kWarps - 1) / kWarps, kThreads,
-                                      0, (cudaStream_t)stream>>>(
-        (const int32_t*)base, (const int32_t*)cs, (const int32_t*)win,
-        (const int8_t*)lane, (const int8_t*)sub, (const int8_t*)hm1,
-        (const Dest*)dest, (const S*)prod, (V*)y, H, T, m, p1, n_y);
-    return (int)cudaGetLastError();
-  }
-  static bool raised = false;  // once: the spans may pass 48 KB
-  if (!raised) {
-    cudaFuncSetAttribute(xch_route4_rows_merge_kernel<S>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         kMergeSmem);
-    raised = true;
-  }
-  const int rpb = rows_per_block(T);
-  xch_route4_rows_merge_kernel<S><<<H / rpb, kThreads, smem,
-                               (cudaStream_t)stream>>>(
-      (const int32_t*)base, (const int32_t*)cs, (const int32_t*)win,
-      (const int8_t*)lane, (const int8_t*)sub, (const int8_t*)hm1,
-      (const int16_t*)dest, (const S*)prod, (V*)y, T, rpb, m, p1, n_y, span);
-  return (int)cudaGetLastError();
+  if (m < 1 || m > kMaxWindow || p1 < 1) return (int)cudaErrorInvalidValue;
+  const GridProducts<S> p{(const int32_t*)cs, (const int32_t*)win,
+                          (const int8_t*)lane, (const int8_t*)sub,
+                          (const S*)prod, T, m, p1};
+  return launch_rows(p, base, hm1, dest, y, H, T, n_y, span, stream);
+}
+
+// S is the storage type of val2 and x; y is of acc_t<S>.
+template <typename S>
+int launch_fused_rows(const void* base, const void* val2, const void* col2,
+                      const void* hm1, const void* dest, const void* x,
+                      void* y, int H, int T, int n_y, int span,
+                      void* stream) {
+  const StreamGather<S> p{(const S*)val2, (const int32_t*)col2,
+                          (const S*)x};
+  return launch_rows(p, base, hm1, dest, y, H, T, n_y, span, stream);
 }
 
 }  // namespace
@@ -734,6 +842,40 @@ extern "C" int xch_route4_rows_bf16(const void* base, const void* cs,
                                     int n_y, int span, void* stream) {
   return launch_route4_rows<bf16>(base, cs, win, lane, sub, hm1, dest, prod,
                                   y, H, T, m, p1, n_y, span, stream);
+}
+
+// The fused spmv route: adds into `y` (n_y values of the accumulator type,
+// zeroed by the caller before its first call) the run totals of the
+// products val2 * x[col2], made in registers; val2 and col2 are the
+// (H, 128) pass-2-ordered value and x-position streams of route_rows,
+// every col2 inside x; base, hm1, dest and span as in xch_route4_rows.
+extern "C" int xch_fused_rows_f32(const void* base, const void* val2,
+                                  const void* col2, const void* hm1,
+                                  const void* dest, const void* x, void* y,
+                                  int H, int T, int n_y, int span,
+                                  void* stream) {
+  return launch_fused_rows<float>(base, val2, col2, hm1, dest, x, y, H, T,
+                                  n_y, span, stream);
+}
+
+extern "C" int xch_fused_rows_f64(const void* base, const void* val2,
+                                  const void* col2, const void* hm1,
+                                  const void* dest, const void* x, void* y,
+                                  int H, int T, int n_y, int span,
+                                  void* stream) {
+  return launch_fused_rows<double>(base, val2, col2, hm1, dest, x, y, H, T,
+                                   n_y, span, stream);
+}
+
+// bfloat16 val2 and x (each product rounded once to bfloat16), float32 y:
+// the caller rounds y once.
+extern "C" int xch_fused_rows_bf16(const void* base, const void* val2,
+                                   const void* col2, const void* hm1,
+                                   const void* dest, const void* x, void* y,
+                                   int H, int T, int n_y, int span,
+                                   void* stream) {
+  return launch_fused_rows<bf16>(base, val2, col2, hm1, dest, x, y, H, T,
+                                 n_y, span, stream);
 }
 
 // `out` (H, 128, B) is written in full; `x` is the interleaved (cb, 128, B)

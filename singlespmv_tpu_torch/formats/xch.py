@@ -23,21 +23,27 @@ memories; they stay until the port sheds them (ROADMAP A.7b).  The v3
 its kernel is, as ``ops/xch.py:xch_route``, for the calibration.
 
 ``convert`` and ``state_from_reference`` also derive, with ``route_rows``,
-the one stream the card's spmv route needs from the reference's routing
-arrays (``gids2``, ``off2``, ``sig2``, ``idx2``, ``vis_gids``): ``base2``,
-the y position of each pass-2 step's out row 0, ``dest2``, each run's y
-position relative to it at the run's end slot, and ``merge2``, the span
-over which the route sums a block's rows first where their run ends pile
-onto few y rows.  The reference's arrays stay the source of truth: the SpMM
-panel route and ``to_coo`` read them.
+the streams the card's spmv needs from the reference's arrays: from the
+routing arrays (``gids2``, ``off2``, ``sig2``, ``idx2``, ``vis_gids``)
+``base2``, the y position of each pass-2 step's out row 0, ``dest2``, each
+run's y position relative to it at the run's end slot, and ``merge2``, the
+span over which the route sums a block's rows first where their run ends
+pile onto few y rows; and from the exchange (``cs2``, ``win2``, ``sub2``,
+``lane2`` of pass 2, ``win1``, ``sub1``, ``lane1``, ``val1`` of pass 1)
+``val2`` and ``col2``, the value and the x position of the pass-1 slot whose
+product pass 2 reads at each of its slots: the products' stream in pass 2's
+order.  The reference's arrays stay the source of truth: the SpMM panels,
+``phases``, ``to_coo`` and the calibration read them.
 
-Device half (``spmv``): pads x into the x table, runs one ``xch_mul`` per
-pass-1 call, each writing its rows of one product grid, and one
-``xch_route4_rows`` per pass-2 call, each adding its run totals straight
-into one zeroed y (``ops/xch.py``); then adds the nested long-row state's y
-at ``long_rows`` and the peeled bands as shifted slices of x.  ``phases``
-splits the first two steps into Mul and Sum for the driver's profiling,
-where the state has no long-row state.  ``spmm`` runs
+Device half (``spmv``): one ``xch_fused_rows`` per pass-2 call, each
+gathering x at ``col2``, multiplying by ``val2`` in registers and adding its
+run totals straight into one zeroed y (``ops/xch.py``): no x table and no
+product grid.  Then it adds the nested long-row state's y at ``long_rows``
+and the peeled bands as shifted slices of x.  ``phases`` splits the
+reference's two passes into Mul (the x table and one ``xch_mul`` per pass-1
+call, each writing its rows of one product grid) and Sum (one
+``xch_route4_rows`` per pass-2 call on that grid) for the driver's
+profiling, where the state has no long-row state.  ``spmm`` runs
 ``xch_mul_panel`` and ``xch_route4_panel`` on the interleaved panel (each
 row's B values contiguous, the out rows in Y's own layout) and places the
 visited out groups into Y, under the reference's gates.
@@ -67,12 +73,12 @@ from ..core.dtypes import (acc, acc_dtype, from_numpy, to_host, value_size,
 from ..core.types import COOMatrix, cdiv
 
 from ..ops.slab import PANEL_TYPES
-from ..ops.xch import MERGE_SMEM, xch_mul, xch_mul_panel, xch_route4_panel, \
-    xch_route4_rows
+from ..ops.xch import MERGE_SMEM, xch_fused_rows, xch_mul, xch_mul_panel, \
+    xch_route4_panel, xch_route4_rows
 from .base import TensorState, check_dtype, column_loop
 from .slab import _t, _walk
 
-STATE_REV = 1   # bump with a change of the layout (formats/cache.py)
+STATE_REV = 2   # bump with a change of the layout (formats/cache.py)
 LANES = 128
 X_TABLE_CAP = 96 << 20      # VMEM-resident x table bound (v5e, as slab)
 P1_CAP_ROWS = 12288         # chunk product block ≤ 6 MB VMEM (12288·128·4B)
@@ -138,6 +144,9 @@ class Xch4State(TensorState):
     dest2: tuple = ()        # (H_c, 128) int16 — run-end y position −
     #                          base2, −1 off run ends
     merge2: int = 0          # the route's merge span (0: none)
+    val2: tuple = ()         # (H_c, 128) of val1's type — value of the
+    #                          pass-1 slot pass 2 reads there (0: padding)
+    col2: tuple = ()         # (H_c, 128) int32 — its x position (0: padding)
 
 
 # ---------------------------------------------------------------- planning ---
@@ -929,7 +938,7 @@ def convert(coo: COOMatrix, cfg: Config, plan: dict = None) -> Xch4State:
     return _convert_v4(coo, cfg, p)
 
 
-ROUTE_FIELDS = ("base2", "dest2", "merge2")
+ROUTE_FIELDS = ("base2", "dest2", "merge2", "val2", "col2")
 DEST_NONE = -1
 MERGE_HITS = 4.0     # run ends a y row a block, from which a block merges
 
@@ -944,10 +953,11 @@ def _rows_per_block(t2: int) -> int:
 
 
 def route_rows(state) -> dict:
-    """{base2, dest2, merge2}: the run-end destination stream of the spmv
-    route, from the reference's arrays of ``state`` (``gids2``, ``off2``,
-    ``sig2``, ``idx2``, ``vis_gids``, ``chunk_ngrp``, ``gb``, ``p_oh``,
-    ``kblk``, ``t2``, ``n_row``, ``val1``; CPU tensors or numpy arrays).
+    """{base2, dest2, merge2, val2, col2}: the run-end destination stream of
+    the spmv route, from the reference's arrays of ``state`` (``gids2``,
+    ``off2``, ``sig2``, ``idx2``, ``vis_gids``, ``chunk_ngrp``, ``gb``,
+    ``p_oh``, ``kblk``, ``t2``, ``n_row``, ``val1``; CPU tensors or numpy
+    arrays), and the products' stream in pass 2's order (``stream_rows``).
     Per pass-2 call, ``base2`` is one int32 a step, the y position of the
     step's out row 0, (vis_gids[g0 + gids] · gb + off) · 128, and ``dest2``
     an (H, 128) int16 that holds, at the slot e that ends a run, the run's
@@ -1014,7 +1024,87 @@ def route_rows(state) -> dict:
     vsz = acc_dtype(state.val1[0].dtype).itemsize    # the spans' sums
     merge = hits >= MERGE_HITS and 8 * span * vsz <= MERGE_SMEM
     return dict(base2=tuple(bases), dest2=tuple(dests),
-                merge2=span if merge else 0)
+                merge2=span if merge else 0, **stream_rows(state))
+
+
+def _cat(parts, axis=0):
+    """The per-call host arrays (CPU tensors or numpy arrays) of a field,
+    concatenated into one numpy array."""
+    return np.concatenate([np.asarray(a) for a in parts], axis=axis)
+
+
+def _values(parts, lo=None) -> torch.Tensor:
+    """The per-call values ``val1``, flat, as one CPU tensor of their type
+    (numpy arrays too, the reference's bfloat16 among them); with ``lo``,
+    the reference's df64 lo planes, hi + lo in float64, as
+    ``state_from_reference`` folds them."""
+    if lo is not None:
+        return torch.from_numpy(np.concatenate([
+            np.asarray(h, np.float64).reshape(-1)
+            + np.asarray(l_, np.float64).reshape(-1)
+            for h, l_ in zip(parts, lo)]))
+    return torch.cat([(a if isinstance(a, torch.Tensor)
+                       else from_numpy(np.asarray(a))).reshape(-1)
+                      for a in parts])
+
+
+def stream_rows(state) -> dict:
+    """{val2, col2}: per pass-2 call, the value and the x position of the
+    pass-1 slot whose product pass 2's route reads at each of its slots,
+    padding slots included, so that val2 · x[col2] is the product there,
+    product for product.
+
+    Each nonzero has one pass-1 slot and one pass-2 slot; pass 2 reads, at
+    slot (r, l) of step t, the product of pass-1 slot
+    P = (cs2[t] · p1 + win2[r] + sub2[r, l]) · 128 + lane2[r, l] (sub2
+    unread at m2 1), which pass 1 made from val1[P] and x position
+    (win1[P / 128] + sub1[P]) · 128 + lane1[P] (sub1 unread at m1 1).  A
+    position at or past n_col lies in the x table's zero padding: its slot
+    gets col2 0 and val2 0, and a nonzero val1 there raises ValueError (its
+    product would drop a value).  Raises ValueError on a P outside the
+    product grid.  int64 index arithmetic, one call at a time.  A
+    reference df64 state's values are its hi + lo planes (``val1_lo``)."""
+    t2, p1, m1, m2 = state.t2, state.p1, state.m1, state.m2
+    n_col = state.n_col
+    val1 = _values(state.val1, getattr(state, "val1_lo", None))
+    if not state.n_slots1:
+        rows = [np.asarray(la).shape[0] for la in state.lane2]
+        return dict(val2=tuple(val1.new_zeros(h, LANES) for h in rows),
+                    col2=tuple(torch.zeros(h, LANES, dtype=torch.int32)
+                               for h in rows))
+    win1 = _cat(state.win1).astype(np.int64)
+    lane1 = _cat(state.lane1).reshape(-1)
+    sub1 = _cat(state.sub1).reshape(-1) if m1 > 1 else None
+    n1 = val1.numel()
+    vals, cols = [], []
+    for cs, win, lane, sub in zip(state.cs2, state.win2, state.lane2,
+                                  state.sub2):
+        lane = np.asarray(lane).astype(np.int64)
+        h = lane.shape[0]
+        row = (np.asarray(cs).astype(np.int64)[np.arange(h) // t2] * p1
+               + np.asarray(win).astype(np.int64))              # (h,)
+        P = row[:, None] * LANES + lane
+        if m2 > 1:
+            P += np.asarray(sub).astype(np.int64) * LANES
+        if h and (P.min() < 0 or P.max() >= n1):
+            raise ValueError("xch: a pass-2 slot reads outside the product "
+                             "grid")
+        P = P.reshape(-1)
+        col = (win1[P >> 7] * LANES + lane1[P]).astype(np.int64)
+        if sub1 is not None:
+            col += sub1[P].astype(np.int64) * LANES
+        val = val1[torch.from_numpy(P)]
+        pad = col >= n_col
+        if pad.any():
+            pad_t = torch.from_numpy(pad)
+            if bool((val[pad_t] != 0).any()):
+                raise ValueError("xch: a nonzero value reads x past n_col "
+                                 "(the x table's zero padding)")
+            val[pad_t] = 0
+            col[pad] = 0
+        vals.append(val.reshape(h, LANES))
+        cols.append(_t(col.astype(np.int32).reshape(h, LANES)))
+    return dict(val2=tuple(vals), col2=tuple(cols))
 
 
 def adds_per_row(state: Xch4State) -> np.ndarray:
@@ -1040,8 +1130,8 @@ def adds_per_row(state: Xch4State) -> np.ndarray:
 
 
 def with_routes(state: Xch4State) -> Xch4State:
-    """``state`` with its ``base2``, ``dest2`` and ``merge2`` from
-    ``route_rows``."""
+    """``state`` with its ``base2``, ``dest2``, ``merge2``, ``val2`` and
+    ``col2`` from ``route_rows``."""
     return dataclasses.replace(state, **route_rows(state))
 
 
@@ -1141,7 +1231,9 @@ def _route_phase4(state: Xch4State, prod3: torch.Tensor) -> torch.Tensor:
 
 def phases(state: Xch4State):
     """Mul/Sum split for the driver's MulPerf/SumPerf report keys (the
-    reference's ``formats/xch.py:2171-2178``).  None where a nested
+    reference's ``formats/xch.py:2171-2178``): the reference's two passes,
+    pass 1 writing the product grid and pass 2 routing it, where ``spmv``
+    runs both in one fused launch a pass-2 call.  None where a nested
     long-row state holds rows (the Sum phase would need x) or pass 1 has no
     slot.  As in the reference, the phases leave out the peeled bands
     (``_dia_part``): on a state with a peel, Sum's time leaves out the
@@ -1151,14 +1243,31 @@ def phases(state: Xch4State):
     return {"Mul": _mul_phase4, "Sum": _route_phase4}
 
 
-def _spmv_acc(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
+def _fused_part(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
+    """The exchange's y: one ``xch_fused_rows`` a pass-2 call."""
+    y = torch.zeros(state.n_row, dtype=acc_dtype(x.dtype), device=x.device)
     if state.n_slots1:
-        y = _route_phase4(state, _mul_phase4(state, x))
-    else:
-        y = torch.zeros(state.n_row, dtype=acc_dtype(x.dtype), device=x.device)
+        for b, v, c, h2, d in zip(state.base2, state.val2, state.col2,
+                                  state.hm2, state.dest2):
+            xch_fused_rows(b, v, c, h2, d, x, y, state.t2, state.merge2)
+    return y
+
+
+def _pair_part(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
+    """The exchange's y as the pair makes it: Mul, then Sum."""
+    if state.n_slots1:
+        return _route_phase4(state, _mul_phase4(state, x))
+    return torch.zeros(state.n_row, dtype=acc_dtype(x.dtype),
+                       device=x.device)
+
+
+def _spmv_acc(state: Xch4State, x: torch.Tensor,
+              part=_fused_part) -> torch.Tensor:
+    y = part(state, x)
     if state.long is not None:
         # long_rows are distinct, so the add is a plain scatter-add
-        y.index_add_(0, state.long_rows.long(), _spmv_acc(state.long, x))
+        y.index_add_(0, state.long_rows.long(),
+                     _spmv_acc(state.long, x, part))
     if state.dia_vals is not None:
         y = y + _dia_part(state, x)
     return y
@@ -1168,6 +1277,17 @@ def spmv_acc(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
     """y = A x in the accumulator type (float32 for bfloat16 values)."""
     _check_x(state, x)
     return _spmv_acc(state, x)
+
+
+def pair_spmv_acc(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
+    """``spmv_acc`` as the pair computes it, the spmv before the fused
+    route: on the state and each nested state the phases' Mul
+    (``xch_mul`` writing the product grid) and Sum (``xch_route4_rows``
+    routing it), then the long rows and the peeled bands.  The same
+    products and run totals, added in another order: the card's checks
+    hold the fused spmv to it within each row's reorder bound."""
+    _check_x(state, x)
+    return _spmv_acc(state, x, _pair_part)
 
 
 def spmv(state: Xch4State, x: torch.Tensor) -> torch.Tensor:

@@ -80,12 +80,20 @@ KERNELS = ("slab_spmm_kernel", "xch_mul_panel_kernel",
            "xch_route4_panel_kernel")
 
 
+def kernel_hit(key, line: str) -> bool:
+    """Whether ``line`` names kernel ``key``: a substring of its mangled
+    name, or a tuple of substrings that it must all hold (a template's name
+    and its arguments)."""
+    return all(k in line for k in ((key,) if isinstance(key, str) else key))
+
+
 def build_variant(name: str, subs: dict, sources=("slab.cu", "xch.cu"),
                   kernels=KERNELS) -> tuple:
     """Compiles the variant's ``sources`` into a shared library; returns
     (library, {kernel: registers}, {kernel: ATOMS.CAST count}) over the
-    kernels whose names hold one of ``kernels``.  The library keeps nvcc's
-    output (ptxas) as ``ptxas_log`` and its SASS (cuobjdump) as ``sass``."""
+    kernels whose names hold one of ``kernels`` (``kernel_hit``).  The
+    library keeps nvcc's output (ptxas) as ``ptxas_log`` and its SASS
+    (cuobjdump) as ``sass``."""
     work = tempfile.mkdtemp(prefix="panel_ab_")
     shutil.copytree(_build.CSRC_DIR, work, dirs_exist_ok=True)
     hits = dict.fromkeys(subs, 0)
@@ -122,7 +130,7 @@ def build_variant(name: str, subs: dict, sources=("slab.cu", "xch.cu"),
     regs, current = {}, None
     for line in log.splitlines():
         if "Compiling entry" in line:
-            current = next((k for k in kernels if k in line), None)
+            current = next((k for k in kernels if kernel_hit(k, line)), None)
         elif current and "registers" in line:
             regs[current] = int(re.search(r"(\d+) registers", line).group(1))
             current = None
@@ -133,7 +141,7 @@ def build_variant(name: str, subs: dict, sources=("slab.cu", "xch.cu"),
     cas, current = dict.fromkeys(kernels, 0), None
     for line in sass.splitlines():
         if "Function :" in line:
-            current = next((k for k in kernels if k in line), None)
+            current = next((k for k in kernels if kernel_hit(k, line)), None)
         elif current and "ATOMS.CAST" in line:
             cas[current] += 1
     return lib, regs, cas

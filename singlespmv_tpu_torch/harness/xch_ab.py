@@ -1,17 +1,29 @@
-"""A/B of the xch spmv pair's design on the card.
+"""A/B of the xch spmv's design on the card: the fused route against the
+pair it replaced, and the pair's own designs.
 
     python -m singlespmv_tpu_torch.harness.xch_ab     # needs a GPU and nvcc
     python -m singlespmv_tpu_torch.harness.xch_ab --no-circuit5M
+    python -m singlespmv_tpu_torch.harness.xch_ab --coo-dir DIR
 
 Builds ``csrc/xch.cu`` as it is and the variants of ``VARIANTS``, each a
 copy of ``csrc/`` with one change (text substitutions, as in
 ``panel_ab.py``), and times them in turns on the xch states of the
 structure-matched stand-ins (seed 0): webbase-1M and ASIC_680ks in float32
 and float64, and circuit5M in float32, every call of a state and of its
-nested long-row state.  Over two passes (the variants in order, then
+nested long-row state; with ``--dist R`` also each shard of DistXch on
+webbase-1M at R shards (its x footprint as x).  ``--variants NAME ...``
+builds only those variants beside "as built".  Over two passes (the variants in order, then
 reversed) it times, as device busy µs (torch.profiler):
 
-- the spmv route: ``xch_route4_rows`` as built; ``route direct`` (a
+- the fused route: ``xch_fused_rows`` as built (both passes in one launch
+  a pass-2 call, the products in registers from ``val2``/``col2``) against
+  the pair as built (``xch_mul`` then ``xch_route4_rows``, both kernels'
+  busy time); ``fused 2 rows a warp`` (a warp of the direct kernel takes
+  two stream rows in turn), ``fused x plain loads`` (x gathered by
+  plain loads, not through the read-only path ``__ldg``) and ``fused no
+  gather`` (diagnostic: every lane reads x at its own four slots, col2
+  still loaded);
+- the pair's route: ``xch_route4_rows`` as built; ``route direct`` (a
   reduction a run end on every state, the merge span of ``route_rows``
   unused); the first port's route ``xch_route4`` on the idx planes
   ((p_oh, 128) shared accumulator);
@@ -19,7 +31,8 @@ reversed) it times, as device busy µs (torch.profiler):
   dest`` (absolute int32 destinations, base 0);
 - the multiply: ``xch_mul`` as built; ``mul 2 rows a warp``; ``mul no
   gather`` (diagnostic: every lane reads x at its own four slots);
-- the whole spmv: as built; ``as before`` (the glue of the first port:
+- the whole spmv: as built (fused); ``pair`` (the spmv before the fused
+  route: ``phases``' Mul then Sum); ``as before`` (the glue of the first port:
   the products' ``cat``, one zeroed out block a route call, their ``cat``
   and the y scatter, on the first port's route); on circuit5M ``L2 batches``, pass-1
   and pass-2 calls alternating by batches of chunks whose products fit in
@@ -30,8 +43,9 @@ reversed) it times, as device busy µs (torch.profiler):
 Variants that compute the same function are held to the plain versions
 within 1e-5·max|y| (1e-12 at float64); the diagnostic ones are not.  It
 prints the card's name and power limit, each build's registers for the
-pair's kernels (ptxas) and the count of global reductions (``RED``) and
-shared-memory compare-and-swap loops (``ATOMS.CAST``) in their SASS.
+kernels (ptxas) and the count of global reductions (``RED``) and
+shared-memory compare-and-swap loops (``ATOMS.CAST``) in their SASS, the
+fused route's direct and merge kernels beside the pair's.
 """
 from __future__ import annotations
 
@@ -43,11 +57,11 @@ import numpy as np
 import torch
 
 from .. import Config
-from ..data import synthesize_structured
 from ..formats import xch
 from ..ops import _build
 from ..ops import xch as xops
-from .panel_ab import build_variant, busy_us
+from .chain_times import stand_in
+from .panel_ab import build_variant, busy_us, kernel_hit
 
 ATOMIC = ("  if (d >= 0 && pos < n_y) atomicAdd(y + pos, v);"
           "  // result unused: RED.ADD")
@@ -62,7 +76,7 @@ VARIANTS = {
   const size_t off = (size_t)r * kLanes + 4 * (threadIdx.x & 31);
   store4(out + off, mul4(load4(val + off), gather4(r, m, win, lane, sub, x)));""":
         """  const int r0 = 2 * (blockIdx.x * kWarps + (threadIdx.x >> 5));
-  V4<V> v[2], g[2];
+  V4<S> v[2], g[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (r0 + i >= H) break;
@@ -79,11 +93,45 @@ VARIANTS = {
             "xch_mul_kernel<V><<<(H + 2 * kWarps - 1) / (2 * kWarps),"},
     "mul no gather": {"gather4(r, m, win, lane, sub, x)));":
                       "load4(x + 4 * (threadIdx.x & 31))));"},
+    # a warp of the direct route takes two stream rows in turn
+    "fused 2 rows a warp": {
+        """  const int r = blockIdx.x * kWarps + warp;
+  if (r >= H) return;  // uniform over the warp
+  const size_t off""":
+        """  const int r0 = 2 * (blockIdx.x * kWarps + warp);
+#pragma unroll
+  for (int r = r0; r < r0 + 2; ++r) {
+  if (r >= H) return;  // uniform over the warp
+  const size_t off""",
+        """  add_run(y, b, d.w, w.w, n_y);
+}""": """  add_run(y, b, d.w, w.w, n_y);
+  }
+}""",
+        "xch_route4_rows_kernel<P, Dest><<<(H + kWarps - 1) / kWarps,":
+            "xch_route4_rows_kernel<P, Dest><<<(H + 2 * kWarps - 1) / "
+            "(2 * kWarps),"},
+    # diagnostic: every lane reads x at its own four slots (col2 still
+    # loaded): what the gather's locality costs
+    "fused no gather": {
+        """    const V4<S> g = {ldg_acc(x + c.x), ldg_acc(x + c.y), ldg_acc(x + c.z),
+                     ldg_acc(x + c.w)};""":
+        """    const V4<S> g = load4(x + 4 * (threadIdx.x & 31) + (c.x < 0));"""},
+    "fused x plain loads": {
+        """    const V4<S> g = {ldg_acc(x + c.x), ldg_acc(x + c.y), ldg_acc(x + c.z),
+                     ldg_acc(x + c.w)};""":
+        """    const V4<S> g = {to_acc(x[c.x]), to_acc(x[c.y]), to_acc(x[c.z]),
+                     to_acc(x[c.w])};"""},
 }
-DIAGNOSTIC = ("plain stores", "mul no gather")
-KERNELS = tuple(f"{k}I{t}" for k in (
-    "xch_route4_rows_kernel", "xch_route4_rows_merge_kernel",
-    "xch_route4_kernel", "xch_mul_kernel") for t in "fd")
+DIAGNOSTIC = ("plain stores", "mul no gather", "fused no gather")
+FUSED_VARIANTS = ("fused 2 rows a warp", "fused x plain loads",
+                  "fused no gather")
+# the kernels whose registers and SASS are counted: the route kernels are
+# one template, told apart by their producer (float, double)
+KERNELS = tuple((k + "I", f"{p}I{t}") for k in (
+    "xch_route4_rows_kernel", "xch_route4_rows_merge_kernel")
+    for p in ("StreamGather", "GridProducts") for t in "fd") + tuple(
+    f"{k}I{t}" for k in ("xch_route4_kernel", "xch_mul_kernel")
+    for t in "fd")
 SASS = ("REDG", "ATOMG", "ATOMS.CAST")
 MATS = (("webbase-1M", ("float32", "float64")),
         ("ASIC_680ks", ("float32", "float64")),
@@ -99,6 +147,10 @@ def _states(state):
         state = state.long
 
 
+def _label(key) -> str:
+    return key if isinstance(key, str) else "<".join(key)
+
+
 def sass_counts(path: str, kernels=KERNELS, patterns=SASS) -> dict:
     """{kernel: {pattern: instructions}} from cuobjdump's SASS of ``path``."""
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
@@ -107,7 +159,7 @@ def sass_counts(path: str, kernels=KERNELS, patterns=SASS) -> dict:
     out, current = {k: dict.fromkeys(patterns, 0) for k in kernels}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            current = next((k for k in kernels if k in line), None)
+            current = next((k for k in kernels if kernel_hit(k, line)), None)
         elif current:
             for p in patterns:
                 out[current][p] += p in line
@@ -275,6 +327,27 @@ class Case:
         return [self._rows(i, xops.xch_route4_rows)
                 for i in range(len(self.subs))]
 
+    def fused(self):
+        out = []
+        for s, y in zip(self.subs, self.ys):
+            y.zero_()
+            for a in zip(s.base2, s.val2, s.col2, s.hm2, s.dest2):
+                xops.xch_fused_rows(*a, self.x, y, s.t2, s.merge2)
+            out.append(y)
+        return out
+
+    def pair(self):
+        self.mul()
+        out = []
+        for i, (s, y) in enumerate(zip(self.subs, self.ys)):
+            y.zero_()
+            for a in zip(s.base2, s.cs2, s.win2, s.lane2, s.sub2, s.hm2,
+                         s.dest2):
+                xops.xch_route4_rows(*a, self.grids[i], y, s.m2, s.t2,
+                                     s.merge2)
+            out.append(y)
+        return out
+
     def route_direct(self):
         return [self._rows(i, xops.xch_route4_rows, merge=False)
                 for i in range(len(self.subs))]
@@ -309,6 +382,27 @@ class Case:
         return self.grids
 
 
+def dist_cases(coo, R, dev):
+    """A case a shard of DistXch on ``coo`` at R shards: the shard's state,
+    its x footprint, its matrix (``to_coo``) for cuSPARSE."""
+    from ..parallel import DistXch, make_mesh
+
+    op = DistXch.convert(coo, Config(format="xch"),
+                         make_mesh((("row", R),), device=dev))
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, coo.n_col).astype(np.float32)).to(dev)
+    out = []
+    for k, (st, fp) in enumerate(zip(op.states, op.footprints(x))):
+        out.append(Case(f"webbase-1M R{R} shard {k}",
+                        xch.to_coo(st.to("cpu")), st, fp[: st.n_col].clone(),
+                        dev))
+        print(f"{out[-1].label}: nnz {op.sub_nnz[k]} kblk {st.kblk} m1 "
+              f"{st.m1} m2 {st.m2} t2 {st.t2} rows {st.n_slots2 // 128} run "
+              f"ends {sum(int((d >= 0).sum()) for d in st.dest2)} merge "
+              f"{st.merge2}", flush=True)
+    return out
+
+
 def _close(got, want, label):
     for g, w in zip(got, want):
         torch.cuda.synchronize()
@@ -338,15 +432,22 @@ def run_variant(name, case, times):
     check = name not in DIAGNOSTIC
     x, st = case.x, case.state
     rows = []
+    if name == "as built":
+        rows.append(("fused as built", case.fused, "StreamGather",
+                     case.want_route))
+        rows.append(("pair as built (mul + route)", case.pair, "xch_",
+                     case.want_route))
+    if name in FUSED_VARIANTS:
+        rows.append((name, case.fused, "StreamGather", case.want_route))
     if name in ("as built", "plain stores"):
-        rows.append((f"route {name}", case.route, "xch_route4_rows",
+        rows.append((f"route {name}", case.route, "GridProducts",
                      case.want_route))
     if name == "int32 dest":
-        rows.append(("route int32 dest", case.route32,
-                     "xch_route4_rows_kernel", case.want_route))
+        rows.append(("route int32 dest", case.route32, "GridProducts",
+                     case.want_route))
     if name == "as built":
-        rows.append(("route direct", case.route_direct,
-                     "xch_route4_rows", case.want_route))
+        rows.append(("route direct", case.route_direct, "GridProducts",
+                     case.want_route))
         rows.append(("route idx planes (first port)", case.route_idx,
                      "xch_route4_kernel", case.want_route))
     if name in ("as built", "mul 2 rows a warp", "mul no gather"):
@@ -360,6 +461,7 @@ def run_variant(name, case, times):
     if name != "as built":
         return
     spmvs = [("spmv as built", lambda: xch.spmv(st, x)),
+             ("spmv pair", lambda: xch.pair_spmv_acc(st, x)),
              ("spmv as before", lambda: spmv_before(st, x))]
     if case.batches is not None:
         spmvs.append(("spmv L2 batches", lambda: spmv_l2(st, x,
@@ -378,6 +480,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--no-circuit5M", action="store_true",
                     help="leave out circuit5M (its stand-in takes minutes)")
+    ap.add_argument("--dist", type=int, default=0, metavar="R",
+                    help="add DistXch's R shards of webbase-1M as cases")
+    ap.add_argument("--variants", nargs="*", default=None,
+                    help="build only these variants beside 'as built'")
+    ap.add_argument("--coo-dir", default=None,
+                    help="read the stand-ins from DIR/<name>.npz where "
+                    "they are there, else keep them there "
+                    "(harness/chain_times.py's)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("xch_ab needs a CUDA device")
@@ -386,11 +496,16 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     builds = {}
-    for name, subs in VARIANTS.items():
+    variants = {k: v for k, v in VARIANTS.items()
+                if args.variants is None or k == "as built"
+                or k in args.variants}
+    for name, subs in variants.items():
         lib, regs, _ = build_variant(name, subs, ("xch.cu",), KERNELS)
         builds[name] = lib
-        print(f"build {name!r}: registers {regs}; SASS "
-              f"{sass_counts(lib._name)}", flush=True)
+        print(f"build {name!r}: registers "
+              f"{ {_label(k): v for k, v in regs.items()} }; SASS "
+              f"{ {_label(k): v for k, v in sass_counts(lib._name).items()} }",
+              flush=True)
     cases = []
     saved = _build._lib
     _build._lib = builds["as built"]
@@ -398,7 +513,7 @@ def main(argv=None) -> int:
         for name, dtypes in MATS:
             if args.no_circuit5M and name == "circuit5M":
                 continue
-            coo = synthesize_structured(name)
+            coo = stand_in(name, args.coo_dir)
             for dtype in dtypes:
                 st = xch.convert(coo, Config(format="xch", dtype=dtype))
                 x = torch.from_numpy(np.random.default_rng(0).uniform(
@@ -414,8 +529,11 @@ def main(argv=None) -> int:
                     + (f"; L2 batches {len(cases[-1].batches)}"
                        if cases[-1].batches else ""), flush=True)
             del coo
+        if args.dist:
+            cases += dist_cases(stand_in("webbase-1M", args.coo_dir),
+                                args.dist, dev)
         times = {}
-        for order in (list(VARIANTS), list(VARIANTS)[::-1]):
+        for order in (list(variants), list(variants)[::-1]):
             for name in order:
                 _build._lib = builds[name]
                 for case in cases:

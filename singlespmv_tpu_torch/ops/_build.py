@@ -67,6 +67,10 @@ SIGNATURES = {
     "xch_route4_rows_f32": [_P] * 9 + [_I] * 6 + [_P],
     "xch_route4_rows_f64": [_P] * 9 + [_I] * 6 + [_P],
     "xch_route4_rows_bf16": [_P] * 9 + [_I] * 6 + [_P],
+    # base val2 col2 hm1 dest x y | H T n_y span | stream
+    "xch_fused_rows_f32": [_P] * 7 + [_I] * 4 + [_P],
+    "xch_fused_rows_f64": [_P] * 7 + [_I] * 4 + [_P],
+    "xch_fused_rows_bf16": [_P] * 7 + [_I] * 4 + [_P],
     # win lane sub val x out | H T m B | stream
     "xch_mul_panel_f32": [_P] * 6 + [_I] * 4 + [_P],
     "xch_mul_panel_bf16": [_P] * 6 + [_I] * 4 + [_P],

@@ -15,11 +15,19 @@ caller in the port, the calibration's ``route_slot_s`` fit
 (``harness/calibrate.py``): the v3 format path that the reference reaches
 through ``plan={'route_v': 3}`` is not ported.
 
-``xch_route4_rows`` is pass 2 of the spmv path: the function of
-``xch_route4``, routed by a run-end destination stream (``base``, ``dest``)
+``xch_fused_rows`` is the spmv path: both passes in one launch a pass-2
+call.  It takes pass 2's run-end destination stream (``base``, ``dest``)
 that ``formats/xch.py:route_rows`` derives from the reference's ``gids``,
-``off``, ``sig`` and ``idx`` planes, adding into the caller's y where
-``xch_route4`` returns out groups.  ``xch_route4`` keeps the idx-plane
+``off``, ``sig`` and ``idx`` planes, and the pass-2-ordered value and
+x-position streams ``val2``/``col2`` that it composes from the exchange,
+gathers x, multiplies in registers and adds each run total into the
+caller's y: the function of ``xch_mul`` followed by ``xch_route4_rows``,
+product for product, with no product grid.
+
+``xch_route4_rows`` is the pair's pass 2, which the driver's profiling
+phases and nothing else on a path run: the function of ``xch_route4``,
+routed by the same ``base``/``dest`` stream, adding into the caller's y
+where ``xch_route4`` returns out groups.  ``xch_route4`` keeps the idx-plane
 contract: its plain version is the bridge that the CPU tests hold against
 the Pallas kernel, and its kernel, the first port, runs on no path (it is
 the "as before" variant of ``harness/xch_ab.py``).  On a CUDA tensor a
@@ -37,7 +45,9 @@ and both panels run bfloat16 kernels: val, the x table or panel and the
 product grid or panel are bfloat16 (2 bytes a slot in device memory, each
 product rounded once, as the reference's grid is ``val.dtype``), and the
 routes sum in float32 into a float32 y or out (``acc_dtype``), which the
-caller rounds once.
+caller rounds once.  ``xch_fused_rows`` does the same at bfloat16: each
+product rounded once to bfloat16, as the grid stores it, and float32 sums
+into a float32 y.
 
 Each wrapper counts the launches of its float32 kernel in
 ``<wrapper>.launches``, of its float64 kernel in ``<wrapper>.launches_f64``
@@ -49,6 +59,7 @@ caller needs no synchronisation between the two.
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 
@@ -154,6 +165,58 @@ def _check_rows_route(base, cs, win, lane, sub, hm1, dest, prod, y, m, T,
     return h, dev, vt
 
 
+_col_ranges = {}   # id(col2) → (its version, min, max): read once a tensor
+
+
+def _col_range(col2):
+    """(min, max) of ``col2``, read from the device once a tensor and
+    version (a synchronisation on the card: the first call on a state's
+    stream makes it, eagerly, before any CUDA graph captures the call)."""
+    key = id(col2)
+    hit = _col_ranges.get(key)
+    if hit is None or hit[0] != col2._version:
+        lo, hi = (int(v) for v in torch.aminmax(col2)) if col2.numel() \
+            else (0, -1)
+        if hit is None:
+            weakref.finalize(col2, _col_ranges.pop, key, None)
+        hit = _col_ranges[key] = (col2._version, lo, hi)
+    return hit[1:]
+
+
+def _check_fused(base, val2, col2, hm1, dest, x, y, T, span):
+    """Checks of the fused spmv route.  Returns (H, device, value type)."""
+    dev = _device(x)
+    if val2.dim() != 2 or val2.shape[1] != LANES:
+        raise ValueError(f"val2 has shape {tuple(val2.shape)}, expected "
+                         "(H, 128)")
+    h = val2.shape[0]
+    if T < 1 or h % T:
+        raise ValueError(f"stream rows {h} are not a multiple of T={T}")
+    if span < 0 or span % LANES or span > MERGE_SPAN_MAX:
+        raise ValueError(f"merge span {span} is not a multiple of 128 in "
+                         f"[0, {MERGE_SPAN_MAX}]")
+    vt = value_type(val2, SPMV_TYPES)
+    _check("val2", val2, vt, (h, LANES), dev)
+    _check("col2", col2, torch.int32, (h, LANES), dev)
+    _check("hm1", hm1, torch.int8, (h, LANES), dev)
+    _check("dest", dest, torch.int16, (h, LANES), dev)
+    _check("base", base, torch.int32, (h // T,), dev)
+    for name, t in (("x", x), ("y", y)):
+        if t.dim() != 1 or t.numel() >= 2 ** 31:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             "(n,) with n < 2**31")
+    _check("x", x, vt, x.shape, dev, aligned=False)   # read a value a slot
+    _check("y", y, acc_dtype(vt), y.shape, dev)
+    if span * acc_dtype(vt).itemsize * 8 > MERGE_SMEM:
+        raise ValueError(f"merge span {span} of {vt} passes the merge "
+                         f"kernel's {MERGE_SMEM} bytes of shared memory")
+    lo, hi = _col_range(col2)
+    if lo < 0 or hi >= x.numel():
+        raise ValueError(f"col2 holds x positions in [{lo}, {hi}], outside "
+                         f"x's {x.numel()} values")
+    return h, dev, vt
+
+
 # ----------------------------------------------------- plain PyTorch versions
 
 def xch_mul_ref(win, lane, sub, val, x_table, m: int, T: int = 64):
@@ -183,6 +246,15 @@ def xch_route4_ref(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
     return out
 
 
+def _add_runs(w, base, dest, y, T):
+    """``index_add_`` of the run totals ``w`` at their destinations."""
+    step = torch.arange(w.shape[0], device=w.device) // T
+    d = dest.long()
+    pos = base.long()[step][:, None] + d
+    keep = (d >= 0) & (pos < y.numel())
+    return y.index_add_(0, pos[keep], w[keep])
+
+
 def xch_route4_rows_ref(base, cs, win, lane, sub, hm1, dest, prod3, y,
                         m: int, T: int = 64, span: int = 0):
     """Plain version of ``xch_route4_rows``: ``index_add_`` of the run
@@ -192,10 +264,17 @@ def xch_route4_rows_ref(base, cs, win, lane, sub, hm1, dest, prod3, y,
     step = torch.arange(h, device=lane.device) // T
     rows = cs.long()[step] * prod3.shape[1] + win.long()   # product rows
     w = _totals(acc(_gather(rows, lane, sub, prod3, m)), hm1)
-    d = dest.long()
-    pos = base.long()[step][:, None] + d
-    keep = (d >= 0) & (pos < y.numel())
-    return y.index_add_(0, pos[keep], w[keep])
+    return _add_runs(w, base, dest, y, T)
+
+
+def xch_fused_rows_ref(base, val2, col2, hm1, dest, x, y, T: int = 64,
+                       span: int = 0):
+    """Plain version of ``xch_fused_rows``: the products val2 · x[col2],
+    each rounded to val2's type as ``xch_mul_ref`` rounds it (at bfloat16
+    the float32 product, exact, rounded once), then the run totals and
+    ``index_add_`` of ``xch_route4_rows_ref``."""
+    prod = (acc(val2) * acc(x[col2.long()])).to(val2.dtype)
+    return _add_runs(_totals(acc(prod), hm1), base, dest, y, T)
 
 
 def _active_planes(sg0, sg1, planes, pg):
@@ -353,6 +432,41 @@ def xch_route4_rows(base, cs, win, lane, sub, hm1, dest, prod3, y,
     return y
 
 
+def xch_fused_rows(base, val2, col2, hm1, dest, x, y, T: int = 64,
+                   span: int = 0):
+    """The spmv over one pass-2 call in one launch: the products
+    val2 · x[col2] made in registers, each rounded as ``xch_mul`` stores it,
+    and their run totals added into ``y`` as ``xch_route4_rows`` adds those
+    of the product grid; returns ``y``.
+
+    base: (n_steps,) int32 — y position of the step's out row 0.
+    val2: (H, 128) float32, float64 or bfloat16 — at each pass-2 slot the
+          value of the pass-1 slot whose product the pair's route reads
+          there (0 where that slot's x position lies in the x table's zero
+          padding).
+    col2: (H, 128) int32 — that slot's position in x (0 where padded);
+          every one in [0, x.numel()).
+    hm1:  (H, 128) int8 — pass 2's run head lane − 1.
+    dest: (H, 128) int16 — at a run's end slot, its y position less
+          base[step]; −1 on every other slot.
+    x:    (n,) of val2's type — read in place: no x table.
+    y:    (n_y,) of ``acc_dtype(val2.dtype)`` (float32 for bfloat16), zeroed
+          by the caller before its first call; positions at or past n_y
+          are dropped.
+    span: 0, or the merge kernel's span, as in ``xch_route4_rows``.
+    The sums of a y position add in run-dependent order on the card."""
+    h, dev, vt = _check_fused(base, val2, col2, hm1, dest, x, y, T, span)
+    if dev.type == "cpu":
+        return xch_fused_rows_ref(base, val2, col2, hm1, dest, x, y, T, span)
+    if h:
+        rc = _entry("xch_fused_rows", vt)(
+            *map(_ptr, (base, val2, col2, hm1, dest, x, y)), h, T,
+            y.numel(), span, _stream(dev))
+        _raise_on(rc, "xch_fused_rows")
+        _count(xch_fused_rows, vt)
+    return y
+
+
 def xch_mul_panel(win, lane, sub, val, x_panel, m: int, T: int = 64):
     """Pass 1 over one call chunk for a panel of B columns, float32 or
     bfloat16.
@@ -468,6 +582,8 @@ xch_mul.launches = xch_mul.launches_f64 = xch_mul.launches_bf16 = 0
 xch_route4.launches = xch_route4.launches_f64 = 0
 xch_route4_rows.launches = xch_route4_rows.launches_f64 = 0
 xch_route4_rows.launches_bf16 = 0
+xch_fused_rows.launches = xch_fused_rows.launches_f64 = 0
+xch_fused_rows.launches_bf16 = 0
 xch_mul_panel.launches = xch_mul_panel.launches_bf16 = 0
 xch_route4_panel.launches = xch_route4_panel.launches_bf16 = 0
 xch_route.launches = 0

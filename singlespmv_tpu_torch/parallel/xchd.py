@@ -12,12 +12,12 @@ tiled ``all_gather`` or, where every footprint spans few owners' slices
 guard-padded by one slice on each side, the owners it does not need left
 out.  Both give the same table, so the same y bit for bit.
 
-Each shard's spmv is the port's own xch spmv on its footprint table: one
-``xch_mul`` a pass-1 call writing the shard's product grid, then the
-``xch_route4_rows`` calls of ``route_rows``' stream adding the run totals
-straight into the shard's y span of ``rows_per`` rows (the reference's
-scatter of visited groups has nothing left to do); y is the spans placed at
-their first rows ``row0s``.  The reference refuses a shard whose layout
+Each shard's spmv is the port's own xch spmv on its footprint: one
+``xch_fused_rows`` a pass-2 call, which gathers the footprint at the
+shard's ``col2``, multiplies by its ``val2`` in registers and adds the run
+totals straight into the shard's y span of ``rows_per`` rows (no product
+grid; the reference's scatter of visited groups has nothing left to do); y
+is the spans placed at their first rows ``row0s``.  The reference refuses a shard whose layout
 needs several Pallas calls; here such a shard runs its calls as
 ``xch.spmv`` does.  The reference pads every shard's arrays to common
 stacked shapes for ``shard_map``; here each shard keeps its own.
@@ -241,10 +241,8 @@ class DistXch:
 
     def step(self, x: torch.Tensor) -> torch.Tensor:
         """y = A x for x (n_col,) float32 on the mesh's device."""
-        spans = []
-        for st, tab in zip(self.states, self.footprints(x)):
-            prod3 = xch_mod.products(st, tab.view(self.cb_pad, LANES))
-            spans.append(xch_mod._route_phase4(st, prod3))
+        spans = [xch_mod.spmv_acc(st, tab)
+                 for st, tab in zip(self.states, self.footprints(x))]
         return self._assemble(spans).to(x.dtype)
 
     def __call__(self, x) -> torch.Tensor:

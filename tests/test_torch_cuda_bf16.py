@@ -66,7 +66,8 @@ pytestmark = pytest.mark.cuda
 
 BF16 = "bfloat16"
 TOL = 1e-5       # a float32 y or scan against its plain version, of max|y|
-WRAPPERS = (ops.slab_spmv_rows, xops.xch_mul, xops.xch_route4_rows,
+WRAPPERS = (ops.slab_spmv_rows, xops.xch_fused_rows, xops.xch_mul,
+            xops.xch_route4_rows,
             bops.block_gather_mul, bops.bucket_rows, bops.bucket_fused_rows,
             bops.ellg_rows, sops.segmented_scan_tiles,
             gops.block_gather_scan)

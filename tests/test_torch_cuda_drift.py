@@ -16,8 +16,11 @@ also pass the oracle.  The states: a merged slab state (run ends per
 stream row at or above ``MERGE_ENDS``), a direct slab state, that powerlaw
 slab state, an xch state with the main diagonal peeled, a hyb state (a
 band peel over a slab or xch residual) and a bkt_g state (float32 only, as
-bkt is).  Each case prints whether the two results were
-bitwise equal and the worst drift as a share of its row's bound.
+bkt is); and the xch state's fused spmv against the pair it replaced
+(``xch_mul`` writing the product grid, ``xch_route4_rows`` routing it),
+which add the same run totals in another order.  Each case prints whether
+the two results were bitwise equal and the worst drift as a share of its
+row's bound.
 
 Needs an NVIDIA GPU and skips without one.  This file imports no jax:
 
@@ -122,6 +125,29 @@ def test_two_calls_drift_within_bound(cuda, kind, dtype):
     torch.cuda.synchronize()
     assert y1.dtype == vt and y1.shape == (coo.n_row,)
     within_reorder_bound(coo, st, spmv, x, y1, y2, f"{kind} {dtype}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_fused_xch_against_the_pair_within_bound(cuda, dtype):
+    """The fused spmv (``xch_fused_rows``: the products made in registers)
+    adds the same run totals as the pair it replaced, in another order:
+    the two y lie within each row's reorder bound."""
+    from singlespmv_tpu_torch.ops import xch as xops
+
+    coo, st, spmv = _case("xch", dtype)
+    st = st.to(cuda)
+    vt = getattr(torch, dtype)
+    x = torch.from_numpy(np.random.default_rng(2).uniform(
+        -1, 1, coo.n_col)).to(cuda, vt)
+    fused = xops.xch_fused_rows.launches + xops.xch_fused_rows.launches_f64
+    y1 = spmv(st, x)
+    torch.cuda.synchronize()
+    assert xops.xch_fused_rows.launches + \
+        xops.xch_fused_rows.launches_f64 > fused
+    y2 = xch.pair_spmv_acc(st, x).to(x.dtype)
+    torch.cuda.synchronize()
+    within_reorder_bound(coo, st, spmv, x, y1, y2,
+                         f"xch fused vs pair {dtype}")
 
 
 def test_bkt_g_two_calls_drift_within_bound(cuda):

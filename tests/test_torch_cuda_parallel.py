@@ -89,10 +89,14 @@ def test_dist_xch_on_the_card(cuda, coo_of, R, mode):
     coo = coo_of()
     card, plain = _pair(DistXch.convert, coo, (("row", R),), XCH)
     assert card.x_mode == mode
-    before = xops.xch_mul.launches, xops.xch_route4_rows.launches
+    before = (xops.xch_fused_rows.launches, xops.xch_mul.launches,
+              xops.xch_route4_rows.launches)
     _held(coo, card, plain, _x(coo, np.float32), np.float32)
-    assert xops.xch_mul.launches > before[0]
-    assert xops.xch_route4_rows.launches > before[1]
+    # the step runs the fused route, one launch a pass-2 call of a shard
+    assert xops.xch_fused_rows.launches == before[0] + sum(
+        len(st.base2) for st in card.states)
+    assert (xops.xch_mul.launches, xops.xch_route4_rows.launches) == \
+        before[1:]
 
 
 @pytest.mark.cuda

@@ -1,9 +1,12 @@
-"""Port xch CUDA kernels on the card: ``xch_mul``, the spmv route
-``xch_route4_rows`` and the first port's route ``xch_route4`` (on no path)
-against their plain versions, and the xch spmv against the float64 oracle
-through ``xch_mul`` and ``xch_route4_rows`` alone, over
-kblk 1/8/16/32, m2 1/8/24, t2 32 to 256, several kernel calls per pass, and
-a nested long-row state.
+"""Port xch CUDA kernels on the card: the spmv's fused route
+``xch_fused_rows`` (both passes in one launch, the products in registers),
+the pair it replaced, ``xch_mul`` and ``xch_route4_rows`` (on the profiling
+phases and the calibration), and the first port's route ``xch_route4`` (on
+no path) against their plain versions, and the xch spmv against the
+float64 oracle through ``xch_fused_rows`` alone, one launch a pass-2 call,
+over kblk 1/8/16/32, m2 1/8/24, t2 32 to 256, several kernel calls per
+pass, and a nested long-row state; the fused route at float32, float64 and
+bfloat16 in its direct and merge designs; the C entries' refusals.
 
 Needs an NVIDIA GPU and skips without one.  This file imports no jax, so it
 runs where only the port is installed:
@@ -71,6 +74,12 @@ def _close(got, want):
 def _kernels_vs_plain(st, x):
     """Every pass-1 and pass-2 call of the state (and of its nested state)
     through the kernel and its plain version."""
+    for a in zip(st.base2, st.val2, st.col2, st.hm2, st.dest2):
+        y = lambda: torch.zeros(st.n_row, device=x.device)
+        before = ops.xch_fused_rows.launches
+        got = ops.xch_fused_rows(*a, x, y(), st.t2, st.merge2)
+        assert ops.xch_fused_rows.launches == before + 1
+        _close(got, ops.xch_fused_rows_ref(*a, x, y(), st.t2))
     xt = xch.x_table(st, x)
     for w, la, su, va in zip(st.win1, st.lane1, st.sub1, st.val1):
         before = ops.xch_mul.launches
@@ -106,10 +115,12 @@ def _verify(coo, st, device, seed=3):
         np.float32)
     xd = torch.from_numpy(x).to(device)
     _kernels_vs_plain(st, xd)
-    before = ops.xch_route4.launches, ops.xch_route4_rows.launches
+    before = (ops.xch_route4.launches, ops.xch_mul.launches,
+              ops.xch_route4_rows.launches, ops.xch_fused_rows.launches)
     y = xch.spmv(st, xd).cpu().numpy()
-    assert (ops.xch_route4.launches, ops.xch_route4_rows.launches) == (
-        before[0], before[1] + _calls(st))      # the spmv's route is the new
+    assert (ops.xch_route4.launches, ops.xch_mul.launches,
+            ops.xch_route4_rows.launches, ops.xch_fused_rows.launches) == (
+        *before[:3], before[3] + _calls(st))    # the spmv's route: fused
     ok, det = verify_result(coo, x, y, dtype=np.float32)
     assert ok, det
 
@@ -224,3 +235,56 @@ def test_launchers_refuse_bad_ranges(cuda):
     # 8 spans of 64 · 128 floats (256 KB) pass the merge kernel's 96 KB
     assert lib.xch_route4_rows_f32(*null[:9], 64, 64, 8, 64, 100, 64 * 128,
                                    stream) != 0
+
+
+FUSED_TYPES = {"float32": ("launches", 1e-5), "float64": ("launches_f64",
+                                                         1e-12),
+               "bfloat16": ("launches_bf16", 1e-5)}
+
+
+@pytest.mark.parametrize("design", ["direct", "merge"])
+@pytest.mark.parametrize("dtype", list(FUSED_TYPES))
+def test_fused_kernel_against_its_plain_version(cuda, dtype, design):
+    """``xch_fused_rows`` against its plain version on every pass-2 call of
+    a scattered state and of the nested hub state, in the direct design (a
+    reduction a run end) and the merge design (a block's rows summed in
+    shared memory first, at the span of p_oh · 128), at each value type."""
+    from singlespmv_tpu_torch.core.dtypes import value_tensor
+
+    counter, tol = FUSED_TYPES[dtype]
+    cfg = Config(format="xch", dtype=dtype)
+    for coo in (_scatter(40000, 200000, seed=3), _hub_rows()):
+        st = xch.convert(coo, cfg)
+        x = value_tensor(np.random.default_rng(4).uniform(-1, 1, coo.n_col),
+                         dtype).to(cuda)
+        for s in (st, st.long) if st.long is not None else (st,):
+            s = s.to(cuda)
+            span = 0 if design == "direct" else s.p_oh * 128
+            if span * (8 if dtype == "float64" else 4) * 8 > ops.MERGE_SMEM:
+                continue                       # the spans do not fit
+            for a in zip(s.base2, s.val2, s.col2, s.hm2, s.dest2):
+                y = lambda: torch.zeros(s.n_row, device=cuda,
+                                        dtype=ops.acc_dtype(x.dtype))
+                before = getattr(ops.xch_fused_rows, counter)
+                got = ops.xch_fused_rows(*a, x, y(), s.t2, span)
+                torch.cuda.synchronize()
+                assert getattr(ops.xch_fused_rows, counter) == before + 1
+                want = ops.xch_fused_rows_ref(*a, x, y(), s.t2)
+                scale = float(want.abs().max())
+                assert float((got - want).abs().max()) <= tol * scale
+
+
+def test_fused_entries_refuse_bad_ranges(cuda):
+    lib = _build.load()
+    null = [None] * 7
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    # base val2 col2 hm1 dest x y | H T n_y span
+    for f in (lib.xch_fused_rows_f32, lib.xch_fused_rows_f64,
+              lib.xch_fused_rows_bf16):
+        assert f(*null, 96, 64, 100, 0, stream) != 0     # H % T
+        assert f(*null, 64, 0, 100, 0, stream) != 0      # T 0
+        assert f(*null, 64, 64, -1, 0, stream) != 0      # n_y < 0
+        assert f(*null, 64, 64, 100, 100, stream) != 0   # span % 128
+        assert f(*null, 64, 64, 100, -128, stream) != 0
+        assert f(*null, 64, 64, 100, 64 * 128, stream) != 0   # 8 spans
+        assert f(*null, 0, 64, 100, 0, stream) == 0      # nothing

@@ -100,7 +100,9 @@ def _assert_same_state(ref, port, lo_fields, path=""):
     """Every field equal, but the value fields, which must equal the
     reference's hi + lo (``lo_fields``: port field → reference lo field),
     and the spmv route streams of xch and slab, which must equal
-    ``route_rows`` of the reference's arrays."""
+    ``route_rows`` of the reference's arrays (xch's ``val2`` holds values:
+    ``route_rows`` takes them as the reference's hi + lo, so it must equal
+    them as ``val1`` does)."""
     routes = xch.route_rows(ref) if isinstance(port, xch.Xch4State) \
         else slab.route_rows(ref) if isinstance(port, slab.SlabState) else {}
     for f in dataclasses.fields(port):
@@ -117,6 +119,12 @@ def _assert_same_state(ref, port, lo_fields, path=""):
                     _assert_values(v, h, l_)
             else:
                 _assert_values(b, a, lo)
+        elif f.name == "val2" and isinstance(port, xch.Xch4State):
+            assert len(a) == len(b), name
+            for x, y in zip(a, b):
+                assert x.dtype == y.dtype == torch.float64, name
+                assert (np.abs(x.numpy() - y.numpy())
+                        <= VAL_TOL * np.abs(y.numpy())).all(), name
         elif isinstance(b, tuple) and b and isinstance(b[0], torch.Tensor):
             assert len(a) == len(b), name
             for x, y in zip(a, b):

@@ -220,4 +220,6 @@ def test_sources_digest_covers_headers(tmp_path):
         "slab_spmm_bf16", "xch_mul_panel_bf16", "xch_route4_panel_bf16",
         # the bucket engine's fused stage A + B and ellg's passes
         "bucket_fused_rows_f32", "bucket_fused_rows_bf16",
-        "ellg_rows_f32", "ellg_rows_bf16"}
+        "ellg_rows_f32", "ellg_rows_bf16",
+        # xch's fused pass 1 + pass 2
+        "xch_fused_rows_f32", "xch_fused_rows_f64", "xch_fused_rows_bf16"}
