@@ -40,6 +40,17 @@ Its phases, in the order they run:
    torso1's ss stream and webbase-1M's csr5 normal track,
    ``block_gather_scan`` on the css streams of thermomech_dK and raefsky3,
    and the fp64 builds of both on g7jac200sc's ss and css streams;
+2b. xch's v3 σ-plane path (ROADMAP B.15; ``run_xch_v3``): webbase-1M and
+   ASIC_680ks converted under ``plan=estimate_v3(coo, cfg) | {"route_v":
+   3}`` (host seconds printed), at float32 and rounded to bfloat16; every
+   call's ``xch_mul`` and ``xch_route`` (float and bfloat16 builds) against
+   its plain version, each timed beside its bound; the v3 spmv through the
+   oracle and against the v4 fused spmv of phase 2's state, each row within
+   the sum of both layouts' proven bounds (``tests/torch_bounds.py:
+   accuracy_bound``); its busy time, eager wall and chained Time(s) beside
+   torch's ``A_csr @ x`` and the v4 spmv's busy time; fails unless the path
+   launched ``xch_mul`` and ``xch_route`` (their ``_bf16`` builds at
+   bfloat16);
 3. SpMM, Y = A @ X: holds the panel kernels against their plain versions
    on interleaved panels (``slab_spmm`` on g7jac200sc's unit-only plan at
    B = 8, 16 and 32, ``xch_mul_panel`` and ``xch_route4_panel`` on every
@@ -224,13 +235,14 @@ Its phases, in the order they run:
    auto, float64 and solver paths the slab route ``slab_spmv_rows``, the
    xch, hyb, float64 and parallel paths ``xch_fused_rows`` and the
    parallel path ``segmented_scan_tiles``, the bkt and auto paths
-   ``bucket_fused_rows``, the ellg path ``ellg_rows``; and
+   ``bucket_fused_rows``, the ellg path ``ellg_rows``, the xch v3 path
+   ``xch_mul`` and ``xch_route``; and
    that no path launched the kernels that left the spmv path:
    ``xch_route4``, ``slab_spmv`` / ``slab_spmv_blk``, the bucket pair
    ``block_gather_mul`` / ``bucket_rows``, the first port's stage B and
-   the xch pair ``xch_mul`` / ``xch_route4_rows`` (the calibration path
-   excepted, which runs ``xch_mul``; their checks above, and the xch
-   path's profiled phases, put the counts back).
+   the xch pair ``xch_mul`` / ``xch_route4_rows`` (the calibration and
+   xch v3 paths excepted, which run ``xch_mul``; their checks above, and
+   the xch path's profiled phases, put the counts back).
 
 Each phase prints its seconds.
 
@@ -1310,9 +1322,7 @@ CAL_MATCH = {       # wrapper → its kernel's name in a torch.profiler trace
     "seg_scan": "segscan_steps_kernel", "seg_scan_roll": "segscan_steps_kernel",
     "tile_transpose": "tile_transpose_kernel", "slab_step": "probe_slab_kernel"}
 # kernel line name → (wrapper, source, the TPU kernel's function)
-CAL_KERNELS = {
-    "xch_route": ("xch_route", "csrc/xch.cu",
-                  "singlespmv_tpu/ops/pallas/xch.py:259"),
+CAL_KERNELS = {   # xch_route's row is a path row (phase "xch v3")
     "probe_lane_gather": ("lane_gather", "csrc/probes.cu",
                           "singlespmv_tpu/harness/microbench.py:118"),
     "probe_gather1024": ("gather1024", "csrc/probes.cu",
@@ -2945,6 +2955,192 @@ def run_parallel(mats, dev, card, count_path, wrappers, nccl_done):
     return compared
 
 
+V3_MATS = ("webbase-1M", "ASIC_680ks")   # the xch v3 phase's stand-ins
+V3_WINDOW_S = 0.05       # each timed run of the v3 spmv's chained Time(s)
+V3_MATCH = {"xch_mul": "xch_mul_kernel", "xch_route": "xch_route_kernel"}
+
+
+def _v3_calls(st, x, xch, ops):
+    """{kernel: (kernel calls, plain-version calls, bound)} over every call
+    of the v3 spmv on ``st`` and x, as formats/xch.py:_mul_phase and
+    _route_phase make them: ``xch_mul`` a pass-1 call on the x table,
+    ``xch_route`` a pass-2 call on the product grid.  Bounds: ``xch_mul``
+    its streams (sub when m1 > 1), val, the x table and its products once,
+    a multiply a slot; ``xch_route`` its streams (uids, cs, sg0, sg1 a
+    step, win a row, lane and hm1 a slot, sub when m2 > 1), the idx planes
+    of the pg-groups its steps route, the product grid once and its out
+    rows once, a prefix add and a difference a slot and an add a routed
+    run end."""
+    xt = xch.x_table(st, x)
+    prod3 = xch.products(st, xt)
+    calls = {"xch_mul": ([], [], [0, 0]), "xch_route": ([], [], [0, 0])}
+    for a in zip(st.win1, st.lane1, st.sub1, st.val1):
+        for i, f in enumerate((ops.xch_mul, ops.xch_mul_ref)):
+            calls["xch_mul"][i].append(
+                lambda a=a, f=f: f(*a, xt, st.m1, st.t1))
+        win, lane, sub, val = a
+        calls["xch_mul"][2][0] += _nbytes(win, lane, val, val, xt) + (
+            _nbytes(sub) if st.m1 > 1 else 0)
+        calls["xch_mul"][2][1] += val.numel()
+    op = st.span * st.planes
+    for a in zip(st.uids2, st.gids2, st.cs2, st.sg0_2, st.sg1_2, st.win2,
+                 st.lane2, st.sub2, st.hm2, st.idx2, st.chunk_nb):
+        uids, _, cs, sg0, sg1, win, lane, sub, hm1, idx, ngb = a
+        for i, f in enumerate((ops.xch_route, ops.xch_route_ref)):
+            calls["xch_route"][i].append(
+                lambda a=a, f=f: f(*a[:10], prod3, a[10], st.m2, op, st.t2,
+                                   xch.G_GRP))
+        act = ops._active_planes(sg0, sg1, op, 8)   # (n_steps, planes)
+        rows = act.repeat_interleave(st.t2, 0).T[:, :, None]
+        calls["xch_route"][2][0] += (
+            _nbytes(uids, cs, sg0, sg1, win, lane, hm1)
+            + int(act.sum()) * st.t2 * 128 + ngb * xch.G_GRP * op * 512
+            + (_nbytes(sub) if st.m2 > 1 else 0))
+        calls["xch_route"][2][1] += (2 * lane.numel()
+                                     + int(((idx >= 0) & rows).sum()))
+    calls["xch_route"][2][0] += _nbytes(prod3)
+    return calls
+
+
+def run_xch_v3(mats, dev, card, count_path, v4_states, csr_of):
+    """Phase "xch v3" (ROADMAP B.15): xch's v3 σ-plane engine on the
+    full-size ``V3_MATS`` stand-ins, converted under ``plan=estimate_v3(
+    coo, cfg) | {"route_v": 3}`` (the convert's host seconds printed), at
+    float32 and rounded to bfloat16 (``as_bfloat16``).  Per state: every
+    pass-1 call's ``xch_mul`` and every pass-2 call's ``xch_route`` against
+    its plain version at ``TOL``, each kernel's busy µs against its bound
+    (uncounted); the v3 spmv through ``verify_result`` against the float64
+    COO oracle (bfloat16's under ``dtype=bfloat16``), and against the v4
+    fused spmv on the same stand-in (``v4_states``, phase 2's), each row
+    within the sum of both layouts' proven bounds
+    (``tests/torch_bounds.py:accuracy_bound`` at the state's type: two
+    layouts take their run totals from different stream rows' prefix sums,
+    so the reorder bound, which holds one layout's totals fixed, does not
+    apply); the whole v3 spmv's busy time, eager wall and chained
+    ``Time(s)`` (``marginal_seconds``: CUDA-graph replays of chained
+    calls), torch's ``A_csr @ x`` and the v4 fused spmv's busy time beside
+    them.  The path's launches (the eager spmv and the chained runs) are
+    counted: ``xch_mul`` and ``xch_route`` at float32, their ``_bf16``
+    builds at bfloat16, and ``xch_mul``, off every v4 path, is allowed
+    here and zeroed after.  Returns the comparison results."""
+    from singlespmv_tpu_torch import Config
+    from singlespmv_tpu_torch.core import create_random_vector, verify_result
+    from singlespmv_tpu_torch.core.dtypes import (round_values, to_host,
+                                                  value_tensor)
+    from singlespmv_tpu_torch.formats import xch
+    from singlespmv_tpu_torch.harness.driver import marginal_seconds
+    from singlespmv_tpu_torch.ops import xch as xops
+
+    tb = _torch_bounds()
+    compared = []
+    for name in V3_MATS:
+        coo = mats[name]
+        cfg = Config(format="xch")
+        t0 = time.perf_counter()
+        st32 = xch.convert(coo, cfg, plan=xch.estimate_v3(coo, cfg)
+                           | {"route_v": 3})
+        t1 = time.perf_counter()
+        st32 = st32.to(dev)
+        torch.cuda.synchronize()
+        print(f"xch v3 convert {name}: host {t1 - t0:.2f} s; to the card "
+              f"{time.perf_counter() - t1:.2f} s; " + json.dumps(
+                  {k: getattr(st32, k) for k in (
+                      "planes", "span", "m1", "m2", "t1", "t2", "n_chunks",
+                      "p1", "n_buckets", "n_slots1", "n_slots2")}
+                  | {"calls": (len(st32.win1), len(st32.uids2)),
+                     "report": xch.report_fields(st32, cfg)}), flush=True)
+        if not isinstance(st32, xch.XchState):
+            raise SystemExit(f"{name}: route_v 3 gave {type(st32).__name__}")
+        for dtype in ("float32", "bfloat16"):
+            bf = dtype == "bfloat16"
+            st = as_bfloat16(st32) if bf else st32
+            v4 = as_bfloat16(v4_states[name]) if bf else v4_states[name]
+            xh = round_values(create_random_vector(coo.n_col), dtype)
+            x = value_tensor(xh, dtype).to(dev)
+            label = f"{name} v3"
+            sfx = SFX[x.dtype]
+            res = {"label": label, "dtype": str(x.dtype)}
+            # (a) the kernels against their plain versions, uncounted
+            with uncounted(xops.xch_mul, xops.xch_route):
+                for k, (ks, rs, cost) in _v3_calls(st, x, xch,
+                                                   xops).items():
+                    err, rel = _check_calls(label, k + sfx, ks, rs, TOL)
+                    timed_plain = not bf or name == V3_MATS[0]
+                    r = {"label": label, "kernel": k + sfx, "dtype": dtype,
+                         "calls": len(ks), "max_abs_err": err,
+                         "rel_err": rel,
+                         "ms": _busy_ms(lambda ks=ks: [f() for f in ks],
+                                        V3_MATCH[k], launches=_launched(
+                                            getattr(xops, k))),
+                         "plain_ms": _extra(timed_plain, _busy_ms,
+                                            lambda rs=rs: [f() for f in rs]),
+                         } | _bound(*cost, x.dtype)
+                    res[k] = r
+                    compared.append(r)
+            # (b) the path: the eager spmv and its chained Time(s), counted
+            _zero(xops.xch_mul, xops.xch_route)
+            y = xch.spmv(st, x)
+            sec = marginal_seconds(xch.spmv, st, x, dev, V3_WINDOW_S,
+                                   name=label)
+            count_path(f"xch v3 {name} {dtype}", (xops.xch_mul,
+                                                   xops.xch_route),
+                       ("xch_mul" + sfx, "xch_route" + sfx),
+                       allow=(xops.xch_mul,))
+            _zero(xops.xch_mul)    # counted: off every later path
+            # (c) against the oracle and the v4 fused spmv, (d) the times
+            # beside it; their launches count in no path
+            with uncounted(xops.xch_mul, xops.xch_route):
+                yh = to_host(y).astype(np.float64)
+                ok, det = verify_result(coo, xh, yh, dtype=dtype)
+                y4 = to_host(xch.spmv(v4, x)).astype(np.float64)
+                sc = tb.stored(coo) if bf else dataclasses.replace(
+                    coo, val=coo.val.astype(np.float32).astype(np.float64))
+                b3 = tb.accuracy_bound(sc, xh, st, "xch", x, dtype=dtype)
+                b4 = tb.accuracy_bound(sc, xh, v4, "xch", x, dtype=dtype)
+                gap = np.abs(yh - y4)
+                worst = float(np.max(gap / np.maximum(b3 + b4, 1e-300),
+                                     initial=0.0))
+                # the whole spmv's times, v4's and the library's
+                if bf:
+                    a_csr, lib_err = bf16_library(torch_csr(coo, dev,
+                                                            "bfloat16"), x)
+                else:
+                    a_csr, lib_err = csr_of(name), None
+                res |= {
+                    "verify": "PASS" if ok else "FAIL",
+                    "max_abs_err": det["max_abs_err"],
+                    "v4_worst_share_of_bounds": worst,
+                    "spmv_busy_ms": _busy_ms(lambda: xch.spmv(st, x)),
+                    "spmv_ms": _cuda_ms(lambda: xch.spmv(st, x)),
+                    "time_s": sec,
+                    "v4_spmv_busy_ms": _busy_ms(lambda: xch.spmv(v4, x)),
+                    "library_ms": None if a_csr is None
+                    else _library_ms(a_csr, x),
+                    "library_error": lib_err, "card": card}
+            for k in ("xch_mul", "xch_route"):
+                res[k]["library_ms"] = res["library_ms"]
+                if lib_err is not None:
+                    res[k]["library_error"] = lib_err
+            print(f"xch v3 {name} {dtype}: Verify {res['verify']}, v3 "
+                  f"against v4 worst row at {worst:.3g} of the two layouts' "
+                  f"proven bounds; spmv busy {res['spmv_busy_ms']:.6f} ms, "
+                  f"eager wall {res['spmv_ms']:.6f} ms, Time(s) {sec:.9g}; "
+                  f"v4 fused busy {res['v4_spmv_busy_ms']:.6f} ms; cuSPARSE "
+                  f"{res['library_ms']} ms ({card})", flush=True)
+            print(f"kernel {label} {dtype}: {json.dumps(_marked(res))}",
+                  flush=True)
+            if not (ok and yh.shape == (coo.n_row,)
+                    and np.isfinite(yh).all()):
+                raise SystemExit(f"xch v3 {name} {dtype}: spmv output is "
+                                 f"wrong: {det}")
+            if worst > 1.0:
+                raise SystemExit(f"xch v3 {name} {dtype}: v3 and v4 differ "
+                                 "past a row's proven bounds")
+            del st, v4, y
+        del st32
+    return compared
+
+
 @contextlib.contextmanager
 def routes_timed(xch):
     """The seconds that ``xch.route_rows`` takes inside the block, summed
@@ -3182,6 +3378,13 @@ def main() -> int:
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         return got
+
+    # --- 2b. xch's v3 σ-plane path (ROADMAP B.15) on phase 2's stand-ins,
+    #     beside their v4 states ---
+    with Phase("xch v3"):
+        compared.extend(run_xch_v3(
+            mats, dev, card.splitlines()[0], count_path,
+            {n: spmm_states[n] for n in V3_MATS}, csr_of))
 
     # --- 3. SpMM: the panel kernels against their plain versions, then the
     #     path through spmm_fn at B = 1, 8 and 32, auto with spmm_b and
@@ -3709,6 +3912,9 @@ def main() -> int:
             ("slab_spmm", slab_src, "slab.py:228", "g7jac200sc B32"),
             ("xch_mul_panel", xch_src, "xch.py:338", "webbase-1M B16"),
             ("xch_route4_panel", xch_src, "xch.py:424", "webbase-1M B16"),
+            # the v3 σ-plane route (B.15): its path is phase "xch v3"
+            ("xch_route", xch_src, "xch.py:259", "webbase-1M v3"),
+            ("xch_route_bf16", xch_src, "xch.py:259", "webbase-1M v3"),
             # bfloat16 SpMM (A.10b): the panels' bfloat16 builds; their
             # launches are phase "spmm bfloat16"'s path
             ("slab_spmm_bf16", slab_src, "slab.py:228", "g7jac200sc B32"),
@@ -3763,6 +3969,19 @@ def main() -> int:
             | first_port_ms
             | ({"on_path_as": on_path_as[kname]}
                if kname in on_path_as else {})))
+    # xch_route's calibration cases beside its path row: calibrate's H
+    # 16,384 at 16 and 8 planes, each timed; max_abs_err over them too
+    cal_route = cal_checks.pop("xch_route")
+    row = next(k for k in kernels if k["name"] == "xch_route")
+    cal = {p: next(r for r in cal_route if r["label"] == f"xch_route planes "
+                   f"{p}") for p in (16, 8)}
+    if any(r["ms"] is None for r in cal.values()):
+        raise SystemExit("xch_route's calibration cases were not timed")
+    row["max_abs_err"] = max([row["max_abs_err"]]
+                             + [r["max_abs_err"] for r in cal_route])
+    row["calibration"] = {f"{p}_planes": {k: r[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by")} for p, r in cal.items()}
+    _marked(row)
     # block_gather_mul at ellg's gran 128, the first port of ellg's
     # passes: one entry a pass; launches are the ellg path's of
     # block_gather_mul (0), ellg_rows computing its function there
@@ -3777,20 +3996,13 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "on_path_as": "ellg_rows"}))
     # the calibration path's: max_abs_err over every check, times of the
-    # first (xch_route at 16 planes, each probe at its defaults, probe_slab
-    # at T 32, S8 8, stage all); xch_route's at 8 planes beside them
+    # first (each probe at its defaults, probe_slab at T 32, S8 8, stage
+    # all)
     for kname, (wname, src, replaces) in CAL_KERNELS.items():
         rs = cal_checks[kname]
         if rs[0]["ms"] is None:
             raise SystemExit(f"{kname}: its first check was not timed")
-        more = {}
-        if kname == "xch_route":
-            r8 = next(r for r in rs if r["label"] == "xch_route planes 8")
-            if r8["ms"] is None:
-                raise SystemExit("xch_route at 8 planes was not timed")
-            more = {"ms_8_planes": r8["ms"], "bound_ms_8_planes":
-                    r8["bound_ms"], "plain_ms_8_planes": r8["plain_ms"]}
-        kernels.append(_marked(more | {
+        kernels.append(_marked({
             "name": kname, "route": "cuda",
             "source": f"singlespmv_tpu_torch/{src}", "replaces": replaces,
             "launches": launches[wname],

@@ -41,11 +41,17 @@
 //   xch_mul_kernel<bf16> and the two route kernels at <bf16> run the
 //     same functions on bfloat16 values, x and product grid (2 bytes a
 //     slot in device memory), every sum in float into a float y;
-//   xch_route_kernel<8> and <16> replace _xch_route_kernel, the kernel of
-//     xch_route (singlespmv_tpu/ops/pallas/xch.py:197 and :259): the v3
-//     sigma-plane route, float only (the calibration's route_slot_s fit runs
-//     it; the TPU had no df64 build of it), redesigned for Hopper on the
-//     lane-owned register accumulators of unit_acc.cuh (below).
+//   xch_route_kernel<G, float> and <G, bf16> (G 8 or 16) replace
+//     _xch_route_kernel, the kernel of xch_route
+//     (singlespmv_tpu/ops/pallas/xch.py:197 and :259): the v3 sigma-plane
+//     route, redesigned for Hopper on the lane-owned register accumulators
+//     of unit_acc.cuh (below).  It runs on the v3 format path
+//     (formats/xch.py:_route_phase, after xch_mul writes the product grid)
+//     at float and at bfloat16, where it reads the bfloat16 grid (2 bytes a
+//     product) and sums in float into a float out, and in the calibration's
+//     route_slot_s fit; the TPU had no df64 build of it.  Its bound counts
+//     the streams, the idx planes of the routed plane groups, the product
+//     grid once and the out rows once (chip_smoke.py:_v3_calls).
 //
 // Pass 1, per stream row r of 128 slots l:
 //   out[r,l] = val[r,l] * x[(win[r] + sub[r,l]) * 128 + lane[r,l]]
@@ -158,7 +164,10 @@
 // its end are dropped.
 //
 // Design of the v3 route (redesigned for Hopper): the lane-owned unit
-// accumulators of unit_acc.cuh.  A block takes a chunk of R rows and walks
+// accumulators of unit_acc.cuh.  S, the products' storage type, only
+// changes the gather: gather4<bf16> widens four 2-byte products to float,
+// as the v4 route's <bf16> build does, and the run totals, the registers
+// and out stay float.  A block takes a chunk of R rows and walks
 // it a segment (one unit's steps) at a time, a warp a row; each row's
 // active planes come from its own step's sg0/sg1.  Lane k keeps columns
 // 4k..4k+3 of G planes in registers (G = 8 for up to 8 planes, else 16;
@@ -561,13 +570,15 @@ __device__ __forceinline__ unsigned long long plane_bits(int2 p) {
   return (n == 64 ? ~0ull : (1ull << n) - 1) << p.x;
 }
 
-template <int G>
+// S is the storage type of the products (float or bf16); the run totals,
+// the accumulators and out are float.
+template <int G, typename S>
 __global__ void __launch_bounds__(kThreads) xch_route_kernel(
     const int32_t* __restrict__ uids, const int32_t* __restrict__ cs,
     const int32_t* __restrict__ sg0, const int32_t* __restrict__ sg1,
     const int32_t* __restrict__ win, const int8_t* __restrict__ lane,
     const int8_t* __restrict__ sub, const int8_t* __restrict__ hm1,
-    const int8_t* __restrict__ idx, const float* __restrict__ prod,
+    const int8_t* __restrict__ idx, const S* __restrict__ prod,
     float* __restrict__ out, int H, int T, int R, int m, int planes,
     int pg, int p1, long long n_out) {
   extern __shared__ float4 part4[];  // (kWarps, G, 128) partials
@@ -606,8 +617,8 @@ __global__ void __launch_bounds__(kThreads) xch_route_kernel(
                         ? load_ends(idx + ((size_t)(p0 + s) * H + r) * kLanes +
                                     4 * k)
                         : kNoEnds;
-        const float* x = prod + (size_t)__ldg(cs + st) * p1 * kLanes;
-        run_totals<float>(r, gather4<float>(r, m, win, lane, sub, x), hm1,
+        const S* x = prod + (size_t)__ldg(cs + st) * p1 * kLanes;
+        run_totals<float>(r, gather4<S>(r, m, win, lane, sub, x), hm1,
                           wbuf[warp]);
 #pragma unroll
         for (int s = 0; s < G; ++s) acc.route(s, ends[s], wbuf[warp]);
@@ -624,7 +635,7 @@ __global__ void __launch_bounds__(kThreads) xch_route_kernel(
   }
 }
 
-template <int G>
+template <int G, typename S>
 int launch_route(const void* uids, const void* cs, const void* sg0,
                  const void* sg1, const void* win, const void* lane,
                  const void* sub, const void* hm1, const void* idx,
@@ -633,15 +644,39 @@ int launch_route(const void* uids, const void* cs, const void* sg0,
   static int allowed[kMaxUnitDevices] = {};
   const int smem = kWarps * G * kLanes * 4;
   const cudaError_t err =
-      allow_unit_smem((const void*)xch_route_kernel<G>, smem, allowed);
+      allow_unit_smem((const void*)xch_route_kernel<G, S>, smem, allowed);
   if (err != cudaSuccess) return (int)err;
-  xch_route_kernel<G><<<(H + R - 1) / R, kThreads, smem, stream>>>(
+  xch_route_kernel<G, S><<<(H + R - 1) / R, kThreads, smem, stream>>>(
       (const int32_t*)uids, (const int32_t*)cs, (const int32_t*)sg0,
       (const int32_t*)sg1, (const int32_t*)win, (const int8_t*)lane,
       (const int8_t*)sub, (const int8_t*)hm1, (const int8_t*)idx,
-      (const float*)prod, (float*)out, H, T, R, m, planes, pg, p1,
+      (const S*)prod, (float*)out, H, T, R, m, planes, pg, p1,
       (long long)n_out);
   return (int)cudaGetLastError();
+}
+
+// The v3 route over products of storage type S: G 8 up to 8 planes, else
+// 16 (a block walks a segment's rows once a group of 16 planes).
+template <typename S>
+int launch_route_planes(const void* uids, const void* cs, const void* sg0,
+                        const void* sg1, const void* win, const void* lane,
+                        const void* sub, const void* hm1, const void* idx,
+                        const void* prod, void* out, int H, int T, int m,
+                        int planes, int pg, int p1, int n_out, int R,
+                        void* stream) {
+  if (m < 1 || m > kMaxWindow || planes < 1 || planes > kMaxRoutePlanes ||
+      pg < 1 || T < 1 || H < 0 || H % T || p1 < 1 || n_out < 0 || R < T ||
+      R % T)
+    return (int)cudaErrorInvalidValue;
+  if (H == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (planes <= 8)
+    return launch_route<8, S>(uids, cs, sg0, sg1, win, lane, sub, hm1, idx,
+                              prod, out, H, T, R, m, planes, pg, p1, n_out,
+                              st);
+  return launch_route<16, S>(uids, cs, sg0, sg1, win, lane, sub, hm1, idx,
+                             prod, out, H, T, R, m, planes, pg, p1, n_out,
+                             st);
 }
 
 // Lets the route kernel take the dynamic shared memory of the largest p_oh
@@ -908,17 +943,23 @@ extern "C" int xch_route_f32(const void* uids, const void* cs,
                              const void* idx, const void* prod, void* out,
                              int H, int T, int m, int planes, int pg, int p1,
                              int n_out, int R, void* stream) {
-  if (m < 1 || m > kMaxWindow || planes < 1 || planes > kMaxRoutePlanes ||
-      pg < 1 || T < 1 || H < 0 || H % T || p1 < 1 || n_out < 0 || R < T ||
-      R % T)
-    return (int)cudaErrorInvalidValue;
-  if (H == 0) return 0;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (planes <= 8)
-    return launch_route<8>(uids, cs, sg0, sg1, win, lane, sub, hm1, idx, prod,
-                           out, H, T, R, m, planes, pg, p1, n_out, st);
-  return launch_route<16>(uids, cs, sg0, sg1, win, lane, sub, hm1, idx, prod,
-                          out, H, T, R, m, planes, pg, p1, n_out, st);
+  return launch_route_planes<float>(uids, cs, sg0, sg1, win, lane, sub, hm1,
+                                    idx, prod, out, H, T, m, planes, pg, p1,
+                                    n_out, R, stream);
+}
+
+// bfloat16 product grid (2 bytes a product), float out: the caller rounds
+// y once.
+extern "C" int xch_route_bf16(const void* uids, const void* cs,
+                              const void* sg0, const void* sg1,
+                              const void* win, const void* lane,
+                              const void* sub, const void* hm1,
+                              const void* idx, const void* prod, void* out,
+                              int H, int T, int m, int planes, int pg,
+                              int p1, int n_out, int R, void* stream) {
+  return launch_route_planes<bf16>(uids, cs, sg0, sg1, win, lane, sub, hm1,
+                                   idx, prod, out, H, T, m, planes, pg, p1,
+                                   n_out, R, stream);
 }
 
 // `out` must be zeroed, of (n_grp * gb, 128, B) floats; `prod` is the

@@ -18,9 +18,27 @@ yields the same arrays in both packages.  It prices plans with the port's
 own copy of the reference's constants (``core/chipconst.py``) and the
 reference's v5e fits.
 ``X_TABLE_CAP``, ``M2_CAP``, ``CHUNK_ROWS`` and ``PASS1_CALL_ROWS`` size TPU
-memories; they stay until the port sheds them (ROADMAP A.7b).  The v3
-σ-plane engine's format path (``route_v`` 3) is not ported (ROADMAP B.15);
-its kernel is, as ``ops/xch.py:xch_route``, for the calibration.
+memories; they stay until the port sheds them (ROADMAP A.7b).
+
+The v3 σ-plane engine (``XchState``) is reached as in the reference,
+through an explicit plan: ``convert(coo, cfg, plan=estimate_v3(coo, cfg) |
+{"route_v": 3})`` runs the reference's ``_convert_v3`` in numpy (the same
+arrays for one COO and plan; its own v5e fits ``ROUTE_*_S``, ``EST_CAL``,
+``G_GRP``).  Pass 1 is v4's; pass 2 re-gathers the products in (bucket,
+src) order, a bucket being ``planes`` · 128 rows, and routes the run totals
+through ``span`` · ``planes`` σ planes of end lanes (``idx2``) to the out
+rows of compact buckets.  Its spmv is the reference's two phases, which
+``phases`` also returns: ``_mul_phase`` (the x table, one ``xch_mul`` a
+pass-1 call into one product grid) and ``_route_phase`` (one ``xch_route``
+a pass-2 call, then ``place_buckets``: the calls' out rows, zero rows for
+trailing buckets that begin no step, the span-2 overlap-add and the
+buckets placed at ``bucket_ids``, in torch on the device, no host read).
+``spmm`` loops the spmv over the columns, as the reference's ``vmap``.  It
+runs float32 and bfloat16 (the grid bfloat16, float32 sums into a float32
+out, y rounded once); at float64 its spmv and spmm raise ``TypeError`` as
+the reference's do on its chip, while ``convert`` and ``to_coo`` take every
+type.  CPU tests: ``tests/test_torch_xch_v3.py``; on the card, phase "xch
+v3" of ``chip_smoke.py`` and ``tests/test_torch_cuda_xch.py``.
 
 ``convert`` and ``state_from_reference`` also derive, with ``route_rows``,
 the streams the card's spmv needs from the reference's arrays: from the
@@ -74,7 +92,7 @@ from ..core.types import COOMatrix, cdiv
 
 from ..ops.slab import PANEL_TYPES
 from ..ops.xch import MERGE_SMEM, xch_fused_rows, xch_mul, xch_mul_panel, \
-    xch_route4_panel, xch_route4_rows
+    xch_route, xch_route4_panel, xch_route4_rows
 from .base import TensorState, check_dtype, column_loop
 from .slab import _t, _walk
 
@@ -94,6 +112,20 @@ BASE_SLOT_S = 0.013e-9
 SEL_ENTRY_S = 0.0157e-9                 # one-hot select entry cost (m > 1)
 SEL_SLOT_S = 0.002e-9                   # per window member per slot
 HBM_BPS = _cc.get("hbm_bps")
+# the reference's v3 route rates and its closed-form calibration, TPU v5e
+# fits that price only estimate_v3's and _convert_v3's choices, as the
+# reference's do (ROADMAP A.7b)
+G_GRP = 16                  # compact buckets per TPU out block
+ROUTE_FIXED_S = 0.45e-6
+BLOCK_SWITCH_S = 4e-6       # per out/source block change (pipeline flush)
+ROUTE_BASE_S = 0.078e-9                 # run-total + write, per slot
+ROUTE_SEL_S = 0.003e-9                  # pass-2 select, per member
+ROUTE_DMA_S = 0.0025e-9                 # per out plane (incl. pruned)
+ROUTE_CMP_S = 0.0055e-9                 # per ACTIVE plane (gather+mask+sum)
+EST_CAL = 0.62              # closed-form → measured calibration
+V3_PASS1_ROWS = 160_000     # v3's pass-1 rows per call, cut at a multiple
+#                             of t1 (the reference's literal, apart from
+#                             PASS1_CALL_ROWS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,6 +179,51 @@ class Xch4State(TensorState):
     val2: tuple = ()         # (H_c, 128) of val1's type — value of the
     #                          pass-1 slot pass 2 reads there (0: padding)
     col2: tuple = ()         # (H_c, 128) int32 — its x position (0: padding)
+
+
+@dataclasses.dataclass(frozen=True)
+class XchState(TensorState):
+    """The reference's v3 σ-plane ``XchState`` with torch tensors: pass 1
+    as in ``Xch4State``; pass 2 re-gathers the products in (bucket, src)
+    order, a bucket being ``planes`` · 128 consecutive rows, and routes the
+    run totals through ``span`` · ``planes`` σ planes of end lanes to the
+    out rows of compact (nonempty) buckets, ``G_GRP`` to a TPU out block."""
+    n_row: int
+    n_col: int
+    nnz: int
+    m1: int                 # pass-1 x window col-blocks
+    m2: int                 # pass-2 product window blocks (of 128 slots)
+    t1: int                 # pass-1 stream rows per grid step
+    t2: int                 # pass-2 stream rows per grid step
+    planes: int             # σ planes = bucket scope / 128 (8, 16 or 32)
+    span: int               # buckets per out slot (2: a step may straddle
+    #                         one bucket boundary, the host overlap-adds)
+    n_chunks: int
+    p1: int                 # product stream rows per chunk
+    cb_pad: int             # x-table col-blocks
+    n_buckets: int          # compact (nonempty) buckets
+    n_slots1: int
+    n_slots2: int
+    chunk_nb: tuple         # bucket G-groups per pass-2 call
+    # pass 1 (per-call tuples)
+    win1: tuple             # (H1_c,) int32 — x window base col-block
+    lane1: tuple            # (H1_c, 128) int8
+    sub1: tuple             # (H1_c, 128) int8
+    val1: tuple             # (H1_c, 128) of the value type
+    # pass 2 (per-call tuples)
+    uids2: tuple            # (S_c,) int32 — call-local compact bucket/step
+    cs2: tuple              # (S_c,) int32 — source chunk per step
+    win2: tuple             # (H2_c,) int32 — chunk-local product row base
+    lane2: tuple            # (H2_c, 128) int8
+    sub2: tuple             # (H2_c, 128) int8
+    hm2: tuple              # (H2_c, 128) int8 — run head lane − 1
+    idx2: tuple             # (span·planes, H2_c, 128) int8 — σ-plane end
+    #                         lanes, −1 masked
+    bucket_ids: torch.Tensor  # (n_buckets,) int32 — original bucket ids
+    gids2: Optional[tuple] = None   # (S_c,) int32 — call-local G-group/step
+    sg0_2: Optional[tuple] = None   # (S_c,) int32 — first active σ plane
+    sg1_2: Optional[tuple] = None   # (S_c,) int32 — last active σ plane
+    #                                 (inclusive; −1: the step routes none)
 
 
 # ---------------------------------------------------------------- planning ---
@@ -254,6 +331,343 @@ def _best_walk(keys, starts, t_cands, fixed_s, per_slot_s, pad_h,
         sizes, bases, grows = _walk(keys, starts, m)
         return m, t, sizes, bases, grows
     return m, t, best[3], best[4], best[5]
+
+
+# ------------------------------------------------------------- v3 convert ---
+
+def estimate_v3(coo: COOMatrix, cfg: Config) -> dict:
+    """The reference's closed-form v3 plan (no sorts): scope, K, predicted
+    m1/m2 and cost, from the uniform-mix bound m1·m2 ≈ n_row·n_col/(scope·
+    nnz).  ``convert`` builds it under ``plan=estimate_v3(coo, cfg) |
+    {"route_v": 3}``."""
+    n_r, n_c, nnz = max(coo.n_row, 1), max(coo.n_col, 1), max(coo.nnz, 1)
+    if coo.nnz == 0:
+        return {"feasible": False, "est_s": 0.0}
+    vsz = value_size(cfg.dtype)
+    if cdiv(n_c, LANES) * LANES * vsz > X_TABLE_CAP:
+        return {"feasible": False, "est_s": float("inf")}
+    best = None
+    for planes in (8, 16, 32):
+        scope = planes * LANES
+        q = n_r * n_c / (scope * nnz)
+        # the route select costs ~2x the mul select per member, so m1 ≈ 2·m2
+        m2_bal = max(np.sqrt(q / 2.0), 1.0)
+        k_slots = int(np.clip(m2_bal * scope * nnz / n_r,
+                              16 * LANES, P1_CAP_ROWS * LANES))
+        m1 = int(np.clip(cdiv(n_c, k_slots), 1, M_MAX))
+        m2 = int(np.clip(round(k_slots * n_r / (scope * nnz) + 0.5), 1,
+                         M2_CAP))
+        t1, t2 = 128, 32
+        # padding: about t2/2 pad rows a (bucket, chunk) group, and ~10% of
+        # the walks'
+        n_grp = max(n_r / scope, 1.0) + nnz / k_slots
+        slots2 = 1.1 * nnz + n_grp * (t2 / 2) * LANES
+        slots1 = 1.05 * nnz
+        per1 = (BASE_SLOT_S + (SEL_ENTRY_S if m1 > 1 else 0.0)
+                + m1 * SEL_SLOT_S)
+        deg = nnz / n_r
+        n_chunks_e = max(nnz / k_slots, 1.0)
+        avg_run = max(deg / min(n_chunks_e, max(deg, 1.0)), 1.0)
+        act = min(planes, t2 / avg_run + 1.0)   # active σ planes per step
+        per2 = (ROUTE_BASE_S + m2 * ROUTE_SEL_S
+                + 2 * planes * ROUTE_DMA_S + act * ROUTE_CMP_S
+                + 3.0 / HBM_BPS)
+        switches = n_r / scope / G_GRP + 2.0 * nnz / k_slots
+        sec = (slots1 / LANES / t1 * MUL_FIXED_S
+               + slots2 / LANES / t2 * ROUTE_FIXED_S
+               + switches * BLOCK_SWITCH_S
+               + slots1 * max(per1, (vsz + 2 + 4) / HBM_BPS)
+               + slots2 * per2)
+        cand = {"feasible": True, "est_s": sec, "planes": planes,
+                "k_slots": k_slots, "m1": m1, "m2": m2, "t1": t1, "t2": t2,
+                "slots": int(slots1 + slots2)}
+        if best is None or sec < best["est_s"]:
+            best = cand
+    best["est_s"] *= EST_CAL
+    return best
+
+
+def _pad_span(grows, t, span, chunk_map, bmap):
+    """Group stream-row counts padded so that a t-row step never crosses a
+    chunk or a bucket G-group boundary and touches at most ``span``
+    consecutive compact buckets (the out slot covers the pair, the host
+    overlap-adds)."""
+    pads = np.zeros(len(grows), np.int64)
+    cur = 0
+    straddle_step = -1
+    for g, r in enumerate(grows):
+        if g > 0 and cur % t != 0:
+            if (chunk_map[g] != chunk_map[g - 1] or span == 1
+                    or bmap[g] // G_GRP != bmap[g - 1] // G_GRP):
+                pads[g - 1] += t - (cur % t)
+                cur += t - (cur % t)
+                straddle_step = -1
+            else:
+                s = cur // t
+                if s == straddle_step:      # a 3rd bucket in one step
+                    pads[g - 1] += t - (cur % t)
+                    cur += t - (cur % t)
+                else:
+                    straddle_step = s
+        cur += int(r)
+    if cur % t:
+        pads[-1] += t - (cur % t)
+    return grows + pads
+
+
+def _convert_v3(coo: COOMatrix, cfg: Config, plan: dict = None) -> XchState:
+    """The reference's v3 layout builder (its ``formats/xch.py:386``), in
+    numpy and unchanged in behaviour: one COO and one plan give the same
+    arrays in both packages.  Keeps the plan's overrides ``planes``,
+    ``k_slots``, ``m1_fix``, ``m2_fix``, ``t1_fix``, ``t2_fix`` and
+    ``span_fix``."""
+    dtype = cfg.np_dtype
+    if coo.nnz == 0 or coo.n_row == 0:
+        return _empty_state(coo, cfg)
+    p = plan or estimate_v3(coo, cfg)
+    if not p["feasible"]:
+        raise ValueError("xch: infeasible (x table exceeds VMEM cap)")
+    planes, t1, t2 = p["planes"], p["t1"], p["t2"]
+    scope = planes * LANES
+    nnz = coo.nnz
+
+    rows0 = hm.astype(coo.row, np.int64)
+    cols0 = hm.astype(coo.col, np.int64)
+    vals0 = hm.astype(coo.val, dtype)
+
+    # ---- pass-1 layout: (chunk, col)-sorted, sliding x windows ----
+    k_slots = int(min(p["k_slots"], nnz))
+    n_chunks = cdiv(nnz, k_slots)
+    g1 = hm.arange(nnz) // k_slots            # input is row-major sorted
+    o1 = hm.argsort_keys(g1 * np.int64(coo.n_col) + cols0)
+    cols_s = cols0[o1]
+    chunk_starts = np.concatenate(
+        [np.searchsorted(g1[o1], np.arange(n_chunks)), [nnz]])
+
+    def _pad1(grows, t):
+        return len(grows) * int(cdiv(int(grows.max(initial=1)), t) * t)
+
+    m1, t1, sizes1, bases1, crows1 = _best_walk(
+        cols_s, chunk_starts, (32, 64, 128) if not p.get("t1_fix") else
+        (p["t1_fix"],), MUL_FIXED_S,
+        lambda m: (BASE_SLOT_S + (SEL_ENTRY_S if m > 1 else 0.0)
+                   + m * SEL_SLOT_S), _pad1,
+        m_override=p.get("m1_fix"),
+        extra_cands=(round(coo.n_col / k_slots) + 1,))
+
+    p1 = int(cdiv(int(crows1.max(initial=1)), t1) * t1)
+    h1 = n_chunks * p1
+    # walk rows (chunk-major) -> final stream rows at chunk offsets
+    wstart1 = np.concatenate([[0], np.cumsum(crows1)[:-1]])
+    cidx = np.repeat(hm.arange(n_chunks), crows1)
+    final1 = cidx * p1 + (hm.arange(len(sizes1)) - wstart1[cidx])
+
+    win1 = hm.zeros(h1, np.int32)
+    win1[final1] = bases1.astype(np.int32)
+    lane1 = hm.zeros((h1, LANES), np.int8)
+    sub1 = hm.zeros((h1, LANES), np.int8)
+    val1 = hm.zeros((h1, LANES), dtype)
+    sr1 = final1[np.repeat(hm.arange(len(sizes1)), sizes1)]
+    li1 = hm.arange(nnz) - np.repeat(wslot_starts(sizes1), sizes1)
+    lane1[sr1, li1] = (cols_s & (LANES - 1)).astype(np.int8)
+    sub1[sr1, li1] = ((cols_s >> 7) - win1[sr1]).astype(np.int8)
+    val1[sr1, li1] = vals0[o1]
+
+    # per-nnz product position (in pass-1 order)
+    src = sr1 * np.int64(LANES) + li1
+
+    # ---- pass-2 layout: (bucket, src)-sorted, sliding product windows ----
+    bshift = int(np.log2(scope))
+    buckets = (rows0[o1] >> bshift)
+    o2 = hm.argsort_keys(buckets * np.int64(h1) * LANES + src)
+    src_s = src[o2]
+    buck_s = buckets[o2]
+    rows_s = rows0[o1][o2]
+    chunk_of = src_s // (np.int64(p1) * LANES)
+    grp = buck_s * np.int64(n_chunks + 1) + chunk_of
+    gb = np.flatnonzero(np.concatenate([[True], grp[1:] != grp[:-1]]))
+    grp_starts = np.append(gb, nnz)
+    grp_bucket0 = buck_s[gb]
+    grp_chunk0 = chunk_of[gb].astype(np.int64)
+
+    ub0, bidx0 = np.unique(grp_bucket0, return_inverse=True)
+
+    span_cands = (1, 2) if not p.get("span_fix") else (p["span_fix"],)
+    t2_cands = (32, 64) if not p.get("t2_fix") else (p["t2_fix"],)
+
+    # walk per m candidate (span/t-independent), then pick (m, t, span) by
+    # the fitted step-cost model; candidates evaluated on a group sample
+    # past SAMPLE_WALK_NNZ, winner walked in full
+    scope_deg = scope * nnz / max(coo.n_row, 1)
+    if p.get("m2_fix"):
+        m_cands = [p["m2_fix"]]
+    else:
+        m_cands = _span_quantiles(src_s, grp_starts[1:-1])
+        m_cands.append(round(k_slots / max(scope_deg, 1.0)) + 1)
+    m_cands = sorted(set(_align8(min(max(m, 1), M2_CAP, p1))
+                         for m in m_cands))
+    stride = 8 if (nnz > SAMPLE_WALK_NNZ and len(m_cands) > 1) else 1
+    src_e, grp_starts_e = _sample_groups(src_s, grp_starts, stride)
+    chunk_e = grp_chunk0[::stride] if stride > 1 else grp_chunk0
+    bidx_e = bidx0[::stride] if stride > 1 else bidx0
+
+    # expected run length (adjacent same-row slots in (bucket, src) order
+    # merge into one run after the per-stream-row row sort)
+    row_brk = int(np.count_nonzero(rows_s[1:] != rows_s[:-1])) + 1
+    avg_run = nnz / max(row_brk, 1)
+    best = None
+    for m_c in m_cands:
+        wk = _walk(src_e, grp_starts_e, m_c)
+        for t_c in t2_cands:
+            for sp_c in span_cands:
+                h_c = int(_pad_span(wk[2], t_c, sp_c, chunk_e,
+                                    bidx_e).sum()) * stride
+                act = min(sp_c * planes, t_c / max(avg_run, 1.0) + 1.0)
+                per = (ROUTE_BASE_S + m_c * ROUTE_SEL_S
+                       + sp_c * planes * ROUTE_DMA_S + act * ROUTE_CMP_S
+                       + 3.0 / HBM_BPS)
+                sec = (h_c / t_c) * ROUTE_FIXED_S + h_c * LANES * per
+                if best is None or sec < best[0]:
+                    best = (sec, m_c, t_c, sp_c, wk)
+    _, m2, t2, span, wk = best
+    if stride > 1:
+        wk = _walk(src_s, grp_starts, m2)
+    sizes2, bases2, grows2 = wk
+
+    grows_pad = _pad_span(grows2, t2, span, grp_chunk0, bidx0)
+    h2 = int(grows_pad.sum())
+    gstart = np.concatenate([[0], np.cumsum(grows_pad)[:-1]])
+    wstart2 = np.concatenate([[0], np.cumsum(grows2)[:-1]])
+    gidx = np.repeat(hm.arange(len(grows2)), grows2)
+    final2 = gstart[gidx] + (hm.arange(len(sizes2)) - wstart2[gidx])
+
+    # chunk-local window base, clamped so [win, win+m2) stays in the block;
+    # padded rows inherit their group's chunk (any valid base: 0)
+    base_loc = bases2 - grp_chunk0[gidx] * p1
+    base_loc = np.minimum(np.maximum(base_loc, 0), p1 - m2)
+    win2 = hm.zeros(h2, np.int32)
+    win2[final2] = base_loc.astype(np.int32)
+
+    # per-slot stream row, then re-sort slots by (stream row, y row, src) so
+    # each y row is one contiguous run per stream row
+    sr2_0 = final2[np.repeat(hm.arange(len(sizes2)), sizes2)]
+    o3 = hm.argsort_keys(sr2_0 * np.int64(coo.n_row + 1) + rows_s)
+    src_f, rows_f, sr2 = src_s[o3], rows_s[o3], sr2_0[o3]
+    new_row = np.concatenate([[True], sr2[1:] != sr2[:-1]])
+    rstart = np.flatnonzero(new_row)
+    li2 = hm.arange(nnz) - rstart[np.cumsum(new_row) - 1]
+
+    lane2 = hm.zeros((h2, LANES), np.int8)
+    sub2 = hm.zeros((h2, LANES), np.int8)
+    hm2 = hm.zeros((h2, LANES), np.int8)
+    src_row = src_f >> 7
+    chunk_f = src_row // np.int64(p1)
+    hm.scatter2d(lane2, sr2, li2, (src_f & (LANES - 1)).astype(np.int8))
+    hm.scatter2d(sub2, sr2, li2,
+                 (src_row - chunk_f * p1 - win2[sr2]).astype(np.int8))
+
+    new_run = hm.zeros(nnz, np.bool_)
+    new_run[0] = True
+    new_run[1:] = (rows_f[1:] != rows_f[:-1]) | (sr2[1:] != sr2[:-1])
+    qpos = sr2 * LANES + li2
+    head_q = np.maximum.accumulate(np.where(new_run, qpos, -1))
+    hm.scatter2d(hm2, sr2, li2, (head_q - sr2 * LANES - 1).astype(np.int8))
+
+    end = hm.zeros(nnz, np.bool_)
+    end[:-1] = new_run[1:]
+    end[-1] = True
+    r_run, sr_run, e_lane = rows_f[end], sr2[end], li2[end]
+
+    # per-step first group / compact bucket / bucket G-group
+    n_steps = h2 // t2
+    grp_of_frow = np.repeat(hm.arange(len(grows_pad)),
+                            grows_pad.astype(np.int64))
+    g_step = grp_of_frow[::t2]
+    n_buckets = len(ub0)
+    uids = bidx0[g_step].astype(np.int32)         # compact, non-decreasing
+    gids = uids // G_GRP                          # out-block G-group
+    chunk_step = grp_chunk0[g_step].astype(np.int32)
+
+    # σ: span-local — off = run's compact bucket − step's first bucket
+    grp_run = grp_of_frow[sr_run]                 # group per run end
+    off_run = bidx0[grp_run] - uids[sr_run // t2].astype(np.int64)
+    assert off_run.min(initial=0) >= 0 and \
+        off_run.max(initial=0) < span, \
+        "xch: a grid step spans more buckets than the out block covers"
+    sigma = ((r_run & np.int64(scope - 1)) >> 7) + planes * off_run
+    l_run = r_run & np.int64(LANES - 1)
+    idx2 = hm.full((span * planes, h2, LANES), -1, np.int8)
+    idx2[sigma, sr_run, l_run] = e_lane.astype(np.int8)
+
+    # per-step active σ range (the kernel's plane-group pruning); run ends
+    # are stream-row-sorted so reduceat segments are contiguous
+    sg0 = hm.zeros(n_steps, np.int32)
+    sg1 = hm.full(n_steps, -1, np.int32)
+    if len(sr_run):
+        s_of = (sr_run // t2).astype(np.int64)
+        bnd = np.flatnonzero(np.concatenate([[True], s_of[1:] != s_of[:-1]]))
+        sg0[s_of[bnd]] = np.minimum.reduceat(sigma, bnd).astype(np.int32)
+        sg1[s_of[bnd]] = np.maximum.reduceat(sigma, bnd).astype(np.int32)
+
+    # ---- pass-2 kernel calls, cut at G-group changes ----
+    ngb_tot = int(gids[-1]) + 1 if n_steps else 0
+    cz = _chunk_steps(gids, n_steps, ngb_tot,
+                      max_steps=max(CHUNK_ROWS // t2, 1))
+    u_t, g_t, c_t, w_t, la_t, su_t, hm_t, ix_t, s0_t, s1_t = \
+        [], [], [], [], [], [], [], [], [], []
+    for s0, s1, g0, _ngb in cz:
+        r0, r1 = s0 * t2, s1 * t2
+        u_t.append(_t((uids[s0:s1] - g0 * G_GRP).astype(np.int32)))
+        g_t.append(_t((gids[s0:s1] - g0).astype(np.int32)))
+        c_t.append(_t(chunk_step[s0:s1]))
+        w_t.append(_t(win2[r0:r1]))
+        la_t.append(_t(lane2[r0:r1]))
+        su_t.append(_t(sub2[r0:r1]))
+        hm_t.append(_t(hm2[r0:r1]))
+        ix_t.append(_t(idx2[:, r0:r1]))
+        s0_t.append(_t(sg0[s0:s1]))
+        s1_t.append(_t(sg1[s0:s1]))
+
+    # ---- pass-1 calls: a plain range split ----
+    max_rows1 = (V3_PASS1_ROWS // t1) * t1
+    w1_t, la1_t, su1_t, va1_t = [], [], [], []
+    for r0 in range(0, h1, max_rows1):
+        r1 = min(r0 + max_rows1, h1)
+        w1_t.append(_t(win1[r0:r1]))
+        la1_t.append(_t(lane1[r0:r1]))
+        su1_t.append(_t(sub1[r0:r1]))
+        va1_t.append(value_tensor(val1[r0:r1], cfg.dtype))
+
+    cb_tot = cdiv(max(coo.n_col, 1), LANES)
+    return XchState(
+        n_row=coo.n_row, n_col=coo.n_col, nnz=nnz, m1=m1, m2=m2, t1=t1,
+        t2=t2, planes=planes, span=span, n_chunks=n_chunks, p1=p1,
+        cb_pad=cb_tot + m1, n_buckets=n_buckets,
+        n_slots1=h1 * LANES, n_slots2=h2 * LANES,
+        chunk_nb=tuple(c[3] for c in cz),
+        win1=tuple(w1_t), lane1=tuple(la1_t), sub1=tuple(su1_t),
+        val1=tuple(va1_t),
+        uids2=tuple(u_t), cs2=tuple(c_t), win2=tuple(w_t),
+        lane2=tuple(la_t), sub2=tuple(su_t), hm2=tuple(hm_t),
+        idx2=tuple(ix_t), bucket_ids=_t(ub0.astype(np.int32)),
+        gids2=tuple(g_t), sg0_2=tuple(s0_t), sg1_2=tuple(s1_t))
+
+
+def _empty_state(coo, cfg) -> XchState:
+    """The reference's empty v3 state."""
+    z8 = lambda *s: _t(hm.zeros(s, np.int8))  # noqa: E731
+    z32 = lambda: _t(hm.zeros(0, np.int32))  # noqa: E731
+    return XchState(
+        n_row=coo.n_row, n_col=coo.n_col, nnz=0, m1=1, m2=1, t1=8, t2=8,
+        planes=8, span=1, n_chunks=1, p1=8, cb_pad=1, n_buckets=0,
+        n_slots1=0, n_slots2=0, chunk_nb=(0,),
+        win1=(z32(),), lane1=(z8(0, LANES),), sub1=(z8(0, LANES),),
+        val1=(value_tensor(hm.zeros((0, LANES), cfg.np_dtype), cfg.dtype),),
+        uids2=(z32(),), gids2=(z32(),), sg0_2=(z32(),), sg1_2=(z32(),),
+        cs2=(z32(),), win2=(z32(),),
+        lane2=(z8(0, LANES),), sub2=(z8(0, LANES),), hm2=(z8(0, LANES),),
+        idx2=(_t(hm.full((8, 0, LANES), -1, np.int8)),),
+        bucket_ids=z32())
 
 
 # ------------------------------------------------------------- v4 convert ---
@@ -920,12 +1334,14 @@ def _chunk_steps(uids, n_steps, n_buckets, max_steps=None):
 
 
 def estimate(coo: COOMatrix, cfg: Config) -> dict:
-    """The reference's v4 plan."""
+    """The reference's v4 plan; the v3 σ-plane engine is reached through
+    ``plan=estimate_v3(coo, cfg) | {"route_v": 3}``."""
     return estimate_v4(coo, cfg)
 
 
-def convert(coo: COOMatrix, cfg: Config, plan: dict = None) -> Xch4State:
-    """Build the v4 layout on the host; tensors come back on the CPU."""
+def convert(coo: COOMatrix, cfg: Config, plan: dict = None):
+    """Build the layout on the host, v4 (``Xch4State``) or, where the plan
+    says ``route_v`` 3, v3 (``XchState``); tensors come back on the CPU."""
     check_dtype("xch", cfg.dtype)
     if coo.nnz == 0 or coo.n_row == 0:
         return _empty_state4(coo, cfg)
@@ -933,8 +1349,7 @@ def convert(coo: COOMatrix, cfg: Config, plan: dict = None) -> Xch4State:
     if not p.get("feasible", True):
         raise ValueError("xch: infeasible (x table exceeds VMEM cap)")
     if p.get("route_v", 4) == 3:
-        raise NotImplementedError("xch: the v3 σ-plane engine is not ported "
-                                  "(ROADMAP B.15)")
+        return _convert_v3(coo, cfg, p)
     return _convert_v4(coo, cfg, p)
 
 
@@ -1033,6 +1448,12 @@ def _cat(parts, axis=0):
     return np.concatenate([np.asarray(a) for a in parts], axis=axis)
 
 
+def _host_cat(parts, axis=0):
+    """The per-call tensors of a field, on any device, concatenated into
+    one numpy array (bfloat16 as float32)."""
+    return np.concatenate([to_host(a) for a in parts], axis=axis)
+
+
 def _values(parts, lo=None) -> torch.Tensor:
     """The per-call values ``val1``, flat, as one CPU tensor of their type
     (numpy arrays too, the reference's bfloat16 among them); with ``lo``,
@@ -1107,13 +1528,17 @@ def stream_rows(state) -> dict:
     return dict(val2=tuple(vals), col2=tuple(cols))
 
 
-def adds_per_row(state: Xch4State) -> np.ndarray:
+def adds_per_row(state) -> np.ndarray:
     """(n_row,) int64: the run totals ``spmv`` adds into each y row, one a
     run end of pass 2's ``dest2`` streams, and the nested long-row state's
     at its rows.  On the card their order of addition is free
     (``core/oracle.py:reorder_bound``).  The peeled bands add in a fixed
     order after them, one more term on each row they touch: y = fl(s + d)
-    rounds once more, by an amount that moves with s."""
+    rounds once more, by an amount that moves with s.  A v3 state's are
+    its σ-plane run ends (``_v3_run_ends``)."""
+    if isinstance(state, XchState):
+        rows = _v3_run_ends(state)[0]
+        return np.bincount(rows[rows < state.n_row], minlength=state.n_row)
     k = np.zeros(state.n_row, np.int64)
     if state.dia_vals is not None:
         k += (to_host(state.dia_vals) != 0).any(axis=0)
@@ -1140,14 +1565,29 @@ _ARRAY_FIELDS = ("win1", "lane1", "sub1", "val1", "gids2", "off2", "cs2",
                  "long_rows", "dia_vals")
 
 
-def state_from_reference(arrays: dict) -> Xch4State:
-    """The port's state from the fields of a reference ``Xch4State``.
+def state_from_reference(arrays: dict):
+    """The port's state from the fields of a reference ``Xch4State``, or
+    of a reference v3 ``XchState`` (the fields hold ``bucket_ids``): an
+    ``XchState`` with the reference's own arrays.
 
     ``arrays`` maps field names to numpy arrays (per-call tuples stay
     tuples) and scalars, as ``dataclasses.asdict`` of a reference state
     moved to the host gives them; ``long`` is such a dict in turn.  A df64
     state's (hi, lo) float32 planes fold into float64: ``val1 = val1 +
     val1_lo`` and ``dia_vals = dia_vals + dia_lo``."""
+    if "bucket_ids" in arrays:
+        kw = {}
+        for f in dataclasses.fields(XchState):
+            v = arrays.get(f.name)
+            if isinstance(v, (tuple, list)) and v and hasattr(v[0], "shape"):
+                v = tuple(from_numpy(np.array(a)) for a in v)
+            elif hasattr(v, "shape"):
+                v = from_numpy(np.array(v))
+            kw[f.name] = v
+        state = XchState(**kw)
+        for v in state.val1:
+            check_dtype("xch", v.dtype)
+        return state
     arrays = dict(arrays)
     if arrays.get("val1_lo") is not None:
         arrays["val1"] = tuple(
@@ -1229,18 +1669,87 @@ def _route_phase4(state: Xch4State, prod3: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def phases(state: Xch4State):
+def phases(state):
     """Mul/Sum split for the driver's MulPerf/SumPerf report keys (the
     reference's ``formats/xch.py:2171-2178``): the reference's two passes,
-    pass 1 writing the product grid and pass 2 routing it, where ``spmv``
-    runs both in one fused launch a pass-2 call.  None where a nested
-    long-row state holds rows (the Sum phase would need x) or pass 1 has no
-    slot.  As in the reference, the phases leave out the peeled bands
-    (``_dia_part``): on a state with a peel, Sum's time leaves out the
-    peel's (ROADMAP C.10)."""
+    pass 1 writing the product grid and pass 2 routing it, where the v4
+    ``spmv`` runs both in one fused launch a pass-2 call.  None where a
+    nested long-row state holds rows (the Sum phase would need x) or pass 1
+    has no slot.  As in the reference, the phases leave out the peeled
+    bands (``_dia_part``): on a state with a peel, Sum's time leaves out
+    the peel's (ROADMAP C.10).  A v3 state's are its spmv's own two
+    phases."""
+    if isinstance(state, XchState):
+        return {"Mul": _mul_phase, "Sum": _route_phase}
     if state.long is not None or state.n_slots1 == 0:
         return None
     return {"Mul": _mul_phase4, "Sum": _route_phase4}
+
+
+def _check_v3(state: XchState, x: torch.Tensor):
+    _check_x(state, x)
+    if x.dtype == torch.float64:
+        raise TypeError("xch: the v3 σ-plane engine runs float32 and "
+                        "bfloat16 values, as the reference's kernels did on "
+                        "its chip; float64 runs the v4 engine (the default "
+                        "plan)")
+
+
+def _mul_phase(state: XchState, x: torch.Tensor) -> torch.Tensor:
+    """v3 phase Mul: the zero-padded (cb_pad, 128) x table, then one
+    ``xch_mul`` a pass-1 call, each writing its rows of one
+    (n_chunks, p1, 128) product grid of x's type."""
+    _check_v3(state, x)
+    return products(state, x_table(state, x))
+
+
+def _route_phase(state: XchState, prod3: torch.Tensor) -> torch.Tensor:
+    """v3 phase Sum: one ``xch_route`` a pass-2 call, each returning the
+    σ planes of its G-groups of compact buckets (float32, the accumulator
+    of either type), then the reference's assembly (``place_buckets``).
+    No value is read back to the host."""
+    op = state.span * state.planes          # out planes a bucket slot
+    sg0s = state.sg0_2 or tuple(torch.zeros_like(u) for u in state.uids2)
+    sg1s = state.sg1_2 or tuple(torch.full_like(u, op - 1)
+                                for u in state.uids2)
+    outs = [xch_route(u, g, c, s0, s1, w, la, su, h2, ix, prod3, ngb,
+                      state.m2, op, state.t2, G_GRP)
+            for u, g, c, s0, s1, w, la, su, h2, ix, ngb in zip(
+                state.uids2, state.gids2, state.cs2, sg0s, sg1s,
+                state.win2, state.lane2, state.sub2, state.hm2,
+                state.idx2, state.chunk_nb)]
+    return place_buckets(state, outs[0] if len(outs) == 1
+                         else torch.cat(outs, 0))
+
+
+def place_buckets(state: XchState, out: torch.Tensor) -> torch.Tensor:
+    """y from the v3 route's out rows (the calls' (ngb·G_GRP·span·planes,
+    128) outs in order), as the reference assembles it: zero rows for
+    trailing buckets that begin no step, at span 2 the overlap-add (slot
+    b's high half is compact bucket b + 1's), each compact bucket's
+    ``planes`` · 128 rows placed at its bucket id, cut to n_row."""
+    scope = state.planes * LANES
+    nbk = out.shape[0] // (state.span * state.planes)  # G-padded slots
+    out3 = out.view(nbk, state.span, scope)
+    if nbk < state.n_buckets:               # trailing never-first buckets
+        out3 = torch.cat([out3, out3.new_zeros(
+            state.n_buckets - nbk, state.span, scope)], 0)
+    out3 = out3[: state.n_buckets]
+    yb = out3[:, 0]
+    if state.span == 2:
+        yb = yb.clone()
+        yb[1:] += out3[:-1, 1]
+    y2 = out3.new_zeros(cdiv(max(state.n_row, 1), scope), scope)
+    y2.index_copy_(0, state.bucket_ids.long(), yb)
+    return y2.view(-1)[: state.n_row]
+
+
+def _spmv_v3(state: XchState, x: torch.Tensor) -> torch.Tensor:
+    _check_v3(state, x)
+    if state.nnz == 0 or state.n_buckets == 0:
+        return torch.zeros(state.n_row, dtype=acc_dtype(x.dtype),
+                           device=x.device)
+    return _route_phase(state, _mul_phase(state, x))
 
 
 def _fused_part(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
@@ -1273,8 +1782,12 @@ def _spmv_acc(state: Xch4State, x: torch.Tensor,
     return y
 
 
-def spmv_acc(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
-    """y = A x in the accumulator type (float32 for bfloat16 values)."""
+def spmv_acc(state, x: torch.Tensor) -> torch.Tensor:
+    """y = A x in the accumulator type (float32 for bfloat16 values): a v4
+    state's fused route, or a v3 state's two phases (``TypeError`` at
+    float64, as the reference's)."""
+    if isinstance(state, XchState):
+        return _spmv_v3(state, x)
     _check_x(state, x)
     return _spmv_acc(state, x)
 
@@ -1290,7 +1803,7 @@ def pair_spmv_acc(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
     return _spmv_acc(state, x, _pair_part)
 
 
-def spmv(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
+def spmv(state, x: torch.Tensor) -> torch.Tensor:
     """y = A x, rounded once to x's type."""
     return spmv_acc(state, x).to(x.dtype)
 
@@ -1318,9 +1831,10 @@ def _dia_part(state: Xch4State, x: torch.Tensor) -> torch.Tensor:
 PANEL_B_MAX = 16           # the reference's panel gate (its xch.py:2188)
 
 
-def spmm_acc(state: Xch4State, X: torch.Tensor) -> torch.Tensor:
+def spmm_acc(state, X: torch.Tensor) -> torch.Tensor:
     """Y = A @ X, X (n_col, B), in the accumulator type (float32 for
-    bfloat16 values): the reference's panel path (its
+    bfloat16 values): for a v3 state the column loop of ``spmv_acc``, as
+    the reference's ``vmap``; for a v4 state the reference's panel path (its
     ``formats/xch.py:2182``).  With 2 ≤ B ≤ ``PANEL_B_MAX``, pass-1 slots,
     a float32 or bfloat16 panel (``PANEL_TYPES``, the TPU's) and B x tables
     within ``X_TABLE_CAP`` (at X's own 4 or 2 bytes a value), the panel
@@ -1331,6 +1845,8 @@ def spmm_acc(state: Xch4State, X: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"xch: X is {X.dtype}, the state holds "
                         f"{state.val1[0].dtype} values")
     n_cols = X.shape[1]
+    if isinstance(state, XchState):    # the reference's vmap of spmv
+        return column_loop(spmv_acc, state, X)
     if (2 <= n_cols <= PANEL_B_MAX and state.n_slots1
             and X.dtype in PANEL_TYPES
             and n_cols * state.cb_pad * LANES * X.element_size()
@@ -1339,7 +1855,7 @@ def spmm_acc(state: Xch4State, X: torch.Tensor) -> torch.Tensor:
     return column_loop(spmv_acc, state, X)
 
 
-def spmm(state: Xch4State, X: torch.Tensor) -> torch.Tensor:
+def spmm(state, X: torch.Tensor) -> torch.Tensor:
     """Y = A @ X, X (n_col, B), rounded once to X's type: the route's
     out groups, the nested long-row state's Y and the peeled bands are
     added in the accumulator type first, as ``spmv`` adds them."""
@@ -1379,7 +1895,13 @@ def _spmm_panel_v4(state: Xch4State, X: torch.Tensor) -> torch.Tensor:
 
 # ----------------------------------------------------------------- reports ---
 
-def report_fields(state: Xch4State, cfg: Config) -> dict:
+def report_fields(state, cfg: Config) -> dict:
+    if isinstance(state, XchState):
+        return {"Window1Blocks": state.m1, "Window2Blocks": state.m2,
+                "RoutePlanes": state.planes, "Span": state.span,
+                "Chunks": state.n_chunks, "RouteV": 3,
+                "PadFactor": round((state.n_slots1 + state.n_slots2)
+                                   / max(2 * state.nnz, 1), 3)}
     out = {"Window1Blocks": state.m1, "Window2Blocks": state.m2,
            "KBlk": state.kblk, "POh": state.p_oh, "T2": state.t2,
            "Chunks": state.n_chunks, "RouteV": 4,
@@ -1406,8 +1928,13 @@ def _peel_nnz(state: Xch4State) -> int:
     return int(torch.count_nonzero(dv)) if dv is not None else 0
 
 
-def traffic_bytes(state: Xch4State, cfg: Config) -> int:
+def traffic_bytes(state, cfg: Config) -> int:
     vsz = value_size(cfg.dtype)
+    if isinstance(state, XchState):
+        pass1 = state.n_slots1 * (vsz + 2) + state.n_slots1 * 4
+        pass2 = state.n_slots2 * (3 + state.planes) + state.n_slots1 * 4
+        return (pass1 + pass2 + state.n_row * vsz
+                + state.cb_pad * LANES * vsz)
     pass1 = state.n_slots1 * (vsz + 2) + state.n_slots1 * 4
     pass2 = state.n_slots2 * (4 + state.kblk) + state.n_slots1 * 4
     tot = (pass1 + pass2 + state.n_row * vsz
@@ -1487,18 +2014,89 @@ def _to_coo_v4(state: Xch4State) -> COOMatrix:
                                    vals, sort=True)
 
 
-def to_coo(state: Xch4State) -> COOMatrix:
+def _v3_run_ends(state: XchState):
+    """(rows, stream rows, end lanes) of a v3 state's σ-plane run ends over
+    its pass-2 calls in order, plane by plane: the run whose total ends at
+    lane e of stream row r goes to row bucket_ids[u + σ // planes] · scope
+    + (σ % planes) · 128 + l of y, where idx2[σ, r, l] == e and u is r's
+    step's compact bucket."""
+    idx2 = _host_cat(state.idx2, 1).astype(np.int64)
+    u_base = np.cumsum([0] + list(state.chunk_nb[:-1])) * G_GRP
+    uids = np.concatenate([to_host(u).astype(np.int64) + b
+                           for u, b in zip(state.uids2, u_base)])
+    bucket_ids = to_host(state.bucket_ids).astype(np.int64)
+    scope = state.planes * LANES
+    rows, srs, ends = [], [], []
+    for sigma in range(idx2.shape[0]):
+        sr_i, l_i = np.nonzero(idx2[sigma] >= 0)
+        cb = uids[sr_i // state.t2] + sigma // state.planes
+        rows.append(bucket_ids[cb] * scope
+                    + (sigma % state.planes) * LANES + l_i)
+        srs.append(sr_i)
+        ends.append(idx2[sigma][sr_i, l_i])
+    if not rows:
+        return (np.zeros(0, np.int64),) * 3
+    return tuple(np.concatenate(a).astype(np.int64)
+                 for a in (rows, srs, ends))
+
+
+def _to_coo_v3(state: XchState) -> COOMatrix:
+    """Host-side inverse of the v3 layout (the reference's
+    ``formats/xch.py:2368``): σ-plane run ends, backward run propagation,
+    then each pass-2 slot's (col, val) through the pass-1 grid."""
+    lane1 = _host_cat(state.lane1).astype(np.int64)
+    if lane1.shape[0] == 0:
+        return COOMatrix.from_triplets(state.n_row, state.n_col, [], [], [],
+                                       sort=True)
+    sub1 = _host_cat(state.sub1).astype(np.int64)
+    val1 = _host_cat(state.val1).astype(np.float64)
+    win1 = _host_cat(state.win1).astype(np.int64)
+    cols_grid = (win1[:, None] + sub1) * LANES + lane1    # (H1, 128)
+
+    lane2 = _host_cat(state.lane2).astype(np.int64)
+    sub2 = _host_cat(state.sub2).astype(np.int64)
+    win2 = _host_cat(state.win2).astype(np.int64)
+    hm2 = _host_cat(state.hm2).astype(np.int64)
+    cs = _host_cat(state.cs2).astype(np.int64)
+    h2 = lane2.shape[0]
+    step_of = np.repeat(np.arange(h2 // state.t2), state.t2)
+    rows = np.full((h2, LANES), -1, np.int64)
+    rr, sr, end = _v3_run_ends(state)
+    rows[sr, end] = rr
+    for j in range(LANES - 2, -1, -1):
+        unset = rows[:, j] < 0
+        same_run = hm2[:, j + 1] != j
+        rows[same_run & unset, j] = rows[same_run & unset, j + 1]
+
+    src_row = cs[step_of][:, None] * state.p1 + win2[:, None] + sub2
+    src = src_row * LANES + lane2
+    mask = rows >= 0
+    src_m = src[mask]
+    cols = cols_grid.reshape(-1)[src_m]
+    vals = val1.reshape(-1)[src_m]
+    keep = vals != 0
+    return COOMatrix.from_triplets(
+        state.n_row, state.n_col,
+        rows[mask][keep], cols[keep], vals[keep], sort=True)
+
+
+def to_coo(state) -> COOMatrix:
     """Host-side inverse: recover (row, col, val) from the layout."""
+    if isinstance(state, XchState):
+        return _to_coo_v3(state)
     return _to_coo_v4(state)
 
 
-def attainable_seconds(state: Xch4State, cfg: Config) -> float:
+def attainable_seconds(state, cfg: Config) -> float:
     """The reference's fitted v4 rate model at the state's own (m1, m2,
     kblk, p_oh, t) and padded slot counts, with band and y traffic at the
     state's value size.  Its rates and ``hbm_bps`` are TPU v5e constants
     (``chipconst``), which hold no H100 measurement yet (ROADMAP A.7b), so
     this prices the plan, not the card.  float64 runs natively here: the
-    reference's ×7 for its df64 kernels is not applied."""
+    reference's ×7 for its df64 kernels is not applied.  0.0 for a v3
+    state, as the reference's."""
+    if isinstance(state, XchState):
+        return 0.0
     vsz = state.val1[0].element_size()
     sec = 0.0
     if state.n_slots1:

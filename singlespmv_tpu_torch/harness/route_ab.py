@@ -174,7 +174,7 @@ PROBE_ENTRY = "  if (H == 0) return 0;\n  return launch_stage("
 PROBE_KERNEL = "template <int kStage>\nint launch("
 ROUTE_ENTRY = ("  const cudaStream_t st = (cudaStream_t)stream;\n"
                "  if (planes <= 8)")
-ROUTE_KERNEL = "template <int G>\nint launch_route("
+ROUTE_KERNEL = "template <int G, typename S>\nint launch_route("
 FIRST = {
     PROBE_KERNEL: FIRST_PROBE + "\n" + PROBE_KERNEL,
     PROBE_ENTRY: "  if (H == 0) return 0;\n  if (1) {\n    const int rpb = rows_per_block(T);\n"
@@ -322,8 +322,9 @@ def _cluster(c: int) -> dict:
         "probe_slab_kernel<kStage><<<(H + R - 1) / R, kThreads, smem, "
         "stream>>>(": "launch_cluster(probe_slab_kernel<kStage>, H, R, smem, "
                      "stream, ",
-        "xch_route_kernel<G><<<(H + R - 1) / R, kThreads, smem, stream>>>(":
-            "launch_cluster(xch_route_kernel<G>, H, R, smem, stream, ",
+        "xch_route_kernel<G, S><<<(H + R - 1) / R, kThreads, smem, "
+        "stream>>>(":
+            "launch_cluster(xch_route_kernel<G, S>, H, R, smem, stream, ",
     }
 
 
@@ -364,8 +365,8 @@ EARLY_ENDS_OLD = r"""        if (act.y < p0 || act.x >= p0 + G) continue;  // un
                         ? load_ends(idx + ((size_t)(p0 + s) * H + r) * kLanes +
                                     4 * k)
                         : kNoEnds;
-        const float* x = prod + (size_t)__ldg(cs + st) * p1 * kLanes;
-        run_totals<float>(r, gather4<float>(r, m, win, lane, sub, x), hm1,
+        const S* x = prod + (size_t)__ldg(cs + st) * p1 * kLanes;
+        run_totals<float>(r, gather4<S>(r, m, win, lane, sub, x), hm1,
                           wbuf[warp]);
 #pragma unroll
         for (int s = 0; s < G; ++s) acc.route(s, ends[s], wbuf[warp]);"""
@@ -377,8 +378,8 @@ EARLY_ENDS_NEW = r"""        uint32_t ends[G];
                                     4 * k)
                         : kNoEnds;
         if (act.y < p0 || act.x >= p0 + G) continue;
-        const float* x = prod + (size_t)__ldg(cs + st) * p1 * kLanes;
-        run_totals<float>(r, gather4<float>(r, m, win, lane, sub, x), hm1,
+        const S* x = prod + (size_t)__ldg(cs + st) * p1 * kLanes;
+        run_totals<float>(r, gather4<S>(r, m, win, lane, sub, x), hm1,
                           wbuf[warp]);
 #pragma unroll
         for (int s = 0; s < G; ++s)

@@ -81,6 +81,7 @@ SIGNATURES = {
     # uids cs sg0 sg1 win lane sub hm1 idx prod out
     # | H T m planes pg p1 n_out R | stream
     "xch_route_f32": [_P] * 11 + [_I] * 8 + [_P],
+    "xch_route_bf16": [_P] * 11 + [_I] * 8 + [_P],
     # members lane src val x out | H W gran m | stream
     "block_gather_mul_f32": [_P] * 6 + [_I] * 4 + [_P],
     "block_gather_mul_bf16": [_P] * 6 + [_I] * 4 + [_P],

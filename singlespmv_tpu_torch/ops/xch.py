@@ -10,10 +10,12 @@ of the caller's product grid, which the call fills) and the panels' layout:
 ``xch_mul_panel`` takes the interleaved (CB, 128, B) x panel and returns the
 (H, 128, B) products, and ``xch_route4_panel`` takes them as
 (n_chunks, P1, 128, B) and returns (n_grp·gb, 128, B), where the reference
-keeps one (…, 128) array per column in front.  ``xch_route`` has one
-caller in the port, the calibration's ``route_slot_s`` fit
-(``harness/calibrate.py``): the v3 format path that the reference reaches
-through ``plan={'route_v': 3}`` is not ported.
+keeps one (…, 128) array per column in front.  ``xch_route`` is the v3
+format path's pass 2 (``formats/xch.py:_route_phase``, a state converted
+under ``plan=estimate_v3(coo, cfg) | {"route_v": 3}``), after ``xch_mul``
+writes its product grid; the calibration's ``route_slot_s`` fit
+(``harness/calibrate.py``) calls it too.  It returns float32 out rows for
+a float32 or bfloat16 grid.
 
 ``xch_fused_rows`` is the spmv path: both passes in one launch a pass-2
 call.  It takes pass 2's run-end destination stream (``base``, ``dest``)
@@ -39,13 +41,14 @@ The value type is float32 or float64, the same for val, the x table, the
 products and the out rows or y.  At float64 the wrappers launch the
 native-fp64 builds of the kernels, which stand for the df64 kernels
 ``xch_mul_df`` (:495) and ``xch_route4_df`` (:594) of the reference.
-``xch_route`` is float32 only, and the panels float32 or bfloat16
-(``PANEL_TYPES``), as the TPU ran them.  ``xch_mul``, ``xch_route4_rows``
-and both panels run bfloat16 kernels: val, the x table or panel and the
+``xch_route`` and the panels take float32 or bfloat16 (``PANEL_TYPES``),
+as the TPU ran them.  ``xch_mul``, ``xch_route4_rows``, ``xch_route`` and
+both panels run bfloat16 kernels: val, the x table or panel and the
 product grid or panel are bfloat16 (2 bytes a slot in device memory, each
 product rounded once, as the reference's grid is ``val.dtype``), and the
 routes sum in float32 into a float32 y or out (``acc_dtype``), which the
-caller rounds once.  ``xch_fused_rows`` does the same at bfloat16: each
+caller rounds once (the reference's v3 route keeps its out rows in
+bfloat16).  ``xch_fused_rows`` does the same at bfloat16: each
 product rounded once to bfloat16, as the grid stores it, and float32 sums
 into a float32 y.
 
@@ -64,7 +67,7 @@ import weakref
 import torch
 
 from ..core.dtypes import acc, acc_dtype
-from . import _build, probes
+from . import probes
 from .slab import (LANES, PANEL_TYPES, SPMV_TYPES, VALUE_TYPES, _check,
                    _check_table, _count, _entry, _gather, _picked, _ptr,
                    _raise_on, _totals, value_type)
@@ -300,14 +303,15 @@ def active_plane_range(s0: int, s1: int, planes: int, pg: int) -> tuple:
 def xch_route_ref(uids, gids, cs, sg0, sg1, win, lane, sub, hm1, idx, prod3,
                   ngb: int, m: int, planes: int, T: int = 32,
                   g_grp: int = 16, pg: int = 8):
-    """Plain version of ``xch_route``."""
+    """Plain version of ``xch_route``; bfloat16 products are widened and
+    summed in float32, into float32 out rows."""
     h = lane.shape[0]
     step = torch.arange(h, device=lane.device) // T
     rows = cs.long()[step] * prod3.shape[1] + win.long()   # product rows
-    w = _totals(_gather(rows, lane, sub, prod3, m), hm1)
+    w = _totals(acc(_gather(rows, lane, sub, prod3, m)), hm1)
     active = _active_planes(sg0, sg1, planes, pg)[step]    # (H, planes)
     n_out = ngb * g_grp * planes
-    out = torch.zeros(n_out, LANES, dtype=prod3.dtype, device=lane.device)
+    out = torch.zeros(n_out, LANES, dtype=w.dtype, device=lane.device)
     base = uids.long()[step] * planes
     for s in range(planes if n_out else 0):
         row = base + s
@@ -528,9 +532,9 @@ def xch_route4_panel(gids, off, cs, win, lane, sub, hm1, sig, idx, prod3,
 def xch_route(uids, gids, cs, sg0, sg1, win, lane, sub, hm1, idx, prod3,
               ngb: int, m: int, planes: int, T: int = 32, g_grp: int = 16,
               pg: int = 8):
-    """The v3 pass 2 over one call chunk, float32: returns
-    (ngb·g_grp·planes, 128) — out rows [u·planes, (u+1)·planes) hold the σ
-    planes of compact bucket u.
+    """The v3 pass 2 over one call chunk: returns (ngb·g_grp·planes, 128)
+    float32 — out rows [u·planes, (u+1)·planes) hold the σ planes of
+    compact bucket u.
 
     uids: (n_steps,) int32 — compact bucket per step, non-decreasing.
     gids: (n_steps,) int32 — uids // g_grp, the TPU's out block per step;
@@ -541,8 +545,10 @@ def xch_route(uids, gids, cs, sg0, sg1, win, lane, sub, hm1, idx, prod3,
     win:  (H,) int32 — chunk-local product-row window base.
     lane/sub/hm1: (H, 128) int8.  idx: (planes, H, 128) int8 end lanes,
           −1 masked.
-    prod3: (n_chunks, P1, 128) float32 pass-1 products.
-    Out rows that no step reaches stay 0."""
+    prod3: (n_chunks, P1, 128) float32 or bfloat16 pass-1 products; a
+          bfloat16 grid is read at 2 bytes a product and summed in float32.
+    Out rows that no step reaches stay 0.  The sums of an out position add
+    in run-dependent order on the card."""
     dev = _device(prod3)
     h = lane.shape[0]
     _check_rows(h, T, m, dev, win, lane, sub)
@@ -560,21 +566,21 @@ def xch_route(uids, gids, cs, sg0, sg1, win, lane, sub, hm1, idx, prod3,
             or not all(prod3.shape[:-1]):
         raise ValueError(f"prod3 has shape {tuple(prod3.shape)}, expected "
                          "(n_chunks, P1, 128)")
-    _check("prod3", prod3, value_type(prod3, (torch.float32,)), prod3.shape,
-           dev)
+    vt = value_type(prod3, PANEL_TYPES)
+    _check("prod3", prod3, vt, prod3.shape, dev)
     if dev.type == "cpu":
         return xch_route_ref(uids, gids, cs, sg0, sg1, win, lane, sub, hm1,
                              idx, prod3, ngb, m, planes, T, g_grp, pg)
     n_out = ngb * g_grp * planes
     out = torch.zeros(n_out, LANES, dtype=torch.float32, device=dev)
     if h and n_out:
-        rc = _build.load().xch_route_f32(
+        rc = _entry("xch_route", vt)(
             *map(_ptr, (uids, cs, sg0, sg1, win, lane, sub, hm1, idx, prod3,
                         out)),
             h, T, m, planes, pg, prod3.shape[1], n_out,
             probes.unit_rows(h, T, dev), _stream(dev))
         _raise_on(rc, "xch_route")
-        xch_route.launches += 1
+        _count(xch_route, vt)
     return out
 
 
@@ -586,4 +592,4 @@ xch_fused_rows.launches = xch_fused_rows.launches_f64 = 0
 xch_fused_rows.launches_bf16 = 0
 xch_mul_panel.launches = xch_mul_panel.launches_bf16 = 0
 xch_route4_panel.launches = xch_route4_panel.launches_bf16 = 0
-xch_route.launches = 0
+xch_route.launches = xch_route.launches_bf16 = 0

@@ -6,7 +6,11 @@ no path) against their plain versions, and the xch spmv against the
 float64 oracle through ``xch_fused_rows`` alone, one launch a pass-2 call,
 over kblk 1/8/16/32, m2 1/8/24, t2 32 to 256, several kernel calls per
 pass, and a nested long-row state; the fused route at float32, float64 and
-bfloat16 in its direct and merge designs; the C entries' refusals.
+bfloat16 in its direct and merge designs; the C entries' refusals.  The
+v3 σ-plane path (``plan=estimate_v3(coo, cfg) | {"route_v": 3}``):
+``xch_mul`` and ``xch_route`` (float and bfloat16 builds) against their
+plain versions on every call, planes 8, 16 and 32, span 1 and 2, three
+pass-2 calls, its spmv against the oracle and captured as a CUDA graph.
 
 Needs an NVIDIA GPU and skips without one.  This file imports no jax, so it
 runs where only the port is installed:
@@ -288,3 +292,111 @@ def test_fused_entries_refuse_bad_ranges(cuda):
         assert f(*null, 64, 64, 100, -128, stream) != 0
         assert f(*null, 64, 64, 100, 64 * 128, stream) != 0   # 8 spans
         assert f(*null, 0, 64, 100, 0, stream) == 0      # nothing
+
+
+# ------------------------------------------------------- the v3 σ-plane path
+
+V3_PLANS = {   # id → (plan overrides, CHUNK_ROWS or None)
+    "default": ({}, None),
+    "planes 8 span 2": ({"planes": 8, "span_fix": 2}, None),
+    "planes 16 m2 16": ({"planes": 16, "span_fix": 1, "m2_fix": 16}, None),
+    "planes 32 span 2": ({"planes": 32, "span_fix": 2, "m1_fix": 8}, None),
+    "three calls": ({"planes": 8, "span_fix": 2}, 1024),
+}
+V3_COUNTERS = {"float32": "launches", "bfloat16": "launches_bf16"}
+
+
+def _v3_state(coo, dtype, fix, chunk_rows, monkeypatch):
+    cfg = Config(format="xch", dtype=dtype)
+    with monkeypatch.context() as mp:
+        if chunk_rows:
+            mp.setattr(xch, "CHUNK_ROWS", chunk_rows)
+        st = xch.convert(coo, cfg, plan=xch.estimate_v3(coo, cfg)
+                         | {"route_v": 3} | fix)
+    assert isinstance(st, xch.XchState)
+    return st
+
+
+@pytest.mark.parametrize("dtype", list(V3_COUNTERS))
+@pytest.mark.parametrize("plan", list(V3_PLANS))
+def test_v3_kernels_match_plain_and_oracle(cuda, monkeypatch, plan, dtype):
+    """The v3 spmv's kernels against their plain versions on every call:
+    ``xch_mul`` (each product rounded once at bfloat16) and ``xch_route``
+    (its float and bfloat16 builds, float sums into a float out); then the
+    spmv against the oracle."""
+    from singlespmv_tpu_torch.core.dtypes import to_host, value_tensor
+
+    coo = _scatter(40000, 160000, 3)
+    fix, chunk_rows = V3_PLANS[plan]
+    st = _v3_state(coo, dtype, fix, chunk_rows, monkeypatch).to(cuda)
+    if chunk_rows:
+        assert len(st.uids2) == 3
+    xh = np.random.default_rng(4).uniform(-1, 1, coo.n_col)
+    x = value_tensor(xh, dtype).to(cuda)
+    xt = xch.x_table(st, x)
+    counter = V3_COUNTERS[dtype]
+    for a in zip(st.win1, st.lane1, st.sub1, st.val1):
+        before = getattr(ops.xch_mul, counter)
+        got = ops.xch_mul(*a, xt, st.m1, st.t1)
+        assert getattr(ops.xch_mul, counter) == before + 1
+        _close(got.float(), ops.xch_mul_ref(*a, xt, st.m1, st.t1).float())
+    prod3 = xch.products(st, xt)
+    op = st.span * st.planes
+    for a in zip(st.uids2, st.gids2, st.cs2, st.sg0_2, st.sg1_2, st.win2,
+                 st.lane2, st.sub2, st.hm2, st.idx2, st.chunk_nb):
+        before = getattr(ops.xch_route, counter)
+        got = ops.xch_route(*a[:10], prod3, a[10], st.m2, op, st.t2,
+                            xch.G_GRP)
+        assert getattr(ops.xch_route, counter) == before + 1
+        assert got.dtype == torch.float32
+        _close(got, ops.xch_route_ref(*a[:10], prod3, a[10], st.m2, op,
+                                      st.t2, xch.G_GRP))
+    y = xch.spmv(st, x)
+    assert y.dtype == x.dtype and y.shape == (coo.n_row,)
+    ok, det = verify_result(coo, to_host(x), to_host(y), dtype=dtype)
+    assert ok, det
+
+
+@pytest.mark.parametrize("dtype", list(V3_COUNTERS))
+def test_v3_spmv_captures_in_a_graph(cuda, monkeypatch, dtype):
+    """The v3 spmv reads no device value on the host: the driver's chained
+    runner captures it as a CUDA graph, whose y passes the oracle and lies
+    within each row's reorder bound of the eager y."""
+    from singlespmv_tpu_torch import formats
+    from singlespmv_tpu_torch.core.dtypes import to_host, value_tensor
+    from singlespmv_tpu_torch.core.oracle import reorder_bound
+    from singlespmv_tpu_torch.harness import driver
+
+    coo = _scatter(40000, 160000, 3)
+    fix, chunk_rows = V3_PLANS["three calls"]
+    st = _v3_state(coo, dtype, fix, chunk_rows, monkeypatch).to(cuda)
+    x = value_tensor(np.random.default_rng(4).uniform(-1, 1, coo.n_col),
+                     dtype).to(cuda)
+    eager = xch.spmv(st, x)
+    y = driver.make_chained_runner(xch.spmv, st, x, name="xch v3",
+                                   chain=8)(9)
+    torch.cuda.synchronize()
+    ok, det = verify_result(coo, to_host(x), to_host(y), dtype=dtype)
+    assert ok, det
+    cfg = Config(format="xch", dtype=dtype)
+    stored = xch.to_coo(st.to("cpu"))
+    bound = reorder_bound(stored, to_host(x).astype(np.float64),
+                          formats.adds_per_row(st, cfg), "float32", dtype)
+    drift = np.abs(to_host(y).astype(np.float64)
+                   - to_host(eager).astype(np.float64))
+    assert (drift <= bound).all()
+
+
+def test_v3_route_entries_refuse_bad_ranges(cuda):
+    lib = _build.load()
+    null = [None] * 11
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    # uids cs sg0 sg1 win lane sub hm1 idx prod out
+    # | H T m planes pg p1 n_out R | stream
+    for f in (lib.xch_route_f32, lib.xch_route_bf16):
+        assert f(*null, 96, 64, 1, 8, 8, 64, 8, 64, stream) != 0   # H % T
+        assert f(*null, 64, 64, 0, 8, 8, 64, 8, 64, stream) != 0   # m 0
+        assert f(*null, 64, 64, 1, 65, 8, 64, 8, 64, stream) != 0  # planes
+        assert f(*null, 64, 64, 1, 8, 0, 64, 8, 64, stream) != 0   # pg 0
+        assert f(*null, 64, 64, 1, 8, 8, 64, 8, 96, stream) != 0   # R % T
+        assert f(*null, 0, 64, 1, 8, 8, 64, 8, 64, stream) == 0    # nothing

@@ -251,14 +251,6 @@ def test_other_dtypes_name_the_roadmap(dtype):
     assert carried.val1[0].dtype == torch.float64
 
 
-def test_v3_is_not_ported():
-    coo = _mix(2000, 9000, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP B.15"):
-        xch.convert(port_coo(coo), port_cfg(F32),
-                    plan=xch.estimate(port_coo(coo),
-                                      port_cfg(F32)) | {"route_v": 3})
-
-
 def test_run_benchmark_on_cpu():
     coo = _mix(6000, 30000, 6, dense_rows=3)
     res = run_benchmark(port_coo(coo), port_cfg(F32), quick=True, device="cpu",

@@ -222,4 +222,6 @@ def test_sources_digest_covers_headers(tmp_path):
         "bucket_fused_rows_f32", "bucket_fused_rows_bf16",
         "ellg_rows_f32", "ellg_rows_bf16",
         # xch's fused pass 1 + pass 2
-        "xch_fused_rows_f32", "xch_fused_rows_f64", "xch_fused_rows_bf16"}
+        "xch_fused_rows_f32", "xch_fused_rows_f64", "xch_fused_rows_bf16",
+        # the v3 σ-plane route on a bfloat16 grid
+        "xch_route_bf16"}

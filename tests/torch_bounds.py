@@ -14,7 +14,8 @@ roundoff and γ(n) = n·u / (1 − n·u):
 - u_p = 2⁻⁸, bfloat16's unit roundoff, where the engine stores its
   products as bfloat16 (xch's and bkt's product grids, ss's and csr5's
   product streams, ellg's stage A), else 0: a product of two bfloat16 is
-  exact in float32;
+  exact in float32 (for a float32 spmv, ``dtype="float32"``: u_p = u, each
+  product of two float32 rounded once, and no last rounding of y);
 - T_i = 2·γ(130)·(1 + u_p)·M_i where the engine takes a run's total as a
   difference W = P[e] − P[h] of a 128-slot stream row's prefix sums (slab,
   xch, bkt): each P is a sum of at most 128 products in some order, off
@@ -63,7 +64,7 @@ def _mass(state, fmt, x):
     """M_i of one engine that differences prefix sums: its plain versions
     on |val|, |x| and no run heads, in float64, put each run end's prefix
     of |p| into its row."""
-    y = torch.zeros(state.n_row, dtype=torch.float64)
+    y = torch.zeros(state.n_row, dtype=torch.float64, device=x.device)
     if fmt in ("slab", "slab2"):
         from singlespmv_tpu_torch.formats import slab
         from singlespmv_tpu_torch.ops.slab import slab_spmv_rows_ref
@@ -80,9 +81,27 @@ def _mass(state, fmt, x):
         return to_host(y)
     if fmt == "xch":
         from singlespmv_tpu_torch.formats import xch
-        from singlespmv_tpu_torch.ops.xch import (xch_mul_ref,
+        from singlespmv_tpu_torch.ops.xch import (xch_mul_ref, xch_route_ref,
                                                   xch_route4_rows_ref)
 
+        if isinstance(state, xch.XchState):     # v3: the σ-plane route
+            if not state.n_buckets:
+                return to_host(y)
+            xt = _abs64(xch.x_table(state, x))
+            prod = torch.cat([
+                xch_mul_ref(w, la, su, _abs64(va), xt, state.m1, state.t1)
+                for w, la, su, va in zip(state.win1, state.lane1,
+                                         state.sub1, state.val1)])
+            prod = prod.view(state.n_chunks, state.p1, 128)
+            op = state.span * state.planes
+            out = [xch_route_ref(u, g, c, s0, s1, w, la, su,
+                                 torch.full_like(h2, -1), ix, prod, ngb,
+                                 state.m2, op, state.t2, xch.G_GRP)
+                   for u, g, c, s0, s1, w, la, su, h2, ix, ngb in zip(
+                       state.uids2, state.gids2, state.cs2, state.sg0_2,
+                       state.sg1_2, state.win2, state.lane2, state.sub2,
+                       state.hm2, state.idx2, state.chunk_nb)]
+            return to_host(xch.place_buckets(state, torch.cat(out)))
         if state.n_slots1:
             xt = _abs64(xch.x_table(state, x))
             prod = torch.cat([
@@ -115,12 +134,12 @@ def _mass(state, fmt, x):
 
 def prefix_mass(state, fmt, x) -> np.ndarray:
     """(n_row,) M_i of a state of format ``fmt`` (the engines inside hyb,
-    ellg and auto included) and x, on the CPU; zeros where no engine
-    differences prefix sums."""
+    ellg and auto included) and x, on x's device (the CPU for a host x);
+    zeros where no engine differences prefix sums."""
     mass = np.zeros(state.n_row)
     for name, st in _engines(state, fmt):
         if name in PREFIX_ENGINES:
-            mass += _mass(st.to("cpu"), name, x.cpu())
+            mass += _mass(st.to(x.device), name, x)
     return mass
 
 
@@ -137,17 +156,26 @@ def stored(coo: COOMatrix) -> COOMatrix:
                      round_values(coo.val, "bfloat16").astype(np.float64))
 
 
-def accuracy_bound(coo: COOMatrix, xh, state, fmt, x) -> np.ndarray:
+def accuracy_bound(coo: COOMatrix, xh, state, fmt, x,
+                   dtype="bfloat16") -> np.ndarray:
     """(n_row,) b_i for the bfloat16 spmv of ``state`` (format ``fmt``) on
     x (a bfloat16 tensor), ``coo`` holding the stored values and ``xh``
-    the stored x; the oracle is ``reference_spmv(coo, xh)``."""
+    the stored x; the oracle is ``reference_spmv(coo, xh)``.  At
+    ``dtype="float32"`` the same rule for a float32 spmv: every product of
+    two float32 values is rounded once (u_p = u) and y, summed in float32,
+    is not rounded again."""
     xh = np.asarray(xh, dtype=np.float64)
     s = np.bincount(coo.row, weights=np.abs(coo.val * xh[coo.col]),
                     minlength=coo.n_row)
     r = reference_spmv(coo, xh)
-    up = U_BF16 if rounds_products(state, fmt) else 0.0
+    if dtype == "float32":
+        up = U
+    else:
+        up = U_BF16 if rounds_products(state, fmt) else 0.0
     t = 2.0 * gamma(PREFIX_ADDS) * (1.0 + up) * prefix_mass(state, fmt, x)
     e = up * s + t + gamma(coo.row_lengths()) * ((1.0 + up) * s + t)
+    if dtype == "float32":
+        return e
     return e + 0.5 * ulp("bfloat16", np.abs(r) + e)
 
 
